@@ -1,0 +1,238 @@
+"""Structured configs.
+
+TPU-native replacement for the reference's three config layers (SURVEY.md §5):
+protobuf descs TrainerDesc (trainer_desc.proto:21), DataFeedDesc
+(data_feed.proto:17-43) and DistributedStrategy
+(fleet/base/distributed_strategy.py:110) become plain dataclasses; gflags
+become paddlebox_tpu_torch.flags.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class SlotConfig:
+    """One input slot (≙ data_feed.proto Slot: name/type/is_used/is_dense).
+
+    ``capacity`` is the static per-instance feasign capacity used to pad
+    variable-length slots for XLA (the reference carries true var-len LoD;
+    under jit we need fixed shapes — SURVEY.md §7 hard part (5)).
+    """
+
+    name: str
+    slot_id: int = 0
+    # "uint64" (sparse feasigns), "float" (dense), or "string" (aux keys
+    # resolved through an InputTable into stable int indices at parse
+    # time — ≙ InputTableDataFeed, data_feed.h:2224; the index plane
+    # reaches the model as an extras input, gathered against a
+    # ReplicaCache/dense var like ops lookup_input)
+    dtype: str = "uint64"
+    is_dense: bool = False
+    dim: int = 1           # values per instance for dense slots
+    capacity: int = 1      # max feasigns per instance for sparse slots
+
+
+@dataclasses.dataclass(frozen=True)
+class DataFeedConfig:
+    """≙ DataFeedDesc (data_feed.proto:17-43)."""
+
+    slots: Tuple[SlotConfig, ...]
+    batch_size: int = 512
+    pipe_command: str = ""          # shell preprocessor (≙ pipe_command_)
+    parser: str = "multi_slot"      # "multi_slot" | "slot_feasign"
+    rand_seed: int = 0
+    # PV-merge rank_offset plane for rank-attention models
+    # (≙ DataFeedDesc.rank_offset, data_feed.cc:1851; built per batch by
+    # data/rank_offset.py — requires logkey-parsed cmatch/rank fields)
+    rank_offset: bool = False
+    max_rank: int = 3               # hardcoded 3 in the reference (:1858)
+    # ≙ DataFeedDesc.ads_offset (data_feed.cc:3092 + GetAdsOffset:
+    # the [pv_num+1] prefix offsets of each page view's ads within the
+    # batch) — emitted as a static [B+1] extras plane (tail repeats the
+    # real-instance count); requires pv-grouped batches like rank_offset
+    ads_offset: bool = False
+    # ≙ MultiSlotDesc.uid_slot: the sparse slot whose FIRST feasign is the
+    # instance's user id — feeds the per-user WuAUC metrics (host-side
+    # accumulation; opting in adds one preds D2H per batch, exactly the
+    # reference's SyncCopyD2H in add_uid_data, metrics.cc:440)
+    uid_slot: str = ""
+    # ≙ DataFeedDesc.sample_rate: keep each instance with this probability
+    # at load time (feed-level downsampling)
+    sample_rate: float = 1.0
+
+    def __post_init__(self):
+        object.__setattr__(self, "slots", tuple(self.slots))
+        dense_str = [s.name for s in self.slots
+                     if s.dtype == "string" and s.is_dense]
+        if dense_str:
+            raise ValueError(
+                f"string slots {dense_str} cannot be is_dense — they are "
+                "aux index planes (InputTable), not dense features")
+        if not (0.0 < self.sample_rate <= 1.0):
+            raise ValueError(
+                f"sample_rate must be in (0, 1], got {self.sample_rate}")
+        if self.uid_slot and self.uid_slot not in {
+                s.name for s in self.sparse_slots}:
+            raise ValueError(
+                f"uid_slot {self.uid_slot!r} is not a sparse slot")
+        reserved = {"indices", "lengths", "dense", "labels", "valid",
+                    "rank_offset", "ads_offset"}
+        bad = [s.name for s in self.string_slots if s.name in reserved]
+        if bad:
+            raise ValueError(
+                f"string slot names {bad} collide with reserved feed plane "
+                "names — rename the slot")
+
+    @property
+    def sparse_slots(self) -> List[SlotConfig]:
+        return [s for s in self.slots
+                if not s.is_dense and s.dtype != "string"]
+
+    @property
+    def dense_slots(self) -> List[SlotConfig]:
+        return [s for s in self.slots if s.is_dense]
+
+    @property
+    def string_slots(self) -> List[SlotConfig]:
+        """Aux string-keyed slots (InputTable-resolved index planes)."""
+        return [s for s in self.slots
+                if s.dtype == "string" and not s.is_dense]
+
+
+@dataclasses.dataclass(frozen=True)
+class SparseSGDConfig:
+    """Per-feature optimizer hyper-parameters.
+
+    Field-for-field parity with OptimizerConfig
+    (heter_ps/optimizer_conf.h:22-45); defaults match the reference.
+    """
+
+    optimizer: str = "adagrad"   # adagrad | adam | shared_adam | naive
+    nonclk_coeff: float = 0.1
+    clk_coeff: float = 1.0
+    min_bound: float = -10.0
+    max_bound: float = 10.0
+    learning_rate: float = 0.05
+    initial_g2sum: float = 3.0
+    initial_range: float = 1e-4
+    beta1_decay_rate: float = 0.9
+    beta2_decay_rate: float = 0.999
+    ada_epsilon: float = 1e-8
+    mf_create_thresholds: float = 10.0
+    mf_learning_rate: float = 0.05
+    mf_initial_g2sum: float = 3.0
+    mf_initial_range: float = 1e-4
+    mf_min_bound: float = -10.0
+    mf_max_bound: float = 10.0
+    feature_learning_rate: float = 0.05
+    nodeid_slot: int = 9008
+    # per-slot mf widths (≙ CtrDymfAccessor's dynamic embedx dim,
+    # ctr_dymf_accessor.h + feature_value.h:42): ((slot_id, dim), ...).
+    # Lives on the SGD config because the update rules consume it (the
+    # mean-square divisor / moment means use the row's true dim).
+    slot_mf_dims: Tuple[Tuple[int, int], ...] = ()
+
+
+@dataclasses.dataclass(frozen=True)
+class AccessorConfig:
+    """Feature lifecycle policy (≙ CtrCommonAccessor / ctr_accessor.h):
+    show/click time-decay each pass-day, delete/shrink thresholds, save
+    thresholds for base/delta dumps."""
+
+    accessor_type: str = "ctr"       # "ctr" | "ctr_double" (f64 show/click,
+                                     # ≙ DownpourCtrDoubleAccessor)
+    show_click_decay_rate: float = 0.98
+    delete_threshold: float = 0.8
+    delete_after_unseen_days: float = 30.0
+    base_threshold: float = 1.5      # save_base keeps score >= this
+    delta_threshold: float = 0.25    # save_delta keeps |delta_score| >= this
+    delta_keep_days: float = 16.0
+
+
+@dataclasses.dataclass(frozen=True)
+class EmbeddingTableConfig:
+    """One logical sparse table (≙ DistributedStrategy sparse_table_configs,
+    distributed_strategy.py:534-640, + CommonFeatureValue layout
+    feature_value.h:44-57)."""
+
+    name: str = "embedding"
+    embedding_dim: int = 8           # mf_dim (embedx width, excl. show/clk/lr-w)
+    sgd: SparseSGDConfig = dataclasses.field(default_factory=SparseSGDConfig)
+    accessor: AccessorConfig = dataclasses.field(default_factory=AccessorConfig)
+    shard_num: int = 16              # host-table shards (≙ memory_sparse_table.h:46)
+    quant_bits: int = 0              # 0 = no embedding quantization
+    expand_dim: int = 0              # NNCross second embedding width
+                                     # (≙ expand_embed_dim, pull_box_extended)
+
+    def slot_mf_dim(self, slot_id: int) -> int:
+        """Slot's mf width under the dynamic-dim accessor (sgd.slot_mf_dims,
+        ≙ CtrDymfAccessor); defaults to embedding_dim.  TPU-first layout:
+        storage stays at embedding_dim (static shapes); a slot with dim
+        d < embedding_dim trains/pulls only its first d columns — pulls
+        mask the tail to zero, the optimizer scales by the row's true dim."""
+        for sid, d in self.sgd.slot_mf_dims:
+            if sid == slot_id:
+                if d > self.embedding_dim:
+                    raise ValueError(
+                        f"slot {sid} mf dim {d} exceeds embedding_dim "
+                        f"{self.embedding_dim}")
+                return d
+        return self.embedding_dim
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainerConfig:
+    """≙ TrainerDesc + BoxPSWorkerParameter (trainer_desc.proto:21,121-129)."""
+
+    thread_num: int = 1
+    dense_sync_mode: str = "allreduce"   # allreduce | async_table | sharded
+    sync_weight_step: int = 1            # ≙ sync_weight_step
+    # adam hyper-params of the async dense table's update thread
+    # (≙ BoxPSAsynDenseTable's built-in rule, boxps_worker.cc:260-330)
+    async_dense_learning_rate: float = 1e-3
+    async_dense_beta1: float = 0.9
+    async_dense_beta2: float = 0.999
+    async_dense_eps: float = 1e-8
+    dump_fields: Tuple[str, ...] = ()
+    dump_path: str = ""
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Hybrid-parallel topology degrees (≙ HybridCommunicateGroup,
+    fleet/base/topology.py:134-144 [dp, sharding, pp, mp] — extended with the
+    TPU-first sp/ep axes the reference lacks, SURVEY.md §2.7)."""
+
+    dp: int = 1
+    sharding: int = 1
+    pp: int = 1
+    mp: int = 1
+    sp: int = 1
+    ep: int = 1
+
+    def degrees(self):
+        return {"dp": self.dp, "sharding": self.sharding, "pp": self.pp,
+                "mp": self.mp, "sp": self.sp, "ep": self.ep}
+
+    @property
+    def world_size(self) -> int:
+        n = 1
+        for v in self.degrees().values():
+            n *= v
+        return n
+
+
+@dataclasses.dataclass(frozen=True)
+class DistributedStrategy:
+    """≙ fleet.DistributedStrategy (distributed_strategy.py:110)."""
+
+    mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
+    amp: bool = False
+    amp_dtype: str = "bfloat16"
+    gradient_merge_steps: int = 1
+    recompute: bool = False
+    table: EmbeddingTableConfig = dataclasses.field(
+        default_factory=EmbeddingTableConfig)

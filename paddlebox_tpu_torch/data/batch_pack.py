@@ -1,0 +1,160 @@
+"""Host-side batch assembly: SlotRecordBlock → fixed-shape arrays.
+
+Copy of ``paddlebox_tpu/data/batch_pack.py`` (numpy only); the
+rank_offset/ads_offset planes are not ported yet.
+
+≙ the GPU batch-pack kernels (FillSlotValueOffsetPadBoxKernel /
+CopyForTensorPadBoxKernel, data_feed.cu:1210-1318) and MiniBatchGpuPack
+(data_feed.h:519).  On TPU everything under jit needs static shapes
+(SURVEY.md §7 hard part 5), so variable-length LoD becomes
+[slot, batch, capacity] index tensors + per-(slot, ins) lengths; short
+batches pad records and carry a validity mask.
+
+Key→row translation (pass-local dense indices) happens here on the host via
+the PassManager's key mapper — the TPU-first replacement for a device-side
+hash probe: the device then does pure gathers/scatters that XLA lays out on
+the MXU/HBM efficiently.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, List, Optional, Sequence
+
+import numpy as np
+
+from paddlebox_tpu_torch.config import DataFeedConfig, SlotConfig
+from paddlebox_tpu_torch.data.slot_record import SlotRecordBlock
+
+
+@dataclasses.dataclass
+class PackedBatch:
+    """Static-shape batch, ready for device_put."""
+
+    indices: np.ndarray       # [S, B, L] int32 — pass-local rows (0 = padding)
+    lengths: np.ndarray       # [S, B] int32 — true feasign counts (<= L)
+    dense: np.ndarray         # [B, D] float32 — concat of dense slots
+    labels: np.ndarray        # [B] float32
+    valid: np.ndarray         # [B] bool — false for padded records
+    num_real: int             # records before padding
+    keys: Optional[np.ndarray] = None   # [S, B, L] uint64 raw feasigns
+    ins_ids: Optional[list] = None      # [num_real] instance ids (for dump)
+    rank_offset: Optional[np.ndarray] = None  # [B, 1+2*max_rank] int32 (pv)
+    # InputTable-resolved aux index planes [B, cap] int32 per string slot
+    aux: Optional[dict] = None
+    uid: Optional[np.ndarray] = None    # [B] uint64 (uid_slot, host-side)
+    ads_offset: Optional[np.ndarray] = None   # [B+1] int32 pv offsets
+
+
+class BatchPacker:
+    def __init__(self, feed_config: DataFeedConfig, batch_size: int,
+                 label_slot="label"):
+        """label_slot: one slot name, or a list of names for multi-task
+        labels (labels output becomes [B, T])."""
+        self.config = feed_config
+        self.batch_size = batch_size
+        self.label_slots = ([label_slot] if isinstance(label_slot, str)
+                            else list(label_slot))
+        self.label_slot = self.label_slots[0]
+        self.sparse_slots: List[SlotConfig] = feed_config.sparse_slots
+        self.dense_slots: List[SlotConfig] = [
+            s for s in feed_config.dense_slots
+            if s.name not in self.label_slots]
+        self.capacity = max([s.capacity for s in self.sparse_slots] or [1])
+        self.dense_dim = sum(s.dim for s in self.dense_slots)
+
+    def _pad_ragged(self, values: np.ndarray, offsets: np.ndarray,
+                    cap: int):
+        """ragged (values, offsets[n+1]) → padded [n, cap] + lengths [n]."""
+        lens = np.diff(offsets)
+        clipped = np.minimum(lens, cap).astype(np.int32)
+        n = len(lens)
+        col = np.arange(cap, dtype=np.int64)[None, :]
+        gather = offsets[:-1, None] + col
+        mask = col < clipped[:, None]
+        gather = np.where(mask, gather, 0)
+        if len(values) == 0:
+            padded = np.zeros((n, cap), dtype=values.dtype)
+        else:
+            padded = np.where(mask, values[gather], values.dtype.type(0))
+        return padded, clipped
+
+    def pack(self, block: SlotRecordBlock,
+             key_mapper: Optional[Callable[[np.ndarray], np.ndarray]] = None
+             ) -> PackedBatch:
+        B, L = self.batch_size, self.capacity
+        S = len(self.sparse_slots)
+        n = block.n
+        assert n <= B, f"block of {n} records exceeds batch size {B}"
+
+        keys = np.zeros((S, B, L), dtype=np.uint64)
+        lengths = np.zeros((S, B), dtype=np.int32)
+        for si, slot in enumerate(self.sparse_slots):
+            values, offsets = block.uint64_slots[slot.name]
+            padded, lens = self._pad_ragged(values, offsets, L)
+            keys[si, :n] = padded
+            lengths[si, :n] = lens
+
+        dense = np.zeros((B, self.dense_dim), dtype=np.float32)
+        col = 0
+        for slot in self.dense_slots:
+            values, offsets = block.float_slots[slot.name]
+            padded, _ = self._pad_ragged(values, offsets, slot.dim)
+            dense[:n, col:col + slot.dim] = padded
+            col += slot.dim
+
+        multi = np.zeros((B, len(self.label_slots)), np.float32)
+        for t, name in enumerate(self.label_slots):
+            if name in block.float_slots:
+                lv, lo = block.float_slots[name]
+                lp, _ = self._pad_ragged(lv, lo, 1)
+                multi[:n, t] = lp[:, 0]
+            elif name in block.uint64_slots:
+                lv, lo = block.uint64_slots[name]
+                lp, _ = self._pad_ragged(lv, lo, 1)
+                multi[:n, t] = lp[:, 0].astype(np.float32)
+        labels = multi if len(self.label_slots) > 1 else multi[:, 0]
+
+        valid = np.zeros((B,), dtype=bool)
+        valid[:n] = True
+
+        if key_mapper is not None:
+            indices = key_mapper(keys.ravel()).reshape(S, B, L).astype(np.int32)
+            # padding positions & absent feasigns → row 0 (the reserved
+            # zero-embedding row, ≙ FLAGS_enable_pull_box_padding_zero)
+            pos_mask = (np.arange(L, dtype=np.int32)[None, None, :]
+                        < lengths[:, :, None])
+            indices = np.where(pos_mask, indices, 0)
+        else:
+            indices = np.zeros((S, B, L), dtype=np.int32)
+
+        if self.config.rank_offset or self.config.ads_offset:
+            raise NotImplementedError(
+                "rank_offset/ads_offset planes are not ported to the "
+                "PyTorch package")
+        rank_off = ads_off = None
+
+        uid = None
+        if self.config.uid_slot:
+            # first feasign of the uid slot = the instance's user id
+            # (≙ MultiSlotDesc.uid_slot feeding WuAucMetricMsg)
+            vals, offs = block.uint64_slots[self.config.uid_slot]
+            uid = np.zeros((B,), np.uint64)
+            uid[:n] = self._pad_ragged(vals, offs, 1)[0][:, 0]
+
+        aux = None
+        if self.config.string_slots:
+            # InputTable index planes (≙ InputTableDataFeed feed vars,
+            # data_feed.h:2224) — int32 indices, 0 = miss/pad row
+            aux = {}
+            for slot in self.config.string_slots:
+                vals, offs = block.aux_slots[slot.name]
+                plane = np.zeros((B, slot.capacity), np.int32)
+                padded, _ = self._pad_ragged(vals, offs, slot.capacity)
+                plane[:n] = padded.astype(np.int32)
+                aux[slot.name] = plane
+
+        return PackedBatch(indices=indices, lengths=lengths, dense=dense,
+                           labels=labels, valid=valid, num_real=n, keys=keys,
+                           ins_ids=block.ins_ids, rank_offset=rank_off,
+                           aux=aux, uid=uid, ads_offset=ads_off)

@@ -1,0 +1,331 @@
+"""Pass-scoped in-memory dataset.
+
+Copy of ``paddlebox_tpu/data/dataset.py`` (numpy only); string
+(InputTable) slots are not ported yet.
+
+≙ Dataset/DatasetImpl/SlotRecordDataset/PadBoxSlotDataset
+(data_set.h:58-568): a pass (typically ~10 min of logs) is loaded into host
+memory by reader threads, optionally shuffled locally and across hosts, then
+iterated as device batches while the next pass preloads
+(≙ PreLoadIntoMemory data_set.cc:2219, BoxHelper overlap box_wrapper.h:1141).
+
+The inter-host global shuffle (≙ PaddleShuffler MPI transport,
+data_set.cc:2440-2648) goes through a pluggable ``ShuffleTransport``; the
+in-process LoopbackTransport covers single-host and tests, a gRPC/proxy
+transport covers multi-host (paddlebox_tpu/data/shuffle_transport.py).
+"""
+
+from __future__ import annotations
+
+import concurrent.futures
+import threading
+from typing import Callable, Iterator, List, Optional, Sequence
+
+import numpy as np
+
+from paddlebox_tpu_torch.config import DataFeedConfig
+from paddlebox_tpu_torch.data.data_feed import DataFeed
+from paddlebox_tpu_torch.data.slot_record import SlotRecordBlock
+from paddlebox_tpu_torch.utils import lockdep
+from paddlebox_tpu_torch.utils.channel import Channel
+from paddlebox_tpu_torch.utils.monitor import stat_add
+from paddlebox_tpu_torch import flags
+
+
+class ShuffleTransport:
+    """Cross-host record exchange (≙ boxps::PaddleShuffler)."""
+
+    @property
+    def rank(self) -> int:
+        return 0
+
+    @property
+    def world_size(self) -> int:
+        return 1
+
+    def send(self, dst: int, block: SlotRecordBlock) -> None:
+        raise NotImplementedError
+
+    def drain(self) -> List[SlotRecordBlock]:
+        """Blocks sent to this rank by peers (called after barrier)."""
+        raise NotImplementedError
+
+    def barrier(self) -> None:
+        pass
+
+    def set_epoch(self, epoch: int) -> None:
+        """Enter a shuffle epoch (fleet fault tolerance; see
+        data/shuffle_transport.py).  No-op for epoch-less transports."""
+
+    def resync(self) -> None:
+        """Ask peers to replay the current epoch (restart recovery).
+        No-op for transports without a resend buffer."""
+
+    def close(self) -> None:
+        pass
+
+
+class LoopbackTransport(ShuffleTransport):
+    """Single-process world; optionally emulates N ranks for tests."""
+
+    def __init__(self, world_size: int = 1, rank: int = 0, mailboxes=None,
+                 barrier: Optional[threading.Barrier] = None):
+        self._world = world_size
+        self._rank = rank
+        self._mailboxes = mailboxes if mailboxes is not None else \
+            [Channel() for _ in range(world_size)]
+        self._barrier = barrier
+
+    @classmethod
+    def make_world(cls, world_size: int) -> List["LoopbackTransport"]:
+        boxes = [Channel() for _ in range(world_size)]
+        bar = threading.Barrier(world_size)
+        return [cls(world_size, r, boxes, bar) for r in range(world_size)]
+
+    @property
+    def rank(self):
+        return self._rank
+
+    @property
+    def world_size(self):
+        return self._world
+
+    def send(self, dst: int, block: SlotRecordBlock) -> None:
+        self._mailboxes[dst].put(block)
+
+    def drain(self) -> List[SlotRecordBlock]:
+        out = []
+        while self._mailboxes[self._rank].size():
+            out.append(self._mailboxes[self._rank].get())
+        return out
+
+    def barrier(self) -> None:
+        if self._barrier is not None:
+            self._barrier.wait()
+
+
+class SlotDataset:
+    """≙ PadBoxSlotDataset (data_set.h:438)."""
+
+    def __init__(self, feed_config: DataFeedConfig,
+                 parse_ins_id: bool = False, parse_logkey: bool = False,
+                 read_threads: int = 4,
+                 transport: Optional[ShuffleTransport] = None,
+                 input_table=None):
+        self.feed_config = feed_config
+        self.parse_ins_id = parse_ins_id
+        self.parse_logkey = parse_logkey
+        # aux string-key table shared by every reader thread (string-dtype
+        # slots resolve through it at parse time — ≙ InputTableDataFeed,
+        # data_feed.h:2224); auto-created when the config declares any
+        self.input_table = input_table
+        if feed_config.string_slots and input_table is None:
+            raise NotImplementedError(
+                "string (InputTable) slots are not ported to the PyTorch "
+                "package")
+        self.read_threads = read_threads
+        self.transport = transport or LoopbackTransport()
+        self.filelist: List[str] = []
+        self._blocks: List[SlotRecordBlock] = []
+        self._preload_future = None
+        self._lock = lockdep.lock("data.dataset.SlotDataset._lock")
+        self._rng = np.random.default_rng(feed_config.rand_seed or None)
+        self._key_consumers: List[Callable[[np.ndarray], None]] = []
+
+    # -- file list -----------------------------------------------------------
+    def set_filelist(self, filelist: Sequence[str]) -> None:
+        self.filelist = list(filelist)
+
+    # -- pass feasign tap (≙ MergeInsKeys → PSAgent::AddKey data_set.cc:2293)
+    def register_key_consumer(self, fn: Callable[[np.ndarray], None]) -> None:
+        self._key_consumers.append(fn)
+
+    # -- load ----------------------------------------------------------------
+    def _read_all(self) -> List[SlotRecordBlock]:
+        files = list(self.filelist)
+        blocks: List[SlotRecordBlock] = []
+        lock = lockdep.lock("data.dataset.SlotDataset._read_all.lock")
+
+        rate = self.feed_config.sample_rate
+
+        def read_one(path: str) -> None:
+            feed = DataFeed(self.feed_config, self.parse_ins_id,
+                            self.parse_logkey,
+                            input_table=self.input_table)
+            # per-file rng seeded by (rand_seed, path): the kept instance
+            # SET is deterministic regardless of reader-thread interleaving
+            import zlib
+            rng_f = np.random.default_rng(
+                [self.feed_config.rand_seed or 0,
+                 zlib.crc32(path.encode())])
+            for block in feed.read_file(path):
+                if rate < 1.0:
+                    # feed-level instance downsampling
+                    # (≙ DataFeedDesc.sample_rate)
+                    keep = np.nonzero(rng_f.random(block.n) < rate)[0]
+                    block = block.select(keep)
+                    if block.n == 0:
+                        continue
+                for consumer in self._key_consumers:
+                    consumer(block.all_keys())
+                with lock:
+                    blocks.append(block)
+
+        with concurrent.futures.ThreadPoolExecutor(
+                max_workers=max(1, self.read_threads),
+                thread_name_prefix="pbox-read") as pool:
+            list(pool.map(read_one, files))
+        return blocks
+
+    def load_into_memory(self) -> None:
+        self._blocks = self._read_all()
+        self._pv_grouped = False   # fresh records: re-run preprocess_instance
+        stat_add("stat_dataset_instances", self.instance_num())
+
+    def preload_into_memory(self) -> None:
+        """Overlap next-pass read with current training
+        (≙ PreLoadIntoMemory box_wrapper.h:1141)."""
+        ex = concurrent.futures.ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix="pbox-preload")
+        self._preload_future = ex.submit(self._read_all)
+        ex.shutdown(wait=False)
+
+    def wait_preload_done(self) -> None:
+        if self._preload_future is not None:
+            self._blocks = self._preload_future.result()
+            self._preload_future = None
+            self._pv_grouped = False
+
+    def release_memory(self) -> None:
+        self._blocks = []
+
+    # -- shuffle -------------------------------------------------------------
+    def local_shuffle(self) -> None:
+        self._pv_grouped = False   # order destroyed; regroup afterwards
+        block = SlotRecordBlock.concat(self._blocks)
+        if block.n:
+            block = block.permute(self._rng.permutation(block.n))
+        self._blocks = [block] if block.n else []
+
+    def global_shuffle(self, by_ins_id: bool = False) -> None:
+        """Redistribute records across hosts: hash(ins_id) or random % world
+        (≙ ShuffleData data_set.cc:2440 + ReceiveSuffleData :2548)."""
+        self._pv_grouped = False   # order destroyed; regroup afterwards
+        world = self.transport.world_size
+        if world <= 1:
+            return self.local_shuffle()
+        if self.feed_config.string_slots:
+            # aux indices are minted by THIS process's InputTable — another
+            # node's table assigns different indices to the same strings,
+            # so shuffled planes would gather wrong replica-cache rows.
+            # (The reference resolves at feed time, after its shuffle;
+            # resolve-late is the multi-host escape hatch.)
+            raise ValueError(
+                "global_shuffle with string (InputTable) slots is not "
+                "supported: indices are process-local — shard files per "
+                "worker instead, or shuffle the raw text upstream")
+        merged = SlotRecordBlock.concat(self._blocks)
+        if merged.n:
+            if by_ins_id and merged.ins_ids is not None:
+                dest = np.array([hash(i) % world for i in merged.ins_ids],
+                                dtype=np.int64)
+            else:
+                dest = self._rng.integers(0, world, size=merged.n)
+            keep = []
+            for r in range(world):
+                part = merged.select(np.nonzero(dest == r)[0])
+                if r == self.transport.rank:
+                    keep.append(part)
+                elif part.n:
+                    self.transport.send(r, part)
+        else:
+            keep = []
+        self.transport.barrier()
+        received = self.transport.drain()
+        block = SlotRecordBlock.concat(keep + received)
+        if block.n:
+            block = block.permute(self._rng.permutation(block.n))
+        self._blocks = [block] if block.n else []
+
+    # -- PV / ins merge (AucRunner) -----------------------------------------
+    def preprocess_instance(self) -> None:
+        """Group records by search_id so a page-view trains as a unit
+        (≙ PreprocessInstance data_set.cc:2648).  Records are stably sorted
+        by search_id; un-keyed records keep relative order at the end.
+        Afterwards ``batches()`` cuts only at page-view boundaries, so a PV
+        never straddles two device batches (≙ SlotPvInstance batching —
+        the batch holds whole pvs)."""
+        merged = SlotRecordBlock.concat(self._blocks)
+        if merged.n == 0 or merged.search_ids is None:
+            return
+        order = np.argsort(merged.search_ids, kind="stable")
+        self._blocks = [merged.permute(order)]
+        self._pv_grouped = True
+
+    def postprocess_instance(self) -> None:
+        """≙ PostprocessInstance (data_set.cc): leave PV mode — batches cut
+        at fixed size again."""
+        self._pv_grouped = False
+
+    # -- iteration -----------------------------------------------------------
+    def instance_num(self) -> int:
+        return sum(b.n for b in self._blocks)
+
+    def feasign_num(self) -> int:
+        return sum(b.feasign_count for b in self._blocks)
+
+    def get_blocks(self) -> List[SlotRecordBlock]:
+        return self._blocks
+
+    def batch_bounds(self, batch_size: int, drop_last: bool = False
+                     ) -> List[tuple]:
+        """(start, stop) record ranges of each batch over the concatenated
+        block order — pv-aligned after preprocess_instance().  Copies NO
+        slot data (only search_ids are concatenated), so pass-scoped
+        packers can batch the merged block without a slice/re-concat
+        round-trip."""
+        n = sum(b.n for b in self._blocks)
+        sids = [b.search_ids for b in self._blocks]
+        out = []
+        if getattr(self, "_pv_grouped", False) and n \
+                and all(s is not None for s in sids):
+            sid = sids[0] if len(sids) == 1 else np.concatenate(sids)
+            # pv start positions (records are pv-sorted)
+            pv_starts = np.concatenate(
+                [[0], np.nonzero(sid[1:] != sid[:-1])[0] + 1, [n]])
+            start_i = 0
+            while pv_starts[start_i] < n:
+                start = int(pv_starts[start_i])
+                # furthest pv boundary within batch_size of start
+                stop_i = int(np.searchsorted(pv_starts,
+                                             start + batch_size, "right")) - 1
+                if stop_i == start_i:   # one pv larger than the batch
+                    raise ValueError(
+                        f"page view of "
+                        f"{int(pv_starts[start_i + 1]) - start} records "
+                        f"exceeds batch_size {batch_size} — raise the "
+                        "batch size or skip preprocess_instance")
+                stop = int(pv_starts[stop_i])
+                if not (stop - start < batch_size and drop_last
+                        and stop == n):
+                    out.append((start, stop))
+                start_i = stop_i
+            return out
+        for start in range(0, n, batch_size):
+            stop = min(start + batch_size, n)
+            if stop - start < batch_size and drop_last:
+                break
+            out.append((start, stop))
+        return out
+
+    def batches(self, batch_size: int, drop_last: bool = False
+                ) -> Iterator[SlotRecordBlock]:
+        """Yield fixed-size record batches; the tail short batch is yielded
+        unless drop_last (the device step pads it to capacity anyway).
+
+        After preprocess_instance(), cuts land on page-view boundaries
+        (short batches are padded by the trainer's valid mask) so a PV
+        trains as one unit."""
+        merged = SlotRecordBlock.concat(self._blocks)
+        for start, stop in self.batch_bounds(batch_size, drop_last):
+            yield merged.slice(start, stop)

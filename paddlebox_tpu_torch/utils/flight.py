@@ -1,0 +1,158 @@
+"""Flight recorder — process-wide bounded ring of typed, timestamped
+events (the "what happened just before it wedged" layer the reference's
+PrintSyncTimer/monitor.h never had).
+
+Metrics (utils/monitor.py) answer "how much/how fast"; spans
+(utils/trace.py) answer "where did the time go" on the happy path.  The
+flight ring answers the postmortem question: *what was this process
+doing right before it hung, crashed, or slowed to a crawl* — the
+Dapper-style annotation log, bounded like a cockpit flight recorder.
+Producers record rare, meaningful lifecycle events:
+
+  pass/day boundaries        ps/pass_manager.py
+  verb retries / give-ups    ps/service.py
+  backoff sleeps             utils/backoff.py
+  stream reconnects          ps/service.py
+  dedup hits / evictions     ps/service.py (_DedupWindow)
+  injected faults            ps/faults.py
+  pool saturation            utils/workpool.py (new queue-depth hwm only)
+  elastic grow/shrink        launch.py
+  checkpoint save/load       ps/pass_manager.py, io/checkpoint.py
+  ckpt commit / gc           io/checkpoint.py (generation chain)
+  resume begin / ok          io/checkpoint.py, launch.py (supervisor)
+  dedup restore              ps/service.py (checkpoint / restart handoff)
+  bench phases / wedges      bench.py
+
+Consumers: ``/flightz`` on the obs exporter (utils/obs_server.py), the
+wedge doctor's postmortem bundles (utils/doctor.py), and SIGUSR1 live
+interrogation.
+
+Design constraints (same discipline as utils/trace.py):
+
+* **Bounded memory** — a fixed-capacity deque (``FLAGS_obs_flight_ring``
+  events, newest-N retention; 0 disables recording entirely).
+* **Cheap when idle, free when off** — ``record()`` is one module-global
+  check when disabled; when enabled it is a dict build + deque append,
+  and every producer site is a RARE event (a retry, a pass boundary),
+  never per-row/per-chunk hot-path work.
+* **Bounded cardinality** — event *kinds* are lowercase literal tokens
+  from a closed taxonomy (lint rule PB206, the flight-ring face of
+  PB204's metric-name discipline).  Unbounded values (rids, paths,
+  errors) belong in event FIELDS, never in the kind.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from collections import deque
+from typing import Dict, List, Optional
+
+from paddlebox_tpu_torch import flags
+
+flags.define_flag(
+    "obs_flight_ring", 2048,
+    "flight-recorder ring capacity (newest-N typed lifecycle events: "
+    "pass boundaries, retries, reconnects, faults, checkpoints...); "
+    "served as /flightz and embedded in every postmortem bundle.  "
+    "0 disables recording")
+
+
+class FlightRecorder:
+    """Fixed-capacity ring of event dicts.  Thread-safe; events carry a
+    monotonically increasing ``seq`` so consumers can detect gaps after
+    ring wrap."""
+
+    def __init__(self, cap: int):
+        self._ring: "deque[Dict]" = deque(maxlen=max(1, int(cap)))
+        self._lock = threading.Lock()
+        self._seq = 0
+
+    def record(self, kind: str, **fields) -> None:
+        ev = {"kind": kind, "t": time.time(), "mono": time.monotonic(),
+              "thread": threading.current_thread().name}
+        if fields:
+            ev.update(fields)
+        with self._lock:
+            self._seq += 1
+            ev["seq"] = self._seq
+            self._ring.append(ev)
+
+    def events(self, n: Optional[int] = None,
+               kind: Optional[str] = None) -> List[Dict]:
+        """Newest-first events, optionally filtered by kind —
+        ``kind`` accepts one name or a comma-separated list
+        (``"slo_breach,slo_clear"``; blanks ignored)."""
+        with self._lock:
+            out = [dict(e) for e in reversed(self._ring)]
+        if kind:
+            want = {k.strip() for k in kind.split(",") if k.strip()}
+            if want:
+                out = [e for e in out if e["kind"] in want]
+        return out if n is None else out[:max(0, int(n))]
+
+    def counts(self) -> Dict[str, int]:
+        """Events currently retained, per kind (bounded taxonomy)."""
+        out: Dict[str, int] = {}
+        with self._lock:
+            for e in self._ring:
+                out[e["kind"]] = out.get(e["kind"], 0) + 1
+        return out
+
+    def clear(self) -> None:
+        with self._lock:
+            self._ring.clear()
+
+    @property
+    def capacity(self) -> int:
+        return self._ring.maxlen or 0
+
+
+# Module-level handle.  _UNSET defers the flag read to the first record
+# so FLAGS_obs_flight_ring set after import (launch.py env export, test
+# set_flags before any event) still takes effect; after init the hot
+# path is one global read + is-None check.
+_UNSET = object()
+_RING = _UNSET
+_INIT_LOCK = threading.Lock()
+
+
+def _init() -> Optional[FlightRecorder]:
+    global _RING
+    with _INIT_LOCK:
+        if _RING is _UNSET:
+            cap = int(flags.get_flags("obs_flight_ring"))
+            _RING = FlightRecorder(cap) if cap > 0 else None
+        return _RING
+
+
+def ring() -> Optional[FlightRecorder]:
+    """The process-wide recorder (created from the flag on first use);
+    None when FLAGS_obs_flight_ring is 0."""
+    r = _RING
+    return _init() if r is _UNSET else r
+
+
+def reconfigure() -> Optional[FlightRecorder]:
+    """Re-read FLAGS_obs_flight_ring and rebuild the ring (tests, live
+    resize).  Discards retained events."""
+    global _RING
+    with _INIT_LOCK:
+        _RING = _UNSET
+    return _init()
+
+
+def record(kind: str, **fields) -> None:
+    """Record one typed event.  ``kind`` must be a bounded lowercase
+    literal (lint rule PB206); arbitrary values go in ``fields``."""
+    r = _RING
+    if r is _UNSET:
+        r = _init()
+    if r is not None:
+        r.record(kind, **fields)
+
+
+def events(n: Optional[int] = None, kind: Optional[str] = None) -> List[Dict]:
+    """Newest-first events of the process ring ([] when disabled)."""
+    r = ring()
+    return r.events(n=n, kind=kind) if r is not None else []

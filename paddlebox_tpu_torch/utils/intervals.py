@@ -1,0 +1,195 @@
+"""Interval-level feed-gap attribution (ROADMAP item 2's measurement
+layer).
+
+BENCH_r03 showed ``device_step=473090`` vs ``end_to_end=22934`` ex/s —
+a ~20× gap between what the device can chew and what the host feed
+delivers.  Averaged timers can't attribute that gap: host pack and
+device step overlap (the PR 3 double-buffer), so summing their seconds
+double-counts.  This module records *wall-clock intervals* per activity
+kind and computes union/overlap-aware utilization:
+
+* ``device`` — device-step dispatch windows (trainer step loop)
+* ``pull``   — PS/host-table bulk pull of the pass working set
+* ``pack``   — host-side batch packing (data/pass_feed.py, stream pack)
+* ``upload`` — host→device uploads (working-set build, packed batches)
+* ``write``  — working-set write-back to the DRAM tier at pass end
+* ``csr``    — host-side CSR step-plan build for the ragged sparse path
+  (data/pass_feed.py build_csr_plans; hidden under training when the
+  PR 7 prefetcher runs it on the worker thread)
+
+``report(since)`` merges each kind's intervals (union seconds, clipped
+to the window), yielding:
+
+* ``device_busy_frac``  = union(device) / wall — the fraction of the
+  window the device had work in flight;
+* ``feed_gap_ratio``    = wall / union(device) — how much faster the
+  pass would run if the host feed never stalled the device (the
+  interval-accounted sibling of BENCH's device_step ÷ end_to_end rate
+  ratio);
+* ``host_busy_s`` / ``overlap_s`` — union of host kinds and its overlap
+  with device busy, so "host is slow" separates from "host is slow AND
+  not hidden behind the device".
+
+Always-on by design: recording is one deque.append of a (t0, t1) tuple
+per *operation* (a step window, a pass pack — not per row), bounded by
+a fixed per-kind capacity.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from collections import deque
+from typing import Dict, List, Optional, Tuple
+
+from paddlebox_tpu_torch.utils.monitor import stat_add
+
+# Closed set of activity kinds (PB204-style bounded cardinality: the
+# per-kind cumulative stat below interpolates `kind` into a metric name).
+KINDS = ("device", "pull", "pack", "upload", "write", "csr")
+_HOST_KINDS = ("pull", "pack", "upload", "write", "csr")
+
+
+def union_seconds(iv: List[Tuple[float, float]],
+                  since: Optional[float] = None,
+                  until: Optional[float] = None) -> float:
+    """Total seconds covered by the union of [t0, t1) intervals, clipped
+    to [since, until]."""
+    clipped = []
+    for t0, t1 in iv:
+        if since is not None:
+            t0 = max(t0, since)
+        if until is not None:
+            t1 = min(t1, until)
+        if t1 > t0:
+            clipped.append((t0, t1))
+    if not clipped:
+        return 0.0
+    clipped.sort()
+    total = 0.0
+    cur0, cur1 = clipped[0]
+    for t0, t1 in clipped[1:]:
+        if t0 > cur1:
+            total += cur1 - cur0
+            cur0, cur1 = t0, t1
+        else:
+            cur1 = max(cur1, t1)
+    return total + (cur1 - cur0)
+
+
+def _merge(iv: List[Tuple[float, float]], since, until):
+    """Clipped, sorted, coalesced copy of ``iv`` (for intersections)."""
+    out = []
+    for t0, t1 in iv:
+        if since is not None:
+            t0 = max(t0, since)
+        if until is not None:
+            t1 = min(t1, until)
+        if t1 > t0:
+            out.append((t0, t1))
+    out.sort()
+    merged: List[Tuple[float, float]] = []
+    for t0, t1 in out:
+        if merged and t0 <= merged[-1][1]:
+            merged[-1] = (merged[-1][0], max(merged[-1][1], t1))
+        else:
+            merged.append((t0, t1))
+    return merged
+
+
+def _intersect_seconds(a: List[Tuple[float, float]],
+                       b: List[Tuple[float, float]]) -> float:
+    """Seconds where two merged interval lists overlap."""
+    total = 0.0
+    i = j = 0
+    while i < len(a) and j < len(b):
+        lo = max(a[i][0], b[j][0])
+        hi = min(a[i][1], b[j][1])
+        if hi > lo:
+            total += hi - lo
+        if a[i][1] < b[j][1]:
+            i += 1
+        else:
+            j += 1
+    return total
+
+
+class IntervalRecorder:
+    """Bounded per-kind rings of (t0, t1) monotonic-clock intervals."""
+
+    def __init__(self, cap: int = 16384):
+        self._cap = int(cap)
+        self._iv: Dict[str, "deque[Tuple[float, float]]"] = {
+            k: deque(maxlen=self._cap) for k in KINDS}
+        self._lock = threading.Lock()
+
+    def record(self, kind: str, t0: float, t1: float) -> None:
+        if t1 <= t0:
+            return
+        with self._lock:
+            dq = self._iv.get(kind)
+            if dq is None:        # unknown kind: ignore rather than grow
+                return
+            dq.append((t0, t1))
+        stat_add(f"feed.{kind}.busy_s", t1 - t0)
+
+    def clear(self) -> None:
+        with self._lock:
+            for dq in self._iv.values():
+                dq.clear()
+
+    def report(self, since: float,
+               until: Optional[float] = None) -> Dict[str, float]:
+        """Overlap-aware utilization over [since, until] (until defaults
+        to now)."""
+        if until is None:
+            until = time.monotonic()
+        wall = max(until - since, 1e-9)
+        with self._lock:
+            iv = {k: list(dq) for k, dq in self._iv.items()}
+        out: Dict[str, float] = {"wall_s": wall}
+        for k in KINDS:
+            out[f"{k}_busy_s"] = union_seconds(iv[k], since, until)
+        host_all: List[Tuple[float, float]] = []
+        for k in _HOST_KINDS:
+            host_all.extend(iv[k])
+        host_m = _merge(host_all, since, until)
+        dev_m = _merge(iv["device"], since, until)
+        out["host_busy_s"] = sum(t1 - t0 for t0, t1 in host_m)
+        out["overlap_s"] = _intersect_seconds(dev_m, host_m)
+        # per-stage overlap: seconds of each host kind hidden behind
+        # device busy — the prefetch pipeline's win is exactly these
+        # going from ~0 (serial: host runs while the device idles) to
+        # ≈{k}_busy_s (pipelined: pass N+1's pull/pack/upload run under
+        # pass N's training)
+        for k in _HOST_KINDS:
+            out[f"{k}_hidden_s"] = _intersect_seconds(
+                _merge(iv[k], since, until), dev_m)
+        out["hidden_s"] = out["overlap_s"]
+        dev = out["device_busy_s"]
+        out["device_busy_frac"] = dev / wall
+        # wall / device-busy: 1.0 = perfectly fed; BENCH_r03's ~20×
+        # device_step/end_to_end rate gap shows up here as ~20.
+        out["feed_gap_ratio"] = (wall / dev) if dev > 0 else 0.0
+        return out
+
+
+# Process-wide recorder — always on (bounded memory, rare appends); the
+# flag-gated layers (trace/flight) stay the pattern for anything hotter.
+ACTIVE = IntervalRecorder()
+
+
+def record(kind: str, t0: float, t1: float) -> None:
+    """Record one busy interval of activity ``kind`` (monotonic
+    seconds)."""
+    ACTIVE.record(kind, t0, t1)
+
+
+def report(since: float, until: Optional[float] = None) -> Dict[str, float]:
+    """Utilization report over [since, until] from the process
+    recorder."""
+    return ACTIVE.report(since, until=until)
+
+
+def clear() -> None:
+    ACTIVE.clear()
