@@ -48,13 +48,17 @@ class DeepFM(nn.Module):
         self.bias.copy_(torch.tensor(np.asarray(params["bias"])))
 
     def jax_params(self):
-        """The inverse of :meth:`load_jax_params` (numpy, JAX layout)."""
+        """The inverse of :meth:`load_jax_params` (numpy, JAX layout): a
+        snapshot, like the JAX package's immutable params — on the CPU
+        ``.numpy()`` would alias the live weights that training updates
+        in place, so every array is copied."""
+        def snap(t):
+            return t.detach().cpu().numpy().copy()
         return {
-            "mlp": [{"w": layer.weight.detach().cpu().numpy().T,
-                     "b": layer.bias.detach().cpu().numpy()}
+            "mlp": [{"w": snap(layer.weight).T, "b": snap(layer.bias)}
                     for layer in self.mlp.layers],
-            "dense_w": self.dense_w.detach().cpu().numpy(),
-            "bias": self.bias.detach().cpu().numpy(),
+            "dense_w": snap(self.dense_w),
+            "bias": snap(self.bias),
         }
 
     def forward(self, pooled: torch.Tensor, dense: torch.Tensor

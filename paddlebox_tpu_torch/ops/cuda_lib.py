@@ -28,7 +28,8 @@ from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = {"sorted_spmm": "sorted_spmm.cu"}
+SOURCES = {"sorted_spmm": "sorted_spmm.cu",
+           "gather_pool": "gather_pool.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 

@@ -159,6 +159,34 @@ def build_plan(rows: torch.Tensor, dims: SpmmDims,
     return rows2d, perm, inv_perm, c_of, tile_ids, first_g, first_s, first_occ
 
 
+def kept_perm(perm: torch.Tensor, dims: SpmmDims,
+              kd: SpmmDims) -> torch.Tensor:
+    """Canonical source position of each sorted position a plan keeps:
+    the last ``kd.p_pad`` entries of ``perm`` padded with 0 for the
+    sentinel tail (kd = the trimmed geometry, or dims itself)."""
+    tail = torch.zeros((dims.p_pad - dims.p,), dtype=perm.dtype,
+                       device=perm.device)
+    return torch.cat([perm, tail])[dims.p_pad - kd.p_pad:]
+
+
+def segment_sum(values: torch.Tensor, segments: torch.Tensor,
+                num_segments: int) -> torch.Tensor:
+    """values [P, W] → [num_segments, W]: each segment the sum of its
+    rows in their order in ``values``, empty segments exactly 0 (≙
+    ``jax.ops.segment_sum`` / ``.at[].add``).  A stable sort of the
+    segment ids, then ``scatter_add_sorted`` — a segmented sum in a fixed
+    order, where ``index_add_`` on a card would add with float atomics
+    in an order that changes from run to run."""
+    dims = spmm_dims(segments.numel(), num_segments)
+    plan = build_plan(segments.to(torch.int32), dims)
+    rows2d, perm, first_occ = plan[0], plan[1], plan[7]
+    srt = torch.zeros((values.shape[1], dims.p_pad), dtype=torch.float32,
+                      device=values.device)
+    srt[:, :dims.p] = values[perm.long()].T
+    out = scatter_add_sorted(srt, rows2d, first_occ, dims)
+    return out[:, :num_segments].T
+
+
 # ---------------------------------------------------------------------------
 # plain PyTorch versions (the CPU path; the card's kernels are held to them)
 # ---------------------------------------------------------------------------

@@ -102,5 +102,22 @@ def mf_values(ws: Dict[str, torch.Tensor], gathered: torch.Tensor
     return gathered
 
 
+def cvm_pooled(pooled: torch.Tensor, use_cvm: bool = True) -> torch.Tensor:
+    """Sum-pooled pull values [S, B, 3+D] (show, click, w, mf...) →
+    [B, S, 3+D], with the CVM transform of the first two columns
+    (log(show+1), log(click+1) - log(show+1)) when ``use_cvm`` — the
+    tail every lowering's pull shares (≙ ops/cvm.py of the JAX
+    package)."""
+    show, click = pooled[:, :, 0], pooled[:, :, 1]
+    if use_cvm:
+        show_t = torch.log(show + 1.0)
+        click_t = torch.log(click + 1.0) - show_t
+    else:
+        show_t, click_t = show, click
+    pooled = torch.cat([torch.stack([show_t, click_t], dim=-1),
+                        pooled[:, :, 2:]], dim=-1)
+    return pooled.permute(1, 0, 2)
+
+
 def is_quantized(ws: Dict[str, torch.Tensor]) -> bool:
     return "mf_scale" in ws

@@ -14,15 +14,16 @@ Layout: occurrence order is canonical [S, L, B] flattened; the plan's
 ``perm``/``inv_perm`` move between canonical and sorted domains (the
 "take" crossing: one row gather each way).  The pull table is
 feature-major [W, n_kernel] with W = 3 + D + 1 (show, click, embed_w,
-mf×D, mf_size).  This port carries the untrimmed 8-tuple plan the step
-builds and the "take" crossing only; trimmed plans and the static-plane
-payload of the packed pass feed, the "sort" crossing and expand (mf_ex)
-tables are not ported yet.
+mf×D, mf_size).  Plans come in the forms of the JAX package: the untrimmed
+8-tuple the streaming step builds, and the packed pass feed's trimmed
+plans (leading row-0 padding dropped) with or without the 11-tuple
+static payload planes.  The "take" crossing only; the "sort" crossing and
+expand (mf_ex) tables are not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -30,7 +31,7 @@ from paddlebox_tpu_torch import flags
 from paddlebox_tpu_torch.config import SparseSGDConfig
 from paddlebox_tpu_torch.ops import sorted_spmm as sp
 from paddlebox_tpu_torch.ps import optimizer as sparse_opt
-from paddlebox_tpu_torch.ps.embedding import mf_values
+from paddlebox_tpu_torch.ps.embedding import cvm_pooled, mf_values
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -39,19 +40,28 @@ def make_dims(num_occurrences: int, num_rows: int) -> sp.SpmmDims:
     return sp.spmm_dims(num_occurrences, num_rows)
 
 
-def build_plan(idx_slb: torch.Tensor, dims: sp.SpmmDims):
+def build_plan(idx_slb: torch.Tensor, dims: sp.SpmmDims,
+               eff: Optional[sp.SpmmDims] = None):
     """idx_slb [S, L, B] pass rows (0 = reserved/padding row)."""
-    return sp.build_plan(idx_slb.reshape(-1), dims)
+    return sp.build_plan(idx_slb.reshape(-1), dims, eff)
+
+
+def plan_eff_dims(plan, dims: sp.SpmmDims) -> Optional[sp.SpmmDims]:
+    """Trimmed kernel geometry a plan was built with, recovered from its
+    array shapes (None = untrimmed)."""
+    n_chunks = plan[0].shape[0]
+    if n_chunks == dims.n_chunks:
+        return None
+    return sp.with_p_pad(dims, n_chunks * dims.chunk)
 
 
 def _check_plan(plan, dims: sp.SpmmDims) -> None:
-    """The port's step builds untrimmed 8-tuple plans; trimmed plans and
-    the static-plane payload come from the packed pass feed, which is not
-    ported."""
-    if len(plan) != 8 or plan[0].shape[0] != dims.n_chunks:
-        raise NotImplementedError(
-            "trimmed / static-plane plans (packed pass feed) are not "
-            "ported to the PyTorch package")
+    """An 8-tuple plan, or an 11-tuple one with the static payload planes
+    (pass_feed.precompute_plans), no wider than ``dims``."""
+    if len(plan) not in (8, 11) or plan[0].shape[0] > dims.n_chunks:
+        raise ValueError(
+            f"not a sorted-spmm plan for {dims}: {len(plan)} arrays, "
+            f"{plan[0].shape[0]} chunks")
 
 
 def _pull_table(ws: Tensors, dims: sp.SpmmDims) -> torch.Tensor:
@@ -81,14 +91,8 @@ def pool_cvm_values(v: torch.Tensor, use_cvm: bool = True) -> torch.Tensor:
     click = torch.sum(v[..., 1], dim=1)
     w = torch.sum(v[..., 2], dim=1)
     mf = torch.sum(mf, dim=1)                              # [S, B, D]
-    if use_cvm:
-        show_t = torch.log(show + 1.0)
-        click_t = torch.log(click + 1.0) - show_t
-    else:
-        show_t, click_t = show, click
-    head = torch.stack([show_t, click_t, w], dim=-1)       # [S, B, 3]
-    pooled = torch.cat([head, mf], dim=-1)
-    return pooled.permute(1, 0, 2)                         # [B, S, E]
+    head = torch.stack([show, click, w], dim=-1)           # [S, B, 3]
+    return cvm_pooled(torch.cat([head, mf], dim=-1), use_cvm)
 
 
 def push_payload(d_pooled: torch.Tensor, ins_cvm: torch.Tensor,
@@ -138,8 +142,9 @@ def pull_pool_cvm(ws: Tensors, plan, dims: sp.SpmmDims,
     d = ws["mf"].shape[1]
     _check_plan(plan, dims)
     rows2d, inv_perm = plan[0], plan[2]
+    eff = plan_eff_dims(plan, dims)
     tab = _pull_table(ws, dims)
-    g = sp.gather_sorted(tab, rows2d, dims)                # [3+D+1, p_pad]
+    g = sp.gather_sorted(tab, rows2d, eff or dims)         # [3+D+1, p_pad]
     # created-mask the mf rows in the SORTED domain: the mf_size column is
     # consumed here and never rides the crossing
     created = (g[3 + d:4 + d] > 0).to(g.dtype)             # [1, p_pad]
@@ -147,7 +152,13 @@ def pull_pool_cvm(ws: Tensors, plan, dims: sp.SpmmDims,
     w = 3 + d
     if flags.get_flags("mxu_crossing_bf16"):
         g = g.to(torch.bfloat16)
-    v = g.T[:dims.p][inv_perm.long()]                       # canonical [p,W]
+    if eff is None:
+        v = g.T[:dims.p][inv_perm.long()]                   # canonical [p,W]
+    else:
+        # trimmed plan: dropped positions (inv_perm < 0) were row-0
+        # occurrences whose pull value is exactly zero — clamp + mask
+        v = g.T[torch.clamp(inv_perm, min=0).long()]
+        v = v * (inv_perm >= 0).to(v.dtype)[:, None]
     v = v.reshape(s, l, b, w).to(torch.float32)
     return pool_cvm_values(v, use_cvm)
 
@@ -161,25 +172,47 @@ def push_and_update(ws: Tensors, plan, dims: sp.SpmmDims,
     d_pooled [B, S, 3+D] — cols 0,1 are ignored and replaced by the
     instance cvm (reference push semantics, box_wrapper_impl.h:373);
     ins_cvm [B, 2]; slot_ids [S].  The canonical→sorted crossing gathers
-    by perm ("take")."""
+    by perm ("take").
+
+    With the static payload planes (an 11-tuple plan: bs, labelcol,
+    slotcol, built at feed time) only the DYNAMIC columns cross: g_show
+    ≡ 1 is a constant row, g_click and slot are the feed-time planes, and
+    g_embed + D×g_mf are gathered from the [B·S, 1+D] pooled-grad matrix
+    by ``bs`` (≙ CopyForPush building the payload per key slot,
+    box_wrapper.cu:1168)."""
     _check_plan(plan, dims)
     s, l, b = idx_slb.shape
     d = ws["mf"].shape[1]
     n = ws["show"].shape[0]
     w = d + 4
     rows2d, perm, first_occ = plan[0], plan[1], plan[7]
-    # the legacy payload carries the exact slot-id column, so it always
-    # crosses in f32 (mxu_crossing_bf16 never applies here)
-    payload = push_payload(d_pooled, ins_cvm, slot_ids, (s, l, b))
-    srt = payload.reshape(dims.p, w)[perm.long()]           # sorted domain
-    srt_cm = torch.cat(
-        [srt, torch.zeros((dims.p_pad - dims.p, w), dtype=srt.dtype,
-                          device=srt.device)]).T.contiguous()
-    # slot column: keep only each row's FIRST occurrence (plan mask), so
-    # the scatter-sum returns that occurrence's slot exactly (≙ the
-    # reference's per-key slot from its merge position,
-    # box_wrapper.cu:417 PushMergeCopy)
-    srt_cm[w - 1] *= first_occ
-    delta = sp.scatter_add_sorted(srt_cm, rows2d, first_occ, dims)
+    eff = plan_eff_dims(plan, dims)
+    kd = eff or dims
+    if len(plan) > 8:
+        bs_ids, labelcol, slotcol = plan[8], plan[9], plan[10]
+        p2 = d_pooled[:, :, 2:].reshape(b * s, 1 + d)       # b-major rows
+        if flags.get_flags("mxu_crossing_bf16"):
+            p2 = p2.to(torch.bfloat16)
+        dyn = p2[bs_ids.long()].T.to(torch.float32)         # [1+D, p_pad]
+        ones = torch.ones((1, kd.p_pad), dtype=torch.float32,
+                          device=dyn.device)
+        srt_cm = torch.cat([ones, labelcol[None], dyn, slotcol[None]],
+                           dim=0).contiguous()
+    else:
+        # the legacy payload carries the exact slot-id column, so it
+        # always crosses in f32 (mxu_crossing_bf16 never applies here)
+        payload = push_payload(d_pooled, ins_cvm, slot_ids, (s, l, b))
+        flat = payload.reshape(dims.p, w)
+        # trimmed plans keep the suffix of the full bijection: dropped
+        # row-0 occurrences never scatter (row 0 is reserved); the
+        # sentinel-padded tail carries nothing
+        srt_cm = flat[sp.kept_perm(perm, dims, kd).long()].T.contiguous()
+        srt_cm[:, kd.p_pad - (dims.p_pad - dims.p):] = 0.0
+        # slot column: keep only each row's FIRST occurrence (plan mask),
+        # so the scatter-sum returns that occurrence's slot exactly (≙ the
+        # reference's per-key slot from its merge position,
+        # box_wrapper.cu:417 PushMergeCopy)
+        srt_cm[w - 1] *= first_occ
+    delta = sp.scatter_add_sorted(srt_cm, rows2d, first_occ, kd)
     acc = acc_from_delta(delta, n)
     return sparse_opt.apply_push(ws, acc, cfg)

@@ -14,6 +14,7 @@ import torch
 
 from torch_port_fixtures import cuda_device  # noqa: F401
 
+from paddlebox_tpu_torch.ops import pallas_gather as tpg
 from paddlebox_tpu_torch.ops import sorted_spmm as tsp
 
 CASES = {
@@ -81,3 +82,64 @@ def test_wrappers_reject_what_kernels_do_not_take(cuda_device):
     with pytest.raises(ValueError):
         tsp.gather_sorted(torch.zeros((3, dims.n_kernel), device=cuda_device),
                           plan[0].cpu(), dims)
+
+
+# (R, L, D, N, ids, lengths) builders for gather_pool
+POOL_CASES = {
+    "uniform": lambda rng: (256, 3, 11, 500, "uniform", "random"),
+    "one_hot_row": lambda rng: (512, 3, 11, 500, "one_row", "random"),
+    "all_lengths_zero": lambda rng: (128, 3, 11, 500, "uniform", "zero"),
+    "all_lengths_full": lambda rng: (128, 3, 11, 500, "uniform", "full"),
+    # R * D not a multiple of the 256-thread block
+    "ragged_edge": lambda rng: (37, 3, 11, 64, "uniform", "random"),
+    "single_slot": lambda rng: (300, 1, 8, 64, "uniform", "random"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(POOL_CASES))
+def test_gather_pool_matches_plain_on_card(cuda_device, case):
+    """The kernel sums the same terms in the same order (l = 0, 1, ...)
+    as the plain version, so the two agree bit for bit; ids past each
+    row's length point outside the table and must never be read."""
+    rng = np.random.default_rng(0)
+    r, l_cap, d, n, ids, lens = POOL_CASES[case](rng)
+    table = rng.normal(0, 1, (n, d)).astype(np.float32)
+    table[0] = 0.0
+    idx = (np.full((r, l_cap), 7) if ids == "one_row"
+           else rng.integers(0, n, (r, l_cap))).astype(np.int32)
+    lengths = {"random": rng.integers(0, l_cap + 1, r),
+               "zero": np.zeros(r), "full": np.full(r, l_cap)}[lens]
+    lengths = lengths.astype(np.int32)
+    live = np.arange(l_cap)[None, :] < lengths[:, None]
+    idx = np.where(live, idx, 10 ** 9).astype(np.int32)  # never read
+    t = torch.as_tensor(table, device=cuda_device)
+    i = torch.as_tensor(idx, device=cuda_device)
+    ln = torch.as_tensor(lengths, device=cuda_device)
+    n0 = tpg.gather_pool.launches
+    got = tpg.gather_pool(t, i, ln)
+    torch.cuda.synchronize()
+    assert tpg.gather_pool.launches == n0 + 1
+    want = tpg.gather_pool_plain(torch.as_tensor(table),
+                                 torch.as_tensor(np.where(live, idx, 0)),
+                                 torch.as_tensor(lengths))
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-6,
+                               atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_gather_pool_rejects_what_the_kernel_does_not_take(cuda_device):
+    t = torch.zeros((16, 4), device=cuda_device)
+    i = torch.zeros((8, 3), dtype=torch.int32, device=cuda_device)
+    ln = torch.zeros((8,), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(TypeError):
+        tpg.gather_pool(t.double(), i, ln)
+    with pytest.raises(TypeError):
+        tpg.gather_pool(t, i.long(), ln)
+    with pytest.raises(ValueError):
+        tpg.gather_pool(t, i.cpu(), ln)
+    with pytest.raises(ValueError):
+        tpg.gather_pool(t, i.t(), ln[:3])
+    with pytest.raises(ValueError):
+        tpg.gather_pool(t, torch.zeros((3, 8), dtype=torch.int32,
+                                       device=cuda_device).t(), ln)

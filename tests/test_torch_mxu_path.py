@@ -1,6 +1,7 @@
 """The port's mxu pull/push against the JAX package's.
 
-One working set (host rows from a numpy seed) and one batch go through
+One working set (host rows from a numpy seed) and one batch (planned
+untrimmed, and trimmed as the packed feed plans it) go through
 ``mxu_path.pull_pool_cvm`` and ``mxu_path.push_and_update`` (adagrad) of
 both packages.  The JAX side runs its Pallas kernels in interpret mode;
 the port runs on the CPU (the kernels' plain versions).
@@ -18,9 +19,11 @@ import torch
 
 from paddlebox_tpu.config import SparseSGDConfig as JSgd
 from paddlebox_tpu.ps import embedding as jemb, feature_value as jfv
+from paddlebox_tpu.ops import sorted_spmm as jsp
 from paddlebox_tpu.ps import mxu_path as jmxu
 from paddlebox_tpu_torch.config import SparseSGDConfig as TSgd
 from paddlebox_tpu_torch.ps import embedding as temb
+from paddlebox_tpu_torch.ops import sorted_spmm as tsp
 from paddlebox_tpu_torch.ps import mxu_path as tmxu
 
 N, D, S, L, B = 300, 4, 5, 3, 16
@@ -38,7 +41,7 @@ def _host(seed=0):
     return host
 
 
-def _batch(seed=1):
+def _batch(seed=1, B=B):
     rng = np.random.default_rng(seed)
     per = (N - 1) // S
     idx = np.zeros((S, L, B), np.int32)
@@ -99,6 +102,41 @@ def test_push_and_update_matches_jax(thresh):
     for k in want:
         w, g = np.asarray(want[k]), got[k].numpy()
         assert g.dtype == w.dtype, k
+        if g.dtype == np.int32:
+            np.testing.assert_array_equal(g, w, err_msg=k)
+        else:
+            np.testing.assert_allclose(g, w, err_msg=k, **TOL)
+
+
+@pytest.mark.parametrize("thresh", [0.0, 1e9])
+def test_trimmed_plan_matches_jax(thresh):
+    """Plans trimmed to the real occurrences (the packed feed's form,
+    8-tuple): the pull clamps and masks the dropped row-0 positions, the
+    push scatters the kept suffix of the bijection."""
+    b = 128                      # wide enough for the trim to bite
+    jws, tws = _both_ws()
+    idx, d_pooled, ins_cvm, slot_ids = _batch(2, b)
+    jd, td = jmxu.make_dims(S * L * b, N), tmxu.make_dims(S * L * b, N)
+    real = int((idx != 0).sum())
+    jeff = jsp.trimmed_dims(jd, real)
+    teff = tsp.trimmed_dims(td, real)
+    assert teff.p_pad == jeff.p_pad < td.p_pad
+    jplan = jmxu.build_plan(jnp.asarray(idx), jd, jeff)
+    tplan = tmxu.build_plan(torch.as_tensor(idx), td, teff)
+    assert tmxu.plan_eff_dims(tplan, td) == teff
+    want = jmxu.pull_pool_cvm(jws, jplan, jd, (S, L, b), interpret=True)
+    got = tmxu.pull_pool_cvm(tws, tplan, td, (S, L, b))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    want = jmxu.push_and_update(
+        jws, jplan, jd, jnp.asarray(idx), jnp.asarray(d_pooled),
+        jnp.asarray(ins_cvm), jnp.asarray(slot_ids),
+        JSgd(mf_create_thresholds=thresh), interpret=True)
+    got = tmxu.push_and_update(
+        tws, tplan, td, torch.as_tensor(idx), torch.as_tensor(d_pooled),
+        torch.as_tensor(ins_cvm), torch.as_tensor(slot_ids),
+        TSgd(mf_create_thresholds=thresh))
+    for k in want:
+        w, g = np.asarray(want[k]), got[k].numpy()
         if g.dtype == np.int32:
             np.testing.assert_array_equal(g, w, err_msg=k)
         else:

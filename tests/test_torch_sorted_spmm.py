@@ -142,3 +142,19 @@ def test_wrappers_count_no_cpu_launches():
                            dims)
     assert (tsp.gather_sorted.launches, tsp.scatter_add_sorted.launches) \
         == (g0, s0)
+
+
+@pytest.mark.parametrize("n_ids,n_seg,n_rows", [(20, 25, 300), (30, 40, 200)])
+def test_segment_sum_sums_each_segment_in_order(n_ids, n_seg, n_rows):
+    """The deterministic merge of the fast push and of both ragged sums
+    equals a sequential per-segment sum; segments no id names stay
+    exactly 0."""
+    rng = np.random.default_rng(n_ids)
+    seg = rng.integers(0, n_ids, n_rows).astype(np.int32)
+    vals = rng.normal(0, 1, (n_rows, 4)).astype(np.float32)
+    got = tsp.segment_sum(torch.as_tensor(vals), torch.as_tensor(seg), n_seg)
+    want = np.zeros((n_seg, 4), np.float32)
+    for s_, v in zip(seg, vals):
+        want[s_] += v
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
+    assert not got[n_ids:].any()

@@ -143,3 +143,20 @@ def test_entry_points_need_a_card_unless_cpu_is_asked(monkeypatch):
         TEngine(TTable(embedding_dim=MF))
     assert TEngine(TTable(embedding_dim=MF), device="cpu").device.type \
         == "cpu"
+
+
+def test_jax_params_is_a_snapshot():
+    """The JAX package's params are immutable, so a tree taken before
+    training still holds the initial weights after it.  The port's
+    ``jax_params`` must not alias the live weights (on the CPU a bare
+    ``.numpy()`` would, and the "initial" weights would move with every
+    dense update)."""
+    tcfg, tdata = _pkg(TFeed, TSlot, TBlock, TDataset)
+    teng = _engine(TEngine, TTable, TSgd, tdata, device="cpu")
+    ttr = TTrainer(teng, TDeepFM(S, 3 + MF, DENSE, hidden=(16, 16)), tcfg,
+                   batch_size=B, seed=3, device="cpu")
+    before = ttr.model.jax_params()
+    w0 = before["mlp"][0]["w"].copy()
+    ttr.train_pass(tdata[0])
+    np.testing.assert_array_equal(before["mlp"][0]["w"], w0)
+    assert not np.array_equal(ttr.model.jax_params()["mlp"][0]["w"], w0)
