@@ -9,16 +9,21 @@ result line is printed):
 1. build  — compile every hand-written kernel of ``paddlebox_tpu_torch``
    (one ``nvcc`` per source, started together) and print the build time;
 2. kernels — each kernel against its plain PyTorch version on the card,
-   at the shapes the main path gives it, for uniform and Zipf-1.2 row
-   ids.  The sorted gather and scatter at W = 12, p = 26·3·16384 =
+   at the shapes the main path gives it, for uniform, Zipf-1.2 and
+   ``padded`` row ids (the packer's: lengths 1..3 of capacity 3, every
+   padding occurrence on row 0 — a third of all positions, one sorted
+   run).  The sorted gather and scatter at W = 12, p = 26·3·16384 =
    1,277,952 sorted occurrences over the 1,835,008-row working-set
    bucket of a ~1.6 M-key pass: the gather bit-exact, the scatter within
    rtol 1e-5 plus 1e-5 of each row's sum of |terms| (the plain
    ``index_add_`` adds with atomics in another order).  ``gather_pool``
    at the fast pull's shapes (table [1,835,008, 11], idx [425,984, 3],
-   lengths 1..3): within rtol 1e-6 / atol 1e-6 (both sum at most 3 terms
-   in order l = 0, 1, 2; whether they are bit-equal is printed).  Times
-   come from CUDA events;
+   lengths 1..3), on a contiguous table and on the [N, 12] buffer's
+   [N, 11] view that the fast path passes: bit-equal to the plain version
+   (both sum at most 3 terms in order l = 0, 1, 2).  Two back-to-back
+   calls of every kernel must be bit-identical.  Times are device times:
+   CUDA events around back-to-back calls that are enqueued behind a
+   device-side sleep, so host work between calls leaves no gaps;
 3. slice  — train one DeepFM pass (26 slots × capacity 3, mf_dim 8,
    13 dense, MLP 400-400-400, batch 16384, 4 batches, keys from a 2 M
    key space) through ``BoxPSEngine`` → ``SparseTrainer.train_pass`` →
@@ -38,8 +43,9 @@ result line is printed):
    must leave a bit-identical working set (no float atomics).
 
 Last, short profiled passes (2 batches; streaming mxu and each packed
-lowering) report device time by kernel and the device-busy share of the
-steps' event windows (not part of the checks above).
+lowering) report device time by kernel, each hand-written kernel's
+device time per step, and the device-busy share of the steps' event
+windows (not part of the checks above).
 
 Output: progress lines, a ``detail:`` JSON line, then a
 ``{"kernels": [...]}`` JSON line, the card's name and power limit as
@@ -92,6 +98,11 @@ SOURCES = {"gather_sorted": "paddlebox_tpu_torch/csrc/sorted_spmm.cu",
 REPLACES = {"gather_sorted": "paddlebox_tpu/ops/sorted_spmm.py:238",
             "scatter_add_sorted": "paddlebox_tpu/ops/sorted_spmm.py:263",
             "gather_pool": "paddlebox_tpu/ops/pallas_gather.py:82"}
+# the CUDA kernels each wrapper launches, as the profiler names them
+SYMBOLS = {"gather_sorted": ("gather_sorted_kernel",),
+           "scatter_add_sorted": ("scatter_tiles_kernel",
+                                  "scatter_combine_kernel"),
+           "gather_pool": ("gather_pool_kernel",)}
 
 
 def log(msg: str) -> None:
@@ -106,20 +117,37 @@ def card_line() -> str:
     return out[0]
 
 
-def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of one call, by CUDA events around ``iters``
-    back-to-back calls after ``warmup`` calls."""
+def time_ms(what: str, fn, iters: int = 20, warmup: int = 3,
+            hold_cycles: int = 50_000_000) -> float:
+    """Mean device time of one call of ``fn``, by CUDA events around
+    ``iters`` back-to-back calls after ``warmup`` calls.  The calls are
+    enqueued while a device-side sleep holds the stream, so the host's
+    work per call (Python, allocation, launch) leaves no idle gaps between
+    them on the device.  If the sleep ran out before the last call was
+    enqueued, the timing is taken again behind a 4× longer sleep, three
+    times in all; then it raises (``fn`` waits on the device, or its host
+    work outlasts every sleep)."""
+    tries = 3
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(iters):
-        fn()
-    b.record()
-    torch.cuda.synchronize()
-    return a.elapsed_time(b) / iters
+    for _ in range(tries):
+        torch.cuda._sleep(hold_cycles)
+        a.record()
+        for _ in range(iters):
+            fn()
+        b.record()
+        held = not a.query()   # the device had not started the calls yet
+        torch.cuda.synchronize()
+        if held:
+            return a.elapsed_time(b) / iters
+        hold_cycles *= 4
+    raise AssertionError(
+        f"time_ms({what}): the device started the calls before the last "
+        f"was enqueued, {tries} times; the last sleep held "
+        f"{hold_cycles // 4} cycles")
 
 
 def bound_ms(n_bytes: float, n_ops: float):
@@ -132,12 +160,33 @@ def bound_ms(n_bytes: float, n_ops: float):
 # phase 2: the kernels against their plain versions
 # ---------------------------------------------------------------------------
 
+def twice(what: str, fn):
+    """fn() twice back to back: the two results must be bit-identical
+    (every kernel adds in a fixed order).  Returns the first."""
+    a, b = fn(), fn()
+    torch.cuda.synchronize()
+    if not torch.equal(a, b):
+        raise AssertionError(f"{what}: two calls on the same inputs differ")
+    return a
+
+
+def padded_rows(rng) -> np.ndarray:
+    """The streaming packer's row ids for one step: each of the R_POOL
+    (slot, record) rows holds 1..CAP ids and parks the CAP - length
+    padding occurrences on row 0, about a third of all P positions."""
+    lens = rng.integers(1, CAP + 1, R_POOL)
+    ids = rng.integers(1, TABLE_ROWS, (R_POOL, CAP))
+    return np.where(np.arange(CAP)[None, :] < lens[:, None], ids,
+                    0).reshape(-1)
+
+
 def kernel_phase(dev: torch.device, seed: int = 0):
     rng = np.random.default_rng(seed)
     rows_by_dist = {
         "uniform": rng.integers(1, TABLE_ROWS, P),
         # Zipf-1.2 ranks wrapped onto the table: one very hot row
         "zipf1.2": (rng.zipf(1.2, P) - 1) % (TABLE_ROWS - 1) + 1,
+        "padded": padded_rows(rng),
     }
     dims = sp.spmm_dims(P, TABLE_ROWS)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -154,14 +203,17 @@ def kernel_phase(dev: torch.device, seed: int = 0):
         payload[:, dims.p:] = 0.0            # pad columns carry nothing
         n_unique = int(first_occ.sum().item())
 
-        got = sp.gather_sorted(table, rows2d, dims)
+        got = twice(f"gather_sorted ({dist})",
+                    lambda: sp.gather_sorted(table, rows2d, dims))
         want = sp.gather_sorted_plain(table, rows2d, dims)
         torch.cuda.synchronize()
         if not torch.equal(got, want):
             raise AssertionError(f"gather_sorted != plain ({dist})")
         g_err = float((got - want).abs().max())
 
-        got = sp.scatter_add_sorted(payload, rows2d, first_occ, dims)
+        got = twice(f"scatter_add_sorted ({dist})",
+                    lambda: sp.scatter_add_sorted(payload, rows2d,
+                                                  first_occ, dims))
         want = sp.scatter_add_sorted_plain(payload, rows2d, first_occ, dims)
         abs_sum = sp.scatter_add_sorted_plain(payload.abs(), rows2d,
                                               first_occ, dims)
@@ -175,10 +227,13 @@ def kernel_phase(dev: torch.device, seed: int = 0):
         s_err = float(err.max())
 
         rows_l = rows2d.reshape(-1).long()
-        g = {"ms": time_ms(lambda: sp.gather_sorted(table, rows2d, dims)),
+        g = {"ms": time_ms(f"gather_sorted ({dist})",
+                           lambda: sp.gather_sorted(table, rows2d, dims)),
              "plain_ms": time_ms(
+                 f"gather_sorted_plain ({dist})",
                  lambda: sp.gather_sorted_plain(table, rows2d, dims)),
              "library_ms": time_ms(
+                 f"index_select ({dist})",
                  lambda: torch.index_select(table, 1, rows_l)),
              "max_abs_err": g_err}
         # bytes the gather must move: its row ids, the table columns this
@@ -186,22 +241,28 @@ def kernel_phase(dev: torch.device, seed: int = 0):
         g["bound_ms"], g["bound_by"] = bound_ms(
             4 * dims.p_pad + 4 * W_PULL * n_unique + 4 * W_PULL * dims.p_pad,
             0)
-        s = {"ms": time_ms(lambda: sp.scatter_add_sorted(
-                 payload, rows2d, first_occ, dims)),
-             "plain_ms": time_ms(lambda: sp.scatter_add_sorted_plain(
-                 payload, rows2d, first_occ, dims)),
-             "library_ms": time_ms(lambda: torch.zeros(
+        s = {"ms": time_ms(f"scatter_add_sorted ({dist})",
+                           lambda: sp.scatter_add_sorted(
+                               payload, rows2d, first_occ, dims)),
+             "plain_ms": time_ms(f"scatter_add_sorted_plain ({dist})",
+                                 lambda: sp.scatter_add_sorted_plain(
+                                     payload, rows2d, first_occ, dims)),
+             "library_ms": time_ms(f"index_add_ ({dist})", lambda: torch.zeros(
                  (W_PUSH, dims.n_kernel), device=dev).index_add_(
                      1, rows_l, payload)),
              "max_abs_err": s_err}
-        # payload + row ids + run starts in, the whole merged delta out;
-        # one add per payload value
+        # payload + row ids in (the run starts follow from the sorted
+        # ids), the whole merged delta out; one add per payload value
         s["bound_ms"], s["bound_by"] = bound_ms(
-            4 * W_PUSH * dims.p_pad + 8 * dims.p_pad
+            4 * W_PUSH * dims.p_pad + 4 * dims.p_pad
             + 4 * W_PUSH * dims.n_kernel, W_PUSH * dims.p)
         results[dist] = {"gather_sorted": g, "scatter_add_sorted": s,
-                         "distinct_rows": n_unique}
-        log(f"kernels[{dist}]: distinct rows {n_unique}; gather "
+                         "distinct_rows": n_unique,
+                         "longest_run": int(torch.unique_consecutive(
+                             rows2d.reshape(-1), return_counts=True)[1]
+                             .max())}
+        log(f"kernels[{dist}]: distinct rows {n_unique}, longest run "
+            f"{results[dist]['longest_run']}; gather "
             f"{g['ms']:.4f} ms (plain {g['plain_ms']:.4f}, bound "
             f"{g['bound_ms']:.4f}); scatter {s['ms']:.4f} ms (plain "
             f"{s['plain_ms']:.4f}, bound {s['bound_ms']:.4f}); max err "
@@ -209,9 +270,15 @@ def kernel_phase(dev: torch.device, seed: int = 0):
     return results
 
 
-def gather_pool_phase(dev: torch.device, seed: int = 0):
+def gather_pool_phase(dev: torch.device, seed: int = 0,
+                      layouts=("stride12", "stride11")):
     """gather_pool at the fast pull's shapes: table [TABLE_ROWS, 11],
-    idx [425,984, 3] (26 slots × 16384 records), lengths 1..3."""
+    idx [425,984, 3] (26 slots × 16384 records), lengths 1..3, on two
+    layouts of the same values: ``stride12`` (the [N, 12] buffer's
+    [N, 11] view that the fast path passes; float4 rows) and ``stride11``
+    (a contiguous table; 4-byte loads).  Beside each kernel time stands
+    ``index_select`` of the same live rows with no pooling: the cost of
+    fetching them.  Returns {dist: {layout: ...}}."""
     rng = np.random.default_rng(seed)
     lengths_np = rng.integers(1, CAP + 1, R_POOL).astype(np.int32)
     ids_by_dist = {
@@ -219,40 +286,59 @@ def gather_pool_phase(dev: torch.device, seed: int = 0):
         "zipf1.2": (rng.zipf(1.2, (R_POOL, CAP)) - 1) % (TABLE_ROWS - 1) + 1,
     }
     gen = torch.Generator(device=dev).manual_seed(seed)
-    table = torch.randn((TABLE_ROWS, W_POOL), generator=gen, device=dev)
-    table[0] = 0.0
+    tables = {"stride12": torch.zeros((TABLE_ROWS, W_POOL + 1),
+                                      device=dev)[:, :W_POOL]}
+    tables["stride12"].copy_(torch.randn((TABLE_ROWS, W_POOL), generator=gen,
+                                         device=dev))
+    tables["stride12"][0] = 0.0
+    tables["stride11"] = tables["stride12"].contiguous()
     lengths = torch.as_tensor(lengths_np, device=dev)
     live = np.arange(CAP)[None, :] < lengths_np[:, None]
     results = {}
     for dist, ids_np in ids_by_dist.items():
         idx = torch.as_tensor(ids_np.astype(np.int32), device=dev)
-        got = pg.gather_pool(table, idx, lengths)
-        want = pg.gather_pool_plain(table, idx, lengths)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        if not torch.allclose(got, want, rtol=1e-6, atol=1e-6):
-            raise AssertionError(f"gather_pool != plain ({dist}): max err "
-                                 f"{err}")
         mask = torch.as_tensor(live.astype(np.float32), device=dev)
         idx_l = idx.long()
+        live_l = torch.as_tensor(ids_np[live], device=dev)
         n_rows = int(np.unique(ids_np[live]).size)
-        k = {"ms": time_ms(lambda: pg.gather_pool(table, idx, lengths)),
-             "plain_ms": time_ms(
-                 lambda: pg.gather_pool_plain(table, idx, lengths)),
-             "library_ms": time_ms(lambda: torch.nn.functional.embedding_bag(
-                 idx_l, table, mode="sum", per_sample_weights=mask)),
-             "max_abs_err": err, "bit_equal": bool(torch.equal(got, want)),
-             "distinct_rows": n_rows}
-        # ids and lengths read once, each distinct live row once, the
-        # output written once; one add per live (row, column)
-        k["bound_ms"], k["bound_by"] = bound_ms(
-            4 * R_POOL * CAP + 4 * R_POOL + 4 * W_POOL * n_rows
-            + 4 * W_POOL * R_POOL, W_POOL * int(lengths_np.sum()))
-        results[dist] = k
-        log(f"gather_pool[{dist}]: distinct rows {n_rows}; {k['ms']:.4f} ms "
-            f"(plain {k['plain_ms']:.4f}, embedding_bag "
-            f"{k['library_ms']:.4f}, bound {k['bound_ms']:.4f}); max err "
-            f"{err}, bit-equal {k['bit_equal']}")
+        results[dist] = {}
+        for layout in layouts:
+            table, what = tables[layout], f"({dist}, {layout})"
+            got = twice(f"gather_pool {what}",
+                        lambda: pg.gather_pool(table, idx, lengths))
+            want = pg.gather_pool_plain(table, idx, lengths)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            if not torch.equal(got, want):
+                raise AssertionError(f"gather_pool != plain {what}: max err "
+                                     f"{err}")
+            dense = tables["stride11"]
+            k = {"ms": time_ms(f"gather_pool {what}",
+                               lambda: pg.gather_pool(table, idx, lengths)),
+                 "plain_ms": time_ms(
+                     f"gather_pool_plain {what}",
+                     lambda: pg.gather_pool_plain(table, idx, lengths)),
+                 "library_ms": time_ms(
+                     f"embedding_bag {what}",
+                     lambda: torch.nn.functional.embedding_bag(
+                         idx_l, dense, mode="sum",
+                         per_sample_weights=mask)),
+                 "live_rows_index_select_ms": time_ms(
+                     f"index_select of the live rows {what}",
+                     lambda: torch.index_select(table, 0, live_l)),
+                 "max_abs_err": err, "distinct_rows": n_rows}
+            # the same work on either layout: ids and lengths read once,
+            # each distinct live row's 11 values once, the output written
+            # once; one add per live (row, column)
+            k["bound_ms"], k["bound_by"] = bound_ms(
+                4 * R_POOL * CAP + 4 * R_POOL + 4 * W_POOL * n_rows
+                + 4 * W_POOL * R_POOL, W_POOL * int(lengths_np.sum()))
+            results[dist][layout] = k
+            log(f"gather_pool[{dist}, {layout}]: distinct rows {n_rows}; "
+                f"{k['ms']:.4f} ms (plain {k['plain_ms']:.4f}, "
+                f"embedding_bag {k['library_ms']:.4f}, index_select of the "
+                f"live rows {k['live_rows_index_select_ms']:.4f}, bound "
+                f"{k['bound_ms']:.4f}); bit-equal to plain")
     return results
 
 
@@ -470,11 +556,13 @@ def packed_phase(seed: int = 2):
     return launches, out
 
 
-def profile_phase(seed: int = 1) -> dict:
+def profile_phase(seed: int = 1, symbols=SYMBOLS) -> dict:
     """Short passes (2 batches) with torch.profiler tracing the device
     during train_pass alone, one per entry point and lowering: device time
-    by kernel, and the device-busy share of the steps' event windows
-    (the rest is the device waiting for the host to launch work)."""
+    by kernel, the device time per step of each wrapper's CUDA kernels
+    (named in ``symbols``), and the device-busy share of the steps' event
+    windows (the rest is the device waiting for the host to launch
+    work)."""
     from torch.profiler import ProfilerActivity, profile
     rng = np.random.default_rng(seed)
     block = make_block(rng, 2 * BATCH)
@@ -502,13 +590,19 @@ def profile_phase(seed: int = 1) -> dict:
         busy_ms = sum(r[1] for r in rows)
         window_ms = sum(stats["step_ms"])
         share = 100 * busy_ms / window_ms
+        n_steps = len(stats["step_ms"])
+        per_step = {k: sum(ms for key, ms, _ in rows
+                           if any(sym in key for sym in syms)) / n_steps
+                    for k, syms in symbols.items()}
         log(f"profile[{name}]: device busy {busy_ms:.2f} ms of the steps' "
             f"{window_ms:.2f} ms event windows ({share:.1f} %), step "
-            f"device ms {stats['step_ms']}")
+            f"device ms {stats['step_ms']}; kernel device ms per step "
+            + ", ".join(f"{k} {v:.4f}" for k, v in per_step.items()))
         for key, ms, n in rows[:12]:
             log(f"profile[{name}]: {ms:8.3f} ms  x{n:<4d} {key[:80]}")
         out[name] = {"device_busy_ms": busy_ms, "step_window_ms": window_ms,
                      "step_ms": stats["step_ms"],
+                     "kernel_ms_per_step": per_step,
                      "top": [{"kernel": k[:120], "ms": ms, "calls": n}
                              for k, ms, n in rows[:12]]}
     return out
@@ -528,8 +622,8 @@ def main() -> int:
 
     kern = kernel_phase(dev)
     pool = gather_pool_phase(dev)
-    for dist in kern:
-        kern[dist]["gather_pool"] = pool[dist]
+    for dist in pool:     # the fast path's table layout
+        kern[dist]["gather_pool"] = pool[dist]["stride12"]
     slice_launches, slice_out = slice_phase()
     packed_launches, packed_out = packed_phase()
     profile_out = profile_phase()
@@ -544,11 +638,13 @@ def main() -> int:
             "replaces": REPLACES[name],
             "launches": sum(n[name] for n in by_path.values()),
             "launches_by_path": {p: n[name] for p, n in by_path.items()},
-            "max_abs_err": max(kern[d][name]["max_abs_err"] for d in kern),
+            "max_abs_err": max(kern[d][name]["max_abs_err"] for d in kern
+                               if name in kern[d]),
             "ms": k["ms"], "plain_ms": k["plain_ms"],
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
             "library_ms": k["library_ms"]})
     log("detail: " + json.dumps({"kernels_by_dist": kern,
+                                 "gather_pool_by_layout": pool,
                                  "slice": slice_out, "packed": packed_out,
                                  "profile": profile_out}))
     print(json.dumps(line), flush=True)

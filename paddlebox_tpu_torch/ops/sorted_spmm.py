@@ -13,10 +13,11 @@ work straight on the sorted domain and ignore the worklist:
   of the JAX package: one thread per sorted position copies the W values
   of its row.  Exact f32, so it equals ``table_fm[:, rows]`` bit for bit.
 * ``scatter_add_sorted`` replaces ``_scatter_kernel`` /
-  ``scatter_add_sorted``: a segmented sum over the runs of equal rows
-  (``first_occ`` marks the run starts) in a fixed order — one thread per
-  run start, long runs split into pieces summed in parallel first — that
-  writes each row once: deterministic, no float atomics.
+  ``scatter_add_sorted``: a segmented sum over the runs of equal rows in
+  a fixed order — tiles of ``SCATTER_TILE`` sorted positions reduced
+  block-cooperatively, then one warp per run that crosses a tile edge —
+  that writes each row once: deterministic, no float atomics, and a
+  cost that does not grow with the length of a run.
 
 Both are bound by device-memory bytes (see the source note in the .cu
 file).  Each wrapper takes its plain PyTorch version for a tensor on the
@@ -36,6 +37,7 @@ from paddlebox_tpu_torch.ops import cuda_lib
 
 CHUNK = 512     # occurrences per chunk (plan geometry, as in the JAX package)
 TILE = 2048     # table rows per tile
+SCATTER_TILE = 1024   # sorted positions per block of the Hopper scatter
 
 
 def _round_up(n: int, a: int) -> int:
@@ -217,13 +219,20 @@ def _lib() -> ctypes.CDLL:
         lib.pbt_gather_sorted.argtypes = [_P, ctypes.c_int64, _P, _P,
                                           ctypes.c_int64, ctypes.c_int, _P]
         lib.pbt_gather_sorted.restype = ctypes.c_int
-        lib.pbt_scatter_add_sorted.argtypes = [_P, ctypes.c_int64, _P, _P, _P,
+        lib.pbt_scatter_add_sorted.argtypes = [_P, ctypes.c_int64, _P, _P,
                                                _P, ctypes.c_int64,
                                                ctypes.c_int, _P]
         lib.pbt_scatter_add_sorted.restype = ctypes.c_int
         lib.pbt_scatter_scratch_floats.argtypes = [ctypes.c_int64,
                                                    ctypes.c_int]
         lib.pbt_scatter_scratch_floats.restype = ctypes.c_int64
+        lib.pbt_scatter_tile.argtypes = []
+        lib.pbt_scatter_tile.restype = ctypes.c_int
+        if lib.pbt_scatter_tile() != SCATTER_TILE:
+            raise RuntimeError(
+                f"sorted_spmm.cu tiles the scatter by "
+                f"{lib.pbt_scatter_tile()} positions, the wrapper by "
+                f"{SCATTER_TILE}")
         lib._pbt_typed = True
     return lib
 
@@ -275,7 +284,9 @@ def scatter_add_sorted(payload_fm: torch.Tensor, rows2d: torch.Tensor,
     """payload_fm [W, p_pad] in sorted order -> merged delta [W, n_kernel]:
     every table row = the sum of its occurrences' payload columns,
     untouched rows exactly zero, the sentinel row holds the (zero) pad
-    sum — slice it off."""
+    sum — slice it off.  The kernel finds the runs of equal rows from
+    ``rows2d`` itself; ``first_occ`` (the plan's run starts) is checked
+    and kept in the signature so the plan tuple stays the JAX package's."""
     if payload_fm.device.type == "cpu":
         return scatter_add_sorted_plain(payload_fm, rows2d, first_occ, dims)
     if payload_fm.device.type != "cuda":
@@ -290,15 +301,16 @@ def scatter_add_sorted(payload_fm: torch.Tensor, rows2d: torch.Tensor,
     lib = _lib()
     out = torch.zeros((w, dims.n_kernel), dtype=torch.float32,
                       device=payload_fm.device)
-    # per-piece partial sums of long runs (see the .cu source note)
+    # per-tile carries of the runs that cross a tile edge, and tile flags
+    # (see the .cu source note)
     scratch = torch.empty((lib.pbt_scatter_scratch_floats(p_pad, w),),
                           dtype=torch.float32, device=payload_fm.device)
     with torch.cuda.device(payload_fm.device):
         stream = torch.cuda.current_stream().cuda_stream
         cuda_lib.check(lib.pbt_scatter_add_sorted(
             payload_fm.data_ptr(), p_pad, rows2d.data_ptr(),
-            first_occ.data_ptr(), scratch.data_ptr(), out.data_ptr(),
-            dims.n_kernel, w, stream), "scatter_add_sorted")
+            scratch.data_ptr(), out.data_ptr(), dims.n_kernel, w, stream),
+            "scatter_add_sorted")
     scatter_add_sorted.launches += 1
     return out
 

@@ -7,7 +7,8 @@ by row, written back with identical values for every occurrence of a
 row), never by a full [N, D] pass.
 
 Pull: one row-major table [N, 3 + D] (show, click, embed_w, and mf
-masked by ``mf_size > 0``) goes through ``ops.pallas_gather.gather_pool``
+masked by ``mf_size > 0``; the view of a buffer with rows padded to 16
+bytes) goes through ``ops.pallas_gather.gather_pool``
 — the hand-written CUDA kernel on a card — over idx [S, L, B] laid out as
 [S·B, L] rows, then CVM and the [B, S, E] transpose.
 
@@ -47,11 +48,21 @@ def step_prelude(idx: torch.Tensor, lengths: torch.Tensor):
 
 def _pull_table(ws: Tensors) -> torch.Tensor:
     """Row-major pull table [N, 3 + D]: show, click, embed_w, and the mf
-    columns zeroed for rows whose mf is not created yet."""
+    columns zeroed for rows whose mf is not created yet.  It is the
+    [N, 3 + D] view of a buffer whose rows are padded to a multiple of 4
+    floats (16 bytes), so ``gather_pool`` reads rows as float4; the
+    fields are written straight into the view (one masked multiply, one
+    stack), and the pad, which the kernel loads but never writes out, is
+    left unset."""
+    n, d = ws["mf"].shape
+    e = 3 + d
+    table = torch.empty((n, (e + 3) // 4 * 4), dtype=torch.float32,
+                        device=ws["mf"].device)[:, :e]
     created = (ws["mf_size"] > 0).to(torch.float32)
-    return torch.cat([ws["show"][:, None], ws["click"][:, None],
-                      ws["embed_w"][:, None],
-                      mf_values(ws, ws["mf"]) * created[:, None]], dim=1)
+    torch.mul(mf_values(ws, ws["mf"]), created[:, None], out=table[:, 3:])
+    torch.stack([ws["show"], ws["click"], ws["embed_w"]], dim=1,
+                out=table[:, :3])
+    return table
 
 
 def pull_pool_cvm(ws: Tensors, idx: torch.Tensor, lengths: torch.Tensor,
@@ -63,7 +74,7 @@ def pull_pool_cvm(ws: Tensors, idx: torch.Tensor, lengths: torch.Tensor,
     kernel reads only the first ``lengths`` ids of each row, so no mask
     is needed here."""
     s, l, b = idx.shape
-    table = _pull_table(ws).contiguous()
+    table = _pull_table(ws)
     rows = idx.permute(0, 2, 1).reshape(s * b, l).to(torch.int32)
     pooled = pallas_gather.gather_pool(
         table, rows.contiguous(),

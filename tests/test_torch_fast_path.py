@@ -77,6 +77,21 @@ def test_pull_pool_cvm_matches_jax(use_cvm):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
+def test_pull_table_rows_are_padded_to_16_bytes():
+    """The pull table is the [N, 3 + D] view of a buffer whose rows are
+    padded to a multiple of 4 floats; the view holds the JAX fast path's
+    pulled values (show, click, embed_w, mf masked by mf_size > 0)."""
+    jws, tws = _both_ws()
+    table = tfast._pull_table(tws)
+    assert tuple(table.shape) == (N, 3 + D)
+    assert table.stride() == (8, 1)            # 3 + 4 = 7 → 8 floats
+    created = (jws["mf_size"] > 0).astype(jnp.float32)[:, None]
+    want = jnp.concatenate(
+        [jws["show"][:, None], jws["click"][:, None], jws["embed_w"][:, None],
+         jemb.mf_values(jws, jws["mf"]) * created], axis=1)
+    np.testing.assert_array_equal(table.numpy(), np.asarray(want))
+
+
 @pytest.mark.parametrize("thresh,dym,ctr_double", [
     (0.0, False, False), (5.0, False, False), (1e9, False, False),
     (0.0, True, False), (5.0, False, True)])

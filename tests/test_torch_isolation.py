@@ -1,6 +1,7 @@
 """The PyTorch port imports neither JAX nor the JAX package.
 
-Every module of ``paddlebox_tpu_torch`` (and ``chip_smoke.py``) is
+Every module of ``paddlebox_tpu_torch`` (and the card scripts
+``chip_smoke.py`` and ``kernel_ab.py``) is
 imported in a fresh interpreter in which ``jax``, ``jaxlib`` and
 ``paddlebox_tpu`` are blocked: any import of them raises there.
 """
@@ -46,14 +47,16 @@ def test_port_modules_import_without_jax():
     mods = _port_modules()
     assert "paddlebox_tpu_torch.trainer.trainer" in mods
     assert "paddlebox_tpu_torch.ops.sorted_spmm" in mods
-    proc = subprocess.run([sys.executable, "-c", _PROBE, *mods, "chip_smoke"],
+    scripts = ["chip_smoke", "kernel_ab"]
+    proc = subprocess.run([sys.executable, "-c", _PROBE, *mods, *scripts],
                           cwd=REPO, capture_output=True, text=True,
                           timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert proc.stdout.strip() == f"ok {len(mods) + 1}"
+    assert proc.stdout.strip() == f"ok {len(mods) + len(scripts)}"
 
 
-@pytest.mark.parametrize("path", ["paddlebox_tpu_torch", "chip_smoke.py"])
+@pytest.mark.parametrize("path", ["paddlebox_tpu_torch", "chip_smoke.py",
+                                  "kernel_ab.py"])
 def test_port_sources_name_no_jax_import(path):
     """A static check beside the probe: no source line imports jax or
     the JAX package (an import inside a function would escape the

@@ -25,8 +25,7 @@ CASES = {
     "zipf": lambda rng: (np.minimum(rng.zipf(1.2, 4000), 999), 1000),
     "padding_heavy": lambda rng: (np.where(rng.random(3000) < 0.4, 0,
                                            rng.integers(1, 200, 3000)), 200),
-    # runs longer than one 256-position piece of the two-pass scatter,
-    # and runs that end exactly on a piece boundary
+    # long runs, and runs that end on multiples of 256 positions
     "long_runs": lambda rng: (rng.permutation(
         np.repeat([0, 5, 9, 11], [1000, 512, 700, 3])), 64),
     "piece_aligned": lambda rng: (np.repeat([1, 2, 3], [256, 768, 256]),
@@ -62,13 +61,76 @@ def test_kernels_match_plain_on_card(cuda_device, case, trim):
     n0 = tsp.scatter_add_sorted.launches
     got = tsp.scatter_add_sorted(pay, plan[0], plan[7], kd)
     assert tsp.scatter_add_sorted.launches == n0 + 1
+    _assert_scatter_matches_plain(got, pay, plan, kd)
+
+
+def _assert_scatter_matches_plain(got, pay, plan, kd):
     want = tsp.scatter_add_sorted_plain(pay, plan[0], plan[7], kd)
     abs_sum = tsp.scatter_add_sorted_plain(pay.abs(), plan[0], plan[7], kd)
+    again = tsp.scatter_add_sorted(pay, plan[0], plan[7], kd)
     torch.cuda.synchronize()
     # rounding of a sum in another order scales with the sum of |terms|
     # (row 0 sums every padding occurrence): rtol 1e-5 plus 1e-5 of it
     assert bool(((got - want).abs()
                  <= 1e-5 * want.abs() + 1e-5 * abs_sum + 1e-6).all())
+    assert torch.equal(got, again)       # a fixed order of adds
+
+
+T = tsp.SCATTER_TILE
+# sorted domains longer than one scatter tile (SCATTER_TILE positions)
+TILE_CASES = {
+    "run_spans_many_tiles": lambda rng: (
+        np.repeat([1, 2, 3], [5, 5 * T + 37, 100]), 64),
+    "runs_end_on_tile_edges": lambda rng: (
+        np.repeat([1, 2, 3, 4, 5], [T, T + 1, T - 1, 2 * T, 50]), 64),
+    "one_row_fills_domain": lambda rng: (np.full(3 * T, 5), 64),
+    "whole_tiles_inside_run": lambda rng: (
+        np.repeat([1, 2, 3], [T // 2, 3 * T, T // 2 + 7]), 64),
+    "padding_heavy_big": lambda rng: (np.where(
+        rng.random(4 * T + 300) < 0.4, 0,
+        rng.integers(1, 200, 4 * T + 300)), 200),
+    # a hot row, then tiles whose few runs are spread over many rows
+    "sparse_tail": lambda rng: (np.r_[np.full(T + 500, 3),
+                                      rng.integers(1, 200_000, 2 * T)],
+                                200_000),
+}
+
+
+def _misaligned(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of t whose data starts 4 bytes past a 16-byte
+    boundary (the kernel then stages with 4-byte copies)."""
+    buf = torch.empty((t.numel() + 1,), dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["w12", "w11", "w20", "misaligned"])
+@pytest.mark.parametrize("trim", [False, True])
+@pytest.mark.parametrize("case", sorted(TILE_CASES))
+def test_scatter_across_tiles_on_card(cuda_device, case, trim, layout):
+    """Runs that cross, end on, or fill scatter tiles, at payload widths
+    of one and two column rounds, on the 16-byte and the 4-byte staging
+    route: within tolerance of the plain version, bit-identical on a
+    second call."""
+    rows, n_rows = TILE_CASES[case](np.random.default_rng(0))
+    rows = np.asarray(rows, np.int32)
+    dims = tsp.spmm_dims(len(rows), n_rows, chunk=8, tile=32)
+    eff = tsp.trimmed_dims(dims, int((rows != 0).sum())) if trim else None
+    kd = eff or dims
+    plan = tsp.build_plan(torch.as_tensor(rows, device=cuda_device), dims,
+                          eff)
+    w = {"w12": 12, "w11": 11, "w20": 20, "misaligned": 12}[layout]
+    g = torch.Generator().manual_seed(4)
+    pay = torch.randn((w, kd.p_pad), generator=g).to(cuda_device)
+    if layout == "misaligned":
+        pay = _misaligned(pay)
+        plan = (_misaligned(plan[0]),) + tuple(plan[1:])
+    n0 = tsp.scatter_add_sorted.launches
+    got = tsp.scatter_add_sorted(pay, plan[0], plan[7], kd)
+    assert tsp.scatter_add_sorted.launches == n0 + 1
+    _assert_scatter_matches_plain(got, pay, plan, kd)
 
 
 @pytest.mark.cuda
@@ -127,6 +189,55 @@ def test_gather_pool_matches_plain_on_card(cuda_device, case):
                                atol=1e-6)
 
 
+def _table_view(table: np.ndarray, layout: str, dev) -> torch.Tensor:
+    """table [N, D] as a view of a wider buffer: row stride 11 (packed),
+    12 or 16 (16-byte rows), or starting at column 1 of a 12-wide buffer
+    (16-byte row stride, base 4 bytes past a 16-byte boundary)."""
+    n, d = table.shape
+    ld, col = {"packed": (d, 0), "stride12": (12, 0), "stride16": (16, 0),
+               "col1": (12, 1), "wide": ((d + 3) // 4 * 4, 0)}[layout]
+    buf = torch.full((n, ld), float("nan"), device=dev)
+    view = buf[:, col:col + d]
+    view.copy_(torch.as_tensor(table))
+    return view
+
+
+# (layout, L, D): ids of L > 4 need more than one group chunk when rows
+# are 16-byte words; D = 130 needs more than 32 lanes of floats
+LAYOUT_CASES = [("packed", 3, 11), ("stride12", 3, 11), ("stride16", 3, 11),
+                ("col1", 3, 11), ("stride12", 20, 11), ("packed", 20, 11),
+                ("wide", 5, 67), ("packed", 5, 130)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout,l_cap,d", LAYOUT_CASES)
+def test_gather_pool_table_layouts_on_card(cuda_device, layout, l_cap, d):
+    """Row strides 11, 12 and 16 and an unaligned base: bit-equal to the
+    plain version (same terms, same order), bit-identical on a second
+    call; ids past each length are 10**9 and must never be read (the
+    NaN pad columns must never reach the output)."""
+    rng = np.random.default_rng(1)
+    r, n = 300, 500
+    table = rng.normal(0, 1, (n, d)).astype(np.float32)
+    table[0] = 0.0
+    lengths = rng.integers(0, l_cap + 1, r).astype(np.int32)
+    live = np.arange(l_cap)[None, :] < lengths[:, None]
+    idx = rng.integers(0, n, (r, l_cap))
+    t = _table_view(table, layout, cuda_device)
+    i = torch.as_tensor(np.where(live, idx, 10 ** 9).astype(np.int32),
+                        device=cuda_device)
+    ln = torch.as_tensor(lengths, device=cuda_device)
+    got = tpg.gather_pool(t, i, ln)
+    again = tpg.gather_pool(t, i, ln)
+    want = tpg.gather_pool_plain(
+        torch.as_tensor(table, device=cuda_device),
+        torch.as_tensor(np.where(live, idx, 0).astype(np.int32),
+                        device=cuda_device), ln)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(got, again)
+
+
 @pytest.mark.cuda
 def test_gather_pool_rejects_what_the_kernel_does_not_take(cuda_device):
     t = torch.zeros((16, 4), device=cuda_device)
@@ -143,3 +254,6 @@ def test_gather_pool_rejects_what_the_kernel_does_not_take(cuda_device):
     with pytest.raises(ValueError):
         tpg.gather_pool(t, torch.zeros((3, 8), dtype=torch.int32,
                                        device=cuda_device).t(), ln)
+    with pytest.raises(ValueError):          # column stride 2
+        tpg.gather_pool(torch.zeros((16, 8), device=cuda_device)[:, ::2],
+                        i, ln)

@@ -57,3 +57,24 @@ def test_gather_pool_plain_ignores_ids_past_the_length():
     want = np.stack([table[idx[r, :lengths[r]]].sum(0)
                      for r in range(len(lengths))])
     np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+@pytest.mark.parametrize("ld,col", [(12, 0), (16, 0), (12, 1)])
+def test_gather_pool_on_a_column_view(ld, col):
+    """A table seen as [:, col:col + D] of a wider buffer (the fast
+    path's padded rows) pools the same values as the contiguous table,
+    bit for bit, and as the JAX package's Pallas kernel."""
+    table, idx, lengths = _inputs(3, seed=2)
+    n, d = table.shape
+    buf = torch.full((n, ld), float("nan"))
+    view = buf[:, col:col + d]
+    view.copy_(torch.as_tensor(table))
+    assert view.stride() == (ld, 1) and not view.is_contiguous()
+    i, ln = torch.as_tensor(idx), torch.as_tensor(lengths)
+    dense = tpg.gather_pool(torch.as_tensor(table), i, ln)
+    for fn in (tpg.gather_pool, tpg.gather_pool_plain):
+        assert torch.equal(fn(view, i, ln), dense)
+    want = jpg.gather_pool(jnp.asarray(table), jnp.asarray(idx),
+                           jnp.asarray(lengths), interpret=True)
+    np.testing.assert_allclose(tpg.gather_pool(view, i, ln).numpy(),
+                               np.asarray(want), **TOL)
