@@ -63,11 +63,13 @@ def all_flags() -> Dict[str, Any]:
 define_flag("check_nan_inf", False,
             "per-batch NaN/Inf check of the loss (boxps_worker.cc:1326)")
 define_flag("sparse_step_path", "auto",
-            "sparse step lowering: auto | mxu.  This port implements the "
-            "mxu lowering only; 'auto' resolves to it without a topology")
+            "sparse step lowering: auto | mxu | fast | ragged | reference.  "
+            "It overrides an 'auto' construction only; with one device "
+            "'auto' resolves to mxu (reference with fast_path=False)")
 define_flag("mxu_crossing", "auto",
-            "sorted<->canonical crossing lowering for the mxu path.  The "
-            "port implements 'take' only; 'auto' resolves to it")
+            "sorted<->canonical crossing lowering of the mxu path: take | "
+            "sort | auto.  'auto' times both once per geometry on a card "
+            "and takes 'take' on the CPU (ops/crossing.py)")
 define_flag("mxu_crossing_bf16", False,
             "move the mxu pull crossing in bfloat16 (the push crossing of "
             "the legacy payload stays f32: it carries the exact slot id)")

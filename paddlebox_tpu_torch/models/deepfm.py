@@ -11,7 +11,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from paddlebox_tpu_torch.models.layers import MLP
+from paddlebox_tpu_torch.models.layers import MLP, snapshot
 
 
 class DeepFM(nn.Module):
@@ -49,17 +49,10 @@ class DeepFM(nn.Module):
 
     def jax_params(self):
         """The inverse of :meth:`load_jax_params` (numpy, JAX layout): a
-        snapshot, like the JAX package's immutable params — on the CPU
-        ``.numpy()`` would alias the live weights that training updates
-        in place, so every array is copied."""
-        def snap(t):
-            return t.detach().cpu().numpy().copy()
-        return {
-            "mlp": [{"w": snap(layer.weight).T, "b": snap(layer.bias)}
-                    for layer in self.mlp.layers],
-            "dense_w": snap(self.dense_w),
-            "bias": snap(self.bias),
-        }
+        snapshot, like the JAX package's immutable params."""
+        return {"mlp": self.mlp.jax_params(),
+                "dense_w": snapshot(self.dense_w),
+                "bias": snapshot(self.bias)}
 
     def forward(self, pooled: torch.Tensor, dense: torch.Tensor
                 ) -> torch.Tensor:

@@ -10,6 +10,13 @@ import torch
 from torch import nn
 
 
+def snapshot(t: torch.Tensor) -> np.ndarray:
+    """A numpy copy of ``t``: on the CPU ``.numpy()`` would alias the live
+    weights that training updates in place, unlike the JAX package's
+    immutable params."""
+    return t.detach().cpu().numpy().copy()
+
+
 class MLP(nn.Module):
     """Linear layers with ReLU between them and none after the last."""
 
@@ -42,6 +49,11 @@ class MLP(nn.Module):
         for layer, p in zip(self.layers, params):
             layer.weight.copy_(torch.tensor(np.asarray(p["w"])).T)
             layer.bias.copy_(torch.tensor(np.asarray(p["b"])))
+
+    def jax_params(self):
+        """The inverse of :meth:`load_jax_params`, as a snapshot."""
+        return [{"w": snapshot(layer.weight).T, "b": snapshot(layer.bias)}
+                for layer in self.layers]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for i, layer in enumerate(self.layers):

@@ -7,6 +7,13 @@ per field (``show`` [N], ``mf`` [N, D], ...).
 
 Row 0 is the reserved zero row: padding positions and unknown keys point
 at it, pull zeros and push nothing (≙ FLAGS_enable_pull_box_padding_zero).
+
+``pull_sparse`` / ``push_sparse_grads`` are the reference lowering's pull
+(a plain gather per field) and merged push.  The push merges every float
+column with one ``sorted_spmm.segment_sum`` (a stable sort of the row
+ids, then the ``scatter_add_sorted`` kernel on a card): the JAX package's
+``.at[].add`` in a fixed order, where ``index_add_`` on a card would add
+with float atomics in an order that changes from run to run.
 """
 
 from __future__ import annotations
@@ -15,6 +22,9 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+
+from paddlebox_tpu_torch.ops import sorted_spmm as sp
+
 
 def size_bucket(n: int, align: int = 8) -> int:
     """Grow-only size buckets so per-pass working sets of similar size
@@ -121,3 +131,47 @@ def cvm_pooled(pooled: torch.Tensor, use_cvm: bool = True) -> torch.Tensor:
 
 def is_quantized(ws: Dict[str, torch.Tensor]) -> bool:
     return "mf_scale" in ws
+
+
+def pull_sparse(ws: Dict[str, torch.Tensor], indices: torch.Tensor
+                ) -> torch.Tensor:
+    """Gather pull values [*, 3+D]: (show, click, embed_w, embedx×D).
+
+    ≙ PullSparseCaseGPU + CopyForPull (box_wrapper_impl.h:25,
+    box_wrapper.cu:945).  mf is masked until created (mf_size > 0,
+    CommonPullValue semantics, feature_value.h:161)."""
+    idx = indices.long()
+    created = (ws["mf_size"][idx] > 0).to(torch.float32)
+    mf = mf_values(ws, ws["mf"][idx]) * created[..., None]
+    return torch.cat([ws["show"][idx][..., None], ws["click"][idx][..., None],
+                      ws["embed_w"][idx][..., None], mf], dim=-1)
+
+
+def push_sparse_grads(ws: Dict[str, torch.Tensor], indices: torch.Tensor,
+                      grads: torch.Tensor, slot_ids: torch.Tensor
+                      ) -> Dict[str, torch.Tensor]:
+    """Merge per-occurrence push values into per-row accumulators
+    (merge-by-key, ≙ PushMergeCopyAtomic box_wrapper.cu:476).
+
+    indices [S, B, L] pass rows; grads [S, B, L, 3+D], columns (g_show,
+    g_click, g_embed, g_embedx...); slot_ids [S] int32.  Returns g_show /
+    g_click / g_embed [N], g_embedx [N, D] and the per-row slot id.  Row 0
+    (padding) accumulates too; the optimizer's mask ignores it."""
+    n = ws["show"].shape[0]
+    s, b, l = indices.shape
+    flat_idx = indices.reshape(-1)
+    flat_g = grads.reshape(-1, grads.shape[-1])
+    merged = sp.segment_sum(flat_g, flat_idx, n)            # [N, 3+D]
+    # only valid occurrences vote for the row's slot (the show grad column
+    # carries the seqpool key mask: ins_show > 0 exactly where the key is
+    # real); an integer max is exact in any order
+    flat_slot = slot_ids.to(torch.int32)[:, None, None].expand(
+        s, b, l).reshape(-1)
+    slot = torch.zeros((n,), dtype=torch.int32,
+                       device=flat_idx.device).scatter_reduce_(
+        0, flat_idx.long(), torch.where(flat_g[:, 0] > 0, flat_slot,
+                                        torch.zeros_like(flat_slot)),
+        "amax", include_self=True)
+    return {"g_show": merged[:, 0], "g_click": merged[:, 1],
+            "g_embed": merged[:, 2], "g_embedx": merged[:, 3:],
+            "slot": slot}

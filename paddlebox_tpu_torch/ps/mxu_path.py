@@ -17,8 +17,10 @@ feature-major [W, n_kernel] with W = 3 + D + 1 (show, click, embed_w,
 mf×D, mf_size).  Plans come in the forms of the JAX package: the untrimmed
 8-tuple the streaming step builds, and the packed pass feed's trimmed
 plans (leading row-0 padding dropped) with or without the 11-tuple
-static payload planes.  The "take" crossing only; the "sort" crossing and
-expand (mf_ex) tables are not ported yet.
+static payload planes.  Either crossing lowering (ops/crossing.py):
+"take" gathers by the plan's permutations, "sort" sorts keyed by the
+destination positions; the two give the same bits.  Expand (mf_ex)
+tables are not ported yet.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import torch
 
 from paddlebox_tpu_torch import flags
 from paddlebox_tpu_torch.config import SparseSGDConfig
+from paddlebox_tpu_torch.ops import crossing as cx
 from paddlebox_tpu_torch.ops import sorted_spmm as sp
 from paddlebox_tpu_torch.ps import optimizer as sparse_opt
 from paddlebox_tpu_torch.ps.embedding import cvm_pooled, mf_values
@@ -130,18 +133,27 @@ def acc_from_delta(delta: torch.Tensor, n: int) -> Tensors:
     }
 
 
+def _check_crossing(crossing: str) -> None:
+    if crossing not in ("take", "sort"):
+        raise ValueError(f"crossing must be 'take' or 'sort', got "
+                         f"{crossing!r}")
+
+
 def pull_pool_cvm(ws: Tensors, plan, dims: sp.SpmmDims,
                   shape_slb: Tuple[int, int, int],
-                  use_cvm: bool = True) -> torch.Tensor:
+                  use_cvm: bool = True,
+                  crossing: str = "take") -> torch.Tensor:
     """Fused pull + seqpool + CVM → pooled [B, S, 3 + D].
 
     Row 0 and the sentinel tile hold zeros, so padding occurrences and
     unseen keys contribute nothing — no length mask needed on the pull
-    side.  The sorted→canonical crossing gathers by inv_perm ("take")."""
+    side.  crossing: the sorted→canonical lowering — "take" gathers by
+    inv_perm, "sort" sorts keyed by perm (the destination index)."""
+    _check_crossing(crossing)
     s, l, b = shape_slb
     d = ws["mf"].shape[1]
     _check_plan(plan, dims)
-    rows2d, inv_perm = plan[0], plan[2]
+    rows2d, perm, inv_perm = plan[0], plan[1], plan[2]
     eff = plan_eff_dims(plan, dims)
     tab = _pull_table(ws, dims)
     g = sp.gather_sorted(tab, rows2d, eff or dims)         # [3+D+1, p_pad]
@@ -152,7 +164,18 @@ def pull_pool_cvm(ws: Tensors, plan, dims: sp.SpmmDims,
     w = 3 + d
     if flags.get_flags("mxu_crossing_bf16"):
         g = g.to(torch.bfloat16)
-    if eff is None:
+    if crossing == "sort":
+        if eff is not None:
+            # dropped (row-0) positions re-enter as leading zero columns,
+            # exactly the value row 0 holds
+            g = torch.cat([torch.zeros((w, dims.p_pad - eff.p_pad),
+                                       dtype=g.dtype, device=g.device), g],
+                          dim=1)
+        # [p, W] in take's layout: a card's sum over L below adds in an
+        # order that follows the strides, so a transposed view would pool
+        # other bits than take
+        v = cx.permute_by_dest(tuple(g[:, :dims.p]), perm).T.contiguous()
+    elif eff is None:
         v = g.T[:dims.p][inv_perm.long()]                   # canonical [p,W]
     else:
         # trimmed plan: dropped positions (inv_perm < 0) were row-0
@@ -166,13 +189,15 @@ def pull_pool_cvm(ws: Tensors, plan, dims: sp.SpmmDims,
 def push_and_update(ws: Tensors, plan, dims: sp.SpmmDims,
                     idx_slb: torch.Tensor, d_pooled: torch.Tensor,
                     ins_cvm: torch.Tensor, slot_ids: torch.Tensor,
-                    cfg: SparseSGDConfig) -> Tensors:
+                    cfg: SparseSGDConfig, crossing: str = "take") -> Tensors:
     """Merged push + sparse optimizer, updating ``ws`` in place.
 
     d_pooled [B, S, 3+D] — cols 0,1 are ignored and replaced by the
     instance cvm (reference push semantics, box_wrapper_impl.h:373);
-    ins_cvm [B, 2]; slot_ids [S].  The canonical→sorted crossing gathers
-    by perm ("take").
+    ins_cvm [B, 2]; slot_ids [S].  crossing: the canonical→sorted
+    lowering — "take" gathers by perm, "sort" sorts keyed by inv_perm
+    (the destination index; a trimmed plan's dropped occurrences have
+    negative ones and sort first, into the cut prefix).
 
     With the static payload planes (an 11-tuple plan: bs, labelcol,
     slotcol, built at feed time) only the DYNAMIC columns cross: g_show
@@ -181,19 +206,37 @@ def push_and_update(ws: Tensors, plan, dims: sp.SpmmDims,
     by ``bs`` (≙ CopyForPush building the payload per key slot,
     box_wrapper.cu:1168)."""
     _check_plan(plan, dims)
+    _check_crossing(crossing)
     s, l, b = idx_slb.shape
     d = ws["mf"].shape[1]
     n = ws["show"].shape[0]
     w = d + 4
-    rows2d, perm, first_occ = plan[0], plan[1], plan[7]
+    rows2d, perm, inv_perm, first_occ = plan[0], plan[1], plan[2], plan[7]
     eff = plan_eff_dims(plan, dims)
     kd = eff or dims
+
+    def sort_cross(can: torch.Tensor) -> torch.Tensor:
+        """canonical [p, c] → sorted kept domain [c, kd.p_pad], pad
+        columns zero."""
+        srt = cx.permute_by_dest(tuple(can.T), inv_perm)
+        srt = srt[:, dims.p_pad - kd.p_pad:]
+        return torch.cat([srt, torch.zeros(
+            (srt.shape[0], kd.p_pad - srt.shape[1]), dtype=srt.dtype,
+            device=srt.device)], dim=1)
+
     if len(plan) > 8:
         bs_ids, labelcol, slotcol = plan[8], plan[9], plan[10]
         p2 = d_pooled[:, :, 2:].reshape(b * s, 1 + d)       # b-major rows
         if flags.get_flags("mxu_crossing_bf16"):
             p2 = p2.to(torch.bfloat16)
-        dyn = p2[bs_ids.long()].T.to(torch.float32)         # [1+D, p_pad]
+        if crossing == "sort":
+            # canonical flat [(s, l, b), 1+D]: broadcast over L only here,
+            # in the narrow dynamic slice
+            can = p2.reshape(b, s, 1 + d).permute(1, 0, 2)[:, None].expand(
+                s, l, b, 1 + d).reshape(dims.p, 1 + d)
+            dyn = sort_cross(can).to(torch.float32)
+        else:
+            dyn = p2[bs_ids.long()].T.to(torch.float32)     # [1+D, p_pad]
         ones = torch.ones((1, kd.p_pad), dtype=torch.float32,
                           device=dyn.device)
         srt_cm = torch.cat([ones, labelcol[None], dyn, slotcol[None]],
@@ -203,11 +246,14 @@ def push_and_update(ws: Tensors, plan, dims: sp.SpmmDims,
         # always crosses in f32 (mxu_crossing_bf16 never applies here)
         payload = push_payload(d_pooled, ins_cvm, slot_ids, (s, l, b))
         flat = payload.reshape(dims.p, w)
-        # trimmed plans keep the suffix of the full bijection: dropped
-        # row-0 occurrences never scatter (row 0 is reserved); the
-        # sentinel-padded tail carries nothing
-        srt_cm = flat[sp.kept_perm(perm, dims, kd).long()].T.contiguous()
-        srt_cm[:, kd.p_pad - (dims.p_pad - dims.p):] = 0.0
+        if crossing == "sort":
+            srt_cm = sort_cross(flat).contiguous()
+        else:
+            # trimmed plans keep the suffix of the full bijection: dropped
+            # row-0 occurrences never scatter (row 0 is reserved); the
+            # sentinel-padded tail carries nothing
+            srt_cm = flat[sp.kept_perm(perm, dims, kd).long()].T.contiguous()
+            srt_cm[:, kd.p_pad - (dims.p_pad - dims.p):] = 0.0
         # slot column: keep only each row's FIRST occurrence (plan mask),
         # so the scatter-sum returns that occurrence's slot exactly (≙ the
         # reference's per-key slot from its merge position,

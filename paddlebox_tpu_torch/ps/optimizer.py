@@ -14,8 +14,13 @@ Exact semantics of dy_mf_update_value (optimizer.cuh.h:82-130):
       mf_create_thresholds (:104-112); then same adagrad with mf_* params.
 Row 0 (reserved zero/padding row) is never updated.
 
-Only the default rule (``adagrad``, config.py) is ported; the other rules
-of the JAX package's ``OPTIMIZERS`` raise until they are.
+Every rule of the JAX package's ``OPTIMIZERS`` is here: ``adagrad``,
+``shared_adam`` (SparseAdamSharedOptimizer :330), ``adam`` (per-dim
+moments, SparseAdamOptimizer :148), ``std_adagrad`` (per-dim g2sum,
+sparse_sgd_rule.h:109) and ``naive`` (plain SGD, sparse_sgd_rule.h:77).
+Each is elementwise over axis 0, so a caller may pass the whole working
+set or a gathered [U]-row sub-SoA with matching accumulators (the ragged
+lowering does).
 """
 
 from __future__ import annotations
@@ -144,26 +149,230 @@ def sparse_adagrad_apply(ws: Tensors, acc: Tensors, cfg: SparseSGDConfig,
             "mf_size": mf_size, "mf_g2sum": mf_g2sum, "mf": mf}
 
 
-def _not_ported(name: str):
-    def apply(ws, acc, cfg, dims_row=None):
-        raise NotImplementedError(
-            f"sparse optimizer rule {name!r} is not ported to the PyTorch "
-            "package yet (ROADMAP: port of the remaining optimizer rules)")
-    return apply
+def _shared_adam_group(w, m1, m2, b1p, b2p, g, scale, lr, beta1, beta2,
+                       min_bound, max_bound, touched, n_dim,
+                       eps: float = 1e-8):
+    """≙ SparseAdamSharedOptimizer::update_value_work
+    (optimizer.cuh.h:341-386): ONE shared (moment1, moment2, beta-pow) per
+    row for the whole group; per-dim new moments derive from the shared
+    old moment, w updates per dim, then the stored moments are the per-dim
+    means and the beta powers decay once.  n_dim: the group width, or
+    per-row [N] ints for dynamic mf dims."""
+    safe_scale = torch.where(scale > 0, scale, torch.ones_like(scale))
+    ratio = lr * torch.sqrt(1.0 - b2p) / (1.0 - b1p)
+    if w.dim() == 2:
+        sg = g / safe_scale[:, None]
+        new_m1 = beta1 * m1[:, None] + (1 - beta1) * sg
+        new_m2 = beta2 * m2[:, None] + (1 - beta2) * sg * sg
+        upd = new_m1 / (torch.sqrt(new_m2) + eps)
+        if torch.is_tensor(n_dim):
+            # dynamic mf dims: only the row's true columns update, and the
+            # shared moments are means over those columns alone
+            dmask = (torch.arange(w.shape[1], device=w.device)[None, :]
+                     < n_dim[:, None]).to(w.dtype)
+            upd = upd * dmask
+            m1_out = torch.sum(new_m1 * dmask, dim=1) / n_dim
+            m2_out = torch.sum(new_m2 * dmask, dim=1) / n_dim
+        else:
+            m1_out = torch.mean(new_m1, dim=1)
+            m2_out = torch.mean(new_m2, dim=1)
+        new_w = w + ratio[:, None] * upd
+        mask = touched[:, None]
+    else:
+        sg = g / safe_scale
+        new_m1 = beta1 * m1 + (1 - beta1) * sg
+        new_m2 = beta2 * m2 + (1 - beta2) * sg * sg
+        new_w = w + ratio * (new_m1 / (torch.sqrt(new_m2) + eps))
+        m1_out, m2_out = new_m1, new_m2
+        mask = touched
+    new_w = torch.clamp(new_w, min_bound, max_bound)
+    return (torch.where(mask, new_w, w),
+            torch.where(touched, m1_out, m1),
+            torch.where(touched, m2_out, m2),
+            torch.where(touched, b1p * beta1, b1p),
+            torch.where(touched, b2p * beta2, b2p))
+
+
+def _group_dim(ws: Tensors, cfg: SparseSGDConfig, slot, dims_row):
+    """The embedx group width: per-row [N] dims under dynamic mf dims,
+    else the table's mf width."""
+    if dims_row is None:
+        dims_row = _dym_dims(cfg, slot, ws["mf"].shape[1])
+    return dims_row if dims_row is not None else ws["mf"].shape[1]
+
+
+def _reset_beta_pows(create, b1p, b2p, cfg: SparseSGDConfig):
+    """Rows created by this push restart their beta powers at the decay
+    rates (creation init, optimizer.cuh.h:260-268, :436-441)."""
+    return (torch.where(create, torch.full_like(b1p, cfg.beta1_decay_rate),
+                        b1p),
+            torch.where(create, torch.full_like(b2p, cfg.beta2_decay_rate),
+                        b2p))
+
+
+def sparse_adam_apply(ws: Tensors, acc: Tensors, cfg: SparseSGDConfig,
+                      dims_row=None) -> Tensors:
+    """SparseAdamShared (optimizer.cuh.h:330-477): shared per-row moments
+    in embed_gsum/embed_g2sum (+ beta powers) for the lr weight and
+    mf_gsum/mf_g2sum for the embedx group.  Needs the adam state fields
+    (feature_value.ADAM_FIELDS)."""
+    touched, show, click, delta = _common_stats(ws, acc, cfg)
+    slot = torch.where(touched, acc["slot"], ws["slot"])
+
+    embed_w, e_m1, e_m2, e_b1, e_b2 = _shared_adam_group(
+        ws["embed_w"], ws["embed_gsum"], ws["embed_g2sum"],
+        ws["embed_b1p"], ws["embed_b2p"], acc["g_embed"], acc["g_show"],
+        cfg.learning_rate, cfg.beta1_decay_rate, cfg.beta2_decay_rate,
+        cfg.mf_min_bound, cfg.mf_max_bound, touched, 1, cfg.ada_epsilon)
+
+    group_dim = _group_dim(ws, cfg, slot, dims_row)
+    create, mf_size, mf_touched = _mf_create(ws, cfg, touched, show, click,
+                                             group_dim)
+    mf, m_m1, m_m2, m_b1, m_b2 = _shared_adam_group(
+        ws["mf"], ws["mf_gsum"], ws["mf_g2sum"], ws["mf_b1p"], ws["mf_b2p"],
+        acc["g_embedx"], acc["g_show"], cfg.mf_learning_rate,
+        cfg.beta1_decay_rate, cfg.beta2_decay_rate,
+        cfg.mf_min_bound, cfg.mf_max_bound, mf_touched, group_dim,
+        cfg.ada_epsilon)
+    m_b1, m_b2 = _reset_beta_pows(create, m_b1, m_b2, cfg)
+
+    return {"show": show, "click": click, "delta_score": delta,
+            "slot": slot,
+            "embed_w": embed_w, "embed_g2sum": e_m2, "embed_gsum": e_m1,
+            "embed_b1p": e_b1, "embed_b2p": e_b2,
+            "mf_size": mf_size, "mf_g2sum": m_m2, "mf_gsum": m_m1,
+            "mf_b1p": m_b1, "mf_b2p": m_b2, "mf": mf}
+
+
+def sparse_naive_apply(ws: Tensors, acc: Tensors, cfg: SparseSGDConfig,
+                       dims_row=None) -> Tensors:
+    """SparseNaiveSGDRule (sparse_sgd_rule.h:77): plain SGD with bound
+    clipping and show-scaled grads; the g2sum fields are left alone."""
+    touched, show, click, delta = _common_stats(ws, acc, cfg)
+    slot = torch.where(touched, acc["slot"], ws["slot"])
+    g_show = acc["g_show"]
+    safe_scale = torch.where(g_show > 0, g_show, torch.ones_like(g_show))
+    embed_w = torch.where(
+        touched,
+        torch.clamp(ws["embed_w"] + cfg.learning_rate * acc["g_embed"]
+                    / safe_scale, cfg.min_bound, cfg.max_bound),
+        ws["embed_w"])
+    group_dim = _group_dim(ws, cfg, slot, dims_row)
+    create, mf_size, mf_touched = _mf_create(ws, cfg, touched, show, click,
+                                             group_dim)
+    mf = torch.where(
+        mf_touched[:, None],
+        torch.clamp(ws["mf"] + cfg.mf_learning_rate * acc["g_embedx"]
+                    / safe_scale[:, None], cfg.mf_min_bound,
+                    cfg.mf_max_bound),
+        ws["mf"])
+    return {"show": show, "click": click, "delta_score": delta,
+            "slot": slot, "embed_w": embed_w, "mf_size": mf_size, "mf": mf}
+
+
+def sparse_std_adagrad_apply(ws: Tensors, acc: Tensors, cfg: SparseSGDConfig,
+                             dims_row=None) -> Tensors:
+    """StdAdaGradSGDRule (sparse_sgd_rule.h:109): adagrad with a per-dim
+    g2sum for the embedx group (field mf_g2sum_d [N, D]) instead of the
+    shared per-row scalar; the 1-dim lr weight is plain adagrad."""
+    touched, show, click, delta = _common_stats(ws, acc, cfg)
+    slot = torch.where(touched, acc["slot"], ws["slot"])
+    lr_embed = torch.where(
+        slot == cfg.nodeid_slot,
+        torch.full_like(ws["embed_w"], cfg.learning_rate),
+        torch.full_like(ws["embed_w"], cfg.feature_learning_rate))
+    g_show = acc["g_show"]
+    safe_scale = torch.where(g_show > 0, g_show, torch.ones_like(g_show))
+    ratio = lr_embed * torch.sqrt(cfg.initial_g2sum /
+                                  (cfg.initial_g2sum + ws["embed_g2sum"]))
+    sg = acc["g_embed"] / safe_scale
+    embed_w = torch.where(
+        touched,
+        torch.clamp(ws["embed_w"] + sg * ratio, cfg.min_bound, cfg.max_bound),
+        ws["embed_w"])
+    embed_g2sum = torch.where(touched, ws["embed_g2sum"] + sg * sg,
+                              ws["embed_g2sum"])
+
+    group_dim = _group_dim(ws, cfg, slot, dims_row)
+    create, mf_size, mf_touched = _mf_create(ws, cfg, touched, show, click,
+                                             group_dim)
+    sg_mf = acc["g_embedx"] / safe_scale[:, None]           # [N, D]
+    ratio_d = cfg.mf_learning_rate * torch.sqrt(
+        cfg.mf_initial_g2sum / (cfg.mf_initial_g2sum + ws["mf_g2sum_d"]))
+    mask = mf_touched[:, None]
+    mf = torch.where(mask, torch.clamp(ws["mf"] + sg_mf * ratio_d,
+                                       cfg.mf_min_bound, cfg.mf_max_bound),
+                     ws["mf"])
+    mf_g2sum_d = torch.where(mask, ws["mf_g2sum_d"] + sg_mf * sg_mf,
+                             ws["mf_g2sum_d"])
+    return {"show": show, "click": click, "delta_score": delta, "slot": slot,
+            "embed_w": embed_w, "embed_g2sum": embed_g2sum,
+            "mf_size": mf_size, "mf_g2sum_d": mf_g2sum_d, "mf": mf}
+
+
+def sparse_adam_dim_apply(ws: Tensors, acc: Tensors, cfg: SparseSGDConfig,
+                          dims_row=None) -> Tensors:
+    """Per-dimension SparseAdam (sparse_sgd_rule.h:126 /
+    optimizer.cuh.h:148): embedx keeps full [N, D] moments (mf_gsum_d /
+    mf_g2sum_d) with shared per-row beta-power trackers; the 1-dim lr
+    weight uses the scalar moment fields (the shared rule at dim 1)."""
+    eps = cfg.ada_epsilon
+    b1, b2 = cfg.beta1_decay_rate, cfg.beta2_decay_rate
+    touched, show, click, delta = _common_stats(ws, acc, cfg)
+    slot = torch.where(touched, acc["slot"], ws["slot"])
+    g_show = acc["g_show"]
+    safe_scale = torch.where(g_show > 0, g_show, torch.ones_like(g_show))
+
+    embed_w, e_m1, e_m2, e_b1, e_b2 = _shared_adam_group(
+        ws["embed_w"], ws["embed_gsum"], ws["embed_g2sum"],
+        ws["embed_b1p"], ws["embed_b2p"], acc["g_embed"], g_show,
+        cfg.learning_rate, b1, b2, cfg.mf_min_bound, cfg.mf_max_bound,
+        touched, 1, eps)
+
+    group_dim = _group_dim(ws, cfg, slot, dims_row)
+    create, mf_size, mf_touched = _mf_create(ws, cfg, touched, show, click,
+                                             group_dim)
+    sg = acc["g_embedx"] / safe_scale[:, None]              # [N, D]
+    new_m1 = b1 * ws["mf_gsum_d"] + (1 - b1) * sg
+    new_m2 = b2 * ws["mf_g2sum_d"] + (1 - b2) * sg * sg
+    lr_t = cfg.mf_learning_rate * torch.sqrt(1.0 - ws["mf_b2p"]) \
+        / (1.0 - ws["mf_b1p"])
+    new_mf = torch.clamp(ws["mf"] + lr_t[:, None]
+                         * (new_m1 / (torch.sqrt(new_m2) + eps)),
+                         cfg.mf_min_bound, cfg.mf_max_bound)
+    mask = mf_touched[:, None]
+    mf = torch.where(mask, new_mf, ws["mf"])
+    mf_gsum_d = torch.where(mask, new_m1, ws["mf_gsum_d"])
+    mf_g2sum_d = torch.where(mask, new_m2, ws["mf_g2sum_d"])
+    mf_b1p = torch.where(mf_touched, ws["mf_b1p"] * b1, ws["mf_b1p"])
+    mf_b2p = torch.where(mf_touched, ws["mf_b2p"] * b2, ws["mf_b2p"])
+    mf_b1p, mf_b2p = _reset_beta_pows(create, mf_b1p, mf_b2p, cfg)
+
+    return {"show": show, "click": click, "delta_score": delta,
+            "slot": slot,
+            "embed_w": embed_w, "embed_gsum": e_m1, "embed_g2sum": e_m2,
+            "embed_b1p": e_b1, "embed_b2p": e_b2,
+            "mf_size": mf_size, "mf": mf,
+            "mf_gsum_d": mf_gsum_d, "mf_g2sum_d": mf_g2sum_d,
+            "mf_b1p": mf_b1p, "mf_b2p": mf_b2p}
 
 
 OPTIMIZERS = {
     "adagrad": sparse_adagrad_apply,
-    "shared_adam": _not_ported("shared_adam"),
-    "adam": _not_ported("adam"),
-    "std_adagrad": _not_ported("std_adagrad"),
-    "naive": _not_ported("naive"),
+    "shared_adam": sparse_adam_apply,
+    "adam": sparse_adam_dim_apply,
+    "std_adagrad": sparse_std_adagrad_apply,
+    "naive": sparse_naive_apply,
 }
 
 
 def apply_push(ws: Tensors, acc: Tensors, cfg: SparseSGDConfig,
                dims_row=None) -> Tensors:
     """Apply one merged push to ``ws`` IN PLACE and return it.
+
+    dims_row: optional per-row [N] mf dims (≙ CtrDymfAccessor); rules
+    divide and mask by the row's true width.  A rule returns only the
+    fields it changes; the others keep their storage and values.
 
     The JAX step donates the working-set buffers to the jitted step and
     gets new ones back; here each field's new values are copied into the

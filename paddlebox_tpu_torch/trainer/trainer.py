@@ -2,15 +2,26 @@
 
 Port of ``paddlebox_tpu/trainer/trainer.py`` (≙ BoxPSTrainer::Run →
 BoxPSWorker::TrainFiles, boxps_trainer.cc:282, boxps_worker.cc:1278):
-pull → seqpool + CVM → DeepFM fwd/bwd → merged push → sparse adagrad →
-dense Adam → AUC buckets, on one of three sparse lowerings:
+pull → seqpool + CVM → model fwd/bwd → merged push → sparse optimizer
+rule → dense Adam → AUC buckets, on one of four sparse lowerings:
 
-* ``mxu``    — sorted gather / merged scatter kernels (ps/mxu_path.py);
-  what ``auto`` resolves to with one device;
-* ``fast``   — padded-dense, its pull the fused ``gather_pool`` kernel
+* ``mxu``       — sorted gather / merged scatter kernels (ps/mxu_path.py);
+  what ``auto`` resolves to with one device; its two crossings take the
+  "take" or "sort" lowering (ops/crossing.py, FLAGS_mxu_crossing);
+* ``fast``      — padded-dense, its pull the fused ``gather_pool`` kernel
   (ps/fast_path.py); adagrad only;
-* ``ragged`` — CSR [U]-domain step (ps/ragged_path.py); needs the
-  pass-resident feed's host-built plans.
+* ``ragged``    — CSR [U]-domain step (ps/ragged_path.py); needs the
+  pass-resident feed's host-built plans;
+* ``reference`` — the JAX package's exact step: a gather pull
+  (``embedding.pull_sparse``), ``ops.seqpool_cvm.fused_seqpool_cvm``
+  with its reference backward, and a merged push
+  (``embedding.push_sparse_grads``); what ``auto`` resolves to with
+  ``fast_path=False``.
+
+``amp=True`` runs the whole model in bfloat16 on every lowering: each
+step casts every parameter and input to bf16 and the logits back to f32
+(the JAX package's ``strategy.amp``); the loss, the sigmoid, the dense
+optimizer and the master weights stay f32.
 
 Two entry points: ``train_pass(dataset)`` packs batches on host threads
 through a bounded Channel while the device trains (≙ PackBatchTask,
@@ -21,8 +32,8 @@ data_feed.h:2036).
 
 PyTorch runs the step eagerly, so there is no jit and no donation: the
 working set, the dense params, the optimizer state and the AUC buckets
-are updated in place on the device.  Not ported yet: the ``reference``
-and multi-device lowerings, the async dense table, amp, dumps and WuAUC.
+are updated in place on the device.  Not ported yet: the multi-device
+lowering, the async dense table, dumps and WuAUC.
 """
 
 from __future__ import annotations
@@ -44,8 +55,11 @@ from paddlebox_tpu_torch.data.dataset import SlotDataset
 from paddlebox_tpu_torch.device import DeviceLike, resolve_device
 from paddlebox_tpu_torch.metrics.auc import (AucCalculator, accumulate_auc,
                                              make_auc_state)
+from paddlebox_tpu_torch.ops import crossing as cx
 from paddlebox_tpu_torch.ops import sorted_spmm as sp
+from paddlebox_tpu_torch.ops.seqpool_cvm import fused_seqpool_cvm
 from paddlebox_tpu_torch.ps import embedding, fast_path, mxu_path, ragged_path
+from paddlebox_tpu_torch.ps import optimizer as sparse_opt
 from paddlebox_tpu_torch.ps.pass_manager import BoxPSEngine
 from paddlebox_tpu_torch.utils import intervals, trace
 from paddlebox_tpu_torch.utils.channel import Channel, ChannelClosed
@@ -59,6 +73,7 @@ class SparseTrainer:
                  label_slot: str = "label",
                  dense_optimizer: Optional[torch.optim.Optimizer] = None,
                  use_cvm: bool = True, auc_table_size: int = 100_000,
+                 amp: bool = False, fast_path: bool = True,
                  sparse_path: str = "auto", seed: int = 0,
                  device: DeviceLike = None):
         """``model`` is re-initialised from ``seed`` (its
@@ -67,7 +82,9 @@ class SparseTrainer:
         ``dense_optimizer`` defaults to Adam(lr=1e-3) over the model's
         parameters — the same update as the JAX package's
         ``optax.adam(1e-3)``: bias-corrected moments, eps added after the
-        square root."""
+        square root.  ``amp``: bf16 model compute over f32 master
+        weights.  ``fast_path=False`` makes ``auto`` resolve to the
+        ``reference`` lowering."""
         self.device = resolve_device(device)
         if engine.device != self.device:
             raise ValueError(f"engine works on {engine.device}, trainer "
@@ -82,10 +99,15 @@ class SparseTrainer:
         self.packer = BatchPacker(feed_config, batch_size, label_slot)
         self.batch_size = batch_size
         self.use_cvm = use_cvm
+        self.amp = amp
+        self.fast_path = fast_path
         if sparse_path == "auto" \
                 and flags.get_flags("sparse_step_path") != "auto":
             sparse_path = flags.get_flags("sparse_step_path")
         self.sparse_path = sparse_path
+        # (pull, push) crossing lowerings of the mxu step, resolved at the
+        # start of each pass (_crossing_modes)
+        self._mxu_crossing = ("take", "take")
         self.timers = TimerRegistry()
         self.slot_ids = np.array(
             [s.slot_id for s in feed_config.sparse_slots], np.int32)
@@ -106,6 +128,7 @@ class SparseTrainer:
         self.model = model.to(self.device)
         self.dense_opt = dense_optimizer or torch.optim.Adam(
             self.model.parameters(), lr=1e-3)
+        self.auc_table_size = auc_table_size
         self.auc_state = make_auc_state(auc_table_size, self.device)
         self.auc = AucCalculator(auc_table_size)
         self._check_nan = flags.get_flags("check_nan_inf")
@@ -113,7 +136,9 @@ class SparseTrainer:
     # ------------------------------------------------------------------
     def _resolve_path(self) -> str:
         """Resolve sparse_path='auto' against the live working set: with
-        one device and no topology the JAX package resolves to mxu."""
+        one device and no topology the JAX package resolves to mxu, or to
+        reference under fast_path=False (its escape hatch to the exact
+        step)."""
         assert self.engine.ws is not None, \
             "engine pass lifecycle must run before building the step " \
             "(begin_feed_pass/add_keys/end_feed_pass/begin_pass)"
@@ -121,7 +146,9 @@ class SparseTrainer:
             raise ValueError(
                 "the working set is serving-frozen; training requires the "
                 "f32 store — rebuild the pass")
-        return "mxu" if self.sparse_path == "auto" else self.sparse_path
+        if self.sparse_path != "auto":
+            return self.sparse_path
+        return "mxu" if self.fast_path else "reference"
 
     def _validate_path(self, path: str) -> None:
         """Reject configs a path cannot honor (both entry points)."""
@@ -132,33 +159,116 @@ class SparseTrainer:
                 raise ValueError(
                     "sparse_path='fast' implements the adagrad rule only "
                     f"(got {self.engine.config.sgd.optimizer!r})")
-        elif path in ("reference", "mxu_sharded"):
-            raise ValueError(f"sparse_path {path!r} is not ported to the "
-                             "PyTorch package")
-        elif path not in ("mxu", "ragged"):
+        elif path == "mxu_sharded":
+            raise ValueError("sparse_path 'mxu_sharded' is not ported to "
+                             "the PyTorch package")
+        elif path not in ("mxu", "ragged", "reference"):
             raise ValueError(f"unknown sparse_path {path!r}")
 
+    def _crossing_modes(self, s: int, l: int, b: int,
+                        eff_p_pad: Optional[int] = None,
+                        planes: bool = False):
+        """(pull, push) crossing lowerings of the mxu step
+        (ops/crossing.py): the pull's take emits p canonical rows, the
+        push's take only the kept (trimmed) width.  With the static
+        payload planes the push crosses only the 1+D dynamic columns; the
+        legacy payload carries the exact slot column, so it never crosses
+        in bf16."""
+        p = s * l * b
+        d = int(self.engine.ws["mf"].shape[1])
+        dev = self.device.type
+        dt = ("bfloat16" if flags.get_flags("mxu_crossing_bf16")
+              else "float32")
+        pull = cx.best_mode(p, p, 3 + d, dev, dt)
+        if planes:
+            push = cx.best_mode(eff_p_pad or p, p, 1 + d, dev, dt)
+        else:
+            push = cx.best_mode(eff_p_pad or p, p, 4 + d, dev)
+        return (pull, push)
+
     # ------------------------------------------------------------------
+    def _ins_cvm(self, labels: torch.Tensor) -> torch.Tensor:
+        """The instance's (show, click) for the push: (1, label)."""
+        return torch.stack([torch.ones_like(labels), labels], dim=1)
+
+    def _forward(self, x: torch.Tensor, dense: torch.Tensor) -> torch.Tensor:
+        """The model's f32 logits.  Under amp the whole forward runs in
+        bf16 over per-step bf16 copies of the parameters, whose grads flow
+        back to the f32 masters (≙ the JAX package casting the params
+        pytree and inputs; ``torch.autocast`` would keep reductions and
+        many elementwise ops in f32, another function)."""
+        if not self.amp:
+            return self.model(x, dense)
+        bf16 = torch.bfloat16
+        params = {n: p.to(bf16) for n, p in self.model.named_parameters()}
+        logits = torch.func.functional_call(
+            self.model, params, (x.to(bf16), dense.to(bf16)))
+        return logits.to(torch.float32)
+
+    def _loss_and_preds(self, x, dense, labels, valid):
+        """Masked-mean BCE of the logits and the (detached) predictions."""
+        logits = self._forward(x, dense)
+        w = valid.to(torch.float32)
+        per = F.binary_cross_entropy_with_logits(logits, labels,
+                                                 reduction="none")
+        loss = torch.sum(per * w) / torch.clamp(torch.sum(w), min=1.0)
+        return loss, torch.sigmoid(logits.detach())
+
+    def _accumulate_metrics(self, preds, labels, valid) -> None:
+        accumulate_auc(self.auc_state, preds, labels, valid)
+
+    def _dense_step(self, x, dense, labels, valid):
+        """Model fwd/bwd, dense optimizer step and AUC; the backward also
+        fills ``.grad`` of whatever leaf ``x`` came from.  Returns (loss,
+        preds)."""
+        loss, preds = self._loss_and_preds(x, dense, labels, valid)
+        self.dense_opt.zero_grad(set_to_none=True)
+        loss.backward()
+        self.dense_opt.step()
+        self._accumulate_metrics(preds, labels, valid)
+        return loss.detach(), preds
+
     def _pooled_dense_half(self, pooled, dense, labels, valid):
-        """Dense fwd/bwd + dense optimizer + AUC; returns (loss, preds,
-        d_pooled) — the pooled grads feed the sparse push."""
+        """Dense half of the pooled-based steps (mxu/fast/ragged): returns
+        (loss, preds, d_pooled) — the pooled grads feed the sparse push."""
         b = pooled.shape[0]
         pooled = pooled.detach().requires_grad_(True)
         x = pooled
         if self._dym_mask is not None:
             x = x * self._dym_mask[None]
         x = x if self.use_cvm else x[:, :, 2:]
-        logits = self.model(x.reshape(b, -1), dense)
-        w = valid.to(torch.float32)
-        per = F.binary_cross_entropy_with_logits(logits, labels,
-                                                 reduction="none")
-        loss = torch.sum(per * w) / torch.clamp(torch.sum(w), min=1.0)
-        self.dense_opt.zero_grad(set_to_none=True)
-        loss.backward()
-        self.dense_opt.step()
-        preds = torch.sigmoid(logits.detach())
-        accumulate_auc(self.auc_state, preds, labels, valid)
-        return loss.detach(), preds, pooled.grad
+        loss, preds = self._dense_step(x.reshape(b, -1), dense, labels,
+                                       valid)
+        return loss, preds, pooled.grad
+
+    def _reference_step(self, idx_slb, lengths, dense, labels, valid):
+        """The reference lowering (≙ JAX trainer.py:606-659): pull →
+        fused_seqpool_cvm → model → BCE → backward → merged push → sparse
+        rule → dense optimizer → AUC."""
+        ws = self.engine.ws
+        indices = idx_slb.permute(0, 2, 1)                  # [S, B, L]
+        # 1. pull (≙ PullSparseCaseGPU box_wrapper_impl.h:25)
+        with torch.no_grad():
+            emb = embedding.pull_sparse(ws, indices)
+        emb.requires_grad_(True)
+        # 2-3. forward + backward over the dense params and the pulled
+        # embeddings; the seqpool backward puts the instance cvm in the
+        # show/click grad columns
+        pooled = fused_seqpool_cvm(emb, lengths, self._ins_cvm(labels),
+                                   self.use_cvm)
+        if self._dym_mask is not None:
+            # the pooled output is [B, S*E] flattened; with use_cvm=False
+            # the two cvm columns are dropped first
+            m = self._dym_mask if self.use_cvm else self._dym_mask[:, 2:]
+            pooled = pooled * m.reshape(-1)[None]
+        loss, preds = self._dense_step(pooled, dense, labels, valid)
+        # 4-6. merged push + sparse optimizer (≙ PushSparseGradCaseGPU,
+        # box_wrapper_impl.h:373)
+        with torch.no_grad():
+            acc = embedding.push_sparse_grads(ws, indices, emb.grad,
+                                              self._slot_ids_dev)
+            sparse_opt.apply_push(ws, acc, self.engine.config.sgd)
+        return loss, preds
 
     def _core(self, path, idx_slb, lengths, dense, labels, valid,
               plan=None):
@@ -166,10 +276,14 @@ class SparseTrainer:
         set, the dense params and the AUC state in place: idx_slb
         [S, L, B]; plan is the feed's plan of this batch (None → the mxu
         lowering plans in-step; ragged needs one)."""
+        if path == "reference":
+            return self._reference_step(idx_slb, lengths, dense, labels,
+                                        valid)
         ws = self.engine.ws
         s, l, b = idx_slb.shape
         sgd = self.engine.config.sgd
-        ins_cvm = torch.stack([torch.ones_like(labels), labels], dim=1)
+        ins_cvm = self._ins_cvm(labels)
+        pull_cross, push_cross = self._mxu_crossing
         with torch.no_grad():
             if path == "mxu":
                 # geometry from the live working set, so a per-pass table
@@ -184,7 +298,7 @@ class SparseTrainer:
                                           torch.zeros_like(idx_slb))
                     plan = mxu_path.build_plan(idx_slb, dims)
                 pooled = mxu_path.pull_pool_cvm(ws, plan, dims, (s, l, b),
-                                                self.use_cvm)
+                                                self.use_cvm, pull_cross)
             elif path == "fast":
                 pooled = fast_path.pull_pool_cvm(ws, idx_slb, lengths,
                                                  self.use_cvm)
@@ -200,7 +314,8 @@ class SparseTrainer:
         with torch.no_grad():
             if path == "mxu":
                 mxu_path.push_and_update(ws, plan, dims, idx_slb, d_pooled,
-                                         ins_cvm, self._slot_ids_dev, sgd)
+                                         ins_cvm, self._slot_ids_dev, sgd,
+                                         push_cross)
             elif path == "fast":
                 fast_path.push_and_update(ws, idx_slb, lengths, d_pooled,
                                           ins_cvm, self._slot_ids_dev, sgd)
@@ -287,6 +402,11 @@ class SparseTrainer:
                 "sparse_path='ragged' requires the pass-resident feed "
                 "(build_pass_feed / train_pass(feed)) — the streaming "
                 "per-batch path has no host CSR plan build")
+        self._mxu_crossing = ("take", "take")
+        if path == "mxu":
+            self._mxu_crossing = self._crossing_modes(
+                len(self.packer.sparse_slots), self.packer.capacity,
+                self.batch_size)
         engine = self.engine
         mapper = engine.mapper
         ch = Channel(capacity=prefetch)
@@ -435,6 +555,14 @@ class SparseTrainer:
                     f"{feed.plan_dims}, but the pass now needs {cur} — "
                     "rebuild the feed (build_pass_feed)")
             plans = feed.plans
+        self._mxu_crossing = ("take", "take")
+        if path == "mxu":
+            eff_p_pad = None
+            if plans is not None:
+                r = plans["rows2d"].shape           # [N, n_chunks, 1, c]
+                eff_p_pad = int(r[1]) * int(r[3])
+            self._mxu_crossing = self._crossing_modes(
+                s, l, b, eff_p_pad, plans is not None and "bs" in plans)
         log = {"losses": [], "events": []}
         for i in range(feed.n_batches):
             bt = pf.slice_batch(feed.data, i)

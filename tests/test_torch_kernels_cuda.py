@@ -16,6 +16,7 @@ from torch_port_fixtures import cuda_device  # noqa: F401
 
 from paddlebox_tpu_torch.ops import pallas_gather as tpg
 from paddlebox_tpu_torch.ops import sorted_spmm as tsp
+from paddlebox_tpu_torch.ops.seqpool_cvm import fused_seqpool_cvm
 
 CASES = {
     "uniform": lambda rng: (rng.integers(0, 200, 300), 200),
@@ -257,3 +258,55 @@ def test_gather_pool_rejects_what_the_kernel_does_not_take(cuda_device):
     with pytest.raises(ValueError):          # column stride 2
         tpg.gather_pool(torch.zeros((16, 8), device=cuda_device)[:, ::2],
                         i, ln)
+
+
+@pytest.mark.cuda
+def test_reference_push_segment_sum_on_card(cuda_device):
+    """The reference lowering's merged push at the bench model's full
+    width: 26 slots x capacity 3 x batch 16384 occurrences of 3 + 8
+    columns into a 1.8 M-row working set, a third of them padding on row
+    0.  One scatter launch per call, the same bits on two calls, and
+    within rtol 1e-5 (plus 1e-5 of each row's sum of |terms|) of the
+    CPU's ordered sum."""
+    rng = np.random.default_rng(5)
+    n, p, w = 1_835_008, 26 * 3 * 16384, 11
+    seg = np.where(rng.random(p) < 0.33, 0, rng.integers(1, n, p))
+    vals = rng.normal(0, 1, (p, w)).astype(np.float32)
+    seg_d = torch.as_tensor(seg.astype(np.int32), device=cuda_device)
+    vals_d = torch.as_tensor(vals, device=cuda_device)
+    n0 = tsp.scatter_add_sorted.launches
+    got = tsp.segment_sum(vals_d, seg_d, n)
+    again = tsp.segment_sum(vals_d, seg_d, n)
+    assert tsp.scatter_add_sorted.launches == n0 + 2
+    assert torch.equal(got, again)
+    seg_c = torch.as_tensor(seg.astype(np.int32))
+    want = tsp.segment_sum(torch.as_tensor(vals), seg_c, n)
+    abs_sum = tsp.segment_sum(torch.as_tensor(np.abs(vals)), seg_c, n)
+    err = (got.cpu() - want).abs()
+    assert bool((err <= 1e-5 * want.abs() + 1e-5 * abs_sum + 1e-6).all())
+
+
+@pytest.mark.cuda
+def test_fused_seqpool_cvm_backward_on_card(cuda_device):
+    """The reference backward is a broadcast and a mask: the card's grads
+    equal the CPU's bit for bit; the forward's pooled sums agree within
+    rtol 1e-6."""
+    rng = np.random.default_rng(6)
+    s, b, l, e = 26, 2048, 3, 11
+    emb = rng.normal(0, 0.5, (s, b, l, e)).astype(np.float32)
+    emb[..., 0] = rng.integers(0, 8, (s, b, l))        # show
+    emb[..., 1] = rng.integers(0, 2, (s, b, l))        # click: log(1 + c)
+    lengths = rng.integers(0, l + 1, (s, b)).astype(np.int32)
+    ins = np.stack([np.ones(b), rng.integers(0, 2, b)], 1).astype(np.float32)
+    dy = rng.normal(0, 1, (b, s * e)).astype(np.float32)
+    out = {}
+    for dev in (torch.device("cpu"), cuda_device):
+        x = torch.tensor(emb, device=dev, requires_grad=True)
+        y = fused_seqpool_cvm(x, torch.as_tensor(lengths, device=dev),
+                              torch.as_tensor(ins, device=dev), True,
+                              need_filter=True, threshold=0.5)
+        y.backward(torch.as_tensor(dy, device=dev))
+        out[dev.type] = (y.detach().cpu(), x.grad.cpu())
+    assert torch.equal(out["cuda"][1], out["cpu"][1])
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=1e-6,
+                               atol=1e-6)

@@ -257,8 +257,11 @@ def test_ragged_needs_the_packed_feed_and_fresh_plans():
 
 
 def test_unported_and_invalid_paths_raise():
-    tds, eng, tr = _port_trainer("reference")
+    tds, eng, tr = _port_trainer("mxu_sharded")
     with pytest.raises(ValueError, match="not ported"):
+        tr.build_pass_feed(tds)
+    tds, eng, tr = _port_trainer("nonesuch")
+    with pytest.raises(ValueError, match="unknown sparse_path"):
         tr.build_pass_feed(tds)
     tds, eng, tr = _port_trainer("fast")
     eng.config = dataclasses.replace(eng.config, sgd=dataclasses.replace(
