@@ -66,7 +66,31 @@ result line is printed):
 9. crossing — packed mxu with FLAGS_mxu_crossing pinned to take, then to
    sort, on the packed phase's data: losses and working set bit-equal;
    prints ``best_mode``'s measured choice and both timings for the pull
-   and push crossings at this geometry.
+   and push crossings at this geometry;
+10. lifecycle — the multi-pass day loop: 2 days × 3 passes × 4 batches of
+   16384 (fresh keys per pass from the 2 M key space, so consecutive
+   passes share most of their keys), a date change between the days, on
+   the default lowering (auto → mxu) and on ragged; each first through
+   the serial engine lifecycle, then through ``PassPrefetcher`` with
+   in-memory loads, from the same data, weights and table seed.  Per-pass
+   losses, the final host table (every key, every field), the dense
+   weights and Adam's state must be bit-identical between the two, and
+   the prefetched run must have re-pulled stale rows.  Prints the day
+   walls, the pass walls, the prefetch wait and build seconds, the last
+   pass's ``feed.*_hidden_s``, and the stale-row refresh;
+11. recovery — ``fleet.train_passes`` over 3 slot text files of 16384
+   records (one batch each, one reader thread) with a
+   ``TrainCheckpoint``: a fault-free run, then seeded kills
+   (``FaultPlan(seed=13).kill_at(point, at=(1,))``) at ``end_pass``
+   (serial and prefetched) and at ``ckpt_commit`` (serial), each resumed
+   (``resume=2``) to the fault-free run's bits with at least one
+   auto-resume.  Prints the parse time, the checkpoint save seconds by
+   kind, the restore seconds, the generations kept and their size, and
+   a base save and restore of the whole table after the day.
+
+Depth cuts of phases 10-11 (the widths are the bench model's): a day of
+3 passes of 4 batches (phase 10) and of 3 passes of one batch (phase 11:
+the port's slot parser is pure Python; the phase prints its parse time).
 
 Every phase sets the launch counters to 0 just before its main run and
 reads them just after; a kernel of the path that did not launch fails
@@ -88,8 +112,11 @@ import contextlib
 import copy
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -544,6 +571,17 @@ def check_pass(what: str, stats: dict, launches: dict, per_batch: dict,
                 "batch)")
 
 
+def check_launches(what: str, launches: dict, per_batch: dict,
+                   n_batches: int) -> None:
+    """Each kernel of the path launched at least ``per_batch[name]``
+    times per batch over ``n_batches`` batches."""
+    for name, k in per_batch.items():
+        if launches[name] < k * n_batches:
+            raise AssertionError(
+                f"{what}: {name} launched {launches[name]} times over "
+                f"{n_batches} batches (want >= {k} per batch)")
+
+
 def cpu_first_loss(what: str, block: SlotRecordBlock, card_loss: float,
                    params, **kw) -> float:
     """The first step again on the CPU, from the same weights and data;
@@ -954,6 +992,343 @@ def crossing_phase(block: SlotRecordBlock, params0):
                       for k, (m, a, b) in tuned.items()}}
 
 
+# ---------------------------------------------------------------------------
+# phases 10-11: the multi-pass day loop and crash recovery
+# ---------------------------------------------------------------------------
+
+LIFE_DATES = ("20261016", "20261017")      # 2 days
+LIFE_PASSES = 3                            # passes per day, N_BATCHES each
+REC_PASSES, REC_DATE = 3, "20261016"       # recovery: 3 passes of 1 batch
+# the lowerings of the day loop: the default (auto → mxu on one card) and
+# ragged, whose host CSR build the prefetch exists to hide
+LIFE_PATHS = (("mxu", "auto"), ("ragged", "ragged"))
+
+
+def day_trainer(device: str, path: str):
+    """A fresh engine and trainer of the bench model on ``device``."""
+    engine = BoxPSEngine(EmbeddingTableConfig(
+        embedding_dim=MF_DIM, shard_num=8,
+        sgd=SparseSGDConfig(mf_create_thresholds=0.0)), seed=0, device=device)
+    trainer = SparseTrainer(engine, make_model("deepfm"), feed_config(),
+                            batch_size=BATCH, seed=0, sparse_path=path,
+                            device=device)
+    return engine, trainer
+
+
+def one_pass_dataset(block: SlotRecordBlock) -> SlotDataset:
+    ds = SlotDataset(feed_config())
+    ds._blocks = [block]
+    return ds
+
+
+def stat_delta(before: dict, after: dict, key: str) -> float:
+    return after.get(key, 0.0) - before.get(key, 0.0)
+
+
+def table_state(table):
+    """Every key of the host table, sorted, and all its fields."""
+    keys = np.sort(table.export_keys())
+    return keys, table.bulk_pull(keys)
+
+
+def same_world(what: str, a: dict, b: dict) -> None:
+    """Two runs left bit-identical per-pass losses, host tables (every
+    key, every field) and dense weights and optimizer state."""
+    if a["losses"] != b["losses"]:
+        raise AssertionError(f"{what}: per-pass losses differ: "
+                             f"{a['losses']} vs {b['losses']}")
+    (ka, ta), (kb, tb) = a["table"], b["table"]
+    if not np.array_equal(ka, kb):
+        raise AssertionError(f"{what}: the tables hold other keys "
+                             f"({len(ka)} vs {len(kb)})")
+    diff = [f for f in ta if not np.array_equal(ta[f], tb[f])]
+    if diff:
+        raise AssertionError(f"{what}: table fields {diff} differ")
+    diff = [k for k in a["dense"] if not torch.equal(a["dense"][k],
+                                                      b["dense"][k])]
+    if diff:
+        raise AssertionError(f"{what}: dense tensors {diff} differ")
+
+
+def world_of(engine, trainer, losses) -> dict:
+    dense = {f"model.{k}": v.detach().clone()
+             for k, v in trainer.model.state_dict().items()}
+    for i, st in trainer.dense_opt.state_dict()["state"].items():
+        for k, v in st.items():
+            dense[f"opt.{i}.{k}"] = v.clone()
+    return {"losses": losses, "table": table_state(engine.table),
+            "dense": dense}
+
+
+def day_loop(blocks, device: str, path: str, prefetch: bool):
+    """2 days × LIFE_PASSES passes of ``blocks`` through the engine
+    lifecycle, serially or through PassPrefetcher.  Returns (the world
+    it left, the time each pass's end_pass returned, the loop start, the
+    engine's timers {name: (seconds, count)}, the feed seconds hidden
+    under step windows summed over the passes)."""
+    from paddlebox_tpu_torch.data.prefetch import PassPrefetcher
+    from paddlebox_tpu_torch.utils.monitor import stat_get
+    engine, trainer = day_trainer(device, path)
+    losses, ends = [], []
+    hidden = dict.fromkeys(("pull", "pack", "upload", "write"), 0.0)
+
+    def pass_ended():
+        ends.append(time.perf_counter())
+        for k in hidden:
+            hidden[k] += stat_get(f"feed.{k}_hidden_s")
+
+    t0 = time.perf_counter()
+    if not prefetch:
+        for date, day in zip(LIFE_DATES, blocks):
+            engine.set_date(date)
+            for block in day:
+                engine.begin_feed_pass()
+                engine.add_keys(block.all_keys())
+                engine.end_feed_pass()
+                engine.begin_pass()
+                feed = trainer.build_pass_feed(one_pass_dataset(block))
+                losses.append(trainer.train_pass(feed)["losses"])
+                engine.end_pass()
+                pass_ended()
+    else:
+        with PassPrefetcher(engine, trainer) as pre:
+            for date, day in zip(LIFE_DATES, blocks):
+                for block in day:
+                    def load(block=block):
+                        engine.add_keys(block.all_keys())
+                        return one_pass_dataset(block)
+                    pre.submit(load, tag=date, date=date)
+            for _ in range(len(LIFE_DATES) * LIFE_PASSES):
+                feed = pre.next_pass()
+                losses.append(trainer.train_pass(feed)["losses"])
+                pre.end_pass()
+                pass_ended()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    timers = {n: (secs, c) for n, secs, c in engine.timers.rows()}
+    return world_of(engine, trainer, losses), ends, t0, timers, hidden
+
+
+def lifecycle_phase(seed: int = 5, device: str = "cuda"):
+    """The day loop at the bench model's full width: 2 days × 3 passes ×
+    N_BATCHES batches, each lowering serial then prefetched from the same
+    data, weights and table seed; the two runs must leave the same bits,
+    and the prefetched one must have re-pulled stale rows."""
+    from paddlebox_tpu_torch.utils.monitor import stat_get, stat_snapshot
+    rng = np.random.default_rng(seed)
+    t_data = time.perf_counter()
+    blocks = [[make_block(rng, N_BATCHES * BATCH)
+               for _ in range(LIFE_PASSES)] for _ in LIFE_DATES]
+    log(f"lifecycle: data for {len(LIFE_DATES)} days × {LIFE_PASSES} passes "
+        f"× {N_BATCHES} batches made in {time.perf_counter() - t_data:.2f} s")
+    n_batches = len(LIFE_DATES) * LIFE_PASSES * N_BATCHES
+    launches, out = {}, {}
+    for label, path in LIFE_PATHS:
+        worlds = {}
+        for mode in ("serial", "prefetch"):
+            key, what = f"{label}_{mode}", f"lifecycle[{label},{mode}]"
+            s0 = stat_snapshot("")
+            reset_counts()
+            world, ends, t0, timers, hidden = day_loop(
+                blocks, device, path, mode == "prefetch")
+            refresh = timers.get("refresh_stale", (0.0, 0))
+            launches[key] = read_counts()
+            s1 = stat_snapshot("")
+            check_launches(what, launches[key], PACKED_KERNELS[label],
+                           n_batches)
+            flat = [x for p in world["losses"] for x in p]
+            if not all(math.isfinite(x) for x in flat):
+                raise AssertionError(f"{what}: non-finite loss")
+            walls = [float(x) for x in np.diff([t0] + ends)]
+            rows = stat_delta(s0, s1, "ps.engine.stale_refresh_rows")
+            r = {"day_wall_s": [ends[LIFE_PASSES - 1] - t0,
+                                ends[-1] - ends[LIFE_PASSES - 1]],
+                 "pass_wall_s": walls,
+                 "median_pass_wall_s": float(np.median(walls)),
+                 "stale_refresh_rows": rows,
+                 "refresh_stale_s": refresh[0],
+                 "hidden_s_last_pass": {
+                     k: stat_get(f"feed.{k}_hidden_s")
+                     for k in ("pull", "pack", "upload", "write")},
+                 "hidden_s_all_passes": hidden,
+                 "engine_timers": timers,
+                 "first_losses": world["losses"][0],
+                 "launches": launches[key]}
+            if mode == "prefetch":
+                r["prefetch_wait_s"] = stat_delta(
+                    s0, s1, "data.prefetch.wait_s.sum")
+                r["prefetch_build_s"] = stat_delta(
+                    s0, s1, "data.prefetch.build_s.sum")
+                if rows <= 0:
+                    raise AssertionError(f"{what}: the stale-row refresh "
+                                         "re-pulled no row")
+            out[key] = r
+            worlds[mode] = world
+            log(f"{what}: day wall s {[round(x, 3) for x in r['day_wall_s']]}"
+                f", median pass wall {r['median_pass_wall_s']:.3f} s (passes "
+                f"{[round(x, 3) for x in walls]}), prefetch wait "
+                f"{r.get('prefetch_wait_s', 0.0):.3f} s, prefetch build "
+                f"{r.get('prefetch_build_s', 0.0):.3f} s, hidden s of the "
+                f"last pass {r['hidden_s_last_pass']} and of all passes "
+                f"{hidden}, refresh_stale "
+                f"{refresh[0]:.3f} s for {int(rows)} rows, launches "
+                f"{launches[key]}; engine timers s "
+                + " ".join(f"{n}={t:.3f}/{c}" for n, (t, c) in
+                           sorted(timers.items())))
+        same_world(f"lifecycle[{label}] prefetch vs serial",
+                   worlds["serial"], worlds["prefetch"])
+        log(f"lifecycle[{label}]: prefetched = serial bitwise (per-pass "
+            f"losses, {len(worlds['serial']['table'][0])} table keys × "
+            "every field, dense weights and Adam state)")
+        del worlds
+    return launches, out
+
+
+def write_slot_file(path: str, block: SlotRecordBlock) -> None:
+    """``block`` as MultiSlot text: per record the label, the dense
+    values and each slot's feasigns, each group led by its length."""
+    n = block.n
+    label = block.float_slots["label"][0]
+    dense = block.float_slots["dense0"][0].reshape(n, DENSE_DIM)
+    slots = [block.uint64_slots[f"s{i}"] for i in range(N_SLOTS)]
+    with open(path, "w") as f:
+        for r in range(n):
+            parts = [f"1 {int(label[r])}",
+                     f"{DENSE_DIM} " + " ".join(f"{x:.6g}" for x in dense[r])]
+            for vals, off in slots:
+                ids = vals[off[r]:off[r + 1]]
+                parts.append(f"{len(ids)} " + " ".join(map(str, ids)))
+            f.write(" ".join(parts) + "\n")
+
+
+def dir_bytes(root: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(root) for f in files)
+
+
+RECOVERY_CASES = (("fault_free", None, False),
+                  ("end_pass_serial", "end_pass", False),
+                  ("end_pass_prefetch", "end_pass", True),
+                  ("ckpt_commit_serial", "ckpt_commit", False))
+
+
+def recovery_phase(seed: int = 6, device: str = "cuda"):
+    """fleet.train_passes over slot text files (REC_PASSES passes of one
+    batch, one reader thread) with a TrainCheckpoint: a fault-free run,
+    then seeded kills at end_pass (serial and prefetched) and at
+    ckpt_commit (serial), each resumed (resume=2) to the fault-free run's
+    bits."""
+    from paddlebox_tpu_torch import fleet
+    from paddlebox_tpu_torch.io.checkpoint import TrainCheckpoint
+    from paddlebox_tpu_torch.ps import faults
+    from paddlebox_tpu_torch.utils import flight
+    from paddlebox_tpu_torch.utils.monitor import stat_snapshot
+    rng = np.random.default_rng(seed)
+    work = tempfile.mkdtemp(prefix="chip_smoke_recovery_")
+    try:
+        files = []
+        t0 = time.perf_counter()
+        for p in range(REC_PASSES):
+            path = os.path.join(work, f"pass{p}.txt")
+            write_slot_file(path, make_block(rng, BATCH))
+            files.append([path])
+        write_s = time.perf_counter() - t0
+        probe = SlotDataset(feed_config(), read_threads=1)
+        probe.set_filelist(files[0])
+        t0 = time.perf_counter()
+        probe.load_into_memory()
+        parse_s = time.perf_counter() - t0
+        if probe.instance_num() != BATCH:
+            raise AssertionError(f"recovery: parsed {probe.instance_num()} "
+                                 f"of {BATCH} records")
+        del probe
+        log(f"recovery: {REC_PASSES} files of {BATCH} records written in "
+            f"{write_s:.2f} s; the pure-Python parser reads one in "
+            f"{parse_s:.2f} s")
+        launches, out, base = {}, {"parse_s": parse_s}, None
+        for case, point, prefetch in RECOVERY_CASES:
+            what = f"recovery[{case}]"
+            engine, trainer = day_trainer(device, "auto")
+            ds = fleet.BoxPSDataset(feed_config(), engine=engine,
+                                    read_threads=1)
+            root = os.path.join(work, case)
+            ck = TrainCheckpoint(root)
+            s0 = stat_snapshot("")
+            m0 = time.monotonic()
+            reset_counts()
+            if point is not None:
+                flags.set_flags({"ps_fault_injection": True})
+                faults.install(faults.FaultPlan(seed=13).kill_at(point,
+                                                                 at=(1,)))
+            try:
+                metrics = fleet.train_passes(trainer, ds, files,
+                                             date=REC_DATE,
+                                             prefetch=prefetch,
+                                             checkpoint=ck, resume=2)
+            finally:
+                faults.uninstall()
+                flags.set_flags({"ps_fault_injection": False})
+            if device == "cuda":
+                torch.cuda.synchronize()
+            launches[case] = read_counts()
+            s1 = stat_snapshot("")
+            check_launches(what, launches[case], PACKED_KERNELS["mxu"],
+                           REC_PASSES)
+            if any(m is None for m in metrics) or len(metrics) != REC_PASSES:
+                raise AssertionError(f"{what}: trained {metrics!r}")
+            world = world_of(engine, trainer, [m["losses"] for m in metrics])
+            resumes = stat_delta(s0, s1, "ps.fleet.auto_resume")
+            if point is not None and resumes < 1:
+                raise AssertionError(f"{what}: no auto-resume ran")
+            saves = [(e["gen_kind"], e["save_s"])
+                     for e in reversed(flight.events(kind="ckpt_commit"))
+                     if e["mono"] >= m0]
+            gens = sorted(n for n in os.listdir(root)
+                          if n.startswith("gen-"))
+            r = {"losses": world["losses"], "auto_resume": resumes,
+                 "base_save_s": [t for k, t in saves if k == "base"],
+                 "delta_save_s": [t for k, t in saves if k == "delta"],
+                 "restores": stat_delta(s0, s1, "ckpt.restore_s.count"),
+                 "restore_s": stat_delta(s0, s1, "ckpt.restore_s.sum"),
+                 "generations_kept": gens, "ckpt_bytes": dir_bytes(root),
+                 "table_rows": len(world["table"][0]),
+                 "launches": launches[case]}
+            if base is None:
+                base = world
+                # a base generation of the whole table after the day, the
+                # size a day change writes, timed and restored once
+                full = TrainCheckpoint(os.path.join(work, "full"))
+                t0 = time.perf_counter()
+                full.save(engine, trainer)
+                r["full_base_save_s"] = time.perf_counter() - t0
+                r["full_base_bytes"] = dir_bytes(full.root)
+                e2, t2 = day_trainer(device, "auto")
+                t0 = time.perf_counter()
+                full.resume(e2, t2)
+                r["full_base_restore_s"] = time.perf_counter() - t0
+                same_world(f"{what} full base restore",
+                           world, world_of(e2, t2, world["losses"]))
+                del e2, t2
+            else:
+                same_world(f"{what} vs fault-free", base, world)
+            out[case] = r
+            log(f"{what}: losses {world['losses']}, auto_resume "
+                f"{int(resumes)}, ckpt save s base {r['base_save_s']} delta "
+                f"{r['delta_save_s']}, restore {r['restore_s']:.3f} s over "
+                f"{int(r['restores'])} restores, generations kept {gens} "
+                f"({r['ckpt_bytes'] / 2**20:.1f} MiB), launches "
+                f"{launches[case]}"
+                + ("" if point is None else "; = fault-free bitwise")
+                + (f"; full-table base ({r['table_rows']} rows) save "
+                   f"{r['full_base_save_s']:.2f} s, "
+                   f"{r['full_base_bytes'] / 2**20:.1f} MiB, restore "
+                   f"{r['full_base_restore_s']:.2f} s"
+                   if "full_base_save_s" in r else ""))
+        return launches, out
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def profile_phase(seed: int = 1, symbols=SYMBOLS) -> dict:
     """Short traced passes (2 batches) of the lowerings that phases 3-4
     run once untraced: device time by kernel, per step, and the
@@ -997,6 +1372,8 @@ def main() -> int:
     rules_launches, rules_out = rules_phase()
     models_launches, models_out = models_phase()
     cross_launches, cross_out = crossing_phase(packed_block, packed_params)
+    life_launches, life_out = lifecycle_phase()
+    rec_launches, rec_out = recovery_phase()
     profile_out = profile_phase()
 
     by_path = {"slice_mxu": slice_launches,
@@ -1005,7 +1382,9 @@ def main() -> int:
                **{f"amp_{p}": n for p, n in amp_launches.items()},
                **{f"rules_{p}": n for p, n in rules_launches.items()},
                **{f"models_{p}": n for p, n in models_launches.items()},
-               **{f"crossing_{p}": n for p, n in cross_launches.items()}}
+               **{f"crossing_{p}": n for p, n in cross_launches.items()},
+               **{f"lifecycle_{p}": n for p, n in life_launches.items()},
+               **{f"recovery_{p}": n for p, n in rec_launches.items()}}
     line = {"kernels": []}
     for name in KERNELS:
         k = kern["uniform"][name]
@@ -1025,6 +1404,7 @@ def main() -> int:
                                  "reference": ref_out, "amp": amp_out,
                                  "rules": rules_out, "models": models_out,
                                  "crossing": cross_out,
+                                 "lifecycle": life_out, "recovery": rec_out,
                                  "profile": profile_out}))
     print(json.dumps(line), flush=True)
     print(card, flush=True)

@@ -1,0 +1,245 @@
+"""Pass-pipelined prefetcher — train pass N while pass N+1 feeds.
+
+Port of ``paddlebox_tpu/data/prefetch.py`` (≙ the reference's pass
+pipeline: PreLoadIntoMemory reads the next pass's files while the current
+one trains (box_wrapper.h:1141), EndFeedPass hands the key agent to the
+feedpass thread pool (box_wrapper.cc:152), the pre-build thread pulls the
+next working set under training (ps_gpu_wrapper.cc:907-955)).
+
+``PassPrefetcher`` drives the whole next-pass feed chain on ONE background
+worker thread while the trainer runs the current pass:
+
+    worker (pass N+1):  [set_date] -> begin_feed_pass -> load_fn()
+                        [reader threads feed keys] -> end_feed_pass(
+                        async_build=True) [host bulk_pull on the engine's
+                        build thread] -> peek_next_mapper ->
+                        trainer.pack_pass_host [numpy pack; the ragged
+                        lowering's CSR build] -> buffer.put
+    main   (pass N+1):  next_pass(): buffer.get -> engine.begin_pass
+                        [working-set upload + stale-row refresh] ->
+                        trainer.finish_pass_feed [H2D + plans] -> train
+
+Division of labour: host-only work (file read, key dedup, the table pull,
+the day's decay, the numpy pack and CSR build) runs on background threads.
+EVERY device call — the working-set upload, the feed's pinned copies and
+H2D, the plan builds, the kernels' first build — stays on the main
+thread, which is the only thread that touches CUDA.
+
+Bounded double buffer: the hand-off channel holds ONE packed pass, so at
+most two passes are resident host-side.  The worker also gates each spec
+on the PREVIOUS pass's adoption, because the engine holds a single
+``_next`` working-set slot (and a single pending feed-obs window); a date
+change also waits for the previous pass's end_pass, so the day's decay
+orders strictly between the old day's last write-back and the new day's
+first pull.
+
+Bit-identity: the worker packs against ``engine.peek_next_mapper()`` —
+the mapper the upcoming ``begin_pass`` adopts — and adoption's stale-row
+refresh rewrites working-set values, never keys, so the prefetched loop
+trains the serial loop's bits (tests/test_torch_lifecycle.py).
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from typing import Callable, Optional
+
+from paddlebox_tpu_torch import flags
+from paddlebox_tpu_torch.utils import flight, lockdep, trace
+from paddlebox_tpu_torch.utils.channel import Channel, ChannelClosed
+from paddlebox_tpu_torch.utils.monitor import stat_add, stat_observe
+
+flags.define_flag(
+    "pass_prefetch", True,
+    "pipeline the pass feed: while pass N trains, pass N+1's load/key-"
+    "dedup/table-pull/pack run on background threads (bounded double "
+    "buffer, ~2 packed passes resident).  Device dispatch stays on the "
+    "main thread; results are bit-identical to the serial pass loop")
+
+
+class _Spec:
+    __slots__ = ("load_fn", "tag", "date")
+
+    def __init__(self, load_fn, tag, date):
+        self.load_fn = load_fn
+        self.tag = tag
+        self.date = date
+
+
+class PassPrefetcher:
+    """Drive pass N+1's feed chain in the background while N trains.
+
+    Usage (fleet.train_passes and chip_smoke.py's lifecycle phase are
+    the in-tree callers)::
+
+        pf = PassPrefetcher(engine, trainer)
+        for filelist in passes:
+            pf.submit(lambda fl=filelist: load(fl))   # returns the dataset
+        for _ in passes:
+            feed = pf.next_pass()     # engine.begin_pass done, feed ready
+            trainer.train_pass(feed)
+            engine.end_pass()
+        pf.close()
+
+    ``load_fn`` runs on the worker thread INSIDE an open feed pass: it
+    must load the pass's data so that the engine's key sink sees every
+    feasign (e.g. ``SlotDataset.load_into_memory`` with the engine
+    attached), then return the loaded dataset for the pack.
+    """
+
+    def __init__(self, engine, trainer):
+        self.engine = engine
+        self.trainer = trainer
+        self._specs: Channel = Channel(capacity=1024)
+        self._ready: Channel = Channel(capacity=1)   # the double buffer
+        # pipeline position counters (one condition guards all three):
+        # worker spec index vs how many passes the consumer has adopted
+        # (begin_pass done) and ended (write-back done)
+        self._cond = lockdep.condition("data.prefetch.PassPrefetcher._cond")
+        self._adopted_n = 0
+        self._ended_n = 0
+        self._closing = False
+        self._failed: Optional[BaseException] = None
+        # recurring worker with a managed lifecycle (close() joins it) —
+        # exactly the shape PB405 wants, so no suppression needed
+        self._worker = threading.Thread(
+            target=self._run, name="pbox-prefetch", daemon=True)
+        self._worker.start()
+
+    # -- producer side -------------------------------------------------------
+    def submit(self, load_fn: Callable[[], object],
+               tag: Optional[str] = None,
+               date: Optional[str] = None) -> None:
+        """Queue one pass spec; the worker drives its feed chain as soon
+        as the previous pass is adopted.
+
+        date: run engine.set_date(date) before this pass's feed.  A date
+        CHANGE runs end_day (whole-table decay), so the worker first
+        drains the pipeline — it waits until every prior pass has ENDED
+        (write-back done), which requires the consumer to end passes via
+        :meth:`end_pass` (engine.end_pass alone never wakes the gate)."""
+        self._specs.put(_Spec(load_fn, tag, date))
+
+    def _wait(self, counter: str, need: int) -> float:
+        t0 = time.monotonic()
+        with self._cond:
+            while getattr(self, counter) < need and not self._closing:
+                self._cond.wait(timeout=1.0)
+        return time.monotonic() - t0
+
+    def _run(self) -> None:
+        idx = 0
+        while True:
+            try:
+                spec = self._specs.get()
+            except ChannelClosed:
+                return
+            # the engine holds ONE pending working set (_next) and ONE
+            # pending obs window — wait until the previous pass adopted
+            # both.  Adoption happens at the START of its training, so
+            # this whole chain still overlaps that training.
+            gate_s = self._wait("_adopted_n", idx)
+            if spec.date is not None and spec.date != self.engine.day_id:
+                # day boundary: end_day decays the WHOLE table, so it must
+                # order strictly between the old day's last write-back and
+                # the new day's first pull — drain the pipeline
+                gate_s += self._wait("_ended_n", idx)
+                if not self._closing:
+                    self.engine.set_date(spec.date)
+            elif spec.date is not None:
+                self.engine.set_date(spec.date)     # same day: no decay
+            stat_observe("data.prefetch.gate_wait_s", gate_s)
+            if self._closing:
+                return
+            idx += 1
+            try:
+                t0 = time.monotonic()
+                with trace.span("data.prefetch.feed", tag=spec.tag or ""):
+                    self.engine.begin_feed_pass()
+                    dataset = spec.load_fn()
+                    self.engine.end_feed_pass(async_build=True)
+                    # waits for the host working-set build (bulk_pull),
+                    # then packs against the mapper begin_pass will adopt
+                    mapper = self.engine.peek_next_mapper()
+                    arrays = self.trainer.pack_pass_host(dataset,
+                                                         mapper=mapper)
+                dt = time.monotonic() - t0
+                stat_add("data.prefetch.passes")
+                stat_observe("data.prefetch.build_s", dt)
+                flight.record("prefetch_pass_ready", tag=spec.tag,
+                              records=arrays.num_real, build_s=round(dt, 3))
+                if not self._ready.put((arrays, dataset, spec, None)):
+                    return            # closed mid-shutdown: drop and exit
+            except BaseException as e:
+                # surfaced at next_pass — a failed prefetch must fail THAT
+                # pass, never silently train a stale working set
+                self._failed = e
+                flight.record("prefetch_pass_failed", tag=spec.tag,
+                              error=type(e).__name__)
+                self._ready.put((None, None, spec, e))
+                return
+
+    # -- consumer side -------------------------------------------------------
+    def next_pass(self):
+        """Block until the next prefetched pass is packed, adopt it
+        (engine.begin_pass on THIS thread: ws upload + stale-row refresh)
+        and finish the feed (H2D + plans).  Returns the PackedPassFeed.
+
+        The blocked time here is the pipeline's residual — feed seconds
+        the training pass could NOT hide (``data.prefetch.wait_s``)."""
+        t0 = time.monotonic()
+        arrays, dataset, spec, err = self._ready.get()
+        stat_observe("data.prefetch.wait_s", time.monotonic() - t0)
+        if err is not None:
+            raise RuntimeError(
+                f"pass prefetch failed (spec {spec.tag or '?'})") from err
+        self.engine.begin_pass()
+        feed = self.trainer.finish_pass_feed(arrays)
+        with self._cond:          # frees the worker to open the next feed
+            lockdep.guards(self, "_adopted_n")
+            self._adopted_n += 1
+            self._cond.notify_all()
+        self._last_dataset = dataset
+        return feed
+
+    def end_pass(self, need_save_delta: bool = False,
+                 delta_path: str = "") -> None:
+        """engine.end_pass + wake the worker's day-boundary gate.  Callers
+        that submit dated specs MUST end passes through here."""
+        self.engine.end_pass(need_save_delta, delta_path)
+        with self._cond:
+            self._ended_n += 1
+            self._cond.notify_all()
+
+    def close(self) -> None:
+        """Stop the worker and join it.  Safe after errors and mid-queue:
+        unprocessed specs are dropped (their passes never began).
+
+        The join has no timeout: a worker that is still inside a pass's
+        ``load_fn`` feeds keys into the engine's open feed window and
+        blocks into the dataset, so nothing may restore or re-drive the
+        engine until it has returned."""
+        with self._cond:
+            self._closing = True
+            self._cond.notify_all()
+        self._specs.close()
+        self._ready.close()
+        self._worker.join()
+
+    def abort(self) -> None:
+        """Crash-recovery teardown (fleet.train_passes' auto-resume tier):
+        stop + join the worker like :meth:`close`, then clear the ENGINE's
+        in-flight feed state — the worker may have died holding an open
+        feed window or an unadopted async build, and the checkpoint
+        restore that follows must start from a clean pass boundary
+        (pass_manager.BoxPSEngine.reset_feed_state)."""
+        self.close()
+        if hasattr(self.engine, "reset_feed_state"):
+            self.engine.reset_feed_state()
+
+    def __enter__(self) -> "PassPrefetcher":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()

@@ -10,13 +10,16 @@ Each shard keeps its keys in one insertion-ordered uint64 array with
 parallel SoA value arrays in capacity-doubling buffers.  The index is a
 lazily rebuilt sorted view + ``np.searchsorted`` (the JAX package's
 fallback when its native hash library is absent; the native library is
-not part of this port).  Save/load and the heat taps are not ported yet.
+not part of this port).  Save/load writes the JAX package's per-shard
+file layout (``part-%05d.shard.npz``: a ``keys`` array and one array per
+SoA field), so a table saved by either package loads into the other.
+The heat taps are not ported yet.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -172,6 +175,12 @@ class ShardedHostTable:
     def size(self) -> int:
         return sum(s.size for s in self._shards)
 
+    def grow_stats(self) -> Tuple[int, int]:
+        """→ (total buffer reallocations, total append calls) across
+        shards — the growth-amortization surface the tests assert on."""
+        return (sum(s.grow_count for s in self._shards),
+                sum(s.append_calls for s in self._shards))
+
     def _shard_ids(self, keys: np.ndarray) -> np.ndarray:
         return (keys % np.uint64(self.shard_num)).astype(np.int64)
 
@@ -217,6 +226,20 @@ class ShardedHostTable:
         workpool.table_pool().map(pull_shard, self._shard_sel(keys))
         return out
 
+    def export_keys(self) -> np.ndarray:
+        """Every resident key, one per-shard copy under that shard's lock
+        (the serving tier freezes a loaded table from this + bulk_pull;
+        order is shard-major — callers needing an order sort)."""
+        def keys_shard(shard) -> np.ndarray:
+            with shard.lock:
+                return np.array(shard.keys, copy=True)
+
+        parts = workpool.table_pool().map(keys_shard, self._shards)
+        parts = [p for p in parts if len(p)]
+        if not parts:
+            return np.zeros((0,), np.uint64)
+        return np.concatenate(parts).astype(np.uint64, copy=False)
+
     def bulk_write(self, keys: np.ndarray, soa: Dict[str, np.ndarray]) -> None:
         def write_shard(group):
             s, sel = group
@@ -260,3 +283,172 @@ class ShardedHostTable:
                 return removed
 
         return sum(workpool.table_pool().map(shrink_shard, self._shards))
+
+    def filter_keys(self, keep_fn) -> int:
+        """Drop rows whose key fails ``keep_fn(keys) -> bool mask`` —
+        the reshard source-side moved-row drop (cutover commit) and the
+        reshard-on-load owner filter.  Returns rows removed."""
+        def filter_shard(shard) -> int:
+            with shard.lock:
+                keep = np.asarray(keep_fn(shard.keys), bool)
+                removed = int((~keep).sum())
+                if removed:
+                    shard.filter_keep(keep)
+                return removed
+
+        return sum(workpool.table_pool().map(filter_shard, self._shards))
+
+    def select_keys(self, mask_fn) -> np.ndarray:
+        """Resident keys for which ``mask_fn(keys) -> bool mask`` holds —
+        the reshard snapshot's moving-row enumeration (ps/service.py
+        ``reshard_begin``).  Shard-major order like export_keys; callers
+        needing determinism sort."""
+        def sel_shard(shard) -> np.ndarray:
+            with shard.lock:
+                keys = np.asarray(shard.keys, np.uint64)
+                if not len(keys):
+                    return keys
+                return keys[np.asarray(mask_fn(keys), bool)]
+
+        parts = [p for p in workpool.table_pool().map(sel_shard,
+                                                      self._shards)
+                 if len(p)]
+        if not parts:
+            return np.zeros((0,), np.uint64)
+        return np.concatenate(parts)
+
+    # -- persistence (≙ SaveBase/SaveDelta box_wrapper.cc:1286; per-shard
+    #    files with .shard suffix, memory_sparse_table.h:34) ----------------
+    def save(self, path: str, mode: str = "base",
+             keys: Optional[np.ndarray] = None) -> int:
+        """Per-shard npz dumps under `path`, which may be any registered
+        filesystem scheme — e.g. hdfs://... through ShellFS
+        (≙ SaveBase/SaveDelta's AFS paths, box_wrapper.h:721-743).  Shard
+        files write in parallel on the pool; each lands atomically
+        (tmp name + rename when the filesystem supports it), and delta
+        mode resets ``delta_score`` only AFTER its shard file is safely
+        down — a mid-save filesystem failure can't lose deltas.
+
+        mode="rows" saves exactly the rows of ``keys`` (missing keys are
+        skipped) — the checkpoint-delta primitive (io/checkpoint.py
+        generation chain): per-pass cost ∝ the pass's written key set,
+        and the resulting dump applies over a base via
+        ``load(path, mode="upsert")``."""
+        from paddlebox_tpu_torch.io import fs as pfs
+        filesystem = pfs.get_fs(path)
+        filesystem.mkdir(path)
+        acc = self.config.accessor
+        if mode == "rows":
+            if keys is None:
+                raise ValueError("save(mode='rows') requires keys")
+            keys = np.asarray(keys, np.uint64)
+            row_sel = dict(self._shard_sel(keys))
+
+        def save_shard(item) -> int:
+            i, shard = item
+            with shard.lock:
+                if mode == "rows":
+                    sel = row_sel.get(i)
+                    pos, found = (shard.lookup(keys[sel])
+                                  if sel is not None and len(sel)
+                                  else (np.zeros(0, np.int64),
+                                        np.zeros(0, bool)))
+                    idx = pos[found]
+                    data = {f: arr[idx] for f, arr in shard.soa.items()}
+                    data["keys"] = (keys[sel][found] if sel is not None
+                                    else np.zeros(0, np.uint64))
+                else:
+                    score = self._score(shard.soa)
+                    if mode == "base":
+                        keep = score >= acc.base_threshold
+                    elif mode == "delta":
+                        keep = np.abs(shard.soa["delta_score"]) \
+                            >= acc.delta_threshold
+                    else:  # "all" / checkpoint
+                        keep = np.ones(shard.size, bool)
+                    data = {f: arr[keep] for f, arr in shard.soa.items()}
+                    data["keys"] = shard.keys[keep]
+                part = f"{path.rstrip('/')}/part-{i:05d}.shard.npz"
+                try:
+                    tmp = part + ".tmp"
+                    with filesystem.open_write(tmp) as tmp_fh:
+                        np.savez(tmp_fh, **data)
+                    filesystem.rename(tmp, part)
+                except NotImplementedError:
+                    # scheme without a rename verb: direct write (the
+                    # pre-atomic behavior; delta reset still gated on the
+                    # write completing without raising)
+                    # pboxlint: disable-next=PB502 -- no rename verb here
+                    with filesystem.open_write(part) as fh:
+                        # pboxlint: disable-next=PB502 -- same fallback
+                        np.savez(fh, **data)
+                if mode == "delta":
+                    # only now is the shard file known to have landed —
+                    # zeroing before the write/rename could lose deltas
+                    # to a mid-save failure
+                    shard.soa["delta_score"][keep] = 0.0
+                return len(data["keys"])
+
+        return sum(workpool.table_pool().map(
+            save_shard, list(enumerate(self._shards))))
+
+    def load(self, path: str, mode: str = "replace") -> int:
+        """Read per-shard npz dumps.  mode="replace" (default) swaps each
+        shard's row set wholesale; mode="upsert" merges the dumped rows
+        over the current contents — the delta-chain apply of the
+        generation-chained checkpoint (io/checkpoint.py)."""
+        from io import BytesIO
+
+        from paddlebox_tpu_torch.io import fs as pfs
+        filesystem = pfs.get_fs(path)
+
+        def load_shard(item) -> int:
+            i, shard = item
+            f = f"{path.rstrip('/')}/part-{i:05d}.shard.npz"
+            if not filesystem.exists(f):
+                return 0
+            fh = filesystem.open_read(f)
+            # np.load needs seek; only pipe-backed streams buffer fully
+            src = fh if fh.seekable() else BytesIO(fh.read())
+            with np.load(src) as z:
+                with shard.lock:
+                    new_keys = z["keys"]
+                    n = len(new_keys)
+                    # checkpoints from a different optimizer config may
+                    # lack some state fields (e.g. adam moments when the
+                    # save ran under adagrad) — init those like fresh rows
+                    # instead of KeyErroring: moments/g2sums start at 0,
+                    # beta-power trackers at the decay rates (the adam
+                    # creation init, ≙ optimizer.cuh.h:436-441)
+                    sgd = self.config.sgd
+                    fresh = {"_b1p": sgd.beta1_decay_rate,
+                             "_b2p": sgd.beta2_decay_rate}
+
+                    def init_missing(name, tmpl):
+                        fill = next((v for suf, v in fresh.items()
+                                     if name.endswith(suf)), 0.0)
+                        return np.full((n,) + tmpl.shape[1:], fill,
+                                       tmpl.dtype)
+
+                    def from_ckpt(name, tmpl):
+                        if name not in z.files:
+                            return init_missing(name, tmpl)
+                        arr = z[name]
+                        # accessor migration (e.g. ctr -> ctr_double):
+                        # the template dtype wins or appended rows would
+                        # mix dtypes and f64 exactness silently degrades
+                        return arr.astype(tmpl.dtype) \
+                            if arr.dtype != tmpl.dtype else arr
+
+                    soa = {name: from_ckpt(name, tmpl)
+                           for name, tmpl in shard.soa.items()}
+                    if mode == "upsert":
+                        if n:
+                            shard.upsert(new_keys, soa)
+                    else:
+                        shard.replace(new_keys, soa)
+            fh.close()
+            return n if mode == "upsert" else shard.size
+
+        return sum(workpool.table_pool().map(
+            load_shard, list(enumerate(self._shards))))

@@ -102,3 +102,9 @@ class MultiTaskSparseTrainer(SparseTrainer):
             calc.merge_device_state({k: v[t] for k, v in state.items()})
             out.append(calc.compute())
         return out
+
+    def reset_metrics(self) -> None:
+        self.auc_state = make_multi_auc_state(self.n_tasks,
+                                              self.auc_table_size,
+                                              self.device)
+        self.auc.reset()

@@ -459,10 +459,14 @@ class SparseTrainer:
     # of device-resident stacked tensors; the mxu plans (trimmed, with the
     # static payload planes) and the ragged CSR plans are built once at
     # feed build, so the hot step contains no sort of its own plan.
-    def pack_pass_host(self, dataset: SlotDataset) -> pf.HostPassArrays:
+    def pack_pass_host(self, dataset: SlotDataset, mapper=None
+                       ) -> pf.HostPassArrays:
         """Host half of :meth:`build_pass_feed`: pack + translate the
         whole pass into SoA planes (and, on the ragged lowering, its CSR
-        plans).  No device work."""
+        plans).  No device work and no dependence on the adopted working
+        set: with an explicit ``mapper`` (``engine.peek_next_mapper()``)
+        the pass prefetcher runs this on its worker thread while the
+        previous pass still trains."""
         label = (self.packer.label_slots
                  if len(self.packer.label_slots) > 1
                  else self.packer.label_slot)
@@ -473,9 +477,12 @@ class SparseTrainer:
                       for lo, hi in dataset.batch_bounds(self.batch_size)]
         arrays = pf.pack_pass(dataset.get_blocks(), self.packer.config,
                               self.batch_size, label,
-                              key_mapper=self.engine.mapper,
+                              key_mapper=(self.engine.mapper if mapper is None
+                                          else mapper),
                               batch_counts=counts)
         if self.sparse_path == "ragged":
+            # lowered here, so that the prefetch worker hides the CSR build
+            # under the previous pass's training
             arrays.csr = pf.build_csr_plans(arrays.indices, self.slot_ids,
                                             arrays.n_batches,
                                             arrays.batch_size)
@@ -485,7 +492,9 @@ class SparseTrainer:
                          ) -> pf.PackedPassFeed:
         """Device half of :meth:`build_pass_feed`: upload + relayout the
         packed planes and build the lowering's per-batch plans.  Needs
-        the pass's working set (plan dims read its height)."""
+        the pass's working set adopted (plan dims read its height), so the
+        prefetcher calls it on the main thread right after
+        ``engine.begin_pass()``."""
         assert self.engine.ws is not None, "engine lifecycle must run first"
         path = self._resolve_path()
         self._validate_path(path)
@@ -583,3 +592,9 @@ class SparseTrainer:
         pos, neg = self.auc.folded_buckets()
         out["auc_buckets"] = {"pos": pos.tolist(), "neg": neg.tolist()}
         return out
+
+    def reset_metrics(self) -> None:
+        """Start the AUC buckets afresh (they accumulate across passes
+        until this is called, as in the JAX package)."""
+        self.auc_state = make_auc_state(self.auc_table_size, self.device)
+        self.auc.reset()
