@@ -75,22 +75,45 @@ result line is printed):
    in-memory loads, from the same data, weights and table seed.  Per-pass
    losses, the final host table (every key, every field), the dense
    weights and Adam's state must be bit-identical between the two, and
-   the prefetched run must have re-pulled stale rows.  Prints the day
-   walls, the pass walls, the prefetch wait and build seconds, the last
-   pass's ``feed.*_hidden_s``, and the stale-row refresh;
-11. recovery — ``fleet.train_passes`` over 3 slot text files of 16384
-   records (one batch each, one reader thread) with a
-   ``TrainCheckpoint``: a fault-free run, then seeded kills
-   (``FaultPlan(seed=13).kill_at(point, at=(1,))``) at ``end_pass``
-   (serial and prefetched) and at ``ckpt_commit`` (serial), each resumed
+   the prefetched run must have re-pulled stale rows.  Then the device
+   row cache (``LIFE_CACHE_RUNS``): mxu serial and prefetched with
+   2,097,152 rows (the whole key space), mxu prefetched with the flag's
+   default 262,144 rows (evicts every pass; key-space heat on), ragged
+   prefetched with 2,097,152, each over day 1's 3 passes and day 2's
+   first — each must leave the bits of its lowering's cache-off serial
+   run after those 4 passes, hit on every warm pass, and (262,144)
+   evict.  Every run's pass mapper must have resolved its keys through
+   the native hash.  Before the runs, ``host_tier_ab`` times the host
+   tier's choices at the day loop's sizes, each against its
+   alternative, and checks that both give the same answer: the host
+   table's pass pull and write-back on its sorted view and on the native
+   hash, ``PassKeyMapper`` on the native hash and on the binary search
+   (the packer's calls and one refresh call), and ``build_working_set``'s
+   fresh pinned buffers against a reused pinned pool (two working sets
+   built back to back must both stay intact).  Prints the day walls, the
+   pass walls, the prefetch wait and build seconds, the last pass's
+   ``feed.*_hidden_s``, the stale-row refresh, the engine timers, the
+   mapper's native and binary-search rows and, per cache run, the
+   per-pass hit rate, table rows, refreshed rows, fallback rows and
+   evictions, the cache's gather and fold seconds, its row and store
+   bytes, the median pass wall beside the cache-off run's over the
+   same passes, and the heat summary;
+11. recovery — ``fleet.train_passes`` over 3 slot text files of 4 × 16384
+   records (one reader thread) with a ``TrainCheckpoint``: the feed's
+   parser must be the native one and read a pass file into the Python
+   parser's blocks bit for bit (both timed); a fault-free run, then
+   seeded kills (``FaultPlan(seed=13).kill_at(point, at=(1,))``) at
+   ``end_pass`` (serial and prefetched) and at ``ckpt_commit`` (serial),
+   and with the device cache on at the third pass's ``end_pass``
+   (prefetched; that pass served hits), each resumed
    (``resume=2``) to the fault-free run's bits with at least one
-   auto-resume.  Prints the parse time, the checkpoint save seconds by
-   kind, the restore seconds, the generations kept and their size, and
-   a base save and restore of the whole table after the day.
+   auto-resume.  Prints the checkpoint save seconds by kind, the restore
+   seconds, the generations kept and their size, and a base save and
+   restore of the whole table after the day.
 
 Depth cuts of phases 10-11 (the widths are the bench model's): a day of
-3 passes of 4 batches (phase 10) and of 3 passes of one batch (phase 11:
-the port's slot parser is pure Python; the phase prints its parse time).
+3 passes of 4 batches; the cache runs of phase 10 stop after the first
+pass of day 2 (4 passes).
 
 Every phase sets the launch counters to 0 just before its main run and
 reads them just after; a kernel of the path that did not launch fails
@@ -998,10 +1021,29 @@ def crossing_phase(block: SlotRecordBlock, params0):
 
 LIFE_DATES = ("20261016", "20261017")      # 2 days
 LIFE_PASSES = 3                            # passes per day, N_BATCHES each
-REC_PASSES, REC_DATE = 3, "20261016"       # recovery: 3 passes of 1 batch
+REC_PASSES, REC_DATE = 3, "20261016"       # recovery: 3 passes, full size
 # the lowerings of the day loop: the default (auto → mxu on one card) and
 # ragged, whose host CSR build the prefetch exists to hide
 LIFE_PATHS = (("mxu", "auto"), ("ragged", "ragged"))
+# the device-cache runs of the day loop, each held against the cache-off
+# serial run of its lowering: (label, path, prefetch, cache rows, heat).
+# 2,097,152 rows hold the whole 2 M key space; 262,144 (the flag's
+# default) evicts every pass and makes the prefetched adoption take the
+# fallback pull
+CACHE_ROWS = 2_097_152
+# the cache runs' depth: day 1's passes and day 2's first (the change of
+# date drops the cache, so the 4th pass is cold again), held against the
+# cache-off serial run's world after the same 4 passes
+LIFE_CACHE_DEPTH = LIFE_PASSES + 1
+LIFE_CACHE_RUNS = (("mxu", "auto", False, CACHE_ROWS, False),
+                   ("mxu", "auto", True, CACHE_ROWS, False),
+                   ("mxu", "auto", True, 262_144, True),
+                   ("ragged", "ragged", True, CACHE_ROWS, False))
+# counters the main thread moves, read at every pass end
+PASS_COUNTERS = ("ps.cache.hits", "ps.cache.gather_fallback_rows",
+                 "ps.cache.evictions", "ps.engine.stale_refresh_rows")
+# which index resolved the pass mapper's keys
+INDEX_COUNTERS = ("ps.mapper.native_rows", "ps.mapper.sorted_rows")
 
 
 def day_trainer(device: str, path: str):
@@ -1013,6 +1055,21 @@ def day_trainer(device: str, path: str):
                             batch_size=BATCH, seed=0, sparse_path=path,
                             device=device)
     return engine, trainer
+
+
+@contextlib.contextmanager
+def engine_flags(cache_rows: int = 0, heat_on: bool = False):
+    """Engines built inside take the device cache (``cache_rows`` > 0)
+    and key-space heat; both are off again after."""
+    from paddlebox_tpu_torch.ps import heat
+    flags.set_flags({"ps_device_cache": cache_rows > 0,
+                     "ps_device_cache_rows": cache_rows or CACHE_ROWS,
+                     "obs_heat": heat_on})
+    try:
+        yield
+    finally:
+        flags.set_flags({"ps_device_cache": False, "obs_heat": False})
+        heat.disable()
 
 
 def one_pass_dataset(block: SlotRecordBlock) -> SlotDataset:
@@ -1060,23 +1117,59 @@ def world_of(engine, trainer, losses) -> dict:
             "dense": dense}
 
 
-def day_loop(blocks, device: str, path: str, prefetch: bool):
-    """2 days × LIFE_PASSES passes of ``blocks`` through the engine
-    lifecycle, serially or through PassPrefetcher.  Returns (the world
-    it left, the time each pass's end_pass returned, the loop start, the
-    engine's timers {name: (seconds, count)}, the feed seconds hidden
-    under step windows summed over the passes)."""
+def heat_summary() -> dict:
+    """What the heat sketches saw of the run: the pull site's working-set
+    rows (HLL, since the last change of date) and Zipf fit, the sketches'
+    bytes and the device cache's coverage."""
+    from paddlebox_tpu_torch.ps import heat
+    if heat.ACTIVE is None:
+        raise AssertionError("heat was asked for but is off")
+    r = heat.ACTIVE.render(topn=100)
+    pull = r["sites"]["pull"]
+    return {"working_set_rows": pull["working_set_rows"],
+            "zipf_exponent": pull["zipf_exponent"],
+            "topk_share": pull["topk_share"],
+            "sketch_bytes": r["sketch_bytes"],
+            "cache_hot_coverage": r["cache_hot_coverage"],
+            "sites": sorted(r["sites"])}
+
+
+def day_loop(blocks, device: str, path: str, prefetch: bool,
+             capture_at: int = 0):
+    """The passes of ``blocks`` (one list of pass blocks per day of
+    LIFE_DATES) through the engine lifecycle, serially or through
+    PassPrefetcher.  Returns the world it left and a dict: the time each
+    pass's end_pass returned, the loop start, the engine's timers
+    {name: (seconds, count)}, the feed seconds hidden under step windows
+    summed over the passes, and per pass the keys, the cache hit rate set
+    at adoption and the deltas of PASS_COUNTERS; with the cache on, its
+    row and store bytes; with heat on, its summary; with ``capture_at``,
+    the world after that many passes (``world_at``)."""
     from paddlebox_tpu_torch.data.prefetch import PassPrefetcher
     from paddlebox_tpu_torch.utils.monitor import stat_get
     engine, trainer = day_trainer(device, path)
-    losses, ends = [], []
+    losses, ends, per_pass = [], [], []
     hidden = dict.fromkeys(("pull", "pack", "upload", "write"), 0.0)
+    prev = {k: stat_get(k) for k in PASS_COUNTERS}
+
+    paused = [0.0]      # seconds spent capturing, kept out of the walls
 
     def pass_ended():
-        ends.append(time.perf_counter())
+        ends.append(time.perf_counter() - paused[0])
+        if len(ends) == capture_at:
+            c0 = time.perf_counter()
+            info["world_at"] = world_of(engine, trainer, list(losses))
+            paused[0] += time.perf_counter() - c0
         for k in hidden:
             hidden[k] += stat_get(f"feed.{k}_hidden_s")
+        cur = {k: stat_get(k) for k in PASS_COUNTERS}
+        per_pass.append({"keys": engine.num_keys,
+                         "hit_rate": stat_get("ps.cache.hit_rate"),
+                         **{k.split(".")[-1]: cur[k] - prev[k]
+                            for k in PASS_COUNTERS}})
+        prev.update(cur)
 
+    info = {}
     t0 = time.perf_counter()
     if not prefetch:
         for date, day in zip(LIFE_DATES, blocks):
@@ -1098,22 +1191,237 @@ def day_loop(blocks, device: str, path: str, prefetch: bool):
                         engine.add_keys(block.all_keys())
                         return one_pass_dataset(block)
                     pre.submit(load, tag=date, date=date)
-            for _ in range(len(LIFE_DATES) * LIFE_PASSES):
+            for _ in range(sum(len(day) for day in blocks)):
                 feed = pre.next_pass()
                 losses.append(trainer.train_pass(feed)["losses"])
                 pre.end_pass()
                 pass_ended()
     if device == "cuda":
         torch.cuda.synchronize()
-    timers = {n: (secs, c) for n, secs, c in engine.timers.rows()}
-    return world_of(engine, trainer, losses), ends, t0, timers, hidden
+    info.update(ends=ends, t0=t0, per_pass=per_pass, hidden=hidden,
+                timers={n: (secs, c) for n, secs, c in engine.timers.rows()})
+    if engine.cache is not None:
+        if engine.cache.device != engine.device:
+            raise AssertionError("the cache's store is not on the engine's "
+                                 "device")
+        info["cache"] = {"row_bytes": engine.cache.row_bytes,
+                         "store_bytes": engine.cache.store_bytes,
+                         "resident_rows": engine.cache.resident_rows}
+    from paddlebox_tpu_torch.ps import heat
+    if heat.ACTIVE is not None:
+        info["heat"] = heat_summary()
+    return world_of(engine, trainer, losses), info
+
+
+def median_s(fn, reps: int = 3) -> float:
+    """Median wall seconds of ``reps`` calls of ``fn`` after one warm
+    call (which also fills PyTorch's pinned-memory cache)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times))
+
+
+# the packer's mapper calls: 4 pack threads → 8 record ranges per slot
+# of a 65,536-record pass, 1-3 keys a record (``pass_feed._record_ranges``)
+PACK_CALL_KEYS = N_BATCHES * BATCH // 8 * (CAP + 1) // 2
+
+
+def pooled_build(host_soa: dict, dev: torch.device, pool: dict) -> dict:
+    """The staging the port does not keep, timed against its fresh
+    buffers: ``build_working_set`` with each field's pinned buffer of the
+    last build rewritten in place once that build's copy (a CUDA event)
+    has finished; only row 0 and the stale tail are zeroed."""
+    n = len(host_soa["show"])
+    total, ws = size_bucket(n + 1), {}
+    for f, src in host_soa.items():
+        if f == "unseen_days":
+            continue
+        dtype = torch.int32 if src.dtype == np.int32 else torch.float32
+        shape = (total,) + src.shape[1:]
+        buf, done = pool.get(f, (None, None))
+        if buf is None or tuple(buf.shape) != shape or buf.dtype != dtype:
+            buf = torch.zeros(shape, dtype=dtype,
+                              pin_memory=dev.type == "cuda")
+        else:
+            if done is not None:
+                done.synchronize()
+            host = buf.numpy()
+            host[0] = 0
+            host[n + 1:] = 0
+        buf.numpy()[1:n + 1] = src
+        done = None
+        if dev.type == "cuda":
+            ws[f] = buf.to(dev, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
+        else:
+            ws[f] = buf.clone()
+        pool[f] = (buf, done)
+    return ws
+
+
+def native_lookup(shard, keys):
+    """``_Shard.lookup`` through the native hash, which the port's host
+    table does not use, for the index A/B: the hash takes the keys the
+    shard appended since the last call (the A/B never replaces a
+    shard's rows), then answers one probe per key."""
+    from paddlebox_tpu_torch.native import hash_map
+    with shard.lock:
+        h = shard.__dict__.get("_ab_hash")
+        if h is None:
+            h = shard._ab_hash = hash_map.NativeKeyHash(max(shard.size, 1024))
+        if len(h) < shard.size:
+            h.upsert(shard.keys[len(h):])
+        rows = h.find(np.asarray(keys, np.uint64))
+        return np.maximum(rows, 0), rows >= 0
+
+
+def host_tier_ab(seed: int = 12, device: str = "cuda",
+                 occurrences: int = N_BATCHES * BATCH * N_SLOTS * (CAP + 1)
+                 // 2) -> dict:
+    """The host tier's choices, timed at the day loop's sizes on this
+    machine's CPU, each against its alternative: the key
+    index of the host table's pass pull and write-back (the port's sorted
+    view against the native hash, ``native_lookup``), the index of
+    ``PassKeyMapper`` at the packer's call size and at a refresh's (the
+    port's native hash against the binary search), and the working set's
+    staging (fresh pinned buffers, which PyTorch's caching host allocator
+    recycles once their copies finish, against ``pooled_build``).  Both
+    sides of each must give the same answer, and two working sets built
+    back to back must both stay intact."""
+    from paddlebox_tpu_torch.native import hash_map
+    from paddlebox_tpu_torch.ps import embedding, host_table
+    if not hash_map.available():
+        raise AssertionError("index: the native library did not build")
+    rng = np.random.default_rng(seed)
+    occs = [rng.integers(1, KEY_SPACE, size=occurrences).astype(np.uint64)
+            for _ in range(3)]
+    passes = [np.unique(o) for o in occs]
+    cfg = EmbeddingTableConfig(embedding_dim=MF_DIM, shard_num=8,
+                               sgd=SparseSGDConfig(mf_create_thresholds=0.0))
+
+    def table_run():
+        table, t, pulled = host_table.ShardedHostTable(cfg, seed=0), {}, []
+        for i, keys in enumerate(passes):
+            t0 = time.perf_counter()
+            rows = table.bulk_pull(keys)
+            t[f"pull{i}"] = time.perf_counter() - t0
+            rows["show"] = rows["show"] + 1.0
+            pulled.append(rows)
+            t0 = time.perf_counter()
+            table.bulk_write(keys, rows)
+            t[f"write{i}"] = time.perf_counter() - t0
+        return t, pulled
+
+    def mapper_run():
+        t0 = time.perf_counter()
+        mapper = embedding.PassKeyMapper(passes[2])
+        pack = [mapper(occs[2][i:i + PACK_CALL_KEYS])
+                for i in range(0, occurrences, PACK_CALL_KEYS)]
+        pack_s = time.perf_counter() - t0
+        stale = passes[2][np.isin(passes[2], passes[1])]
+        t0 = time.perf_counter()
+        refresh = mapper(stale)
+        return (pack_s, time.perf_counter() - t0, np.concatenate(pack),
+                refresh)
+
+    srt_t, srt_rows = table_run()
+    real_lookup = host_table._Shard.lookup
+    host_table._Shard.lookup = native_lookup
+    try:
+        nat_t, nat_rows = table_run()
+    finally:
+        host_table._Shard.lookup = real_lookup
+    nat_map = mapper_run()
+    real_available = hash_map.available
+    hash_map.available = lambda: False
+    try:
+        srt_map = mapper_run()
+    finally:
+        hash_map.available = real_available
+    for a, b in zip(nat_rows, srt_rows):
+        if any(not np.array_equal(a[f], b[f]) for f in a):
+            raise AssertionError("index: the native and sorted host-table "
+                                 "pulls differ")
+    if not (np.array_equal(nat_map[2], srt_map[2])
+            and np.array_equal(nat_map[3], srt_map[3])):
+        raise AssertionError("index: the native and sorted mappers differ")
+    index = {"keys_per_pass": [len(k) for k in passes],
+             "table_sorted_s": srt_t, "table_native_s": nat_t,
+             "mapper_pack_calls": -(-occurrences // PACK_CALL_KEYS),
+             "mapper_pack_keys": occurrences,
+             "mapper_pack_s": {"native": nat_map[0], "sorted": srt_map[0]},
+             "mapper_refresh_keys": int(len(nat_map[3])),
+             "mapper_refresh_s": {"native": nat_map[1],
+                                  "sorted": srt_map[1]}}
+    log("index: host table pull/write s of passes 2-3, sorted view (the "
+        "port's) "
+        + " ".join(f"{k}={v:.3f}" for k, v in srt_t.items() if k[-1] != "0")
+        + " | native hash "
+        + " ".join(f"{k}={v:.3f}" for k, v in nat_t.items() if k[-1] != "0")
+        + f"; mapper: {index['mapper_pack_calls']} pack calls of "
+        f"{PACK_CALL_KEYS} keys native (the port's, hash build included) "
+        f"{nat_map[0]:.3f} s, binary search {srt_map[0]:.3f} s; one refresh "
+        f"call of {len(nat_map[3])} keys native {nat_map[1]:.3f} s, binary "
+        f"search {srt_map[1]:.3f} s")
+
+    soa = dict(srt_rows[2])
+    soa2 = {f: v + 1 for f, v in soa.items()}
+    n, dev, pool = len(soa["show"]), torch.device(device), {}
+
+    def build(src, pooled=False):
+        ws = (pooled_build(src, dev, pool) if pooled
+              else embedding.build_working_set(src, dev))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        return ws
+
+    staging = {"rows": n, "fields": len(soa),
+               "fresh_s": median_s(lambda: build(soa)),
+               "pooled_s": median_s(lambda: build(soa, True))}
+    ws1, ws2 = build(soa), build(soa2)
+    pooled = build(soa2, True)
+    for f in ws1:
+        got = ws1[f][1:n + 1].cpu().numpy()
+        if not np.array_equal(got, soa[f].astype(got.dtype)):
+            raise AssertionError(f"staging: the first working set's {f} "
+                                 "was overwritten by the second build")
+        if not torch.equal(ws2[f], pooled[f]):
+            raise AssertionError(f"staging: the fresh and pooled builds' "
+                                 f"{f} differ")
+    log(f"staging: build_working_set of {n} rows × {len(ws1)} fields, "
+        f"fresh buffers (the port's) {staging['fresh_s']:.4f} s, a reused "
+        f"pinned pool {staging['pooled_s']:.4f} s (medians of 3); two "
+        "working sets built back to back stay intact")
+    return {"index": index, "staging": staging}
+
+
+def log_run(what: str, r: dict, info: dict) -> None:
+    walls = r["pass_wall_s"]
+    timers = info["timers"]
+    log(f"{what}: day wall s {[round(x, 3) for x in r['day_wall_s']]}"
+        f", median pass wall {r['median_pass_wall_s']:.3f} s (passes "
+        f"{[round(x, 3) for x in walls]}), prefetch wait "
+        f"{r.get('prefetch_wait_s', 0.0):.3f} s, prefetch build "
+        f"{r.get('prefetch_build_s', 0.0):.3f} s, hidden s of the "
+        f"last pass {r['hidden_s_last_pass']} and of all passes "
+        f"{info['hidden']}, refresh_stale {r['refresh_stale_s']:.3f} s for "
+        f"{int(r['stale_refresh_rows'])} rows, launches {r['launches']}; "
+        f"index rows {r['index_rows']}; engine timers s "
+        + " ".join(f"{n}={t:.3f}/{c}" for n, (t, c) in sorted(timers.items())))
 
 
 def lifecycle_phase(seed: int = 5, device: str = "cuda"):
     """The day loop at the bench model's full width: 2 days × 3 passes ×
     N_BATCHES batches, each lowering serial then prefetched from the same
     data, weights and table seed; the two runs must leave the same bits,
-    and the prefetched one must have re-pulled stale rows."""
+    and the prefetched one must have re-pulled stale rows.  Then the
+    LIFE_CACHE_RUNS with the device cache on, each of which must leave
+    the bits of its lowering's cache-off run."""
     from paddlebox_tpu_torch.utils.monitor import stat_get, stat_snapshot
     rng = np.random.default_rng(seed)
     t_data = time.perf_counter()
@@ -1122,83 +1430,156 @@ def lifecycle_phase(seed: int = 5, device: str = "cuda"):
     log(f"lifecycle: data for {len(LIFE_DATES)} days × {LIFE_PASSES} passes "
         f"× {N_BATCHES} batches made in {time.perf_counter() - t_data:.2f} s")
     n_batches = len(LIFE_DATES) * LIFE_PASSES * N_BATCHES
-    launches, out = {}, {}
+    launches, out = {}, {"host_ab": host_tier_ab(device=device)}
+
+    cut = [blocks[0], blocks[1][:LIFE_CACHE_DEPTH - LIFE_PASSES]]
+
+    def one_run(key, what, label, path, prefetch, cache=False):
+        s0 = stat_snapshot("")
+        reset_counts()
+        world, info = day_loop(
+            cut if cache else blocks, device, path, prefetch,
+            capture_at=LIFE_CACHE_DEPTH if not (cache or prefetch) else 0)
+        launches[key] = read_counts()
+        s1 = stat_snapshot("")
+        check_launches(what, launches[key], PACKED_KERNELS[label],
+                       LIFE_CACHE_DEPTH * N_BATCHES if cache else n_batches)
+        flat = [x for p in world["losses"] for x in p]
+        if not all(math.isfinite(x) for x in flat):
+            raise AssertionError(f"{what}: non-finite loss")
+        ends, t0 = info["ends"], info["t0"]
+        walls = [float(x) for x in np.diff([t0] + ends)]
+        index = {k: stat_delta(s0, s1, k) for k in INDEX_COUNTERS}
+        if index["ps.mapper.native_rows"] <= 0 or \
+                index["ps.mapper.sorted_rows"] > 0:
+            raise AssertionError(f"{what}: the pass mapper did not run "
+                                 f"native: {index}")
+        r = {"day_wall_s": [ends[LIFE_PASSES - 1] - t0,
+                            ends[-1] - ends[LIFE_PASSES - 1]],
+             "passes": len(ends),
+             "pass_wall_s": walls,
+             "median_pass_wall_s": float(np.median(walls)),
+             "stale_refresh_rows": stat_delta(
+                 s0, s1, "ps.engine.stale_refresh_rows"),
+             "refresh_stale_s": info["timers"].get(
+                 "refresh_stale", (0.0, 0))[0],
+             "build_pull_rows": stat_delta(s0, s1,
+                                           "ps.engine.build_pull_rows"),
+             "hidden_s_last_pass": {
+                 k: stat_get(f"feed.{k}_hidden_s")
+                 for k in ("pull", "pack", "upload", "write")},
+             "hidden_s_all_passes": info["hidden"],
+             "engine_timers": info["timers"],
+             "per_pass": info["per_pass"],
+             "index_rows": {k.split(".", 1)[1]: v for k, v in index.items()},
+             "first_losses": world["losses"][0],
+             "launches": launches[key]}
+        if prefetch:
+            r["prefetch_wait_s"] = stat_delta(s0, s1,
+                                              "data.prefetch.wait_s.sum")
+            r["prefetch_build_s"] = stat_delta(s0, s1,
+                                               "data.prefetch.build_s.sum")
+        for k in ("cache", "heat"):
+            if k in info:
+                r[k] = info[k]
+        out[key] = r
+        log_run(what, r, info)
+        return world, r, info.get("world_at")
+
     for label, path in LIFE_PATHS:
         worlds = {}
         for mode in ("serial", "prefetch"):
             key, what = f"{label}_{mode}", f"lifecycle[{label},{mode}]"
-            s0 = stat_snapshot("")
-            reset_counts()
-            world, ends, t0, timers, hidden = day_loop(
-                blocks, device, path, mode == "prefetch")
-            refresh = timers.get("refresh_stale", (0.0, 0))
-            launches[key] = read_counts()
-            s1 = stat_snapshot("")
-            check_launches(what, launches[key], PACKED_KERNELS[label],
-                           n_batches)
-            flat = [x for p in world["losses"] for x in p]
-            if not all(math.isfinite(x) for x in flat):
-                raise AssertionError(f"{what}: non-finite loss")
-            walls = [float(x) for x in np.diff([t0] + ends)]
-            rows = stat_delta(s0, s1, "ps.engine.stale_refresh_rows")
-            r = {"day_wall_s": [ends[LIFE_PASSES - 1] - t0,
-                                ends[-1] - ends[LIFE_PASSES - 1]],
-                 "pass_wall_s": walls,
-                 "median_pass_wall_s": float(np.median(walls)),
-                 "stale_refresh_rows": rows,
-                 "refresh_stale_s": refresh[0],
-                 "hidden_s_last_pass": {
-                     k: stat_get(f"feed.{k}_hidden_s")
-                     for k in ("pull", "pack", "upload", "write")},
-                 "hidden_s_all_passes": hidden,
-                 "engine_timers": timers,
-                 "first_losses": world["losses"][0],
-                 "launches": launches[key]}
-            if mode == "prefetch":
-                r["prefetch_wait_s"] = stat_delta(
-                    s0, s1, "data.prefetch.wait_s.sum")
-                r["prefetch_build_s"] = stat_delta(
-                    s0, s1, "data.prefetch.build_s.sum")
-                if rows <= 0:
-                    raise AssertionError(f"{what}: the stale-row refresh "
-                                         "re-pulled no row")
-            out[key] = r
-            worlds[mode] = world
-            log(f"{what}: day wall s {[round(x, 3) for x in r['day_wall_s']]}"
-                f", median pass wall {r['median_pass_wall_s']:.3f} s (passes "
-                f"{[round(x, 3) for x in walls]}), prefetch wait "
-                f"{r.get('prefetch_wait_s', 0.0):.3f} s, prefetch build "
-                f"{r.get('prefetch_build_s', 0.0):.3f} s, hidden s of the "
-                f"last pass {r['hidden_s_last_pass']} and of all passes "
-                f"{hidden}, refresh_stale "
-                f"{refresh[0]:.3f} s for {int(rows)} rows, launches "
-                f"{launches[key]}; engine timers s "
-                + " ".join(f"{n}={t:.3f}/{c}" for n, (t, c) in
-                           sorted(timers.items())))
+            worlds[mode], r, at = one_run(key, what, label, path,
+                                          mode == "prefetch")
+            if at is not None:
+                worlds["cut"] = at   # what the cache runs must leave
+            if mode == "prefetch" and r["stale_refresh_rows"] <= 0:
+                raise AssertionError(f"{what}: the stale-row refresh "
+                                     "re-pulled no row")
         same_world(f"lifecycle[{label}] prefetch vs serial",
                    worlds["serial"], worlds["prefetch"])
         log(f"lifecycle[{label}]: prefetched = serial bitwise (per-pass "
             f"losses, {len(worlds['serial']['table'][0])} table keys × "
             "every field, dense weights and Adam state)")
+        for c_label, c_path, prefetch, rows, heat_on in LIFE_CACHE_RUNS:
+            if c_label != label:
+                continue
+            mode = "prefetch" if prefetch else "serial"
+            key = f"{label}_{mode}_cache{rows}"
+            what = f"lifecycle[{label},{mode},cache={rows}]"
+            with engine_flags(rows, heat_on):
+                world, r, _ = one_run(key, what, label, c_path, prefetch,
+                                      cache=True)
+            same_world(f"{what} vs cache off", worlds["cut"], world)
+            check_cache_run(what, r, prefetch, rows)
+            base = float(np.median(
+                out[f"{label}_{mode}"]["pass_wall_s"][:LIFE_CACHE_DEPTH]))
+            pp = r["per_pass"]
+            log(f"{what}: = cache off bitwise; median pass wall "
+                f"{r['median_pass_wall_s']:.3f} s vs {base:.3f} s cache off "
+                f"({mode}); per pass hit_rate "
+                f"{[round(p['hit_rate'], 4) for p in pp]}, build_pull_rows "
+                f"{[p['keys'] - int(p['hits']) for p in pp]}, "
+                f"stale_refresh_rows "
+                f"{[int(p['stale_refresh_rows']) for p in pp]}, "
+                f"gather_fallback_rows "
+                f"{[int(p['gather_fallback_rows']) for p in pp]}, evictions "
+                f"{[int(p['evictions']) for p in pp]}; cache_gather "
+                f"{r['engine_timers'].get('cache_gather', (0.0, 0))[0]:.3f} s"
+                f", cache_fold "
+                f"{r['engine_timers'].get('cache_fold', (0.0, 0))[0]:.3f} s;"
+                f" row_bytes {r['cache']['row_bytes']}, store "
+                f"{r['cache']['store_bytes'] / 2**20:.1f} MiB"
+                + (f"; heat {r['heat']}" if "heat" in r else ""))
+            del world
         del worlds
     return launches, out
 
 
+def check_cache_run(what: str, r: dict, prefetch: bool, rows: int) -> None:
+    """Passes 1 and 4 are cold (set_date drops the cache).  Serially,
+    passes 2 and 3 find the earlier passes' rows resident.  Under the
+    prefetcher, pass N+1's snapshot is taken while pass N trains, before
+    its fold-back: pass 3 finds pass 1's rows, and whether pass 2 finds
+    any races the worker against the fold-back.  The per-pass table rows
+    must add up to the run's ``build_pull_rows``, and the 262,144-row
+    cache must evict."""
+    pp = r["per_pass"]
+    warm = (1, 2) if not prefetch else (2,)
+    cold = [i + 1 for i in warm if pp[i]["hits"] <= 0]
+    if cold or pp[0]["hits"] or pp[LIFE_PASSES]["hits"]:
+        raise AssertionError(f"{what}: hits per pass "
+                             f"{[p['hits'] for p in pp]}")
+    pulled = sum(p["keys"] - p["hits"] for p in pp)
+    if pulled != r["build_pull_rows"]:
+        raise AssertionError(f"{what}: per-pass pulls {pulled} vs "
+                             f"build_pull_rows {r['build_pull_rows']}")
+    evictions = sum(p["evictions"] for p in pp)
+    if rows < KEY_SPACE and evictions <= 0:
+        raise AssertionError(f"{what}: a {rows}-row cache evicted nothing")
+    if r["cache"]["store_bytes"] != r["cache"]["row_bytes"] * rows:
+        raise AssertionError(f"{what}: store bytes {r['cache']}")
+
+
 def write_slot_file(path: str, block: SlotRecordBlock) -> None:
     """``block`` as MultiSlot text: per record the label, the dense
-    values and each slot's feasigns, each group led by its length."""
+    values and each slot's feasigns, each group led by its length.  Built
+    column by column (one list of per-record strings per group)."""
     n = block.n
-    label = block.float_slots["label"][0]
-    dense = block.float_slots["dense0"][0].reshape(n, DENSE_DIM)
-    slots = [block.uint64_slots[f"s{i}"] for i in range(N_SLOTS)]
+    label = block.float_slots["label"][0].astype(np.int64).tolist()
+    dense = np.char.mod("%.6g", block.float_slots["dense0"][0].reshape(
+        n, DENSE_DIM)).tolist()
+    cols = [[f"1 {x}" for x in label],
+            [f"{DENSE_DIM} " + " ".join(row) for row in dense]]
+    for i in range(N_SLOTS):
+        vals, off = block.uint64_slots[f"s{i}"]
+        ids = vals.astype(str).tolist()
+        off = off.tolist()
+        cols.append([f"{off[r + 1] - off[r]} "
+                     + " ".join(ids[off[r]:off[r + 1]]) for r in range(n)])
     with open(path, "w") as f:
-        for r in range(n):
-            parts = [f"1 {int(label[r])}",
-                     f"{DENSE_DIM} " + " ".join(f"{x:.6g}" for x in dense[r])]
-            for vals, off in slots:
-                ids = vals[off[r]:off[r + 1]]
-                parts.append(f"{len(ids)} " + " ".join(map(str, ids)))
-            f.write(" ".join(parts) + "\n")
+        f.write("\n".join(" ".join(parts) for parts in zip(*cols)) + "\n")
 
 
 def dir_bytes(root: str) -> int:
@@ -1206,16 +1587,58 @@ def dir_bytes(root: str) -> int:
                for d, _, files in os.walk(root) for f in files)
 
 
-RECOVERY_CASES = (("fault_free", None, False),
-                  ("end_pass_serial", "end_pass", False),
-                  ("end_pass_prefetch", "end_pass", True),
-                  ("ckpt_commit_serial", "ckpt_commit", False))
+# (case, kill point, which hit of it kills (0 = the first pass's),
+#  prefetch, device-cache rows or 0).  The cache case dies at the third
+# pass's write-back: under the prefetcher that pass is the first to find
+# rows resident (its snapshot follows pass 1's fold-back), so the kill
+# drops a cache that served hits
+RECOVERY_CASES = (("fault_free", None, 0, False, 0),
+                  ("end_pass_serial", "end_pass", 1, False, 0),
+                  ("end_pass_prefetch", "end_pass", 1, True, 0),
+                  ("ckpt_commit_serial", "ckpt_commit", 1, False, 0),
+                  ("end_pass_prefetch_cache", "end_pass", 2, True,
+                   CACHE_ROWS))
+
+
+def parser_check(path: str) -> dict:
+    """The feed's parser on the card is the native one, and it reads one
+    pass file into the Python parser's blocks bit for bit; both timed."""
+    from paddlebox_tpu_torch.data.data_feed import DataFeed, make_parser
+    from paddlebox_tpu_torch.native.slot_parser import NativeSlotParser
+    if not isinstance(make_parser(feed_config()), NativeSlotParser):
+        raise AssertionError("recovery: make_parser did not return the "
+                             "native parser (did the native library build?)")
+    feeds = {"native": DataFeed(feed_config()),
+             "python": DataFeed(feed_config(), use_native=False)}
+    blocks, secs = {}, {}
+    for name, feed in feeds.items():
+        t0 = time.perf_counter()
+        blocks[name] = list(feed.read_file(path))
+        secs[name] = time.perf_counter() - t0
+    nat, py = blocks["native"], blocks["python"]
+    if sum(b.n for b in nat) != N_BATCHES * BATCH or len(nat) != len(py):
+        raise AssertionError(f"recovery: parsed {sum(b.n for b in nat)} "
+                             f"records in {len(nat)} blocks")
+    for a, b in zip(nat, py):
+        for kind in ("uint64_slots", "float_slots"):
+            ga, gb = getattr(a, kind), getattr(b, kind)
+            for name in gb:
+                if any(x.dtype != y.dtype or not np.array_equal(x, y)
+                       for x, y in zip(ga[name], gb[name])):
+                    raise AssertionError(f"recovery: native and Python "
+                                         f"parsers differ on {name}")
+    log(f"recovery: the native parser reads a pass file ({N_BATCHES * BATCH}"
+        f" records) in {secs['native']:.3f} s, the Python parser in "
+        f"{secs['python']:.3f} s: the same blocks bitwise")
+    return {"native_parse_s": secs["native"],
+            "python_parse_s": secs["python"]}
 
 
 def recovery_phase(seed: int = 6, device: str = "cuda"):
-    """fleet.train_passes over slot text files (REC_PASSES passes of one
-    batch, one reader thread) with a TrainCheckpoint: a fault-free run,
-    then seeded kills at end_pass (serial and prefetched) and at
+    """fleet.train_passes over slot text files (REC_PASSES passes of
+    N_BATCHES × BATCH records, one reader thread, the native parser) with
+    a TrainCheckpoint: a fault-free run, then seeded kills at end_pass
+    (serial, prefetched, and prefetched with the device cache on) and at
     ckpt_commit (serial), each resumed (resume=2) to the fault-free run's
     bits."""
     from paddlebox_tpu_torch import fleet
@@ -1230,25 +1653,16 @@ def recovery_phase(seed: int = 6, device: str = "cuda"):
         t0 = time.perf_counter()
         for p in range(REC_PASSES):
             path = os.path.join(work, f"pass{p}.txt")
-            write_slot_file(path, make_block(rng, BATCH))
+            write_slot_file(path, make_block(rng, N_BATCHES * BATCH))
             files.append([path])
         write_s = time.perf_counter() - t0
-        probe = SlotDataset(feed_config(), read_threads=1)
-        probe.set_filelist(files[0])
-        t0 = time.perf_counter()
-        probe.load_into_memory()
-        parse_s = time.perf_counter() - t0
-        if probe.instance_num() != BATCH:
-            raise AssertionError(f"recovery: parsed {probe.instance_num()} "
-                                 f"of {BATCH} records")
-        del probe
-        log(f"recovery: {REC_PASSES} files of {BATCH} records written in "
-            f"{write_s:.2f} s; the pure-Python parser reads one in "
-            f"{parse_s:.2f} s")
-        launches, out, base = {}, {"parse_s": parse_s}, None
-        for case, point, prefetch in RECOVERY_CASES:
+        log(f"recovery: {REC_PASSES} files of {N_BATCHES * BATCH} records "
+            f"written in {write_s:.2f} s")
+        launches, out, base = {}, parser_check(files[0][0]), None
+        for case, point, hit, prefetch, cache_rows in RECOVERY_CASES:
             what = f"recovery[{case}]"
-            engine, trainer = day_trainer(device, "auto")
+            with engine_flags(cache_rows):
+                engine, trainer = day_trainer(device, "auto")
             ds = fleet.BoxPSDataset(feed_config(), engine=engine,
                                     read_threads=1)
             root = os.path.join(work, case)
@@ -1259,7 +1673,7 @@ def recovery_phase(seed: int = 6, device: str = "cuda"):
             if point is not None:
                 flags.set_flags({"ps_fault_injection": True})
                 faults.install(faults.FaultPlan(seed=13).kill_at(point,
-                                                                 at=(1,)))
+                                                                 at=(hit,)))
             try:
                 metrics = fleet.train_passes(trainer, ds, files,
                                              date=REC_DATE,
@@ -1273,7 +1687,7 @@ def recovery_phase(seed: int = 6, device: str = "cuda"):
             launches[case] = read_counts()
             s1 = stat_snapshot("")
             check_launches(what, launches[case], PACKED_KERNELS["mxu"],
-                           REC_PASSES)
+                           REC_PASSES * N_BATCHES)
             if any(m is None for m in metrics) or len(metrics) != REC_PASSES:
                 raise AssertionError(f"{what}: trained {metrics!r}")
             world = world_of(engine, trainer, [m["losses"] for m in metrics])
@@ -1293,6 +1707,14 @@ def recovery_phase(seed: int = 6, device: str = "cuda"):
                  "generations_kept": gens, "ckpt_bytes": dir_bytes(root),
                  "table_rows": len(world["table"][0]),
                  "launches": launches[case]}
+            if engine.cache is not None:
+                r["cache_hits"] = stat_delta(s0, s1, "ps.cache.hits")
+                r["cache_invalidations"] = stat_delta(
+                    s0, s1, "ps.cache.invalidations")
+                if r["cache_invalidations"] < 2 or r["cache_hits"] <= 0:
+                    raise AssertionError(
+                        f"{what}: {int(r['cache_hits'])} cache hits, "
+                        f"{int(r['cache_invalidations'])} invalidations")
             if base is None:
                 base = world
                 # a base generation of the whole table after the day, the
@@ -1319,11 +1741,15 @@ def recovery_phase(seed: int = 6, device: str = "cuda"):
                 f"({r['ckpt_bytes'] / 2**20:.1f} MiB), launches "
                 f"{launches[case]}"
                 + ("" if point is None else "; = fault-free bitwise")
+                + (f"; cache hits {int(r['cache_hits'])}, invalidations "
+                   f"{int(r['cache_invalidations'])}"
+                   if "cache_hits" in r else "")
                 + (f"; full-table base ({r['table_rows']} rows) save "
                    f"{r['full_base_save_s']:.2f} s, "
                    f"{r['full_base_bytes'] / 2**20:.1f} MiB, restore "
                    f"{r['full_base_restore_s']:.2f} s"
                    if "full_base_save_s" in r else ""))
+            shutil.rmtree(root, ignore_errors=True)
         return launches, out
     finally:
         shutil.rmtree(work, ignore_errors=True)

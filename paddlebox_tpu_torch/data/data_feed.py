@@ -7,9 +7,11 @@ data_feed.cc:2397-2500): per line, optionally ``1 <ins_id>`` and
 ``<num> <v1> ... <vnum>``.  Files may be piped through a shell preprocessor
 first (pipe_command ≙ fs_open_read with pipe, data_feed.cc:330).
 
-Copy of ``paddlebox_tpu/data/data_feed.py`` with the pure-Python parser
-only: the JAX package's native C++ parser, its parser plugins and remote
-(non-local) file schemes are not ported yet.
+Copy of ``paddlebox_tpu/data/data_feed.py``: ``make_parser`` returns the
+native C++ parser (``native/slot_parser.py``) when the native library
+builds and no string slot is configured, else the pure-Python
+``SlotParser``; ``use_native=False`` forces the Python one.  The parser
+plugins and remote (non-local) file schemes are not ported yet.
 """
 
 from __future__ import annotations
@@ -147,10 +149,11 @@ class DataFeed:
 
     def __init__(self, config: DataFeedConfig, parse_ins_id: bool = False,
                  parse_logkey: bool = False, chunk_lines: int = 4096,
-                 input_table=None):
+                 use_native: bool = True, input_table=None):
         self.config = config
         self.chunk_lines = chunk_lines
         self._parser = make_parser(config, parse_ins_id, parse_logkey,
+                                   use_native=use_native,
                                    input_table=input_table)
 
     def read_file(self, path: str) -> Iterator[SlotRecordBlock]:
@@ -169,7 +172,15 @@ class DataFeed:
 
 
 def make_parser(config: DataFeedConfig, parse_ins_id: bool = False,
-                parse_logkey_: bool = False, input_table=None):
-    """The Python MultiSlot parser (the native parser is not ported)."""
+                parse_logkey_: bool = False, use_native: bool = True,
+                input_table=None):
+    """Return the native C++ parser when built, else the python fallback.
+    String (InputTable) slots force the python parser — the table's
+    string→index map lives in the python process."""
+    if use_native and not config.string_slots:
+        from paddlebox_tpu_torch.native import slot_parser as native_parser
+        if native_parser.available():
+            return native_parser.NativeSlotParser(
+                config, parse_ins_id, parse_logkey_)
     return SlotParser(config, parse_ins_id, parse_logkey_,
                       input_table=input_table)

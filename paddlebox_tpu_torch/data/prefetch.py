@@ -86,6 +86,19 @@ class PassPrefetcher:
     must load the pass's data so that the engine's key sink sees every
     feasign (e.g. ``SlotDataset.load_into_memory`` with the engine
     attached), then return the loaded dataset for the pack.
+
+    Device-cache interaction (ps/device_cache.py): ``begin_feed_pass`` —
+    which runs HERE, on the worker thread — publishes the cache's
+    immutable index snapshot, and the async build's miss-only pull
+    intersects against that frozen numpy view while pass N trains and
+    folds back on the main thread (copy-on-write index, no torn reads,
+    no CUDA call on the worker).  The authoritative hit resolution and
+    the device-side gather happen at adoption on the main thread, so a
+    row evicted mid-overlap simply falls back to a table pull.  The
+    day-boundary drain (a ``date`` change in :meth:`submit`) also orders
+    ``set_date``'s cache invalidation strictly after the old day's last
+    fold-back, and :meth:`abort`'s ``reset_feed_state`` rebuilds the
+    cache cold.
     """
 
     def __init__(self, engine, trainer):

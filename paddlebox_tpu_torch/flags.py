@@ -73,3 +73,15 @@ define_flag("mxu_crossing", "auto",
 define_flag("mxu_crossing_bf16", False,
             "move the mxu pull crossing in bfloat16 (the push crossing of "
             "the legacy payload stays f32: it carries the exact slot id)")
+define_flag("ps_device_cache", False,
+            "keep the hottest embedding rows resident in device memory "
+            "across passes (the HBM tier of the HBM/DRAM/SSD store, "
+            "≙ HeterPS fleet/heter_ps).  build_pull then fetches only "
+            "cache MISSES over the wire; hits are gathered device-side "
+            "into the pass working set.  Bit-identical to cache-off — "
+            "the cache is write-back at pass granularity and never a "
+            "second source of truth across a checkpoint commit")
+define_flag("ps_device_cache_rows", 262_144,
+            "row capacity of the device-resident hot-row cache "
+            "(ps/device_cache.py); admission/eviction ranks by the "
+            "day-scale delta_score stats plus pass recency")

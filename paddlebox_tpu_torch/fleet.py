@@ -234,6 +234,14 @@ def train_passes(trainer: SparseTrainer, dataset: BoxPSDataset,
     Bit-identity vs a fault-free run is asserted by
     tests/test_torch_fleet.py.
 
+    Device row cache (``FLAGS_ps_device_cache``): no interaction needed
+    here — both recovery tiers already pass through its coherence points.
+    The prefetcher teardown calls ``engine.reset_feed_state`` and the
+    checkpoint rollback calls ``TrainCheckpoint.resume``, each of which
+    invalidates the cache, so a re-driven pass always rebuilds it cold
+    from the rolled-back table and stays bit-identical to a cache-off
+    run (tests/test_torch_device_cache.py).
+
     Returns the per-pass train metrics; passes skipped by the resume
     cursor (completed by a PREVIOUS incarnation) yield ``None`` entries
     so indices still line up with ``passes``."""

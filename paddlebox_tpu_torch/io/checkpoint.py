@@ -400,6 +400,12 @@ class TrainCheckpoint:
         engine.table.load(self._sparse_dir(chain[0]))
         for n in chain[1:]:
             engine.table.load(self._sparse_dir(n), mode="upsert")
+        if getattr(engine, "cache", None) is not None:
+            # the table just rolled back under the device cache —
+            # reset_feed_state above already dropped it once, but the
+            # chain load is the authoritative coherence point: every
+            # resident row is now potentially stale, rebuild cold
+            engine.cache.invalidate("resume")
         engine.day_id = state.get("day_id")
         engine.pass_id = state.get("pass_id", 0)
         engine.phase = state.get("phase", 1)

@@ -1,0 +1,224 @@
+// Native MultiSlot text parser — the host data-loader hot path.
+//
+// TPU-native equivalent of SlotRecordInMemoryDataFeed::ParseOneInstance
+// (reference: paddle/fluid/framework/data_feed.cc:2397) re-designed for the
+// struct-of-arrays SlotRecordBlock layout: one pass over the raw byte buffer,
+// per-slot contiguous value + offset arrays, zero per-record allocations.
+// Exposed as a C ABI for ctypes (no pybind11 in the image).
+//
+// Build: paddlebox_tpu/native/build.py (g++ -O3 -shared -fPIC).
+
+#include <cstdint>
+#include <cstdlib>
+#include <cstring>
+#include <string>
+#include <vector>
+
+namespace {
+
+struct SlotColumn {
+  bool is_float;
+  std::vector<uint64_t> u64;
+  std::vector<float> f32;
+  std::vector<int64_t> offsets;  // n_records + 1
+};
+
+struct ParseResult {
+  int64_t n_records = 0;
+  std::vector<SlotColumn> slots;
+  // ins ids packed back to back with offsets
+  std::string ins_ids;
+  std::vector<int64_t> ins_id_offsets;
+  std::vector<uint64_t> search_ids;
+  std::vector<int32_t> cmatch;
+  std::vector<int32_t> rank;
+  std::string error;
+};
+
+inline const char* skip_ws(const char* p, const char* end) {
+  while (p < end && (*p == ' ' || *p == '\t' || *p == '\r')) ++p;
+  return p;
+}
+
+inline uint64_t parse_u64(const char*& p, const char* end) {
+  uint64_t v = 0;
+  while (p < end && *p >= '0' && *p <= '9') {
+    v = v * 10 + static_cast<uint64_t>(*p - '0');
+    ++p;
+  }
+  return v;
+}
+
+inline int64_t parse_i64(const char*& p, const char* end) {
+  bool neg = false;
+  if (p < end && (*p == '-' || *p == '+')) {
+    neg = (*p == '-');
+    ++p;
+  }
+  int64_t v = static_cast<int64_t>(parse_u64(p, end));
+  return neg ? -v : v;
+}
+
+inline float parse_f32(const char*& p, const char* end) {
+  char* stop = nullptr;
+  float v = strtof(p, &stop);
+  p = stop;
+  if (p > end) p = end;
+  return v;
+}
+
+// hex logkey → (search_id, cmatch, rank); layout per
+// data_feed.cc parser_log_key: rank = last 2 hex chars, cmatch = prior 2.
+inline void decode_logkey(const char* s, int64_t len, uint64_t* sid,
+                          int32_t* cm, int32_t* rk) {
+  auto hexval = [](char c) -> uint64_t {
+    if (c >= '0' && c <= '9') return c - '0';
+    if (c >= 'a' && c <= 'f') return c - 'a' + 10;
+    if (c >= 'A' && c <= 'F') return c - 'A' + 10;
+    return 0;
+  };
+  uint64_t v = 0;
+  if (len < 4) {
+    *sid = 0; *cm = 0; *rk = 0;
+    return;
+  }
+  *rk = static_cast<int32_t>(hexval(s[len - 2]) * 16 + hexval(s[len - 1]));
+  *cm = static_cast<int32_t>(hexval(s[len - 4]) * 16 + hexval(s[len - 3]));
+  for (int64_t i = 0; i < len - 4; ++i) v = v * 16 + hexval(s[i]);
+  *sid = v;
+}
+
+}  // namespace
+
+extern "C" {
+
+void* pbox_parse_block(const char* buf, int64_t buflen, int32_t n_slots,
+                       const uint8_t* is_float, int32_t parse_ins_id,
+                       int32_t parse_logkey, int64_t* out_n_records,
+                       int32_t* out_status) {
+  auto* res = new ParseResult();
+  res->slots.resize(n_slots);
+  for (int i = 0; i < n_slots; ++i) {
+    res->slots[i].is_float = is_float[i] != 0;
+    res->slots[i].offsets.push_back(0);
+  }
+  if (parse_ins_id || parse_logkey) res->ins_id_offsets.push_back(0);
+
+  const char* p = buf;
+  const char* end = buf + buflen;
+  *out_status = 0;
+  while (p < end) {
+    const char* line_end = static_cast<const char*>(
+        memchr(p, '\n', static_cast<size_t>(end - p)));
+    if (line_end == nullptr) line_end = end;
+    const char* q = skip_ws(p, line_end);
+    if (q == line_end) {  // blank line
+      p = line_end + 1;
+      continue;
+    }
+    if (parse_ins_id) {
+      q = skip_ws(q, line_end);
+      int64_t num = parse_i64(q, line_end);
+      if (num != 1) { *out_status = 1; break; }
+      q = skip_ws(q, line_end);
+      const char* tok = q;
+      while (q < line_end && *q != ' ') ++q;
+      res->ins_ids.append(tok, static_cast<size_t>(q - tok));
+      res->ins_id_offsets.push_back(
+          static_cast<int64_t>(res->ins_ids.size()));
+    }
+    if (parse_logkey) {
+      q = skip_ws(q, line_end);
+      int64_t num = parse_i64(q, line_end);
+      if (num != 1) { *out_status = 2; break; }
+      q = skip_ws(q, line_end);
+      const char* tok = q;
+      while (q < line_end && *q != ' ') ++q;
+      uint64_t sid; int32_t cm, rk;
+      decode_logkey(tok, q - tok, &sid, &cm, &rk);
+      res->search_ids.push_back(sid);
+      res->cmatch.push_back(cm);
+      res->rank.push_back(rk);
+      if (!parse_ins_id) {
+        res->ins_ids.append(tok, static_cast<size_t>(q - tok));
+        res->ins_id_offsets.push_back(
+            static_cast<int64_t>(res->ins_ids.size()));
+      }
+    }
+    for (int s = 0; s < n_slots; ++s) {
+      q = skip_ws(q, line_end);
+      int64_t num = parse_i64(q, line_end);
+      if (num <= 0 || q >= line_end) { *out_status = 3; break; }
+      SlotColumn& col = res->slots[s];
+      if (col.is_float) {
+        for (int64_t k = 0; k < num; ++k) {
+          q = skip_ws(q, line_end);
+          col.f32.push_back(parse_f32(q, line_end));
+        }
+        col.offsets.push_back(static_cast<int64_t>(col.f32.size()));
+      } else {
+        for (int64_t k = 0; k < num; ++k) {
+          q = skip_ws(q, line_end);
+          col.u64.push_back(parse_u64(q, line_end));
+        }
+        col.offsets.push_back(static_cast<int64_t>(col.u64.size()));
+      }
+    }
+    if (*out_status != 0) break;
+    ++res->n_records;
+    p = line_end + 1;
+  }
+  *out_n_records = res->n_records;
+  if (*out_status != 0) {
+    delete res;
+    return nullptr;
+  }
+  return res;
+}
+
+int64_t pbox_slot_total(void* h, int32_t slot) {
+  auto* res = static_cast<ParseResult*>(h);
+  const SlotColumn& col = res->slots[slot];
+  return col.is_float ? static_cast<int64_t>(col.f32.size())
+                      : static_cast<int64_t>(col.u64.size());
+}
+
+void pbox_fill_slot_u64(void* h, int32_t slot, uint64_t* values,
+                        int64_t* offsets) {
+  auto* res = static_cast<ParseResult*>(h);
+  const SlotColumn& col = res->slots[slot];
+  memcpy(values, col.u64.data(), col.u64.size() * sizeof(uint64_t));
+  memcpy(offsets, col.offsets.data(), col.offsets.size() * sizeof(int64_t));
+}
+
+void pbox_fill_slot_f32(void* h, int32_t slot, float* values,
+                        int64_t* offsets) {
+  auto* res = static_cast<ParseResult*>(h);
+  const SlotColumn& col = res->slots[slot];
+  memcpy(values, col.f32.data(), col.f32.size() * sizeof(float));
+  memcpy(offsets, col.offsets.data(), col.offsets.size() * sizeof(int64_t));
+}
+
+void pbox_fill_logkeys(void* h, uint64_t* sids, int32_t* cmatch,
+                       int32_t* rank) {
+  auto* res = static_cast<ParseResult*>(h);
+  memcpy(sids, res->search_ids.data(),
+         res->search_ids.size() * sizeof(uint64_t));
+  memcpy(cmatch, res->cmatch.data(), res->cmatch.size() * sizeof(int32_t));
+  memcpy(rank, res->rank.data(), res->rank.size() * sizeof(int32_t));
+}
+
+int64_t pbox_insid_bytes(void* h) {
+  return static_cast<int64_t>(static_cast<ParseResult*>(h)->ins_ids.size());
+}
+
+void pbox_fill_insids(void* h, char* chars, int64_t* offsets) {
+  auto* res = static_cast<ParseResult*>(h);
+  memcpy(chars, res->ins_ids.data(), res->ins_ids.size());
+  memcpy(offsets, res->ins_id_offsets.data(),
+         res->ins_id_offsets.size() * sizeof(int64_t));
+}
+
+void pbox_free(void* h) { delete static_cast<ParseResult*>(h); }
+
+}  // extern "C"

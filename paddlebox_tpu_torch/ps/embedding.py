@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from paddlebox_tpu_torch.ops import sorted_spmm as sp
+from paddlebox_tpu_torch.utils.monitor import stat_add
 
 
 def size_bucket(n: int, align: int = 8) -> int:
@@ -44,16 +45,31 @@ def size_bucket(n: int, align: int = 8) -> int:
 class PassKeyMapper:
     """Host-side key→pass-row translation over the sorted unique key array.
 
-    Row 0 is reserved (zero row); real keys map to rows 1..n by binary
-    search (the JAX package's native hash table is not part of this
-    port; both give the same rows)."""
+    Row 0 is reserved (zero row); real keys map to rows 1..n.  The rows come
+    from the native open-addressing hash (native/hash_shard.cc), built once
+    here with the keys inserted in sorted order, so row i + 1 is the
+    binary search's answer; probes of 65,536 keys or more are threaded.
+    Without the native library a binary search gives the same rows.  The
+    keys each resolved are counted in ``ps.mapper.native_rows`` /
+    ``ps.mapper.sorted_rows``.  The hash is read-only after construction,
+    so the packer's threads may call the mapper at once.
+    """
 
     def __init__(self, sorted_keys: np.ndarray):
+        from paddlebox_tpu_torch.native import hash_map
         self.sorted_keys = sorted_keys  # unique, ascending, excludes 0
+        self._native = None
+        if len(sorted_keys) and hash_map.available():
+            self._native = hash_map.NativeKeyHash(len(sorted_keys))
+            self._native.upsert(sorted_keys)
 
     def __call__(self, keys: np.ndarray) -> np.ndarray:
         if len(self.sorted_keys) == 0:
             return np.zeros(len(keys), np.int32)
+        if self._native is not None:
+            stat_add("ps.mapper.native_rows", float(len(keys)))
+            return self._native.find_rows1_i32(np.asarray(keys, np.uint64))
+        stat_add("ps.mapper.sorted_rows", float(len(keys)))
         pos = np.searchsorted(self.sorted_keys, keys)
         pos_c = np.minimum(pos, len(self.sorted_keys) - 1)
         found = self.sorted_keys[pos_c] == keys
@@ -92,6 +108,24 @@ def build_working_set(host_soa: Dict[str, np.ndarray], device: torch.device,
         # each staging buffer is fresh and owned by its copy, so the
         # non-blocking H2D cannot race a later rewrite
         ws[f] = buf.to(device, non_blocking=True) if pin else buf
+    return ws
+
+
+def scatter_device_rows(ws: Dict[str, torch.Tensor], rows,
+                        values: Dict[str, torch.Tensor]
+                        ) -> Dict[str, torch.Tensor]:
+    """Cached-plane working-set fill: write already-device-resident row
+    values (a DeviceRowCache gather) into the pass working set in place —
+    no host staging and no H2D for these rows.  ``rows`` are unique, so
+    ``index_copy_`` writes each row once and the result is deterministic.
+    Dtypes must already match the working set's (the cache stores
+    build_working_set's exact casts), so ``pull_sparse`` /
+    ``push_sparse_grads`` see bits identical to a wire pull."""
+    dev = next(iter(ws.values())).device
+    rows_d = torch.as_tensor(rows, dtype=torch.int64, device=dev)
+    for f, v in values.items():
+        if f in ws:
+            ws[f].index_copy_(0, rows_d, v)
     return ws
 
 

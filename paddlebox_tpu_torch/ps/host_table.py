@@ -8,12 +8,16 @@ loop fanned across the shared worker pool (utils/workpool.py,
 
 Each shard keeps its keys in one insertion-ordered uint64 array with
 parallel SoA value arrays in capacity-doubling buffers.  The index is a
-lazily rebuilt sorted view + ``np.searchsorted`` (the JAX package's
-fallback when its native hash library is absent; the native library is
-not part of this port).  Save/load writes the JAX package's per-shard
-file layout (``part-%05d.shard.npz``: a ``keys`` array and one array per
-SoA field), so a table saved by either package loads into the other.
-The heat taps are not ported yet.
+lazily rebuilt sorted view + ``np.searchsorted``, the JAX package's
+fallback when its native hash library is absent: the port's native hash
+(native/hash_shard.cc) pulled and wrote a pass no faster at the day
+loop's size (chip_smoke's ``index:`` line), so only ``PassKeyMapper``
+uses it.
+Save/load writes the JAX package's per-shard file layout
+(``part-%05d.shard.npz``: a ``keys`` array and one array per SoA field),
+so a table saved by either package loads into the other.  ``bulk_pull``
+and ``bulk_write`` feed the key-space heat sketches (ps/heat.py) when
+heat is on.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ import numpy as np
 
 from paddlebox_tpu_torch.config import EmbeddingTableConfig
 from paddlebox_tpu_torch.ps import feature_value as fv
+from paddlebox_tpu_torch.ps import heat
 from paddlebox_tpu_torch.utils import lockdep, workpool
 from paddlebox_tpu_torch.utils.monitor import stat_observe
 
@@ -199,6 +204,8 @@ class ShardedHostTable:
         """Read rows for unique `keys` (read-only; unseen keys get fresh
         default rows — insertion happens at write-back).  One gather task
         per shard on the pool; tasks write DISJOINT row sets of ``out``."""
+        if heat.ACTIVE is not None:
+            heat.ACTIVE.observe("pull", keys)
         out = fv.default_rows_keyed(keys, self.mf_dim, self._seed,
                                     self.config.sgd.mf_initial_range,
                                     self.config.sgd.initial_range,
@@ -241,6 +248,9 @@ class ShardedHostTable:
         return np.concatenate(parts).astype(np.uint64, copy=False)
 
     def bulk_write(self, keys: np.ndarray, soa: Dict[str, np.ndarray]) -> None:
+        if heat.ACTIVE is not None:
+            heat.ACTIVE.observe("push", keys)
+
         def write_shard(group):
             s, sel = group
             self._shards[s].upsert(keys[sel], fv.select_rows(soa, sel))

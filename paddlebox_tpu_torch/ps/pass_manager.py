@@ -23,17 +23,27 @@ ps_gpu_wrapper.cc:114-1007):
   load                ≙ InitializeGPUAndLoadModel (box_wrapper.h:624)
   shrink              ≙ ShrinkTable (box_wrapper.h:638)
 
+Device row cache (``FLAGS_ps_device_cache``, ps/device_cache.py): the
+build pulls only the keys missing from the cache's index snapshot
+(published at begin_feed_pass); adoption (``_adopt``) resolves the hits
+against the live index, pulls any hit evicted since the snapshot, uploads
+the miss rows and gathers the hit rows on the device; end_pass folds the
+written rows back after the table write succeeded.  Cache on = cache off
+bit for bit.  Key-space heat (``FLAGS_obs_heat``, ps/heat.py) is turned
+on at construction and faded at a change of date.
+
 Threads: the async build thread (and the pass prefetcher's worker,
-data/prefetch.py) run host work only — key dedup, the table pull, the
-day's decay.  Every device copy (the working-set upload, the stale-row
+data/prefetch.py) run host work only — key dedup, the cache snapshot and
+its lookup, the table pull, the day's decay.  Every device copy (the
+working-set upload, the cache gather and fold-back, the stale-row
 refresh, the write-back's device-to-host copy) runs on the thread that
 calls begin_pass/end_pass.  Each timer of ``timers`` is used by one
 thread at a time: ``dedup_keys``/``build_pull``/``end_day`` by the feed
-side, ``build_device``/``refresh_stale``/``dump_to_cpu``/``train`` by the
-training side.
+side, ``build_device``/``cache_gather``/``refresh_stale``/
+``dump_to_cpu``/``cache_fold``/``train`` by the training side.
 
-Not ported yet (ROADMAP): the device row cache, heat, remote-table
-(PS service) adoption, and serving-frozen working sets.
+Not ported yet (ROADMAP): the cache's cluster half and remote-table (PS
+service) adoption, and serving-frozen working sets.
 """
 
 from __future__ import annotations
@@ -50,6 +60,8 @@ from paddlebox_tpu_torch.config import EmbeddingTableConfig
 from paddlebox_tpu_torch.device import DeviceLike, resolve_device
 from paddlebox_tpu_torch.metrics import quality
 from paddlebox_tpu_torch.ps import embedding, faults
+from paddlebox_tpu_torch.ps import heat
+from paddlebox_tpu_torch.ps.device_cache import CachePlan, DeviceRowCache
 from paddlebox_tpu_torch.ps.host_table import ShardedHostTable
 from paddlebox_tpu_torch.utils import flight, intervals, lockdep, trace
 from paddlebox_tpu_torch.utils.monitor import stat_add, stat_set, stat_snapshot
@@ -71,6 +83,7 @@ class BoxPSEngine:
                  seed: int = 0, device: DeviceLike = None):
         self.config = config or EmbeddingTableConfig()
         self.device = resolve_device(device)
+        heat.maybe_enable_from_flags()
         self.table = ShardedHostTable(self.config, seed=seed)
         self.timers = TimerRegistry()
         self.day_id: Optional[str] = None
@@ -93,11 +106,23 @@ class BoxPSEngine:
         # trains
         self._build_thread: Optional[threading.Thread] = None
         self._build_error: Optional[BaseException] = None
-        self._next: Optional[tuple] = None   # (mapper, n, host_rows)
+        self._next: Optional[tuple] = None  # (mapper, n, host_rows, plan)
         self._last_written: Optional[np.ndarray] = None
         self._feed_obs0 = None
         self._pass_obs0 = None
         self._pass_feed_report = None
+
+        # HBM tier: device-resident hot-row cache (ps/device_cache.py)
+        self.cache: Optional[DeviceRowCache] = None
+        if flags.get_flags("ps_device_cache"):
+            cap = int(flags.get_flags("ps_device_cache_rows"))
+            if cap > 0:
+                sgd = self.config.sgd
+                self.cache = DeviceRowCache(
+                    cap, nonclk_coeff=sgd.nonclk_coeff,
+                    clk_coeff=sgd.clk_coeff, device=self.device)
+        self._feed_cache_snap = None     # index snapshot for the open feed
+        self._cache_fresh_keys = None    # adoption-fresh rows (skip refresh)
 
     # -- date / phase --------------------------------------------------------
     def set_date(self, date: str, *, table_decay: bool = True) -> None:
@@ -110,6 +135,13 @@ class BoxPSEngine:
                 with self.timers("end_day"):
                     self.table.end_day()
             quality.end_day(self.day_id)
+            # coherence point: end_day decayed show/click table-wide —
+            # every cached row is stale now (the prefetcher's day-boundary
+            # drain guarantees no feed snapshot is in flight here)
+            if self.cache is not None:
+                self.cache.invalidate("end_day")
+            if heat.ACTIVE is not None:
+                heat.ACTIVE.decay_day()
         self.day_id = date
 
     def flip_phase(self) -> None:
@@ -131,6 +163,11 @@ class BoxPSEngine:
         }
         flight.record("pass_feed_begin", pass_id=self.pass_id + 1,
                       day=self.day_id)
+        # publish the cache index snapshot for THIS feed (prefetcher-safe:
+        # the build thread intersects against this frozen view; hit
+        # resolution re-checks the live index at adoption)
+        self._feed_cache_snap = (self.cache.snapshot()
+                                 if self.cache is not None else None)
         # pboxlint: disable-next=PB102 -- single-coordinator lifecycle flag
         self._feeding = True
 
@@ -151,17 +188,46 @@ class BoxPSEngine:
             return uniq[uniq != 0]  # key 0 = reserved zero row
 
     def _build_host(self, uniq: np.ndarray) -> tuple:
-        """Host half of the build: the table pull.  No device work, so it
-        may run on the async build thread."""
+        """Host half of the build: the table pull — with the cache on,
+        of the keys missing from the feed's snapshot only, plus the
+        ``CachePlan`` that adoption resolves.  No device work, so it may
+        run on the async build thread."""
+        snap = self._feed_cache_snap
         with self.timers("build_pull"), \
                 trace.span("ps.engine.build_pull", keys=len(uniq)):
             t0 = time.monotonic()
-            host_rows = self.table.bulk_pull(uniq)
+            plan = None
+            if snap is not None and len(snap.keys) and len(uniq):
+                # HBM tier: pull only cache MISSES from the table; the
+                # snapshot-hit rows are filled from the device cache at
+                # adoption (begin_pass, main thread)
+                hit_mask = snap.lookup(uniq)
+                miss = uniq[~hit_mask]
+                if len(miss):
+                    pulled = self.table.bulk_pull(miss)
+                    miss_pos = np.flatnonzero(~hit_mask)
+                    host_rows = {}
+                    for f, v in pulled.items():
+                        full = np.zeros((len(uniq),) + v.shape[1:], v.dtype)
+                        full[miss_pos] = v
+                        host_rows[f] = full
+                else:
+                    host_rows = self.cache.host_templates(len(uniq))
+                plan = CachePlan(uniq[hit_mask], np.flatnonzero(hit_mask),
+                                 snap, len(miss))
+                pulled_n = len(miss)
+            else:
+                host_rows = self.table.bulk_pull(uniq)
+                pulled_n = len(uniq)
+                if self.cache is not None:
+                    stat_add("ps.cache.misses", float(len(uniq)))
+                    if heat.ACTIVE is not None:
+                        heat.ACTIVE.observe_cache(0, len(uniq))
             t1 = time.monotonic()
             intervals.record("pull", t0, t1)
             stat_add("ps.engine.build_pull_s", t1 - t0)
-            stat_add("ps.engine.build_pull_rows", float(len(uniq)))
-        return embedding.PassKeyMapper(uniq), len(uniq), host_rows
+            stat_add("ps.engine.build_pull_rows", float(pulled_n))
+        return embedding.PassKeyMapper(uniq), len(uniq), host_rows, plan
 
     def _upload(self, host_rows) -> Dict[str, torch.Tensor]:
         # ctr_double accessor: the host keeps f64 show/click; the device
@@ -180,6 +246,63 @@ class BoxPSEngine:
                 ws["show_acc"] = torch.zeros_like(ws["show"])
                 ws["click_acc"] = torch.zeros_like(ws["click"])
             return ws
+
+    def _adopt(self, mapper, host_rows,
+               plan: Optional[CachePlan]) -> Dict[str, torch.Tensor]:
+        """Main-thread working-set assembly: resolve the feed's cache plan
+        against the live index, pull any hit that was evicted since the
+        snapshot, read the f64 pulled-stats base of the hits from the
+        mirror, upload the miss rows and gather the hit rows on the
+        device."""
+        if plan is None or self.cache is None:
+            if self.cache is not None:
+                # a cold pass (empty snapshot): this pass's rate, set on
+                # the thread that trains it
+                stat_set("ps.cache.hit_rate", 0.0)
+            return self._upload(host_rows)
+        with self.timers("cache_gather"):
+            valid, slots = self.cache.resolve(plan.keys, plan.snap)
+            n_valid = int(valid.sum())
+            inv_keys = plan.keys[~valid]
+            if len(inv_keys):
+                # evicted (or invalidated) between snapshot and adoption —
+                # an ordinary miss, just discovered late
+                fresh = self.table.bulk_pull(inv_keys)
+                inv_pos = plan.pos[~valid]
+                for f, v in fresh.items():
+                    if f in host_rows:
+                        host_rows[f][inv_pos] = v
+                stat_add("ps.engine.build_pull_rows", float(len(inv_keys)))
+                stat_add("ps.cache.gather_fallback_rows",
+                         float(len(inv_keys)))
+            hit_pos = plan.pos[valid]
+            hit_slots = np.asarray(slots[valid], np.int64)
+            if n_valid and host_rows["show"].dtype == np.float64:
+                # ctr_double: the f64 stats base comes from the mirror
+                for f, v in self.cache.read_mirror(
+                        hit_slots, fields=("show", "click")).items():
+                    host_rows[f][hit_pos] = v
+            ws = self._upload(host_rows)
+            if n_valid:
+                ws = self.cache.scatter_into(
+                    ws, mapper(plan.keys[valid]), hit_slots)
+            # rows assembled from post-write-back state at adoption time —
+            # the stale-row refresh must not re-pull them
+            self._cache_fresh_keys = np.union1d(
+                plan.keys[valid], inv_keys) if len(inv_keys) \
+                else plan.keys[valid]
+            n_miss = plan.n_miss + len(inv_keys)
+            stat_add("ps.cache.hits", float(n_valid))
+            stat_add("ps.cache.misses", float(n_miss))
+            stat_set("ps.cache.hit_rate",
+                     n_valid / max(n_valid + n_miss, 1))
+            if heat.ACTIVE is not None:
+                # hot-coverage: share of this pass's rows the device
+                # cache served resident
+                heat.ACTIVE.observe_cache(n_valid, n_miss)
+            stat_add("ps.cache.bytes_saved",
+                     float(n_valid * self.cache.row_bytes))
+        return ws
 
     def end_feed_pass(self, async_build: bool = False) -> None:
         """Dedup pass keys, pull host rows, build the device working set.
@@ -201,8 +324,9 @@ class BoxPSEngine:
             assert self._build_thread is None and self._next is None, \
                 "a preloaded pass is pending adoption (begin_pass) — " \
                 "mixing it with a synchronous feed pass would discard data"
-            self.mapper, self.num_keys, host_rows = self._build_host(uniq)
-            self.ws = self._upload(host_rows)
+            self.mapper, self.num_keys, host_rows, plan = \
+                self._build_host(uniq)
+            self.ws = self._adopt(self.mapper, host_rows, plan)
             return
         assert self._build_thread is None, "previous async build not adopted"
 
@@ -249,10 +373,11 @@ class BoxPSEngine:
             if self._build_thread is not None or self._next is not None:
                 self.wait_feed_pass_done()  # raises if async build failed
                 assert self._next is not None
-                self.mapper, self.num_keys, host_rows = self._next
-                self.ws = self._upload(host_rows)
+                self.mapper, self.num_keys, host_rows, plan = self._next
+                self.ws = self._adopt(self.mapper, host_rows, plan)
                 self._next = None
                 self._refresh_stale_rows()
+                self._cache_fresh_keys = None
             assert self.ws is not None, \
                 "end_feed_pass must run before begin_pass"
             # promote the pending feed-time baseline to THIS pass's window
@@ -273,6 +398,13 @@ class BoxPSEngine:
             return
         stale = np.intersect1d(self._last_written, self.mapper.sorted_keys,
                                assume_unique=True)
+        fresh_keys = self._cache_fresh_keys
+        if fresh_keys is not None and len(fresh_keys):
+            # cache hits (and adoption-time fallback pulls) were assembled
+            # AFTER the previous pass's write-back + fold-back — already
+            # fresh, and re-pulling them would hand back the table bytes
+            # the cache just saved
+            stale = np.setdiff1d(stale, fresh_keys, assume_unique=True)
         if not len(stale):
             return
         with self.timers("refresh_stale"):
@@ -329,6 +461,20 @@ class BoxPSEngine:
                 stat_add("ps.engine.end_pass_write_failure")
                 raise
             self._pulled_stats = None
+        if self.cache is not None:
+            # fold-back: the ONLY cache row mutation — after the table
+            # write succeeded, so a failed write-back replays end_pass
+            # with the cache untouched (exactly-once)
+            with self.timers("cache_fold"):
+                casts = None
+                if soa["show"].dtype == np.float64:
+                    # hit rows must replay the same f64→f32 cast a table
+                    # pull of the written row would
+                    casts = {f: soa[f].astype(np.float32)
+                             for f in ("show", "click")}
+                self.cache.update_after_pass(
+                    self.mapper.sorted_keys, soa, self.ws,
+                    pass_id=self.pass_id, host_casts=casts)
         self.ws = None
         self._last_written = np.asarray(self.mapper.sorted_keys)
         # feed-gap attribution over this pass's window (begin_feed_pass →
@@ -375,6 +521,14 @@ class BoxPSEngine:
         self.num_keys = 0
         self._pulled_stats = None
         self._last_written = None
+        self._feed_cache_snap = None
+        self._cache_fresh_keys = None
+        if self.cache is not None:
+            # coherence point: a checkpoint restore / crash teardown may
+            # roll the table back past rows the cache folded in — rebuild
+            # cold (covers TrainCheckpoint.resume, PassPrefetcher.abort and
+            # fleet.train_passes' auto-resume loop)
+            self.cache.invalidate("reset")
 
     # -- persistence ---------------------------------------------------------
     def _save(self, path: str, mode: str) -> int:
@@ -394,10 +548,17 @@ class BoxPSEngine:
     def load(self, path: str) -> int:
         rows = self.table.load(path)
         flight.record("checkpoint_load", path=path, rows=rows)
+        if self.cache is not None:
+            self.cache.invalidate("load")
         return rows
 
     def shrink(self) -> int:
-        return self.table.shrink()
+        removed = self.table.shrink()
+        if self.cache is not None:
+            # shrink evicted dead table rows — cached copies of them must
+            # not resurrect through a later hit
+            self.cache.invalidate("shrink")
+        return removed
 
     # -- convenience ---------------------------------------------------------
     def attach_dataset(self, dataset) -> None:
@@ -431,6 +592,16 @@ class BoxPSEngine:
                 continue            # phase did not run this pass
             lines.append(f"  {name:<20} {secs - s0:>10.3f} "
                          f"{count - c0:>7d}")
+        ch, cm = delta("ps.cache.hits"), delta("ps.cache.misses")
+        if ch or cm:
+            # HBM-tier effectiveness for THIS pass: rows the device cache
+            # kept off the table pull, vs rows still pulled
+            lines.append(
+                f"  cache: hits={int(ch)} misses={int(cm)} "
+                f"hit_rate={ch / max(ch + cm, 1.0):.2f} "
+                f"resident={int(cur.get('ps.cache.resident_rows', 0))} "
+                f"evictions={int(delta('ps.cache.evictions'))} "
+                f"bytes_saved={int(delta('ps.cache.bytes_saved'))}")
         pool_tasks = delta("ps.pool.table.tasks")
         if pool_tasks:
             lines.append(

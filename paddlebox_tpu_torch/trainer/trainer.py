@@ -63,7 +63,7 @@ from paddlebox_tpu_torch.ps import optimizer as sparse_opt
 from paddlebox_tpu_torch.ps.pass_manager import BoxPSEngine
 from paddlebox_tpu_torch.utils import intervals, trace
 from paddlebox_tpu_torch.utils.channel import Channel, ChannelClosed
-from paddlebox_tpu_torch.utils.monitor import stat_observe
+from paddlebox_tpu_torch.utils.monitor import stat_get, stat_observe
 from paddlebox_tpu_torch.utils.timer import TimerRegistry
 
 
@@ -356,6 +356,10 @@ class SparseTrainer:
         dt = time.perf_counter() - t0
         self.engine.timers.add("train", dt)
         stat_observe("trainer.train_pass_s", dt)
+        if getattr(self.engine, "cache", None) is not None:
+            # this pass's HBM-tier hit rate (set at adoption) rides along
+            # with the training metrics for callers like fleet
+            stats["cache_hit_rate"] = stat_get("ps.cache.hit_rate")
         return stats
 
     def _timed_step(self, path, log, *args, plan=None) -> None:
