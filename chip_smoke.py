@@ -109,7 +109,34 @@ result line is printed):
    (``resume=2``) to the fault-free run's bits with at least one
    auto-resume.  Prints the checkpoint save seconds by kind, the restore
    seconds, the generations kept and their size, and a base save and
-   restore of the whole table after the day.
+   restore of the whole table after the day;
+12. rank — ``RankAttentionCTR`` (att_out 32, max_rank 3, MLP 128-64) on
+   the page-view feed: the bench widths (26 slots × capacity 3, mf_dim 8,
+   13 dense, batch 16384, keys from the 2 M key space), one pass of 4
+   pv-aligned batches (page views of 1-4 records with distinct search
+   ids, cmatch from {222, 223, 224}, rank 0-3; batches 2-4 a few records
+   short, so padded), slot s0's first feasign one of 4,096 user ids and
+   named as uid_slot, ``rank_offset`` and ``ads_offset`` on, after
+   ``preprocess_instance()``; through the streaming and the packed
+   entry point on auto → mxu from the same weights.  Each pass must
+   launch ``gather_sorted`` and ``scatter_add_sorted`` exactly once a
+   batch (and ``gather_pool`` never), report wuauc over at least one
+   user, and its first step must equal the same step on the CPU (rtol
+   1e-4); the two passes' losses agree within rtol 1e-4 and their user
+   counts equal the data's count of users with both classes; the packed
+   feed's rank_offset and ads_offset planes on the card equal the host
+   planes bit for bit; a packed rerun from the
+   same state (traced, rank_attention's forward annotated) leaves the
+   same losses, working set and dense weights bit for bit; and
+   ``Fleet.metrics`` fed the packed pass's preds through
+   ``MetricGroup.update`` gives an ``auc`` metric equal to the trainer's
+   within 1e-6, a ``cmatch_rank_group="222:1,223:2"`` metric over exactly
+   those records and a ``wuauc`` metric equal to the trainer's within
+   1e-9.  Prints the steady step, the WuAUC host seconds a pass (the
+   preds' copy to the host each batch), ``build_pass_feed`` and
+   ``plane_build`` seconds, and rank_attention's device ms a step in the
+   traced pass and alone (forward + backward at the step's shapes), with
+   the GEMMs' ms.
 
 Depth cuts of phases 10-11 (the widths are the bench model's): a day of
 3 passes of 4 batches; the cache runs of phase 10 stop after the first
@@ -118,7 +145,7 @@ pass of day 2 (4 passes).
 Every phase sets the launch counters to 0 just before its main run and
 reads them just after; a kernel of the path that did not launch fails
 the run (and a kernel that the reference lowering does not run must not
-launch).  The reruns of phases 5 and 6 are traced by torch.profiler, and
+launch).  The reruns of phases 5, 6 and 12 are traced by torch.profiler, and
 last, short traced passes (2 batches; streaming mxu and each packed
 lowering) do the same for phases 3-4: device time by kernel, each
 hand-written kernel's device time per step, the cuBLAS GEMMs' device
@@ -725,10 +752,13 @@ def profiled(what: str, prof, stats: dict, symbols=SYMBOLS) -> dict:
     to launch work)."""
     cuda = torch.autograd.DeviceType.CUDA
     # device-side events only (kernels, memcpys, memsets): an operator's
-    # row would count its kernels' time a second time
+    # row would count its kernels' time a second time, and so would the
+    # device-timeline span of a record_function (a trace with CPU activity
+    # has them)
     rows = [(e.key, e.self_device_time_total / 1e3, e.count)
             for e in prof.key_averages()
-            if e.device_type == cuda and e.self_device_time_total > 0]
+            if e.device_type == cuda and e.self_device_time_total > 0
+            and not getattr(e, "is_user_annotation", False)]
     rows.sort(key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows)
     window_ms = sum(stats["step_ms"])
@@ -1755,6 +1785,328 @@ def recovery_phase(seed: int = 6, device: str = "cuda"):
         shutil.rmtree(work, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the page-view feed, RankAttentionCTR and the per-user metrics
+# ---------------------------------------------------------------------------
+
+RANK_WIDTHS = dict(att_out=32, max_rank=3, hidden=(128, 64))
+N_USERS = 4096                       # slot s0's first feasign: the user id
+# the autograd nodes of rank_attention's backward, as the profiler names
+# them (the MLP's are AddmmBackward0): its row-gather, one-hot product and
+# GEMM
+RANK_BACKWARD = tuple(f"autograd::engine::evaluate_function: {n}"
+                      for n in ("IndexBackward0", "BmmBackward0",
+                                "MmBackward0"))
+
+
+def rank_feed_config() -> DataFeedConfig:
+    return DataFeedConfig(slots=feed_config().slots, rank_offset=True,
+                          ads_offset=True, max_rank=3, uid_slot="s0")
+
+
+def pv_sizes(rng, total: int) -> np.ndarray:
+    """Page-view sizes 1..4 summing to ``total``, the first of size 4."""
+    draws = rng.integers(1, 5, total)
+    csum = 4 + np.cumsum(draws)
+    k = int(np.searchsorted(csum, total))
+    return np.concatenate([[4], draws[:k], [total - csum[k - 1]]])
+
+
+def rank_block(rng) -> SlotRecordBlock:
+    """N_BATCHES groups of page views, group k holding BATCH - k records
+    (so batches 2-4 are short and padded), each group's search ids above
+    the last group's, every group opening with a 4-record pv: after
+    preprocess_instance the pv-aligned cuts are exactly the groups.
+    cmatch from {222, 223, 224}, rank 0..3, and slot s0's first feasign
+    one of N_USERS user ids."""
+    groups = [pv_sizes(rng, BATCH - k) for k in range(N_BATCHES)]
+    n = sum(int(g.sum()) for g in groups)
+    blk = make_block(rng, n)
+    vals, offs = blk.uint64_slots["s0"]
+    vals[offs[:-1]] = rng.integers(1, N_USERS + 1, n).astype(np.uint64)
+    blk.search_ids = np.concatenate([
+        np.repeat((k * 10**6 + rng.choice(10**6, len(g), replace=False))
+                  .astype(np.uint64), g) for k, g in enumerate(groups)])
+    blk.cmatch = rng.choice([222, 223, 224], n).astype(np.int32)
+    blk.rank = rng.integers(0, 4, n).astype(np.int32)
+    return blk
+
+
+def rank_trainer(block: SlotRecordBlock, device: str, params=None):
+    """Engine lifecycle over ``block``'s keys and a RankAttentionCTR
+    trainer (auto → mxu) on a pv-grouped dataset of it."""
+    from paddlebox_tpu_torch.models.rank_ctr import RankAttentionCTR
+    cfg = rank_feed_config()
+    dataset = SlotDataset(cfg)
+    dataset._blocks = [block]
+    dataset.preprocess_instance()
+    engine = BoxPSEngine(EmbeddingTableConfig(
+        embedding_dim=MF_DIM, shard_num=8,
+        sgd=SparseSGDConfig(mf_create_thresholds=0.0)), seed=0, device=device)
+    engine.begin_feed_pass()
+    engine.add_keys(block.all_keys())
+    engine.end_feed_pass()
+    engine.begin_pass()
+    trainer = SparseTrainer(
+        engine, RankAttentionCTR(N_SLOTS, 3 + MF_DIM, DENSE_DIM,
+                                 **RANK_WIDTHS),
+        cfg, batch_size=BATCH, seed=0, device=device)
+    if params is not None:
+        trainer.model.load_jax_params(params)
+    return engine, trainer, dataset, trainer.model.jax_params()
+
+
+def rank_run(block: SlotRecordBlock, device: str, params=None,
+             packed: bool = False, around_train=contextlib.nullcontext):
+    """One pass of the rank model on the streaming or (packed) the
+    pass-resident entry point.  Returns (stats, initial params, extra):
+    extra holds each step's preds, the trained working set and dense
+    weights, and for a packed pass its host arrays, its feed and the
+    build and plane-build seconds."""
+    from paddlebox_tpu_torch.utils.monitor import stat_snapshot
+    engine, trainer, dataset, params0 = rank_trainer(block, device, params)
+    extra = {"preds": []}
+    core = trainer._core
+
+    def spy(*args, **kw):
+        loss, preds = core(*args, **kw)
+        extra["preds"].append(preds.detach().clone())
+        return loss, preds
+    trainer._core = spy
+    key = "data.pass_feed.plane_build_s.sum"
+    if packed:
+        before = stat_snapshot("data.pass_feed").get(key, 0.0)
+        t0 = time.perf_counter()
+        arrays = trainer.pack_pass_host(dataset)
+        feed = trainer.finish_pass_feed(arrays)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        extra.update(build_pass_feed_s=time.perf_counter() - t0,
+                     plane_build_s=stat_snapshot("data.pass_feed").get(
+                         key, 0.0) - before,
+                     arrays=arrays, feed=feed)
+        with around_train():
+            stats = trainer.train_pass(feed)
+    else:
+        with around_train():
+            stats = trainer.train_pass(dataset, pack_threads=4)
+    extra["ws"] = {k: v.clone() for k, v in engine.ws.items()}
+    extra["dense"] = {k: v.clone()
+                      for k, v in trainer.model.state_dict().items()}
+    extra["auc_table_size"] = trainer.auc_table_size
+    engine.end_pass()
+    return stats, params0, extra
+
+
+def rank_attention_profile(prof, n_steps: int) -> float:
+    """Device ms per step of rank_attention in a traced pass: its forward
+    (a ``rank_attention`` record_function) and its three backward nodes."""
+    keys = ("rank_attention",) + RANK_BACKWARD
+    cpu = torch.autograd.DeviceType.CPU
+    return sum(e.device_time_total for e in prof.key_averages()
+               if e.key in keys and e.device_type == cpu) / 1e3 / n_steps
+
+
+@contextlib.contextmanager
+def rank_annotated(holder: dict):
+    """Trace CPU and CUDA with rank_attention's forward annotated (its
+    backward nodes carry their own names)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from paddlebox_tpu_torch.models import rank_ctr
+    plain = rank_ctr.rank_attention
+
+    def annotated(*args, **kw):
+        with record_function("rank_attention"):
+            return plain(*args, **kw)
+    rank_ctr.rank_attention = annotated
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            holder["prof"] = prof
+            yield prof
+    finally:
+        rank_ctr.rank_attention = plain
+
+
+def rank_attention_time(feed, dev: torch.device, seed: int = 0) -> float:
+    """rank_attention forward + backward alone, at the step's shapes, on
+    batch 0's rank_offset plane (device ms, time_ms)."""
+    from paddlebox_tpu_torch.ops.rank_attention import rank_attention
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    in_col = N_SLOTS * (3 + MF_DIM)
+    x = torch.randn((BATCH, in_col), generator=gen, device=dev,
+                    requires_grad=True)
+    param = torch.randn((9 * in_col, RANK_WIDTHS["att_out"]), generator=gen,
+                        device=dev, requires_grad=True)
+    g = torch.randn((BATCH, RANK_WIDTHS["att_out"]), generator=gen,
+                    device=dev)
+    ro = feed.data["rank_offset"][0]
+
+    def step():
+        out, _ = rank_attention(x, ro, param, 3)
+        out.backward(g)
+    return time_ms("rank_attention fwd+bwd", step)
+
+
+def rank_metrics(extra: dict, stats: dict, block_sorted: SlotRecordBlock):
+    """Fleet.metrics fed the packed pass's preds, batch by batch, through
+    MetricGroup.update: an auc metric (must equal the trainer's auc within
+    1e-6), a cmatch_rank_group="222:1,223:2" metric and a wuauc metric
+    (must equal the trainer's wuauc within 1e-9)."""
+    from paddlebox_tpu_torch import fleet
+    group = fleet.init().metrics
+    group.init_metric("rank_auc", table_size=extra["auc_table_size"])
+    group.init_metric("rank_cr", table_size=extra["auc_table_size"],
+                      cmatch_rank_group="222:1,223:2")
+    group.init_metric("rank_wuauc", metric_type="wuauc")
+    h = extra["arrays"]
+    nb = h.n_batches * h.batch_size
+    cmatch = np.zeros((nb,), np.int32)
+    rank = np.zeros((nb,), np.int32)
+    for i in range(h.n_batches):
+        lo, cnt, base = (i * h.batch_size, int(h.batch_real[i]),
+                         int(h.batch_base[i]))
+        cmatch[lo:lo + cnt] = block_sorted.cmatch[base:base + cnt]
+        rank[lo:lo + cnt] = block_sorted.rank[base:base + cnt]
+    for i, preds in enumerate(extra["preds"]):
+        sl = slice(i * h.batch_size, (i + 1) * h.batch_size)
+        p = preds.cpu().numpy()
+        for name in ("rank_auc", "rank_cr", "rank_wuauc"):
+            group.update(name, p, h.labels[sl], mask=h.valid[sl],
+                         cmatch=cmatch[sl], rank=rank[sl], uid=h.uid[sl])
+    msg = {n: group.get_metric_msg(n)
+           for n in ("rank_auc", "rank_cr", "rank_wuauc")}
+    if abs(msg["rank_auc"]["auc"] - stats["auc"]) > 1e-6:
+        raise AssertionError(f"rank: Fleet.metrics auc "
+                             f"{msg['rank_auc']['auc']} vs the trainer's "
+                             f"{stats['auc']}")
+    if abs(msg["rank_wuauc"]["wuauc"] - stats["wuauc"]) > 1e-9:
+        raise AssertionError(f"rank: Fleet.metrics wuauc "
+                             f"{msg['rank_wuauc']['wuauc']} vs the "
+                             f"trainer's {stats['wuauc']}")
+    want = int((h.valid & (((cmatch == 222) & (rank == 1))
+                           | ((cmatch == 223) & (rank == 2)))).sum())
+    if msg["rank_cr"]["size"] != want:
+        raise AssertionError(f"rank: the cmatch_rank metric counted "
+                             f"{msg['rank_cr']['size']} records, not {want}")
+    return msg
+
+
+def rank_phase(seed: int = 13):
+    """RankAttentionCTR on the pv feed, streaming and packed on mxu (see
+    the module docstring, phase 12)."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed)
+    block = rank_block(rng)
+    launches, out, runs = {}, {}, {}
+    per_batch = {"gather_sorted": 1, "scatter_add_sorted": 1,
+                 "gather_pool": 0}
+    params0 = None
+    for mode in ("streaming", "packed"):
+        reset_counts()
+        t0 = time.perf_counter()
+        stats, p0, extra = rank_run(block, "cuda", params0,
+                                    packed=mode == "packed")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[mode] = read_counts()
+        params0 = params0 or p0
+        check_pass(f"rank[{mode}]", stats, launches[mode], per_batch,
+                   exact=True)
+        if not stats["wuauc_users"] > 0:
+            raise AssertionError(f"rank[{mode}]: no user with both classes")
+        runs[mode] = (stats, extra)
+        steady = float(np.median(stats["step_ms"][1:]))
+        out[mode] = {"losses": stats["losses"], "auc": stats["auc"],
+                     "uauc": stats["uauc"], "wuauc": stats["wuauc"],
+                     "wuauc_users": stats["wuauc_users"],
+                     "wuauc_s": stats["wuauc_s"],
+                     "step_ms": stats["step_ms"], "steady_step_ms": steady,
+                     "pass_wall_s": wall, "launches": launches[mode]}
+        if mode == "packed":
+            out[mode].update(build_pass_feed_s=extra["build_pass_feed_s"],
+                             plane_build_s=extra["plane_build_s"])
+        log(f"rank[{mode}]: losses {stats['losses']}, auc {stats['auc']}, "
+            f"uauc {stats['uauc']}, wuauc {stats['wuauc']} over "
+            f"{stats['wuauc_users']:.0f} users, launches {launches[mode]}, "
+            f"step device ms {stats['step_ms']} (steady median "
+            f"{steady:.3f}), WuAUC host {stats['wuauc_s']:.3f} s a pass, "
+            f"pass wall {wall:.2f} s"
+            + (f", build_pass_feed {extra['build_pass_feed_s']:.2f} s, "
+               f"plane_build {extra['plane_build_s']:.4f} s"
+               if mode == "packed" else ""))
+    (s_stats, _), (p_stats, p_extra) = runs["streaming"], runs["packed"]
+    # the first step on the CPU, from the same weights and batch
+    pv = SlotDataset(rank_feed_config())
+    pv._blocks = [block]
+    pv.preprocess_instance()
+    lo, hi = pv.batch_bounds(BATCH)[0]
+    first = pv.get_blocks()[0].slice(lo, hi)
+    cpu_stats, _, _ = rank_run(first, "cpu", params0)
+    cpu_loss = cpu_stats["losses"][0]
+    for mode, (stats, _) in runs.items():
+        if not math.isclose(stats["losses"][0], cpu_loss, rel_tol=1e-4):
+            raise AssertionError(f"rank[{mode}]: first-step loss card "
+                                 f"{stats['losses'][0]} vs CPU {cpu_loss}")
+    for a, b in zip(s_stats["losses"], p_stats["losses"]):
+        if not math.isclose(a, b, rel_tol=1e-4):
+            raise AssertionError(f"rank: streaming losses "
+                                 f"{s_stats['losses']} vs packed "
+                                 f"{p_stats['losses']}")
+    # users with both classes, counted from the data
+    vals, offs = block.uint64_slots["s0"]
+    _, user = np.unique(vals[offs[:-1]], return_inverse=True)
+    pos = np.bincount(user, weights=block.float_slots["label"][0])
+    both = int(((pos > 0) & (pos < np.bincount(user))).sum())
+    if not s_stats["wuauc_users"] == p_stats["wuauc_users"] == both:
+        raise AssertionError(f"rank: wuauc users streaming "
+                             f"{s_stats['wuauc_users']} vs packed "
+                             f"{p_stats['wuauc_users']}, {both} in the data")
+    # the packed feed's pv planes on the card = the host planes
+    h, feed = p_extra["arrays"], p_extra["feed"]
+    n, b = h.n_batches, h.batch_size
+    planes = {"rank_offset": h.rank_offset.reshape(n, b, -1),
+              "ads_offset": h.ads_offset}
+    for k, want in planes.items():
+        if not np.array_equal(feed.data[k].cpu().numpy(), want):
+            raise AssertionError(f"rank: the card's {k} plane differs from "
+                                 "the host's")
+    if not (h.rank_offset[:, 0] > 0).any() or h.batch_real.min() == b:
+        raise AssertionError("rank: no ranked record or no short batch")
+    # a packed rerun from the same state, traced: the same bits
+    holder = {}
+    again, _, a_extra = rank_run(block, "cuda", params0, packed=True,
+                                 around_train=lambda: rank_annotated(holder))
+    if again["losses"] != p_stats["losses"]:
+        raise AssertionError(f"rank: packed rerun losses {again['losses']} "
+                             f"!= {p_stats['losses']}")
+    for what in ("ws", "dense"):
+        diff = [k for k in p_extra[what]
+                if not torch.equal(p_extra[what][k], a_extra[what][k])]
+        if diff:
+            raise AssertionError(f"rank: the packed rerun left different "
+                                 f"{what} fields {diff}")
+    prof = profiled("rank[packed]", holder["prof"], again)
+    prof["rank_attention_ms_per_step"] = rank_attention_profile(
+        holder["prof"], len(again["step_ms"]))
+    alone = rank_attention_time(feed, dev)
+    msg = rank_metrics(p_extra, p_stats, pv.get_blocks()[0])
+    log(f"rank: first-step loss CPU {cpu_loss!r} (rtol 1e-4 of both); "
+        "streaming = packed within rtol 1e-4; the packed rerun is "
+        f"bit-identical; device planes = host planes; rank_attention "
+        f"device ms per step {prof['rank_attention_ms_per_step']:.4f} in the "
+        f"traced step, {alone:.4f} fwd+bwd alone; GEMMs "
+        f"{prof['gemm_ms_per_step']:.4f}; Fleet.metrics auc "
+        f"{msg['rank_auc']['auc']!r} (= the trainer's within 1e-6), "
+        f"cmatch_rank 222:1,223:2 auc {msg['rank_cr']['auc']!r} over "
+        f"{msg['rank_cr']['size']:.0f}, wuauc {msg['rank_wuauc']['wuauc']!r}")
+    out.update(cpu_first_loss=cpu_loss, deterministic=True, profile=prof,
+               rank_attention_alone_ms=alone,
+               fleet_metrics={k: {kk: vv for kk, vv in v.items()}
+                              for k, v in msg.items()})
+    return launches, out
+
+
 def profile_phase(seed: int = 1, symbols=SYMBOLS) -> dict:
     """Short traced passes (2 batches) of the lowerings that phases 3-4
     run once untraced: device time by kernel, per step, and the
@@ -1800,6 +2152,7 @@ def main() -> int:
     cross_launches, cross_out = crossing_phase(packed_block, packed_params)
     life_launches, life_out = lifecycle_phase()
     rec_launches, rec_out = recovery_phase()
+    rank_launches, rank_out = rank_phase()
     profile_out = profile_phase()
 
     by_path = {"slice_mxu": slice_launches,
@@ -1810,7 +2163,8 @@ def main() -> int:
                **{f"models_{p}": n for p, n in models_launches.items()},
                **{f"crossing_{p}": n for p, n in cross_launches.items()},
                **{f"lifecycle_{p}": n for p, n in life_launches.items()},
-               **{f"recovery_{p}": n for p, n in rec_launches.items()}}
+               **{f"recovery_{p}": n for p, n in rec_launches.items()},
+               **{f"rank_{p}": n for p, n in rank_launches.items()}}
     line = {"kernels": []}
     for name in KERNELS:
         k = kern["uniform"][name]
@@ -1831,7 +2185,7 @@ def main() -> int:
                                  "rules": rules_out, "models": models_out,
                                  "crossing": cross_out,
                                  "lifecycle": life_out, "recovery": rec_out,
-                                 "profile": profile_out}))
+                                 "rank": rank_out, "profile": profile_out}))
     print(json.dumps(line), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,6 @@
 """Host-side batch assembly: SlotRecordBlock → fixed-shape arrays.
 
-Copy of ``paddlebox_tpu/data/batch_pack.py`` (numpy only); the
-rank_offset/ads_offset planes are not ported yet.
+Copy of ``paddlebox_tpu/data/batch_pack.py`` (numpy only).
 
 ≙ the GPU batch-pack kernels (FillSlotValueOffsetPadBoxKernel /
 CopyForTensorPadBoxKernel, data_feed.cu:1210-1318) and MiniBatchGpuPack
@@ -24,6 +23,8 @@ from typing import Callable, Dict, List, Optional, Sequence
 import numpy as np
 
 from paddlebox_tpu_torch.config import DataFeedConfig, SlotConfig
+from paddlebox_tpu_torch.data.rank_offset import (build_ads_offset,
+                                                  build_rank_offset)
 from paddlebox_tpu_torch.data.slot_record import SlotRecordBlock
 
 
@@ -128,11 +129,15 @@ class BatchPacker:
         else:
             indices = np.zeros((S, B, L), dtype=np.int32)
 
-        if self.config.rank_offset or self.config.ads_offset:
-            raise NotImplementedError(
-                "rank_offset/ads_offset planes are not ported to the "
-                "PyTorch package")
-        rank_off = ads_off = None
+        rank_off = None
+        if self.config.rank_offset:
+            rank_off = build_rank_offset(block.search_ids, block.cmatch,
+                                         block.rank, B,
+                                         self.config.max_rank)
+
+        ads_off = None
+        if self.config.ads_offset:
+            ads_off = build_ads_offset(block.search_ids, n, B)
 
         uid = None
         if self.config.uid_slot:

@@ -1,7 +1,6 @@
 """Pass-scoped in-memory dataset.
 
-Copy of ``paddlebox_tpu/data/dataset.py`` (numpy only); string
-(InputTable) slots are not ported yet.
+Copy of ``paddlebox_tpu/data/dataset.py`` (numpy only).
 
 ≙ Dataset/DatasetImpl/SlotRecordDataset/PadBoxSlotDataset
 (data_set.h:58-568): a pass (typically ~10 min of logs) is loaded into host
@@ -120,9 +119,8 @@ class SlotDataset:
         # data_feed.h:2224); auto-created when the config declares any
         self.input_table = input_table
         if feed_config.string_slots and input_table is None:
-            raise NotImplementedError(
-                "string (InputTable) slots are not ported to the PyTorch "
-                "package")
+            from paddlebox_tpu_torch.ps.aux_tables import InputTable
+            self.input_table = InputTable()
         self.read_threads = read_threads
         self.transport = transport or LoopbackTransport()
         self.filelist: List[str] = []

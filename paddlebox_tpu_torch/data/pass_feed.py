@@ -11,18 +11,22 @@ pass-scope key translation DedupKeysAndFillIdx, box_wrapper_impl.h:129):
   [N, S, L, B] layout (``upload_pass``), plus the per-batch sorted-spmm
   plans of the mxu lowering (``precompute_plans``, trimmed and with the
   static payload planes) or the CSR plans of the ragged lowering
-  (``build_csr_plans``, host numpy).
+  (``build_csr_plans``, host numpy).  A ``PlaneStager`` handed to
+  ``pack_pass`` starts each plane's upload as soon as the plane is final.
 * TRAIN LOOP: the step indexes batch i of the resident tensors.
 
-Not ported yet: sharded feeds, the ``PlaneStager`` upload overlap, the
-rank_offset / ads_offset planes, InputTable aux planes and uids (they
-raise ``NotImplementedError``).
+Besides the step's five planes the pass carries the page-view planes
+(``rank_offset`` [N*B, 1+2*max_rank] with batch-local rows, ``ads_offset``
+[N, B+1]), the InputTable aux index planes and the uid plane; the uids
+stay on the host, where the per-user AUC reads them.  Not ported:
+sharded feeds.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import threading
 import time
 from typing import Callable, Dict, List, Optional, Sequence
 
@@ -31,6 +35,8 @@ import torch
 
 from paddlebox_tpu_torch.config import DataFeedConfig
 from paddlebox_tpu_torch.data.batch_pack import BatchPacker
+from paddlebox_tpu_torch.data.rank_offset import (build_ads_offset_batched,
+                                                  build_rank_offset_batched)
 from paddlebox_tpu_torch.data.slot_record import SlotRecordBlock
 from paddlebox_tpu_torch.ops import sorted_spmm as sp
 from paddlebox_tpu_torch.utils import intervals, workpool
@@ -53,9 +59,24 @@ class HostPassArrays:
     # real-record order; None = batch i holds rows [i*B, i*B + real_i)
     batch_real: Optional[np.ndarray] = None   # [N] int64
     batch_base: Optional[np.ndarray] = None   # [N] int64
+    rank_offset: Optional[np.ndarray] = None  # [N*B, 1+2*max_rank] int32
+    ads_offset: Optional[np.ndarray] = None   # [N, B+1] int32 pv offsets
+    # InputTable-resolved aux index planes {name: [N*B, cap] int32}
+    aux: Optional[Dict[str, np.ndarray]] = None
+    uid: Optional[np.ndarray] = None    # [N*B] uint64 (uid_slot), host only
     # ragged-lowering CSR step plans ({seg, inv, occ_w, u_rows, u_slot},
     # each [N, ...]); None until built
     csr: Optional[Dict[str, np.ndarray]] = None
+
+    def extra_planes(self) -> Dict[str, np.ndarray]:
+        """Every optional per-record plane the device gets (rank_offset
+        and the aux index planes)."""
+        out = {}
+        if self.rank_offset is not None:
+            out["rank_offset"] = self.rank_offset
+        if self.aux:
+            out.update(self.aux)
+        return out
 
 
 def _record_ranges(n: int, threads: int) -> List[tuple]:
@@ -72,24 +93,13 @@ def _record_ranges(n: int, threads: int) -> List[tuple]:
             for i in range(len(bounds) - 1) if bounds[i + 1] > bounds[i]]
 
 
-def _not_ported(feed_config: DataFeedConfig) -> None:
-    what = [name for name, on in (
-        ("rank_offset", feed_config.rank_offset),
-        ("ads_offset", feed_config.ads_offset),
-        ("uid_slot (WuAUC)", feed_config.uid_slot),
-        ("string_slots (InputTable aux planes)", feed_config.string_slots))
-        if on]
-    if what:
-        raise NotImplementedError(
-            f"pack_pass: {', '.join(what)} not ported to the PyTorch "
-            "package")
-
-
 def pack_pass(blocks: Sequence[SlotRecordBlock], feed_config: DataFeedConfig,
               batch_size: int, label_slot="label",
               key_mapper=None,
               batch_counts: Optional[Sequence[int]] = None,
-              pack_threads: Optional[int] = None) -> HostPassArrays:
+              pack_threads: Optional[int] = None,
+              on_plane: Optional[Callable[[str, np.ndarray], None]] = None
+              ) -> HostPassArrays:
     """Vectorized whole-pass pack: one call per slot, one key translation
     for every occurrence in the pass.
 
@@ -102,8 +112,10 @@ def pack_pass(blocks: Sequence[SlotRecordBlock], feed_config: DataFeedConfig,
     over the shared pack WorkPool (None = FLAGS_pass_pack_threads; an int
     uses a private pool of that size).  Every worker writes a disjoint
     row range of the preallocated planes, so the result is bit-identical
-    at any thread count."""
-    _not_ported(feed_config)
+    at any thread count.
+
+    on_plane: called on this thread as each plane becomes final (a
+    ``PlaneStager`` starts its upload there)."""
     t_pack = time.perf_counter()
     m_pack = time.monotonic()
     packer = BatchPacker(feed_config, batch_size, label_slot)
@@ -122,6 +134,13 @@ def pack_pass(blocks: Sequence[SlotRecordBlock], feed_config: DataFeedConfig,
                 f"batch_counts sum {sum(counts)} != {merged.n} records")
     else:
         counts = None
+    if (feed_config.rank_offset or feed_config.ads_offset) and counts is None:
+        # the plane functions treat each batch as whole page views; a pv
+        # split across dense cuts would attend over a fragment's peers
+        # (≙ GetRankOffset only runs under pv merge, data_feed.cc:1855)
+        raise ValueError(
+            "rank_offset/ads_offset require pv-aligned batches: pass "
+            "batch_counts (dataset.batch_bounds)")
     if counts is not None:
         over = [c for c in counts if c > batch_size]
         if over:
@@ -177,11 +196,16 @@ def pack_pass(blocks: Sequence[SlotRecordBlock], feed_config: DataFeedConfig,
                  [(si, slot, r0, r1)
                   for si, slot in enumerate(packer.sparse_slots)
                   for r0, r1 in ranges])
+        if on_plane is not None:
+            on_plane("indices", indices)
+            on_plane("lengths", lengths)
 
         # wave 2 — the light per-record planes
         dense = np.zeros((nb, packer.dense_dim), dtype=np.float32)
         multi = np.zeros((nb, len(packer.label_slots)), np.float32)
         valid = np.zeros((nb,), dtype=bool)
+        uid = np.zeros((nb,), np.uint64) if feed_config.uid_slot else None
+        aux = {} if feed_config.string_slots else None
 
         def pack_dense(slot, col: int) -> None:
             values, offsets = merged.float_slots[slot.name]
@@ -196,6 +220,19 @@ def pack_pass(blocks: Sequence[SlotRecordBlock], feed_config: DataFeedConfig,
                 lp, _ = packer._pad_ragged(lv, lo, 1)
                 multi[pos, t] = lp[:, 0].astype(np.float32)
 
+        def pack_uid() -> None:
+            vals, offs = merged.uint64_slots[feed_config.uid_slot]
+            uid[pos] = packer._pad_ragged(vals, offs, 1)[0][:, 0]
+
+        def pack_aux(slot) -> None:
+            # InputTable index planes (≙ InputTableDataFeed,
+            # data_feed.h:2224)
+            vals, offs = merged.aux_slots[slot.name]
+            padded, _ = packer._pad_ragged(vals, offs, slot.capacity)
+            plane = np.zeros((nb, slot.capacity), np.int32)
+            plane[pos] = padded.astype(np.int32)
+            aux[slot.name] = plane
+
         tasks: List[Callable[[], None]] = []
         col = 0
         for slot in packer.dense_slots:
@@ -203,18 +240,48 @@ def pack_pass(blocks: Sequence[SlotRecordBlock], feed_config: DataFeedConfig,
             col += slot.dim
         for t, name in enumerate(packer.label_slots):
             tasks.append(functools.partial(pack_label, t, name))
+        if uid is not None:
+            tasks.append(pack_uid)
+        if aux is not None:
+            for slot in feed_config.string_slots:
+                tasks.append(functools.partial(pack_aux, slot))
         pool.map(lambda fn: fn(), tasks)
         valid[pos] = True
     finally:
         if own_pool is not None:
             own_pool.shutdown()
     labels = multi if len(packer.label_slots) > 1 else multi[:, 0]
+    if on_plane is not None:
+        on_plane("dense", dense)
+        on_plane("labels", labels)
+        on_plane("valid", valid)
+        for name, plane in (aux or {}).items():
+            on_plane(name, plane)
 
     out = HostPassArrays(indices=indices, lengths=lengths, dense=dense,
                          labels=labels, valid=valid, n_batches=n_batches,
                          batch_size=batch_size, num_real=n,
                          batch_real=batch_real,
-                         batch_base=batch_base)
+                         batch_base=batch_base, aux=aux, uid=uid)
+    # wave 3 — the pv planes, vectorized over the whole pass and metered
+    # apart from the pad/translate work
+    t_planes = time.perf_counter()
+    if feed_config.rank_offset:
+        # ≙ GetRankOffset per batch (data_feed.cc:1855): batch-local rows
+        out.rank_offset = build_rank_offset_batched(
+            merged.search_ids, merged.cmatch, merged.rank,
+            batch_real, batch_base, batch_size, feed_config.max_rank)
+        if on_plane is not None:
+            on_plane("rank_offset", out.rank_offset)
+    if feed_config.ads_offset:
+        # ≙ GetAdsOffset per batch (data_feed.cc:3592): pv prefix offsets
+        out.ads_offset = build_ads_offset_batched(
+            merged.search_ids, batch_real, batch_base, batch_size)
+        if on_plane is not None:
+            on_plane("ads_offset", out.ads_offset)
+    if feed_config.rank_offset or feed_config.ads_offset:
+        stat_observe("data.pass_feed.plane_build_s",
+                     time.perf_counter() - t_planes)
     dt = time.perf_counter() - t_pack
     intervals.record("pack", m_pack, time.monotonic())
     stat_observe("data.pass_feed.pack_s", dt)
@@ -232,9 +299,12 @@ class PackedPassFeed:
       dense    [N, B, D]    float32
       labels   [N, B] / [N, B, T]
       valid    [N, B]       bool
-    plans: the mxu lowering's sorted-spmm plans or the ragged lowering's
-    CSR plans, each array stacked on axis 0; ``plan_dims`` identifies the
-    geometry they were built for.
+    and, when the feed has them, ``rank_offset`` [N, B, 1+2*max_rank],
+    one [N, B, cap] int32 plane per InputTable slot and ``ads_offset``
+    [N, B+1].  plans: the mxu lowering's sorted-spmm plans or the ragged
+    lowering's CSR plans, each array stacked on axis 0; ``plan_dims``
+    identifies the geometry they were built for.  ``uid`` with its
+    ``host_labels`` / ``host_valid`` stay on the host (uid_slot only).
     """
 
     data: Dict[str, torch.Tensor]
@@ -242,6 +312,9 @@ class PackedPassFeed:
     batch_size: int
     plans: Optional[Dict[str, torch.Tensor]] = None
     plan_dims: object = None
+    uid: Optional[np.ndarray] = None          # [N*B] uint64
+    host_labels: Optional[np.ndarray] = None  # [N*B(, T)]
+    host_valid: Optional[np.ndarray] = None   # [N*B] bool
 
 
 def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -253,28 +326,66 @@ def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
     return t
 
 
-def upload_pass(host_arrays: HostPassArrays,
-                device: torch.device) -> PackedPassFeed:
+class PlaneStager:
+    """Overlap the upload with the pack: ``pack_pass(on_plane=stager)``
+    calls it as each plane becomes final, and it starts that plane's
+    copy to ``device`` at once (pinned, ``non_blocking`` on a card);
+    ``upload_pass(..., staged=stager)`` then skips the staged planes.
+
+    The copies are CUDA calls, and no CUDA call runs on a worker thread
+    of the port (the pass prefetcher's worker and the async pass build
+    only pack): a call off the main thread raises."""
+
+    def __init__(self, device: torch.device):
+        self.device = torch.device(device)
+        self.staged: Dict[str, torch.Tensor] = {}
+
+    def __call__(self, name: str, a: np.ndarray) -> None:
+        if threading.current_thread() is not threading.main_thread():
+            raise RuntimeError(
+                f"PlaneStager called for plane {name!r} on thread "
+                f"{threading.current_thread().name!r}: it uploads, so it "
+                "may only be handed to a pack that runs on the main thread")
+        t0 = time.monotonic()
+        self.staged[name] = to_device(a, self.device)
+        intervals.record("upload", t0, time.monotonic())
+
+
+def upload_pass(host_arrays: HostPassArrays, device: torch.device,
+                staged: Optional[PlaneStager] = None) -> PackedPassFeed:
     """One upload per plane + a relayout on the device into the
-    step-ready stacked layout."""
+    step-ready stacked layout.  ``staged``: a PlaneStager whose planes
+    are already on their way (those skip the upload here)."""
     t_up = time.perf_counter()
     m_up = time.monotonic()
     h = host_arrays
     N, B = h.n_batches, h.batch_size
-    idx = to_device(h.indices, device)                     # [S, N*B, L]
+    pre = dict(staged.staged) if staged is not None else {}
+
+    def put(name: str, a: np.ndarray) -> torch.Tensor:
+        return pre[name] if name in pre else to_device(a, device)
+
+    idx = put("indices", h.indices)                        # [S, N*B, L]
     s, _, l = idx.shape
-    lbl = to_device(h.labels, device)
+    lbl = put("labels", h.labels)
     data = {
         "indices": idx.reshape(s, N, B, l).permute(1, 0, 3, 2).contiguous(),
-        "lengths": to_device(h.lengths, device).reshape(s, N, B).permute(
+        "lengths": put("lengths", h.lengths).reshape(s, N, B).permute(
             1, 0, 2).contiguous(),
-        "dense": to_device(h.dense, device).reshape(N, B, -1),
+        "dense": put("dense", h.dense).reshape(N, B, -1),
         "labels": lbl.reshape((N, B) + tuple(lbl.shape[1:])),
-        "valid": to_device(h.valid, device).reshape(N, B),
+        "valid": put("valid", h.valid).reshape(N, B),
     }
+    for k, v in h.extra_planes().items():    # [N*B, w] -> [N, B, w]
+        data[k] = put(k, v).reshape(N, B, -1)
+    if h.ads_offset is not None:             # per-batch plane [N, B+1]
+        data["ads_offset"] = put("ads_offset", h.ads_offset)
     intervals.record("upload", m_up, time.monotonic())
     stat_observe("data.pass_feed.upload_s", time.perf_counter() - t_up)
-    return PackedPassFeed(data=data, n_batches=N, batch_size=B)
+    uid = h.uid is not None
+    return PackedPassFeed(data=data, n_batches=N, batch_size=B,
+                          uid=h.uid, host_labels=h.labels if uid else None,
+                          host_valid=h.valid if uid else None)
 
 
 def _static_planes(plan: Dict[str, torch.Tensor], labels_b: torch.Tensor,

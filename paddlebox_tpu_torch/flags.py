@@ -62,6 +62,9 @@ def all_flags() -> Dict[str, Any]:
 
 define_flag("check_nan_inf", False,
             "per-batch NaN/Inf check of the loss (boxps_worker.cc:1326)")
+define_flag("auc_runner_mode", False,
+            "enable AucRunner slot-replacement eval (flags.cc:972; "
+            "metrics/auc_runner.py)")
 define_flag("sparse_step_path", "auto",
             "sparse step lowering: auto | mxu | fast | ragged | reference.  "
             "It overrides an 'auto' construction only; with one device "

@@ -15,8 +15,7 @@ A reference user drives training as:
     dataset.end_pass(True)
 or hands a day's per-pass filelists to :func:`train_passes`.  This module
 offers the same verbs over the port's one-card engine and trainer.  Not
-ported yet: the trainer fleet (``run_trainer_fleet``), topologies and the
-metric registry.
+ported yet: the trainer fleet (``run_trainer_fleet``) and topologies.
 """
 
 from __future__ import annotations
@@ -33,6 +32,7 @@ from paddlebox_tpu_torch.data.prefetch import PassPrefetcher
 from paddlebox_tpu_torch.device import DeviceLike
 from paddlebox_tpu_torch.io.checkpoint import TrainCheckpoint
 from paddlebox_tpu_torch.metrics import quality
+from paddlebox_tpu_torch.metrics.auc import MetricGroup
 from paddlebox_tpu_torch.ps import faults
 from paddlebox_tpu_torch.ps.pass_manager import BoxPSEngine
 from paddlebox_tpu_torch.trainer.trainer import SparseTrainer
@@ -48,6 +48,9 @@ class Fleet:
     def __init__(self, strategy: Optional[DistributedStrategy] = None):
         self.strategy = strategy or DistributedStrategy()
         self.engine: Optional[BoxPSEngine] = None
+        # the named metric registry (≙ BoxWrapper's metric maps,
+        # box_wrapper.h:769)
+        self.metrics = MetricGroup()
 
     # ≙ fleet.init(is_collective/role_maker)
     def init_engine(self, table_config: Optional[EmbeddingTableConfig] = None,

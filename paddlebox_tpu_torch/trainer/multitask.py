@@ -7,6 +7,8 @@ lowering with these differences: labels are [B, T], the model's
 ``forward_multi`` gives [B, T] logits, the loss is the mean of the
 per-task masked BCE, the push's show/click come from task 0 (the CTR
 head), and the AUC buckets accumulate per task into stacked tables.
+Extra feed planes reach ``forward_multi`` as keyword arguments; the
+per-user AUC (``uid_slot``) scores task 0.
 """
 
 from __future__ import annotations
@@ -70,8 +72,9 @@ class MultiTaskSparseTrainer(SparseTrainer):
         return torch.stack([torch.ones_like(labels[:, 0]), labels[:, 0]],
                            dim=1)
 
-    def _loss_and_preds(self, x, dense, labels, valid):
-        logits = self.model.forward_multi(x, dense)          # [B, T]
+    def _loss_and_preds(self, x, dense, labels, valid, extras=None):
+        logits = self.model.forward_multi(
+            x, dense, **self._model_extras(extras))          # [B, T]
         w = valid.to(torch.float32)[:, None]
         per = F.binary_cross_entropy_with_logits(logits, labels,
                                                  reduction="none")
@@ -92,6 +95,8 @@ class MultiTaskSparseTrainer(SparseTrainer):
         out = dict(per_task[0])
         for t, m in enumerate(per_task):
             out[f"task{t}_auc"] = m["auc"]
+        # per-user AUC (uid_slot) scores task 0, the CTR head
+        self._finalize_wuauc(out)
         return out
 
     def task_metrics(self) -> List[Dict[str, float]]:
@@ -108,3 +113,5 @@ class MultiTaskSparseTrainer(SparseTrainer):
                                               self.auc_table_size,
                                               self.device)
         self.auc.reset()
+        if self.wuauc is not None:
+            self.wuauc.reset()

@@ -30,10 +30,15 @@ whole pass once, keeps it on the device with its per-batch plans, and
 the loop indexes batch i (≙ SlotPaddleBoxDataFeed's whole-pass pack,
 data_feed.h:2036).
 
+Models that declare ``extra_inputs`` (``RankAttentionCTR``'s
+``rank_offset``, an InputTable slot's index plane) get those feed planes
+as keyword arguments on every lowering; ``uid_slot`` adds the per-user
+AUC (uauc / wuauc), accumulated on the host from each batch's preds.
+
 PyTorch runs the step eagerly, so there is no jit and no donation: the
 working set, the dense params, the optimizer state and the AUC buckets
 are updated in place on the device.  Not ported yet: the multi-device
-lowering, the async dense table, dumps and WuAUC.
+lowering, the async dense table and dumps.
 """
 
 from __future__ import annotations
@@ -53,8 +58,8 @@ from paddlebox_tpu_torch.data.batch_pack import BatchPacker, PackedBatch
 from paddlebox_tpu_torch.data import pass_feed as pf
 from paddlebox_tpu_torch.data.dataset import SlotDataset
 from paddlebox_tpu_torch.device import DeviceLike, resolve_device
-from paddlebox_tpu_torch.metrics.auc import (AucCalculator, accumulate_auc,
-                                             make_auc_state)
+from paddlebox_tpu_torch.metrics.auc import (AucCalculator, WuAucCalculator,
+                                             accumulate_auc, make_auc_state)
 from paddlebox_tpu_torch.ops import crossing as cx
 from paddlebox_tpu_torch.ops import sorted_spmm as sp
 from paddlebox_tpu_torch.ops.seqpool_cvm import fused_seqpool_cvm
@@ -65,6 +70,10 @@ from paddlebox_tpu_torch.utils import intervals, trace
 from paddlebox_tpu_torch.utils.channel import Channel, ChannelClosed
 from paddlebox_tpu_torch.utils.monitor import stat_get, stat_observe
 from paddlebox_tpu_torch.utils.timer import TimerRegistry
+
+
+# the step's own planes of a batch; every other plane is an extra input
+_STEP_PLANES = ("indices", "lengths", "dense", "labels", "valid")
 
 
 class SparseTrainer:
@@ -124,6 +133,36 @@ class SparseTrainer:
                 m[i, 3 + engine.config.slot_mf_dim(int(sid)):] = 0.0
             self._dym_mask = torch.as_tensor(m, device=self.device)
 
+        # models declaring extra feed inputs (RankAttentionCTR's
+        # rank_offset) must have the feed produce them: fail here, not
+        # mid-pass
+        need = set(getattr(model, "extra_inputs", ()))
+        have = ({"rank_offset", "ads_offset"}
+                | {s.name for s in feed_config.string_slots})
+        unknown = need - have
+        if unknown:
+            raise ValueError(
+                f"model.extra_inputs {sorted(unknown)} are not feed planes "
+                f"this feed supplies (available: {sorted(have)})")
+        if "ads_offset" in need and not feed_config.ads_offset:
+            raise ValueError(
+                "model requires the ads_offset plane — set "
+                "DataFeedConfig(ads_offset=True) (and call "
+                "dataset.preprocess_instance())")
+        if "rank_offset" in need:
+            if not feed_config.rank_offset:
+                raise ValueError(
+                    "model requires the rank_offset plane — set "
+                    "DataFeedConfig(rank_offset=True) (and call "
+                    "dataset.preprocess_instance() so batches hold whole "
+                    "page views)")
+            mr = getattr(model, "max_rank", None)
+            if mr is not None and mr != feed_config.max_rank:
+                raise ValueError(
+                    f"model.max_rank={mr} != DataFeedConfig.max_rank="
+                    f"{feed_config.max_rank}: rank_param blocks would be "
+                    "mis-addressed")
+
         model.reset_parameters(torch.Generator().manual_seed(seed))
         self.model = model.to(self.device)
         self.dense_opt = dense_optimizer or torch.optim.Adam(
@@ -131,6 +170,10 @@ class SparseTrainer:
         self.auc_table_size = auc_table_size
         self.auc_state = make_auc_state(auc_table_size, self.device)
         self.auc = AucCalculator(auc_table_size)
+        # per-user metrics (≙ WuAucMetricMsg via MultiSlotDesc.uid_slot):
+        # host records, so each batch's preds come back to the host, as the
+        # reference's add_uid_data copies them (metrics.cc:440)
+        self.wuauc = WuAucCalculator() if feed_config.uid_slot else None
         self._check_nan = flags.get_flags("check_nan_inf")
 
     # ------------------------------------------------------------------
@@ -191,23 +234,32 @@ class SparseTrainer:
         """The instance's (show, click) for the push: (1, label)."""
         return torch.stack([torch.ones_like(labels), labels], dim=1)
 
-    def _forward(self, x: torch.Tensor, dense: torch.Tensor) -> torch.Tensor:
+    def _model_extras(self, extras) -> Dict[str, torch.Tensor]:
+        """The feed planes the model declares in ``extra_inputs``."""
+        if not extras:
+            return {}
+        return {k: extras[k] for k in getattr(self.model, "extra_inputs", ())}
+
+    def _forward(self, x: torch.Tensor, dense: torch.Tensor,
+                 extras=None) -> torch.Tensor:
         """The model's f32 logits.  Under amp the whole forward runs in
         bf16 over per-step bf16 copies of the parameters, whose grads flow
         back to the f32 masters (≙ the JAX package casting the params
         pytree and inputs; ``torch.autocast`` would keep reductions and
-        many elementwise ops in f32, another function)."""
+        many elementwise ops in f32, another function).  The extra feed
+        planes pass uncast."""
+        kw = self._model_extras(extras)
         if not self.amp:
-            return self.model(x, dense)
+            return self.model(x, dense, **kw)
         bf16 = torch.bfloat16
         params = {n: p.to(bf16) for n, p in self.model.named_parameters()}
         logits = torch.func.functional_call(
-            self.model, params, (x.to(bf16), dense.to(bf16)))
+            self.model, params, (x.to(bf16), dense.to(bf16)), kw)
         return logits.to(torch.float32)
 
-    def _loss_and_preds(self, x, dense, labels, valid):
+    def _loss_and_preds(self, x, dense, labels, valid, extras=None):
         """Masked-mean BCE of the logits and the (detached) predictions."""
-        logits = self._forward(x, dense)
+        logits = self._forward(x, dense, extras)
         w = valid.to(torch.float32)
         per = F.binary_cross_entropy_with_logits(logits, labels,
                                                  reduction="none")
@@ -217,18 +269,18 @@ class SparseTrainer:
     def _accumulate_metrics(self, preds, labels, valid) -> None:
         accumulate_auc(self.auc_state, preds, labels, valid)
 
-    def _dense_step(self, x, dense, labels, valid):
+    def _dense_step(self, x, dense, labels, valid, extras=None):
         """Model fwd/bwd, dense optimizer step and AUC; the backward also
         fills ``.grad`` of whatever leaf ``x`` came from.  Returns (loss,
         preds)."""
-        loss, preds = self._loss_and_preds(x, dense, labels, valid)
+        loss, preds = self._loss_and_preds(x, dense, labels, valid, extras)
         self.dense_opt.zero_grad(set_to_none=True)
         loss.backward()
         self.dense_opt.step()
         self._accumulate_metrics(preds, labels, valid)
         return loss.detach(), preds
 
-    def _pooled_dense_half(self, pooled, dense, labels, valid):
+    def _pooled_dense_half(self, pooled, dense, labels, valid, extras=None):
         """Dense half of the pooled-based steps (mxu/fast/ragged): returns
         (loss, preds, d_pooled) — the pooled grads feed the sparse push."""
         b = pooled.shape[0]
@@ -238,10 +290,11 @@ class SparseTrainer:
             x = x * self._dym_mask[None]
         x = x if self.use_cvm else x[:, :, 2:]
         loss, preds = self._dense_step(x.reshape(b, -1), dense, labels,
-                                       valid)
+                                       valid, extras)
         return loss, preds, pooled.grad
 
-    def _reference_step(self, idx_slb, lengths, dense, labels, valid):
+    def _reference_step(self, idx_slb, lengths, dense, labels, valid,
+                        extras=None):
         """The reference lowering (≙ JAX trainer.py:606-659): pull →
         fused_seqpool_cvm → model → BCE → backward → merged push → sparse
         rule → dense optimizer → AUC."""
@@ -261,7 +314,7 @@ class SparseTrainer:
             # the two cvm columns are dropped first
             m = self._dym_mask if self.use_cvm else self._dym_mask[:, 2:]
             pooled = pooled * m.reshape(-1)[None]
-        loss, preds = self._dense_step(pooled, dense, labels, valid)
+        loss, preds = self._dense_step(pooled, dense, labels, valid, extras)
         # 4-6. merged push + sparse optimizer (≙ PushSparseGradCaseGPU,
         # box_wrapper_impl.h:373)
         with torch.no_grad():
@@ -271,14 +324,15 @@ class SparseTrainer:
         return loss, preds
 
     def _core(self, path, idx_slb, lengths, dense, labels, valid,
-              plan=None):
+              plan=None, extras=None):
         """One step of ``path`` on device tensors, updating the working
         set, the dense params and the AUC state in place: idx_slb
         [S, L, B]; plan is the feed's plan of this batch (None → the mxu
-        lowering plans in-step; ragged needs one)."""
+        lowering plans in-step; ragged needs one); extras the batch's
+        extra feed planes by name."""
         if path == "reference":
             return self._reference_step(idx_slb, lengths, dense, labels,
-                                        valid)
+                                        valid, extras)
         ws = self.engine.ws
         s, l, b = idx_slb.shape
         sgd = self.engine.config.sgd
@@ -310,7 +364,7 @@ class SparseTrainer:
                 pooled = ragged_path.pull_pool_cvm(ws, plan, (s, l, b),
                                                    self.use_cvm)
         loss, preds, d_pooled = self._pooled_dense_half(pooled, dense,
-                                                        labels, valid)
+                                                        labels, valid, extras)
         with torch.no_grad():
             if path == "mxu":
                 mxu_path.push_and_update(ws, plan, dims, idx_slb, d_pooled,
@@ -325,10 +379,20 @@ class SparseTrainer:
         return loss, preds
 
     def _put_batch(self, batch: PackedBatch):
-        """Host batch → device tensors (pinned, asynchronous on a card)."""
-        return tuple(pf.to_device(a, self.device)
-                     for a in (batch.indices, batch.lengths, batch.dense,
-                               batch.labels, batch.valid))
+        """Host batch → device tensors (pinned, asynchronous on a card):
+        the step's five planes and a dict of the extra planes."""
+        planes = tuple(pf.to_device(a, self.device)
+                       for a in (batch.indices, batch.lengths, batch.dense,
+                                 batch.labels, batch.valid))
+        extras = {}
+        if batch.rank_offset is not None:
+            extras["rank_offset"] = batch.rank_offset
+        if batch.aux:
+            extras.update(batch.aux)
+        if batch.ads_offset is not None:
+            extras["ads_offset"] = batch.ads_offset
+        return planes + ({k: pf.to_device(v, self.device)
+                          for k, v in extras.items()},)
 
     # ------------------------------------------------------------------
     def train_pass(self, dataset, prefetch: int = 4, pack_threads: int = 1,
@@ -345,7 +409,9 @@ class SparseTrainer:
 
         Returns the AUC stats, ``batches``, per-batch ``losses``, their
         mean ``loss`` and, on a card, ``step_ms``: the device time of each
-        step between CUDA events recorded around its launches."""
+        step between CUDA events recorded around its launches.  With a
+        ``uid_slot``: ``uauc``, ``wuauc``, ``wuauc_users`` and
+        ``wuauc_s`` (host seconds of the preds' copy and record append)."""
         t0 = time.perf_counter()
         with trace.span("trainer.train_pass", pass_id=self.engine.pass_id):
             if isinstance(dataset, pf.PackedPassFeed):
@@ -362,8 +428,11 @@ class SparseTrainer:
             stats["cache_hit_rate"] = stat_get("ps.cache.hit_rate")
         return stats
 
-    def _timed_step(self, path, log, *args, plan=None) -> None:
-        """Run one step, append its loss (and CUDA events) to ``log``."""
+    def _timed_step(self, path, log, *args, plan=None, extras=None,
+                    uid=None) -> None:
+        """Run one step, append its loss (and CUDA events) to ``log``.
+        ``uid``: (uids, labels, valid) of the batch on the host, when the
+        per-user AUC is on."""
         cuda = self.device.type == "cuda"
         m_step = time.monotonic()
         if cuda:
@@ -371,7 +440,7 @@ class SparseTrainer:
                   torch.cuda.Event(enable_timing=True))
             ev[0].record()
         with self.timers("step"):
-            loss, _ = self._core(path, *args, plan=plan)
+            loss, preds = self._core(path, *args, plan=plan, extras=extras)
         if cuda:
             ev[1].record()
             log["events"].append(ev)
@@ -381,6 +450,14 @@ class SparseTrainer:
             raise FloatingPointError(
                 f"NaN/Inf loss at batch {len(log['losses'])}")
         log["losses"].append(loss)
+        if uid is not None:
+            t0 = time.perf_counter()
+            uids, lbl, valid = uid
+            p = preds if preds.dim() == 1 else preds[:, 0]
+            self.wuauc.add_data(p.cpu().numpy(),
+                                lbl if lbl.ndim == 1 else lbl[:, 0],
+                                uids, valid)
+            log["wuauc_s"] += time.perf_counter() - t0
 
     def _pass_stats(self, log) -> Dict[str, float]:
         losses = log["losses"]
@@ -394,11 +471,15 @@ class SparseTrainer:
         if self.device.type == "cuda":
             # read after the synchronising copy above
             out["step_ms"] = [a.elapsed_time(b) for a, b in log["events"]]
+        if self.wuauc is not None:
+            # host seconds of the per-batch preds copy and record append
+            out["wuauc_s"] = log["wuauc_s"]
         return out
 
     def _train_stream(self, dataset: SlotDataset, prefetch: int,
                       pack_threads: int, progress) -> Dict[str, float]:
         """Per-batch host-pack path of train_pass."""
+        self._require_pv_for_rank(dataset)
         path = self._resolve_path()
         self._validate_path(path)
         if path == "ragged":
@@ -436,17 +517,20 @@ class SparseTrainer:
 
         t = threading.Thread(target=packer_thread, daemon=True)
         t.start()
-        log = {"losses": [], "events": []}
+        log = {"losses": [], "events": [], "wuauc_s": 0.0}
         try:
             while True:
                 try:
                     batch = ch.get().result()
                 except ChannelClosed:
                     break
-                indices, lengths, dense, labels, valid = \
+                indices, lengths, dense, labels, valid, extras = \
                     self._put_batch(batch)
+                uid = ((batch.uid, batch.labels, batch.valid)
+                       if self.wuauc is not None else None)
                 self._timed_step(path, log, indices.permute(0, 2, 1),
-                                 lengths, dense, labels, valid)
+                                 lengths, dense, labels, valid,
+                                 extras=extras, uid=uid)
                 if progress is not None:
                     progress(len(log["losses"]))
         finally:
@@ -463,14 +547,17 @@ class SparseTrainer:
     # of device-resident stacked tensors; the mxu plans (trimmed, with the
     # static payload planes) and the ragged CSR plans are built once at
     # feed build, so the hot step contains no sort of its own plan.
-    def pack_pass_host(self, dataset: SlotDataset, mapper=None
-                       ) -> pf.HostPassArrays:
+    def pack_pass_host(self, dataset: SlotDataset, mapper=None,
+                       on_plane=None) -> pf.HostPassArrays:
         """Host half of :meth:`build_pass_feed`: pack + translate the
         whole pass into SoA planes (and, on the ragged lowering, its CSR
-        plans).  No device work and no dependence on the adopted working
-        set: with an explicit ``mapper`` (``engine.peek_next_mapper()``)
-        the pass prefetcher runs this on its worker thread while the
-        previous pass still trains."""
+        plans).  No device work (unless the caller hands in an
+        ``on_plane`` stager, which only the main thread may run) and no
+        dependence on the adopted working set: with an explicit
+        ``mapper`` (``engine.peek_next_mapper()``) the pass prefetcher
+        runs this on its worker thread while the previous pass still
+        trains."""
+        self._require_pv_for_rank(dataset)
         label = (self.packer.label_slots
                  if len(self.packer.label_slots) > 1
                  else self.packer.label_slot)
@@ -483,7 +570,7 @@ class SparseTrainer:
                               self.batch_size, label,
                               key_mapper=(self.engine.mapper if mapper is None
                                           else mapper),
-                              batch_counts=counts)
+                              batch_counts=counts, on_plane=on_plane)
         if self.sparse_path == "ragged":
             # lowered here, so that the prefetch worker hides the CSR build
             # under the previous pass's training
@@ -492,17 +579,19 @@ class SparseTrainer:
                                             arrays.batch_size)
         return arrays
 
-    def finish_pass_feed(self, arrays: pf.HostPassArrays
+    def finish_pass_feed(self, arrays: pf.HostPassArrays,
+                         staged: Optional[pf.PlaneStager] = None
                          ) -> pf.PackedPassFeed:
         """Device half of :meth:`build_pass_feed`: upload + relayout the
         packed planes and build the lowering's per-batch plans.  Needs
         the pass's working set adopted (plan dims read its height), so the
         prefetcher calls it on the main thread right after
-        ``engine.begin_pass()``."""
+        ``engine.begin_pass()``.  ``staged``: the PlaneStager that
+        pack_pass_host was handed (its planes are already uploading)."""
         assert self.engine.ws is not None, "engine lifecycle must run first"
         path = self._resolve_path()
         self._validate_path(path)
-        feed = pf.upload_pass(arrays, self.device)
+        feed = pf.upload_pass(arrays, self.device, staged=staged)
         if path == "mxu":
             n, s, l, b = feed.data["indices"].shape
             dims = mxu_path.make_dims(s * l * b,
@@ -529,6 +618,20 @@ class SparseTrainer:
         (pack_pass_host, then finish_pass_feed)."""
         assert self.engine.ws is not None, "engine lifecycle must run first"
         return self.finish_pass_feed(self.pack_pass_host(dataset))
+
+    def _require_pv_for_rank(self, dataset) -> None:
+        """rank_offset / ads_offset mean something only when every batch
+        holds whole page views (the reference emits them under pv merge
+        only): a pv split across dense batch cuts would see only its
+        fragment's peers, so refuse."""
+        if (self.packer.config.rank_offset
+                or self.packer.config.ads_offset) \
+                and not getattr(dataset, "_pv_grouped", False):
+            raise ValueError(
+                "DataFeedConfig(rank_offset/ads_offset) requires "
+                "pv-grouped batches — call dataset.preprocess_instance() "
+                "before training (≙ GetRankOffset's whole-pv batches, "
+                "data_feed.cc:1855)")
 
     def _ragged_plan_key(self, feed: pf.PackedPassFeed):
         """Geometry a feed's CSR plans were built for: u_rows are
@@ -576,14 +679,27 @@ class SparseTrainer:
                 eff_p_pad = int(r[1]) * int(r[3])
             self._mxu_crossing = self._crossing_modes(
                 s, l, b, eff_p_pad, plans is not None and "bs" in plans)
-        log = {"losses": [], "events": []}
+        if self.wuauc is not None and (feed.uid is None
+                                       or feed.host_labels is None):
+            raise ValueError(
+                "uid_slot is configured but this feed carries no host "
+                "uids/labels — build it with build_pass_feed")
+        log = {"losses": [], "events": [], "wuauc_s": 0.0}
+        b = feed.batch_size
         for i in range(feed.n_batches):
             bt = pf.slice_batch(feed.data, i)
             plan = (pf.plan_tuple(pf.slice_batch(plans, i))
                     if plans is not None else None)
+            # rank_offset rows are batch-local: the slice needs no base
+            extras = {k: v for k, v in bt.items() if k not in _STEP_PLANES}
+            uid = None
+            if self.wuauc is not None:
+                sl = slice(i * b, (i + 1) * b)
+                uid = (feed.uid[sl], feed.host_labels[sl],
+                       feed.host_valid[sl])
             self._timed_step(path, log, bt["indices"], bt["lengths"],
                              bt["dense"], bt["labels"], bt["valid"],
-                             plan=plan)
+                             plan=plan, extras=extras, uid=uid)
             if progress is not None:
                 progress(i + 1)
         return self._pass_stats(log)
@@ -595,10 +711,24 @@ class SparseTrainer:
         out = self.auc.compute()
         pos, neg = self.auc.folded_buckets()
         out["auc_buckets"] = {"pos": pos.tolist(), "neg": neg.tolist()}
+        self._finalize_wuauc(out)
         return out
+
+    def _finalize_wuauc(self, out: Dict) -> None:
+        """uauc / wuauc / wuauc_users into the pass stats; the records are
+        dropped (a per-pass metric, ≙ reset_records)."""
+        if self.wuauc is None:
+            return
+        w = self.wuauc.compute()
+        out["uauc"] = w["uauc"]
+        out["wuauc"] = w["wuauc"]
+        out["wuauc_users"] = w["user_cnt"]
+        self.wuauc.reset()
 
     def reset_metrics(self) -> None:
         """Start the AUC buckets afresh (they accumulate across passes
         until this is called, as in the JAX package)."""
         self.auc_state = make_auc_state(self.auc_table_size, self.device)
         self.auc.reset()
+        if self.wuauc is not None:
+            self.wuauc.reset()

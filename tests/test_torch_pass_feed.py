@@ -125,11 +125,25 @@ def test_pack_pass_batch_counts_match_jax():
                                       err_msg=f)
 
 
-def test_pack_pass_refuses_planes_it_does_not_port():
+def test_pack_pass_uid_plane_matches_jax():
+    """uid_slot: the first feasign of the slot a record, kept on the
+    host (the upload leaves it out of the device planes)."""
+    jcfg, jds = _pkg(JFeed, JSlot, JBlock, JDataset)
     tcfg, tds = _pkg(TFeed, TSlot, TBlock, TDataset)
-    cfg = TFeed(slots=tcfg.slots, uid_slot="s0")
-    with pytest.raises(NotImplementedError, match="uid_slot"):
-        tpf.pack_pass(tds.get_blocks(), cfg, B, "label")
+    jcfg = dataclasses.replace(jcfg, uid_slot="s0")
+    tcfg = dataclasses.replace(tcfg, uid_slot="s0")
+    keys = _keys(jds)
+    want = jpf.pack_pass(jds.get_blocks(), jcfg, B, "label",
+                         key_mapper=JMapper(keys))
+    got = tpf.pack_pass(tds.get_blocks(), tcfg, B, "label",
+                        key_mapper=TMapper(keys))
+    assert got.uid.dtype == want.uid.dtype == np.uint64
+    np.testing.assert_array_equal(got.uid, want.uid)
+    feed = tpf.upload_pass(got, CPU)
+    assert set(feed.data) == {"indices", "lengths", "dense", "labels",
+                              "valid"}
+    np.testing.assert_array_equal(feed.uid, want.uid)
+    np.testing.assert_array_equal(feed.host_valid, want.valid)
 
 
 def test_upload_and_plans_match_jax():
