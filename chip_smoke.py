@@ -21,7 +21,11 @@ result line is printed):
    lengths 1..3), on a contiguous table and on the [N, 12] buffer's
    [N, 11] view that the fast path passes: bit-equal to the plain version
    (both sum at most 3 terms in order l = 0, 1, 2).  Two back-to-back
-   calls of every kernel must be bit-identical.  Times are device times:
+   calls of every kernel must be bit-identical.  The sorted gather and
+   scatter run again at W = 20 (3 + 8 + 8 + 1 pull, 8 + 8 + 4 push: an
+   expand table with mf_ex width 8), where the scatter stages its 12
+   payload columns per round twice, the second round partial (8), under
+   the same checks.  Times are device times:
    CUDA events around back-to-back calls that are enqueued behind a
    device-side sleep, so host work between calls leaves no gaps;
 3. slice  — train one DeepFM pass (26 slots × capacity 3, mf_dim 8,
@@ -137,6 +141,28 @@ result line is printed):
    ``plane_build`` seconds, and rank_attention's device ms a step in the
    traced pass and alone (forward + backward at the step's shapes), with
    the GEMMs' ms.
+13. options — the rest of the one-card trainer at the bench widths (26
+   slots × capacity 3, mf_dim 8, 13 dense, batch 16384, 4 batches, keys
+   from the 2 M key space): (a) an expand table (``expand_dim`` 8) under
+   ``CtrDnn(emb_width=19)`` (MLP 400-400-400), streaming and packed on
+   auto → mxu: ``gather_sorted`` and ``scatter_add_sorted`` exactly once
+   a batch, each at W = 20, ``gather_pool`` never; the first step = the
+   CPU's (rtol 1e-4); mf_ex trained; a packed rerun (traced) keeps the
+   bits; (b) DeepFM on packed mxu with
+   ``TrainerConfig(dense_sync_mode="async_table", sync_weight_step=1)``
+   beside the same pass with synchronous Adam: finite losses, pushed =
+   applied, the module's final params = the table's ``pull()``,
+   ``dense_opt`` never stepped, every grads' copy on the main thread and
+   the table's updates on its own thread (numpy only); (c) a packed pass
+   with ``dump_path`` in a temporary directory over records with
+   ``ins_id``s, the last batch short: one line per real record, ids and
+   labels in order, preds = the pass's to 6 decimals; (d) the five
+   ``fused_seqpool_cvm`` variants forward + backward at [26, 16384, 3, E]
+   against the CPU (rtol 1e-5, atol 1e-6) with device ms each; (e)
+   ``alias_sample`` of 10^6 draws from a card generator, chi-square
+   against the table at p > 1e-3.  Prints the steady steps, the two
+   kernels' traced device ms a step, the grads' copy ms, the dump's host
+   seconds, the variants' ms and the sampler's.
 
 Depth cuts of phases 10-11 (the widths are the bench model's): a day of
 3 passes of 4 batches; the cache runs of phase 10 stop after the first
@@ -190,6 +216,8 @@ HIDDEN = (400, 400, 400)
 BATCH, N_BATCHES, KEY_SPACE = 16384, 4, 2_000_000
 P = N_SLOTS * CAP * BATCH                  # 1,277,952 occurrences / step
 W_PULL, W_PUSH = 3 + MF_DIM + 1, MF_DIM + 4
+EX_DIM = 8                                 # phase 13's expand (mf_ex) width
+W_EX = 3 + MF_DIM + EX_DIM + 1             # 20: pull and push with mf_ex
 TABLE_ROWS = size_bucket(1_600_001)        # a ~1.6 M-key pass's bucket
 
 R_POOL = N_SLOTS * BATCH                   # 425,984 pooled rows / step
@@ -227,6 +255,9 @@ def make_model(name: str):
     emb = 3 + MF_DIM
     if name == "deepfm":
         return DeepFM(N_SLOTS, emb, DENSE_DIM, HIDDEN)
+    if name == "ctr_dnn_ex":    # over an expand table: 3 + D + Dex = 19
+        from paddlebox_tpu_torch.models.ctr_dnn import CtrDnn
+        return CtrDnn(N_SLOTS, emb + EX_DIM, DENSE_DIM, HIDDEN)
     if name == "ctr_dnn":
         from paddlebox_tpu_torch.models.ctr_dnn import CtrDnn
         return CtrDnn(N_SLOTS, emb, DENSE_DIM, (512, 256, 128))
@@ -314,7 +345,12 @@ def padded_rows(rng) -> np.ndarray:
                     0).reshape(-1)
 
 
-def kernel_phase(dev: torch.device, seed: int = 0):
+def kernel_phase(dev: torch.device, seed: int = 0, w_pull: int = W_PULL,
+                 w_push: int = W_PUSH):
+    """The sorted gather and scatter against their plain versions at
+    widths ``w_pull`` / ``w_push`` (12 on the bench table; 20 with an
+    expand table, whose scatter runs a second, partial column round).
+    Returns {dist: {kernel: numbers}}."""
     rng = np.random.default_rng(seed)
     rows_by_dist = {
         "uniform": rng.integers(1, TABLE_ROWS, P),
@@ -324,7 +360,7 @@ def kernel_phase(dev: torch.device, seed: int = 0):
     }
     dims = sp.spmm_dims(P, TABLE_ROWS)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    table = torch.randn((W_PULL, dims.n_kernel), generator=gen, device=dev)
+    table = torch.randn((w_pull, dims.n_kernel), generator=gen, device=dev)
     table[:, 0] = 0.0
     table[:, TABLE_ROWS:] = 0.0             # the zero sentinel tile
     results = {}
@@ -332,7 +368,7 @@ def kernel_phase(dev: torch.device, seed: int = 0):
         rows = torch.as_tensor(rows_np.astype(np.int32), device=dev)
         plan = sp.build_plan(rows, dims)
         rows2d, first_occ = plan[0], plan[7]
-        payload = torch.randn((W_PUSH, dims.p_pad), generator=gen,
+        payload = torch.randn((w_push, dims.p_pad), generator=gen,
                               device=dev)
         payload[:, dims.p:] = 0.0            # pad columns carry nothing
         n_unique = int(first_occ.sum().item())
@@ -373,7 +409,7 @@ def kernel_phase(dev: torch.device, seed: int = 0):
         # bytes the gather must move: its row ids, the table columns this
         # plan touches, the output
         g["bound_ms"], g["bound_by"] = bound_ms(
-            4 * dims.p_pad + 4 * W_PULL * n_unique + 4 * W_PULL * dims.p_pad,
+            4 * dims.p_pad + 4 * w_pull * n_unique + 4 * w_pull * dims.p_pad,
             0)
         s = {"ms": time_ms(f"scatter_add_sorted ({dist})",
                            lambda: sp.scatter_add_sorted(
@@ -382,20 +418,21 @@ def kernel_phase(dev: torch.device, seed: int = 0):
                                  lambda: sp.scatter_add_sorted_plain(
                                      payload, rows2d, first_occ, dims)),
              "library_ms": time_ms(f"index_add_ ({dist})", lambda: torch.zeros(
-                 (W_PUSH, dims.n_kernel), device=dev).index_add_(
+                 (w_push, dims.n_kernel), device=dev).index_add_(
                      1, rows_l, payload)),
              "max_abs_err": s_err}
         # payload + row ids in (the run starts follow from the sorted
         # ids), the whole merged delta out; one add per payload value
         s["bound_ms"], s["bound_by"] = bound_ms(
-            4 * W_PUSH * dims.p_pad + 4 * dims.p_pad
-            + 4 * W_PUSH * dims.n_kernel, W_PUSH * dims.p)
+            4 * w_push * dims.p_pad + 4 * dims.p_pad
+            + 4 * w_push * dims.n_kernel, w_push * dims.p)
         results[dist] = {"gather_sorted": g, "scatter_add_sorted": s,
                          "distinct_rows": n_unique,
                          "longest_run": int(torch.unique_consecutive(
                              rows2d.reshape(-1), return_counts=True)[1]
                              .max())}
-        log(f"kernels[{dist}]: distinct rows {n_unique}, longest run "
+        log(f"kernels[{dist}, W={w_pull}/{w_push}]: distinct rows "
+            f"{n_unique}, longest run "
             f"{results[dist]['longest_run']}; gather "
             f"{g['ms']:.4f} ms (plain {g['plain_ms']:.4f}, bound "
             f"{g['bound_ms']:.4f}); scatter {s['ms']:.4f} ms (plain "
@@ -521,19 +558,23 @@ def read_counts() -> dict:
 
 def make_trainer(block: SlotRecordBlock, device: str, params=None,
                  path: str = "mxu", model: str = "deepfm", amp: bool = False,
-                 optimizer: str = "adagrad", batch: int = 0):
+                 optimizer: str = "adagrad", batch: int = 0,
+                 trainer_config=None):
     """Engine lifecycle up to begin_pass over ``block``'s keys, and a
     trainer on ``device`` (from ``params`` when given).  model "mmoe"
     trains through MultiTaskSparseTrainer on two label slots (the
     reference lowering); ``path`` names the lowering of the others.
-    ``batch``: the batch size, BATCH when 0.  Returns (engine, trainer,
-    a dataset of ``block``, the model's initial params)."""
+    ``batch``: the batch size, BATCH when 0.  Model "ctr_dnn_ex" trains
+    over a table with an EX_DIM-wide expand embedding;
+    ``trainer_config``: the trainer's TrainerConfig.  Returns (engine,
+    trainer, a dataset of ``block``, the model's initial params)."""
     n_labels = 2 if model == "mmoe" else 1
     cfg = feed_config(n_labels)
     dataset = SlotDataset(cfg)
     dataset._blocks = [block]
     engine = BoxPSEngine(EmbeddingTableConfig(
         embedding_dim=MF_DIM, shard_num=8,
+        expand_dim=EX_DIM if model == "ctr_dnn_ex" else 0,
         sgd=SparseSGDConfig(mf_create_thresholds=0.0, optimizer=optimizer)),
         seed=0, device=device)
     engine.begin_feed_pass()
@@ -547,12 +588,14 @@ def make_trainer(block: SlotRecordBlock, device: str, params=None,
             engine, make_model(model), cfg, batch_size=batch or BATCH,
             label_slots=list(LABELS), seed=0, device=device)
     else:
-        # amp only when asked, so an older checkout's trainer (kernel_ab)
-        # takes the same call
+        # amp and trainer_config only when asked, so an older checkout's
+        # trainer (kernel_ab) takes the same call
+        extra = {"amp": True} if amp else {}
+        if trainer_config is not None:
+            extra["trainer_config"] = trainer_config
         trainer = SparseTrainer(engine, make_model(model), cfg,
                                 batch_size=batch or BATCH, seed=0,
-                                sparse_path=path, device=device,
-                                **({"amp": True} if amp else {}))
+                                sparse_path=path, device=device, **extra)
     if params is not None:
         trainer.model.load_jax_params(params)
     return engine, trainer, dataset, trainer.model.jax_params()
@@ -561,16 +604,21 @@ def make_trainer(block: SlotRecordBlock, device: str, params=None,
 def run_pass(block: SlotRecordBlock, device: str, params=None,
              path: str = "mxu", packed: bool = False,
              keep_ws: bool = False, around_train=contextlib.nullcontext,
-             **kw):
+             hold: dict = None, **kw):
     """Engine lifecycle + one train_pass + end_pass on ``device``, on the
     streaming entry point or (packed) through build_pass_feed; ``kw``
     goes to :func:`make_trainer`.  Returns (stats, the model's initial
     params, pass keys); stats carries the feed build seconds and, with
     keep_ws, a copy of the trained working set taken before end_pass.
     ``around_train()`` is a context manager entered around the
-    train_pass call alone."""
+    train_pass call alone.  ``hold``: a dict that gets the engine, the
+    trainer and (with keep_ws) the working set before training."""
     engine, trainer, dataset, params0 = make_trainer(
         block, device, params, path, **kw)
+    if hold is not None:
+        hold.update(engine=engine, trainer=trainer)
+        if keep_ws:
+            hold["ws0"] = {k: v.clone() for k, v in engine.ws.items()}
     n_keys = engine.num_keys
     extra = {}
     if packed:
@@ -589,6 +637,7 @@ def run_pass(block: SlotRecordBlock, device: str, params=None,
         with around_train():
             stats = trainer.train_pass(dataset, pack_threads=4)
     extra["crossing"] = list(getattr(trainer, "_mxu_crossing", ()))
+    extra["path"] = trainer._resolve_path()
     if keep_ws:
         extra["ws"] = {k: v.clone() for k, v in engine.ws.items()}
     engine.end_pass()
@@ -2107,6 +2156,312 @@ def rank_phase(seed: int = 13):
     return launches, out
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the rest of the one-card trainer options
+# ---------------------------------------------------------------------------
+
+OPTIONS_KERNELS = {"gather_sorted": 1, "scatter_add_sorted": 1,
+                   "gather_pool": 0}
+
+
+@contextlib.contextmanager
+def kernel_widths(seen: dict):
+    """Record the width W (rows of the feature-major operand) of each
+    sorted-SpMM wrapper call on the card, by name.  A wrapper counts its
+    launches on the module-level name it is bound to, so the recording
+    stand-in carries the count while it is bound and hands it back to
+    the wrapper after."""
+    plain = {n: getattr(sp, n) for n in ("gather_sorted",
+                                         "scatter_add_sorted")}
+
+    def wrap(name, fn):
+        def call(x, *args, **kw):
+            if x.is_cuda:
+                seen.setdefault(name, []).append(int(x.shape[0]))
+            return fn(x, *args, **kw)
+        call.launches = fn.launches
+        return call
+    stand_ins = {n: wrap(n, fn) for n, fn in plain.items()}
+    for n, fn in stand_ins.items():
+        setattr(sp, n, fn)
+    try:
+        yield seen
+    finally:
+        for n, fn in plain.items():
+            fn.launches = stand_ins[n].launches
+            setattr(sp, n, fn)
+
+
+def options_expand(block: SlotRecordBlock):
+    """(a) CtrDnn over an expand table, streaming and packed on auto:
+    both sorted-SpMM kernels once a batch at W = 20, gather_pool never;
+    the first step = the CPU's; mf_ex trained; a packed rerun (traced)
+    gives the same bits."""
+    launches, out, params0 = {}, {}, None
+    runs = {}
+    for mode in ("streaming", "packed"):
+        seen, hold = {}, {}
+        reset_counts()
+        with kernel_widths(seen):
+            stats, p0, _ = run_pass(block, "cuda", params0, path="auto",
+                                    packed=mode == "packed", keep_ws=True,
+                                    hold=hold, model="ctr_dnn_ex")
+        torch.cuda.synchronize()
+        what = f"options[expand,{mode}]"
+        launches[mode] = read_counts()
+        params0 = params0 or p0
+        check_pass(what, stats, launches[mode], OPTIONS_KERNELS, exact=True)
+        for name in ("gather_sorted", "scatter_add_sorted"):
+            if seen.get(name) != [W_EX] * N_BATCHES:
+                raise AssertionError(f"{what}: {name} ran at widths "
+                                     f"{seen.get(name)}, not {W_EX}")
+        if stats["path"] != "mxu":
+            raise AssertionError(f"{what}: auto did not resolve to mxu")
+        if torch.equal(hold["ws0"]["mf_ex"], stats["ws"]["mf_ex"]):
+            raise AssertionError(f"{what}: mf_ex did not train")
+        cpu_first_loss(what, block, stats["losses"][0], params0,
+                       path="auto", model="ctr_dnn_ex")
+        runs[mode] = stats
+        steady = float(np.median(stats["step_ms"][1:]))
+        out[mode] = {"losses": stats["losses"], "auc": stats["auc"],
+                     "step_ms": stats["step_ms"], "steady_step_ms": steady,
+                     "launches": launches[mode], "widths": seen}
+        log(f"{what}: losses {stats['losses']}, auc {stats['auc']}, "
+            f"launches {launches[mode]} at W {W_EX}, step device ms "
+            f"{stats['step_ms']} (steady median {steady:.3f}); mf_ex moved")
+    holder = {}
+    again, _, _ = run_pass(block, "cuda", params0, path="auto", packed=True,
+                           keep_ws=True, model="ctr_dnn_ex",
+                           around_train=tracer(holder))
+    same_bits("options[expand,packed]", runs["packed"], again)
+    out["profile"] = profiled("options[expand,packed]", holder["prof"],
+                              again)
+    log("options[expand]: the packed rerun is bit-identical; kernel device "
+        "ms per step " + json.dumps(out["profile"]["kernel_ms_per_step"]))
+    return launches, out
+
+
+def options_async(block: SlotRecordBlock):
+    """(b) DeepFM on packed mxu with the async dense table (sync every
+    batch) beside the same pass with synchronous Adam."""
+    from paddlebox_tpu_torch.config import TrainerConfig
+    import threading
+    launches, out = {}, {}
+    calls = []
+    plain_step = SparseTrainer._async_dense_step
+
+    def recorded(self, *args, **kw):
+        calls.append(threading.current_thread())
+        return plain_step(self, *args, **kw)
+    params0 = None
+    for mode in ("sync", "async"):
+        hold = {}
+        tc = TrainerConfig(dense_sync_mode="async_table",
+                           sync_weight_step=1) if mode == "async" else None
+        reset_counts()
+        SparseTrainer._async_dense_step = recorded
+        try:
+            stats, p0, _ = run_pass(block, "cuda", params0, path="mxu",
+                                    packed=True, hold=hold,
+                                    trainer_config=tc)
+        finally:
+            SparseTrainer._async_dense_step = plain_step
+        torch.cuda.synchronize()
+        params0 = params0 or p0
+        what = f"options[async,{mode}]"
+        launches[mode] = read_counts()
+        check_pass(what, stats, launches[mode], OPTIONS_KERNELS, exact=True)
+        steady = float(np.median(stats["step_ms"][1:]))
+        out[mode] = {"losses": stats["losses"], "step_ms": stats["step_ms"],
+                     "steady_step_ms": steady}
+        if mode == "async":
+            tr = hold["trainer"]
+            table = tr.async_dense
+            if not table.pushed == table.applied == N_BATCHES:
+                raise AssertionError(f"{what}: pushed {table.pushed}, "
+                                     f"applied {table.applied}")
+            final = table.pull()
+            for n, p in tr.model.named_parameters():
+                if not np.array_equal(p.detach().cpu().numpy(), final[n]):
+                    raise AssertionError(f"{what}: param {n} != pull()")
+            if tr.dense_opt.state_dict()["state"]:
+                raise AssertionError(f"{what}: dense_opt stepped")
+            main = threading.main_thread()
+            if len(calls) != N_BATCHES or any(t is not main for t in calls):
+                raise AssertionError(f"{what}: the grads' copies ran on "
+                                     f"{[t.name for t in calls]}")
+            if table.thread is main or not table.thread.is_alive():
+                raise AssertionError(f"{what}: no live update thread")
+            copy_ms = 1e3 * stats["dense_copy_s"] / N_BATCHES
+            out[mode].update(dense_copy_ms_per_step=copy_ms,
+                             pushed=table.pushed, applied=table.applied)
+            log(f"{what}: losses {stats['losses']} (synchronous Adam "
+                f"{out['sync']['losses']}), steady step "
+                f"{steady:.3f} ms vs synchronous Adam "
+                f"{out['sync']['steady_step_ms']:.3f} ms; grads' copy "
+                f"{copy_ms:.3f} ms a step; pushed = applied = "
+                f"{table.pushed}; final params = pull(); the copies ran "
+                "on the main thread, the table's updates on "
+                f"{table.thread.name!r} (numpy only)")
+    return launches, out
+
+
+def options_dump(seed: int = 15):
+    """(c) a packed pass with dump_path into a temporary directory, over
+    records that carry ins_ids: one line per real record, the step's
+    preds to 6 decimals."""
+    from paddlebox_tpu_torch.config import TrainerConfig
+    rng = np.random.default_rng(seed)
+    n = N_BATCHES * BATCH - 1000           # the last batch is short
+    block = make_block(rng, n)
+    block.ins_ids = [f"ins{i:06d}" for i in range(n)]
+    tmp = tempfile.mkdtemp(prefix="pbox_dump_")
+    try:
+        engine, trainer, dataset, _ = make_trainer(
+            block, "cuda", trainer_config=TrainerConfig(dump_path=tmp))
+        preds = []
+        core = trainer._core
+
+        def spy(*args, **kw):
+            loss, p = core(*args, **kw)
+            preds.append(p.detach().clone())
+            return loss, p
+        trainer._core = spy
+        reset_counts()
+        feed = trainer.build_pass_feed(dataset)
+        stats = trainer.train_pass(feed)
+        launches = read_counts()
+        check_pass("options[dump]", stats, launches, OPTIONS_KERNELS,
+                   exact=True)
+        path = os.path.join(tmp, f"dump-pass-{engine.pass_id}.txt")
+        with open(path) as f:
+            lines = [ln.rstrip("\n").split("\t") for ln in f]
+        engine.end_pass()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if len(lines) != n:
+        raise AssertionError(f"options[dump]: {len(lines)} lines for {n} "
+                             "records")
+    if [ln[0] for ln in lines] != block.ins_ids:
+        raise AssertionError("options[dump]: ids out of order")
+    want = torch.cat(preds).cpu().numpy()[:n]
+    if [ln[2] for ln in lines] != [f"{p:.6f}" for p in want]:
+        raise AssertionError("options[dump]: preds differ from the pass's")
+    labels = block.float_slots["label"][0]
+    if [ln[1] for ln in lines] != [f"{x:g}" for x in labels]:
+        raise AssertionError("options[dump]: labels differ")
+    log(f"options[dump]: {len(lines)} lines (one per real record of a "
+        f"{N_BATCHES}-batch pass, the last batch short), preds = the "
+        f"pass's to 6 decimals; dump host {stats['dump_s']:.4f} s a pass")
+    return launches, {"lines": len(lines), "dump_s": stats["dump_s"],
+                      "losses": stats["losses"]}
+
+
+def seqpool_variants_phase(dev: torch.device, seed: int = 16):
+    """(d) the five fused_seqpool_cvm variants forward + backward at
+    [26, 16384, 3, E] on the card against the CPU (rtol 1e-5, atol
+    1e-6), with device ms each (time_ms of forward + backward)."""
+    from paddlebox_tpu_torch.ops import seqpool_cvm_variants as sv
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(0, CAP + 1, (N_SLOTS, BATCH)).astype(np.int32)
+
+    def ins(w):
+        return rng.uniform(0, 2, (BATCH, w)).astype(np.float32)
+    thresholds = rng.uniform(0, 1.5, N_SLOTS).astype(np.float32)
+    cases = {   # name: (fn, E, [per-instance inputs], attributes(device))
+        "tradew": (sv.fused_seqpool_cvm_tradew, 2 + 3 + MF_DIM, [ins(2)],
+                   lambda d: (True, 0.0, 2, 1, 3)),
+        "with_conv": (sv.fused_seqpool_cvm_with_conv, 3 + MF_DIM, [ins(3)],
+                      lambda d: (True, 0.0, True, 0.2, 1.0, 0.96, False, 1)),
+        "with_credit": (sv.fused_seqpool_cvm_with_credit, 4 + MF_DIM,
+                        [ins(4)], lambda d: (True, 0.0, False)),
+        # the per-slot thresholds lie on the device (no upload a call)
+        "with_diff_thres": (sv.fused_seqpool_cvm_with_diff_thres,
+                            2 + MF_DIM, [ins(2)],
+                            lambda d: (True, 0.0, True, 0.2, 1.0, 0.96,
+                                       torch.as_tensor(thresholds, device=d),
+                                       0, False, True)),
+        "with_pcoc": (sv.fused_seqpool_cvm_with_pcoc, 7 + MF_DIM,
+                      [ins(7), ins(3)],
+                      lambda d: (True, 0.0, False, 0.2, 1.0, 0.96, 7, 7, 0)),
+    }
+    out = {}
+    for name, (fn, e, extra, attrs) in cases.items():
+        emb = rng.uniform(0, 2, (N_SLOTS, BATCH, CAP, e)).astype(np.float32)
+        runs = {}
+        for where in ("cpu", dev):
+            x = torch.tensor(emb, device=where, requires_grad=True)
+            args = [torch.as_tensor(lengths, device=where)] + [
+                torch.as_tensor(a, device=where) for a in extra]
+            kw = attrs(where)
+            y = fn(x, *args, *kw)
+            dy = torch.ones_like(y)
+            (g,) = torch.autograd.grad(y, x, dy)
+            runs[str(where)] = (y.detach().cpu().numpy(), g.cpu().numpy(),
+                                (x, args + list(kw), dy))
+        for k, label in ((0, "forward"), (1, "backward")):
+            got, want = runs[str(dev)][k], runs["cpu"][k]
+            if got.shape != want.shape or not np.allclose(
+                    got, want, rtol=1e-5, atol=1e-6):
+                raise AssertionError(
+                    f"variants[{name}]: {label} on the card differs from the "
+                    f"CPU by {float(np.abs(got - want).max())}")
+        x, args, dy = runs[str(dev)][2]
+
+        def fwd_bwd():
+            return torch.autograd.grad(fn(x, *args), x, dy)
+        ms = time_ms(f"variants[{name}]", fwd_bwd)
+        out[name] = {"e": e, "ms": ms,
+                     "out_shape": list(runs[str(dev)][0].shape)}
+        log(f"variants[{name}]: [{N_SLOTS}, {BATCH}, {CAP}, {e}] forward + "
+            f"backward {ms:.4f} ms on the card, = the CPU (rtol 1e-5)")
+    return out
+
+
+def alias_phase(dev: torch.device, seed: int = 17,
+                n_draws: int = 1_000_000) -> dict:
+    """(e) alias_sample of 10^6 draws on the card from a seeded card
+    generator: chi-square against the table's probabilities."""
+    from scipy import stats as sstats
+    from paddlebox_tpu_torch.ops import alias_method as am
+    probs = 1.0 / np.arange(1, 1001) ** 1.1       # a Zipf-like negatives
+    p = probs / probs.sum()
+    accept, alias = am.build_alias_table(probs)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    a, l = torch.as_tensor(accept, device=dev), torch.as_tensor(alias,
+                                                                device=dev)
+    draws = am.alias_sample(gen, a, l, (n_draws,))
+    if draws.device.type != dev.type or draws.dtype != torch.int32:
+        raise AssertionError("alias: the draws are not int32 on the card")
+    counts = np.bincount(draws.cpu().numpy(), minlength=len(p))
+    chi2, pval = sstats.chisquare(counts, n_draws * p)
+    if not pval > 1e-3:
+        raise AssertionError(f"alias: chi-square p {pval} over {n_draws} "
+                             "draws")
+    ms = time_ms("alias_sample", lambda: am.alias_sample(gen, a, l,
+                                                         (n_draws,)))
+    log(f"alias: {n_draws} draws over {len(p)} outcomes on the card, "
+        f"chi-square {chi2:.1f}, p {pval:.4f}; {ms:.4f} ms a call")
+    return {"draws": n_draws, "chi2": float(chi2), "p": float(pval),
+            "ms": ms}
+
+
+def options_phase(seed: int = 14, device: str = "cuda"):
+    """Phase 13 (see the module docstring)."""
+    dev = torch.device(device)
+    rng = np.random.default_rng(seed)
+    block = make_block(rng, N_BATCHES * BATCH)
+    ex_launches, ex_out = options_expand(block)
+    as_launches, as_out = options_async(block)
+    dump_launches, dump_out = options_dump()
+    launches = {**{f"expand_{m}": n for m, n in ex_launches.items()},
+                **{f"async_{m}": n for m, n in as_launches.items()},
+                "dump": dump_launches}
+    return launches, {"expand": ex_out, "async": as_out, "dump": dump_out,
+                      "variants": seqpool_variants_phase(dev),
+                      "alias": alias_phase(dev)}
+
+
 def profile_phase(seed: int = 1, symbols=SYMBOLS) -> dict:
     """Short traced passes (2 batches) of the lowerings that phases 3-4
     run once untraced: device time by kernel, per step, and the
@@ -2137,23 +2492,38 @@ def main() -> int:
     secs = cuda_lib.build_all()
     log(f"build: {json.dumps(secs)} ({time.perf_counter() - t0:.2f} s)")
 
-    kern = kernel_phase(dev)
-    pool = gather_pool_phase(dev)
+    phase_s = {}
+
+    def timed(name, fn, *args, **kw):
+        t = time.perf_counter()
+        out = fn(*args, **kw)
+        phase_s[name] = time.perf_counter() - t
+        log(f"phase[{name}]: {phase_s[name]:.1f} s")
+        return out
+
+    kern = timed("kernels", kernel_phase, dev)
+    kern_ex = timed("kernels_w20", kernel_phase, dev, w_pull=W_EX,
+                    w_push=W_EX)
+    pool = timed("gather_pool", gather_pool_phase, dev)
     for dist in pool:     # the fast path's table layout
         kern[dist]["gather_pool"] = pool[dist]["stride12"]
-    slice_launches, slice_out, slice_block, slice_params = slice_phase()
-    packed_launches, packed_out, packed_block, packed_params = packed_phase()
-    ref_launches, ref_out = reference_phase(slice_block, slice_params,
-                                            slice_out["losses"][0])
-    amp_launches, amp_out = amp_phase(packed_block, packed_params,
-                                      packed_out)
-    rules_launches, rules_out = rules_phase()
-    models_launches, models_out = models_phase()
-    cross_launches, cross_out = crossing_phase(packed_block, packed_params)
-    life_launches, life_out = lifecycle_phase()
-    rec_launches, rec_out = recovery_phase()
-    rank_launches, rank_out = rank_phase()
-    profile_out = profile_phase()
+    slice_launches, slice_out, slice_block, slice_params = timed(
+        "slice", slice_phase)
+    packed_launches, packed_out, packed_block, packed_params = timed(
+        "packed", packed_phase)
+    ref_launches, ref_out = timed("reference", reference_phase, slice_block,
+                                  slice_params, slice_out["losses"][0])
+    amp_launches, amp_out = timed("amp", amp_phase, packed_block,
+                                  packed_params, packed_out)
+    rules_launches, rules_out = timed("rules", rules_phase)
+    models_launches, models_out = timed("models", models_phase)
+    cross_launches, cross_out = timed("crossing", crossing_phase,
+                                      packed_block, packed_params)
+    life_launches, life_out = timed("lifecycle", lifecycle_phase)
+    rec_launches, rec_out = timed("recovery", recovery_phase)
+    rank_launches, rank_out = timed("rank", rank_phase)
+    opt_launches, opt_out = timed("options", options_phase)
+    profile_out = timed("profile", profile_phase)
 
     by_path = {"slice_mxu": slice_launches,
                **{f"packed_{p}": n for p, n in packed_launches.items()},
@@ -2164,10 +2534,20 @@ def main() -> int:
                **{f"crossing_{p}": n for p, n in cross_launches.items()},
                **{f"lifecycle_{p}": n for p, n in life_launches.items()},
                **{f"recovery_{p}": n for p, n in rec_launches.items()},
-               **{f"rank_{p}": n for p, n in rank_launches.items()}}
+               **{f"rank_{p}": n for p, n in rank_launches.items()},
+               **{f"options_{p}": n for p, n in opt_launches.items()}}
     line = {"kernels": []}
     for name in KERNELS:
         k = kern["uniform"][name]
+        at_w20 = {}
+        if name in kern_ex["uniform"]:
+            # the expand table's width, uniform ids (phase 13's path)
+            k20 = kern_ex["uniform"][name]
+            at_w20 = {"at_w20": {
+                f: k20[f] for f in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms")} | {
+                "max_abs_err": max(kern_ex[d][name]["max_abs_err"]
+                                   for d in kern_ex)}}
         line["kernels"].append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name],
@@ -2177,15 +2557,18 @@ def main() -> int:
                                if name in kern[d]),
             "ms": k["ms"], "plain_ms": k["plain_ms"],
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
-            "library_ms": k["library_ms"]})
+            "library_ms": k["library_ms"], **at_w20})
     log("detail: " + json.dumps({"kernels_by_dist": kern,
+                                 "kernels_by_dist_w20": kern_ex,
                                  "gather_pool_by_layout": pool,
                                  "slice": slice_out, "packed": packed_out,
                                  "reference": ref_out, "amp": amp_out,
                                  "rules": rules_out, "models": models_out,
                                  "crossing": cross_out,
                                  "lifecycle": life_out, "recovery": rec_out,
-                                 "rank": rank_out, "profile": profile_out}))
+                                 "rank": rank_out, "options": opt_out,
+                                 "profile": profile_out,
+                                 "phase_s": phase_s}))
     print(json.dumps(line), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -10,8 +10,9 @@ first (pipe_command ≙ fs_open_read with pipe, data_feed.cc:330).
 Copy of ``paddlebox_tpu/data/data_feed.py``: ``make_parser`` returns the
 native C++ parser (``native/slot_parser.py``) when the native library
 builds and no string slot is configured, else the pure-Python
-``SlotParser``; ``use_native=False`` forces the Python one.  The parser
-plugins and remote (non-local) file schemes are not ported yet.
+``SlotParser``; ``use_native=False`` forces the Python one.
+``load_parser_plugin`` loads a site-specific parser by spec, as the JAX
+package's does.  Remote (non-local) file schemes are not ported yet.
 """
 
 from __future__ import annotations
@@ -184,3 +185,61 @@ def make_parser(config: DataFeedConfig, parse_ins_id: bool = False,
                 config, parse_ins_id, parse_logkey_)
     return SlotParser(config, parse_ins_id, parse_logkey_,
                       input_table=input_table)
+
+
+class ParserPluginManager:
+    """Pluggable per-format parsers — ≙ CustomParser + DLManager
+    (data_feed.h:446,682): production feeds load site-specific parser
+    implementations by name at run time instead of baking every data
+    format into the framework.
+
+    Two plugin kinds, keyed by a spec string (cached like DLManager::load):
+      * ``"pkg.module:factory"`` — an importable Python factory called as
+        ``factory(config) -> parser`` whose ``parse_block(lines)`` returns
+        a ``SlotRecordBlock`` of this package (the reference's
+        ISlotParser surface, data_feed.h:1964);
+      * ``"/path/libplugin.so:symbol"`` — a C shared library exposing the
+        block-parser ABI of native/slot_parser.cc under ``symbol``
+        (dlopen'd once, ≙ DLManager caching), driven through the port's
+        ``NativeSlotParser`` and its own native library's accessors.
+    """
+
+    def __init__(self):
+        self._cache = {}
+
+    def load(self, spec: str, config: DataFeedConfig):
+        if spec in self._cache:
+            return self._cache[spec](config)
+        target, _, name = spec.partition(":")
+        if target.endswith(".so"):
+            import ctypes
+
+            from paddlebox_tpu_torch.native.slot_parser import \
+                NativeSlotParser
+            lib = ctypes.CDLL(target)  # dlopen once; symbols resolved below
+
+            def factory(cfg, _lib=lib, _sym=name or "pbox_parse_block"):
+                p = NativeSlotParser(cfg)
+                p._lib = _lib
+                p._entry = _sym
+                return p
+        else:
+            import importlib
+
+            fn = getattr(importlib.import_module(target),
+                         name or "create_parser")
+
+            def factory(cfg, _fn=fn):
+                return _fn(cfg)
+
+        self._cache[spec] = factory
+        return factory(config)
+
+
+_plugin_manager = ParserPluginManager()
+
+
+def load_parser_plugin(spec: str, config: DataFeedConfig):
+    """Module-level convenience over a process-wide manager (≙ the global
+    DLManager instance reached through dlmanager(), data_feed.h:707)."""
+    return _plugin_manager.load(spec, config)

@@ -55,6 +55,7 @@ class HostPassArrays:
     n_batches: int
     batch_size: int
     num_real: int          # real record count (pass total)
+    ins_ids: Optional[list] = None  # [num_real] instance ids (the dump's)
     # batch_counts packs: per-batch real counts + prefix sums into the
     # real-record order; None = batch i holds rows [i*B, i*B + real_i)
     batch_real: Optional[np.ndarray] = None   # [N] int64
@@ -77,6 +78,16 @@ class HostPassArrays:
         if self.aux:
             out.update(self.aux)
         return out
+
+    def real_range(self, i: int):
+        """(plane_row_lo, real_count, real_order_base) of batch i: its
+        real records are plane rows [lo, lo + count) and records
+        [base, base + count) of the pass's real order (``ins_ids``)."""
+        if self.batch_real is not None:
+            return (i * self.batch_size, int(self.batch_real[i]),
+                    int(self.batch_base[i]))
+        lo = i * self.batch_size
+        return lo, max(0, min(self.batch_size, self.num_real - lo)), lo
 
 
 def _record_ranges(n: int, threads: int) -> List[tuple]:
@@ -261,7 +272,7 @@ def pack_pass(blocks: Sequence[SlotRecordBlock], feed_config: DataFeedConfig,
     out = HostPassArrays(indices=indices, lengths=lengths, dense=dense,
                          labels=labels, valid=valid, n_batches=n_batches,
                          batch_size=batch_size, num_real=n,
-                         batch_real=batch_real,
+                         ins_ids=merged.ins_ids, batch_real=batch_real,
                          batch_base=batch_base, aux=aux, uid=uid)
     # wave 3 — the pv planes, vectorized over the whole pass and metered
     # apart from the pad/translate work
@@ -304,7 +315,9 @@ class PackedPassFeed:
     [N, B+1].  plans: the mxu lowering's sorted-spmm plans or the ragged
     lowering's CSR plans, each array stacked on axis 0; ``plan_dims``
     identifies the geometry they were built for.  ``uid`` with its
-    ``host_labels`` / ``host_valid`` stay on the host (uid_slot only).
+    ``host_labels`` / ``host_valid`` stay on the host (uid_slot only);
+    ``host`` is the pass's HostPassArrays when the feed was built to keep
+    them (``keep_host``, for the instance dump).
     """
 
     data: Dict[str, torch.Tensor]
@@ -315,6 +328,7 @@ class PackedPassFeed:
     uid: Optional[np.ndarray] = None          # [N*B] uint64
     host_labels: Optional[np.ndarray] = None  # [N*B(, T)]
     host_valid: Optional[np.ndarray] = None   # [N*B] bool
+    host: Optional[HostPassArrays] = None     # kept for the dump
 
 
 def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -352,10 +366,13 @@ class PlaneStager:
 
 
 def upload_pass(host_arrays: HostPassArrays, device: torch.device,
-                staged: Optional[PlaneStager] = None) -> PackedPassFeed:
+                staged: Optional[PlaneStager] = None,
+                keep_host: bool = False) -> PackedPassFeed:
     """One upload per plane + a relayout on the device into the
     step-ready stacked layout.  ``staged``: a PlaneStager whose planes
-    are already on their way (those skip the upload here)."""
+    are already on their way (those skip the upload here).
+    ``keep_host``: the feed keeps ``host_arrays`` (the dump's ids,
+    labels and real ranges)."""
     t_up = time.perf_counter()
     m_up = time.monotonic()
     h = host_arrays
@@ -385,7 +402,8 @@ def upload_pass(host_arrays: HostPassArrays, device: torch.device,
     uid = h.uid is not None
     return PackedPassFeed(data=data, n_batches=N, batch_size=B,
                           uid=h.uid, host_labels=h.labels if uid else None,
-                          host_valid=h.valid if uid else None)
+                          host_valid=h.valid if uid else None,
+                          host=h if keep_host else None)
 
 
 def _static_planes(plan: Dict[str, torch.Tensor], labels_b: torch.Tensor,

@@ -293,6 +293,12 @@ class TrainCheckpoint:
         pass_id/rows) — stable once the generation dir is renamed in."""
         return self._state(n)
 
+    def gen_mtime(self, n: int) -> float:
+        """Commit wall-time of generation ``n`` (its STATE.json mtime) —
+        the freshness basis for a serving replica's staleness."""
+        return os.path.getmtime(
+            os.path.join(self._gen_dir(n), "STATE.json"))
+
     def gen_sparse_dirs(self, n: int) -> List[str]:
         """Sparse dump dirs of generation ``n`` (one per table save)."""
         return [self._sparse_dir(n)]

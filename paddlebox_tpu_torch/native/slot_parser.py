@@ -1,8 +1,9 @@
 """ctypes wrapper over the native MultiSlot parser (slot_parser.cc).
 
 Copy of ``paddlebox_tpu/native/slot_parser.py`` with the import paths
-rewritten.  Left out: the parser-plugin override of the parse entry
-(parser plugins are not ported) and ``NativeHashShard``, whose one
+rewritten, the parser-plugin override of the parse entry included
+(``data_feed.ParserPluginManager`` sets ``_lib`` / ``_entry`` to a
+dlopen'd library's symbol).  Left out: ``NativeHashShard``, whose one
 extra method, ``keys_by_row``, lives on ``hash_map.NativeKeyHash``.
 
 The block it returns equals ``data_feed.SlotParser``'s bit for bit
@@ -76,12 +77,26 @@ class NativeSlotParser:
         self._is_float = np.array(
             [1 if s.dtype == "float" else 0 for s in config.slots], np.uint8)
 
+    # plugin .so overrides (ParserPluginManager sets these to a dlopen'd
+    # site-specific parser exposing the same ABI)
+    _lib = None
+    _entry = "pbox_parse_block"
+
     def parse_block(self, lines) -> SlotRecordBlock:
+        # the accessors (slot_total / fill_*) always come from the port's
+        # own library: a plugin overrides only the parse entry and must
+        # return a handle of the same block layout
         lib = _load()
+        entry = lib.pbox_parse_block
+        if self._lib is not None:
+            entry = getattr(self._lib, self._entry)
+            # ctypes' default restype (c_int) would truncate the handle
+            entry.restype = ctypes.c_void_p
+            entry.argtypes = lib.pbox_parse_block.argtypes
         buf = ("\n".join(lines) + "\n").encode()
         n_rec = ctypes.c_int64(0)
         status = ctypes.c_int32(0)
-        handle = lib.pbox_parse_block(
+        handle = entry(
             buf, len(buf), len(self.config.slots),
             self._is_float.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
             int(self.parse_ins_id), int(self.parse_logkey),

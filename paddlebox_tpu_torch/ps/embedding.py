@@ -9,7 +9,8 @@ Row 0 is the reserved zero row: padding positions and unknown keys point
 at it, pull zeros and push nothing (≙ FLAGS_enable_pull_box_padding_zero).
 
 ``pull_sparse`` / ``push_sparse_grads`` are the reference lowering's pull
-(a plain gather per field) and merged push.  The push merges every float
+(a plain gather per field) and merged push; their ``_extended`` forms add
+an expand table's ``mf_ex`` columns.  The push merges every float
 column with one ``sorted_spmm.segment_sum`` (a stable sort of the row
 ids, then the ``scatter_add_sorted`` kernel on a card): the JAX package's
 ``.at[].add`` in a fixed order, where ``index_add_`` on a card would add
@@ -18,7 +19,7 @@ with float atomics in an order that changes from run to run.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -181,6 +182,17 @@ def pull_sparse(ws: Dict[str, torch.Tensor], indices: torch.Tensor
                       ws["embed_w"][idx][..., None], mf], dim=-1)
 
 
+def pull_sparse_extended(ws: Dict[str, torch.Tensor], indices: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """≙ pull_box_extended_sparse / PullCopyNNCross (box_wrapper.cu:147):
+    the base pull value [*, 3+D] and the expand ("NNCross") embedding
+    [*, Dex], gated by the same mf-created mask."""
+    base = pull_sparse(ws, indices)
+    idx = indices.long()
+    created = (ws["mf_size"][idx] > 0).to(ws["mf_ex"].dtype)
+    return base, ws["mf_ex"][idx] * created[..., None]
+
+
 def push_sparse_grads(ws: Dict[str, torch.Tensor], indices: torch.Tensor,
                       grads: torch.Tensor, slot_ids: torch.Tensor
                       ) -> Dict[str, torch.Tensor]:
@@ -209,3 +221,18 @@ def push_sparse_grads(ws: Dict[str, torch.Tensor], indices: torch.Tensor,
     return {"g_show": merged[:, 0], "g_click": merged[:, 1],
             "g_embed": merged[:, 2], "g_embedx": merged[:, 3:],
             "slot": slot}
+
+
+def push_sparse_grads_extended(ws: Dict[str, torch.Tensor],
+                               indices: torch.Tensor, grads: torch.Tensor,
+                               grads_ex: torch.Tensor,
+                               slot_ids: torch.Tensor
+                               ) -> Dict[str, torch.Tensor]:
+    """Extended push (≙ push_box_extended_sparse): the base accumulators
+    of :func:`push_sparse_grads` plus ``g_embedx_ex`` [N, Dex], the
+    expand grads [S, B, L, Dex] merged by row the same way."""
+    acc = push_sparse_grads(ws, indices, grads, slot_ids)
+    acc["g_embedx_ex"] = sp.segment_sum(
+        grads_ex.reshape(-1, grads_ex.shape[-1]), indices.reshape(-1),
+        ws["show"].shape[0])
+    return acc

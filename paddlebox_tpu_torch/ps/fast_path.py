@@ -89,7 +89,10 @@ def push_and_update(ws: Tensors, idx: torch.Tensor, lengths: torch.Tensor,
 
     idx [S, L, B]; d_pooled [B, S, E] (cols 0,1 ignored, replaced by
     ins_cvm per the reference push semantics); ins_cvm [B, 2]; slot_ids
-    [S].  Padding occurrences land on reserved row 0 and are masked."""
+    [S].  Padding occurrences land on reserved row 0 and are masked.
+    An expand table's ``mf_ex`` / ``mf_ex_g2sum`` are carried through
+    untouched: this lowering pulls and trains the 3 + D base columns
+    only, as the JAX package's fast rule does."""
     s, l, b = idx.shape
     n = ws["show"].shape[0]
     d = ws["mf"].shape[1]

@@ -13,14 +13,17 @@ accumulators (``g_show``, ``g_click``, ``g_embed``, ``g_embedx``, slot).
 Layout: occurrence order is canonical [S, L, B] flattened; the plan's
 ``perm``/``inv_perm`` move between canonical and sorted domains (the
 "take" crossing: one row gather each way).  The pull table is
-feature-major [W, n_kernel] with W = 3 + D + 1 (show, click, embed_w,
-mf×D, mf_size).  Plans come in the forms of the JAX package: the untrimmed
-8-tuple the streaming step builds, and the packed pass feed's trimmed
-plans (leading row-0 padding dropped) with or without the 11-tuple
-static payload planes.  Either crossing lowering (ops/crossing.py):
-"take" gathers by the plan's permutations, "sort" sorts keyed by the
-destination positions; the two give the same bits.  Expand (mf_ex)
-tables are not ported yet.
+feature-major [W, n_kernel] with W = 3 + D (+ Dex) + 1 (show, click,
+embed_w, mf×D, an expand table's mf_ex×Dex, mf_size).  Plans come in
+the forms of the JAX package: the untrimmed 8-tuple the streaming step
+builds, and the packed pass feed's trimmed plans (leading row-0 padding
+dropped) with or without the 11-tuple static payload planes.  Either
+crossing lowering (ops/crossing.py): "take" gathers by the plan's
+permutations, "sort" sorts keyed by the destination positions; the two
+give the same bits.  Expand ("NNCross", ``mf_ex``) tables ride the same
+table and payload: their Dex columns follow mf, so the kernels run at
+W = 3 + D + Dex + 1 (pull) and D + Dex + 4 (push), and the pooled
+output is [B, S, 3 + D + Dex].
 """
 
 from __future__ import annotations
@@ -67,20 +70,29 @@ def _check_plan(plan, dims: sp.SpmmDims) -> None:
             f"{plan[0].shape[0]} chunks")
 
 
+def _ex_dim(ws: Tensors) -> int:
+    """Expand ("NNCross") embedding width, 0 without one.  The ex columns
+    ride the feature-major table and payload directly after mf, so the
+    kernels (any width) and the pooling (every column between 3 and the
+    trailing mf_size is an embedding masked by created) need no
+    branches."""
+    return ws["mf_ex"].shape[1] if "mf_ex" in ws else 0
+
+
 def _pull_table(ws: Tensors, dims: sp.SpmmDims) -> torch.Tensor:
-    """Feature-major pull view [3 + D + 1, n_kernel]."""
-    if "mf_ex" in ws:
-        raise NotImplementedError(
-            "expand (mf_ex) tables are not ported to the PyTorch package")
+    """Feature-major pull view [3 + D (+ Dex) + 1, n_kernel]."""
     n = ws["show"].shape[0]
     d = ws["mf"].shape[1]
-    tab = torch.zeros((3 + d + 1, dims.n_kernel), dtype=torch.float32,
+    dx = _ex_dim(ws)
+    tab = torch.zeros((3 + d + dx + 1, dims.n_kernel), dtype=torch.float32,
                       device=ws["show"].device)
     tab[0, :n] = ws["show"]
     tab[1, :n] = ws["click"]
     tab[2, :n] = ws["embed_w"]
     tab[3:3 + d, :n] = mf_values(ws, ws["mf"]).T
-    tab[3 + d, :n] = ws["mf_size"].to(torch.float32)
+    if dx:
+        tab[3 + d:3 + d + dx, :n] = ws["mf_ex"].T
+    tab[3 + d + dx, :n] = ws["mf_size"].to(torch.float32)
     return tab
 
 
@@ -119,18 +131,25 @@ def push_payload(d_pooled: torch.Tensor, ins_cvm: torch.Tensor,
          slot_col[..., None]], dim=-1)                     # [S,L,B,D+4]
 
 
-def acc_from_delta(delta: torch.Tensor, n: int) -> Tensors:
+def acc_from_delta(delta: torch.Tensor, n: int,
+                   d_main: Optional[int] = None) -> Tensors:
     """Merged per-row accumulators for ps.optimizer.apply_push from the
-    scatter output [D+4, >=n] (slot column already first-occurrence-
-    exact)."""
+    scatter output [D(+Dex)+4, >=n] (slot column already first-occurrence-
+    exact).  d_main: the mf width when the payload also carries expand
+    columns (they split into ``g_embedx_ex``)."""
     d = delta.shape[0] - 4
-    return {
+    if d_main is None:
+        d_main = d
+    acc = {
         "g_show": delta[0, :n],
         "g_click": delta[1, :n],
         "g_embed": delta[2, :n],
-        "g_embedx": delta[3:3 + d, :n].T,
+        "g_embedx": delta[3:3 + d_main, :n].T,
         "slot": torch.round(delta[d + 3, :n]).to(torch.int32),
     }
+    if d_main < d:
+        acc["g_embedx_ex"] = delta[3 + d_main:3 + d, :n].T
+    return acc
 
 
 def _check_crossing(crossing: str) -> None:
@@ -143,7 +162,7 @@ def pull_pool_cvm(ws: Tensors, plan, dims: sp.SpmmDims,
                   shape_slb: Tuple[int, int, int],
                   use_cvm: bool = True,
                   crossing: str = "take") -> torch.Tensor:
-    """Fused pull + seqpool + CVM → pooled [B, S, 3 + D].
+    """Fused pull + seqpool + CVM → pooled [B, S, 3 + D (+ Dex)].
 
     Row 0 and the sentinel tile hold zeros, so padding occurrences and
     unseen keys contribute nothing — no length mask needed on the pull
@@ -151,7 +170,7 @@ def pull_pool_cvm(ws: Tensors, plan, dims: sp.SpmmDims,
     inv_perm, "sort" sorts keyed by perm (the destination index)."""
     _check_crossing(crossing)
     s, l, b = shape_slb
-    d = ws["mf"].shape[1]
+    d = ws["mf"].shape[1] + _ex_dim(ws)
     _check_plan(plan, dims)
     rows2d, perm, inv_perm = plan[0], plan[1], plan[2]
     eff = plan_eff_dims(plan, dims)
@@ -192,7 +211,7 @@ def push_and_update(ws: Tensors, plan, dims: sp.SpmmDims,
                     cfg: SparseSGDConfig, crossing: str = "take") -> Tensors:
     """Merged push + sparse optimizer, updating ``ws`` in place.
 
-    d_pooled [B, S, 3+D] — cols 0,1 are ignored and replaced by the
+    d_pooled [B, S, 3+D(+Dex)] — cols 0,1 are ignored and replaced by the
     instance cvm (reference push semantics, box_wrapper_impl.h:373);
     ins_cvm [B, 2]; slot_ids [S].  crossing: the canonical→sorted
     lowering — "take" gathers by perm, "sort" sorts keyed by inv_perm
@@ -208,7 +227,7 @@ def push_and_update(ws: Tensors, plan, dims: sp.SpmmDims,
     _check_plan(plan, dims)
     _check_crossing(crossing)
     s, l, b = idx_slb.shape
-    d = ws["mf"].shape[1]
+    d = ws["mf"].shape[1] + _ex_dim(ws)
     n = ws["show"].shape[0]
     w = d + 4
     rows2d, perm, inv_perm, first_occ = plan[0], plan[1], plan[2], plan[7]
@@ -260,5 +279,5 @@ def push_and_update(ws: Tensors, plan, dims: sp.SpmmDims,
         # box_wrapper.cu:417 PushMergeCopy)
         srt_cm[w - 1] *= first_occ
     delta = sp.scatter_add_sorted(srt_cm, rows2d, first_occ, kd)
-    acc = acc_from_delta(delta, n)
+    acc = acc_from_delta(delta, n, d_main=ws["mf"].shape[1])
     return sparse_opt.apply_push(ws, acc, cfg)

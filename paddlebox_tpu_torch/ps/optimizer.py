@@ -20,7 +20,9 @@ moments, SparseAdamOptimizer :148), ``std_adagrad`` (per-dim g2sum,
 sparse_sgd_rule.h:109) and ``naive`` (plain SGD, sparse_sgd_rule.h:77).
 Each is elementwise over axis 0, so a caller may pass the whole working
 set or a gathered [U]-row sub-SoA with matching accumulators (the ragged
-lowering does).
+lowering does).  An expand table's ``mf_ex`` trains under ``adagrad``
+only; the other four rules leave ``mf_ex`` / ``mf_ex_g2sum`` as they
+are, as the JAX package's do.
 """
 
 from __future__ import annotations
@@ -144,9 +146,18 @@ def sparse_adagrad_apply(ws: Tensors, acc: Tensors, cfg: SparseSGDConfig,
         cfg.mf_learning_rate, cfg.mf_initial_g2sum, cfg.mf_min_bound,
         cfg.mf_max_bound, mf_touched, group_dim)
 
-    return {"show": show, "click": click, "delta_score": delta, "slot": slot,
-            "embed_w": embed_w, "embed_g2sum": embed_g2sum,
-            "mf_size": mf_size, "mf_g2sum": mf_g2sum, "mf": mf}
+    out = {"show": show, "click": click, "delta_score": delta, "slot": slot,
+           "embed_w": embed_w, "embed_g2sum": embed_g2sum,
+           "mf_size": mf_size, "mf_g2sum": mf_g2sum, "mf": mf}
+    if "mf_ex" in ws and "g_embedx_ex" in acc:
+        # the expand (NNCross) embedding trains like mf, under the same
+        # mf_touched gate and bounds; a push without its grads (the fast
+        # and reference lowerings) leaves it as it is
+        out["mf_ex"], out["mf_ex_g2sum"] = _adagrad_update(
+            ws["mf_ex"], ws["mf_ex_g2sum"], acc["g_embedx_ex"], g_show,
+            cfg.mf_learning_rate, cfg.mf_initial_g2sum, cfg.mf_min_bound,
+            cfg.mf_max_bound, mf_touched, ws["mf_ex"].shape[1])
+    return out
 
 
 def _shared_adam_group(w, m1, m2, b1p, b2p, g, scale, lr, beta1, beta2,

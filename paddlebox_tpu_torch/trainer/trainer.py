@@ -35,15 +35,31 @@ Models that declare ``extra_inputs`` (``RankAttentionCTR``'s
 as keyword arguments on every lowering; ``uid_slot`` adds the per-user
 AUC (uauc / wuauc), accumulated on the host from each batch's preds.
 
+An expand ("NNCross", ``mf_ex``) table trains on ``mxu`` (what ``auto``
+resolves to): its columns follow mf in the pull table and the push
+payload, and the pooled output is [B, S, 3 + D + Dex].  Explicit
+``fast`` and ``reference`` train the base columns and carry ``mf_ex``
+through; ``ragged`` refuses it, as in the JAX package.
+
+``TrainerConfig(dense_sync_mode="async_table")`` moves the dense update
+to a host table (trainer/async_dense.py, ≙ BoxPSAsynDenseTable): the step
+runs the backward but no optimizer step, its dense grads are copied to
+the host and pushed, and ``pull()`` is copied into the module every
+``sync_weight_step`` batches and at the end of the pass.
+``TrainerConfig(dump_path=...)`` writes ``dump-pass-<pass_id>.txt``
+with one ``ins_id\tlabel\tpred`` line per real record (≙ TrainerDesc
+dump_fields / DumpWorkField).
+
 PyTorch runs the step eagerly, so there is no jit and no donation: the
 working set, the dense params, the optimizer state and the AUC buckets
 are updated in place on the device.  Not ported yet: the multi-device
-lowering, the async dense table and dumps.
+lowering.
 """
 
 from __future__ import annotations
 
 import concurrent.futures
+import os
 import threading
 import time
 from typing import Dict, Optional
@@ -53,7 +69,7 @@ import torch
 import torch.nn.functional as F
 
 from paddlebox_tpu_torch import flags
-from paddlebox_tpu_torch.config import DataFeedConfig
+from paddlebox_tpu_torch.config import DataFeedConfig, TrainerConfig
 from paddlebox_tpu_torch.data.batch_pack import BatchPacker, PackedBatch
 from paddlebox_tpu_torch.data import pass_feed as pf
 from paddlebox_tpu_torch.data.dataset import SlotDataset
@@ -84,7 +100,8 @@ class SparseTrainer:
                  use_cvm: bool = True, auc_table_size: int = 100_000,
                  amp: bool = False, fast_path: bool = True,
                  sparse_path: str = "auto", seed: int = 0,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None,
+                 trainer_config: Optional[TrainerConfig] = None):
         """``model`` is re-initialised from ``seed`` (its
         ``reset_parameters(generator)``) and moved to ``device``; load
         other weights afterwards (``model.load_jax_params``).
@@ -93,7 +110,9 @@ class SparseTrainer:
         ``optax.adam(1e-3)``: bias-corrected moments, eps added after the
         square root.  ``amp``: bf16 model compute over f32 master
         weights.  ``fast_path=False`` makes ``auto`` resolve to the
-        ``reference`` lowering."""
+        ``reference`` lowering.  ``trainer_config``: the dense sync mode
+        (``"async_table"`` with ``sync_weight_step`` and the table's Adam
+        settings) and ``dump_path``."""
         self.device = resolve_device(device)
         if engine.device != self.device:
             raise ValueError(f"engine works on {engine.device}, trainer "
@@ -110,6 +129,7 @@ class SparseTrainer:
         self.use_cvm = use_cvm
         self.amp = amp
         self.fast_path = fast_path
+        self.trainer_config = trainer_config or TrainerConfig()
         if sparse_path == "auto" \
                 and flags.get_flags("sparse_step_path") != "auto":
             sparse_path = flags.get_flags("sparse_step_path")
@@ -167,6 +187,27 @@ class SparseTrainer:
         self.model = model.to(self.device)
         self.dense_opt = dense_optimizer or torch.optim.Adam(
             self.model.parameters(), lr=1e-3)
+        # ≙ BoxPSAsynDenseTable (dense_sync_mode="async_table"): the dense
+        # params live in a host table updated by a background thread; the
+        # step only computes the dense grads.  dense_opt stays (the
+        # checkpoint saves its state) but does not step, as the JAX
+        # package's opt_state does not
+        self.async_dense = None
+        if self.trainer_config.dense_sync_mode == "async_table":
+            if dense_optimizer is not None:
+                raise ValueError(
+                    "dense_sync_mode='async_table' uses the table's own "
+                    "adam rule (TrainerConfig.async_dense_*); an explicit "
+                    "dense_optimizer would be silently ignored")
+            from paddlebox_tpu_torch.trainer.async_dense import \
+                AsyncDenseTable
+            tc = self.trainer_config
+            self.async_dense = AsyncDenseTable(
+                {n: p.detach().cpu().numpy()
+                 for n, p in self.model.named_parameters()},
+                learning_rate=tc.async_dense_learning_rate,
+                beta1=tc.async_dense_beta1, beta2=tc.async_dense_beta2,
+                eps=tc.async_dense_eps)
         self.auc_table_size = auc_table_size
         self.auc_state = make_auc_state(auc_table_size, self.device)
         self.auc = AucCalculator(auc_table_size)
@@ -191,21 +232,47 @@ class SparseTrainer:
                 "f32 store — rebuild the pass")
         if self.sparse_path != "auto":
             return self.sparse_path
-        return "mxu" if self.fast_path else "reference"
+        if not self.fast_path:
+            return "reference"
+        if "mf_ex" in self.engine.ws and self._dym_mask is not None:
+            # no lowering trains mf_ex under per-slot dynamic dims
+            raise ValueError(
+                "extended (mf_ex) tables do not compose with per-slot "
+                "dynamic mf dims — drop slot_mf_dims or the expand "
+                "embedding")
+        return "mxu"
 
     def _validate_path(self, path: str) -> None:
-        """Reject configs a path cannot honor (both entry points)."""
-        if "mf_ex" in self.engine.ws:
-            raise ValueError("extended (mf_ex) tables are not ported")
-        if path == "fast":
+        """Reject configs a path cannot honor (both entry points), as the
+        JAX package's ``_validate_path`` does; explicit ``fast`` and
+        ``reference`` take an expand table and leave its mf_ex as it
+        is."""
+        has_ex = "mf_ex" in self.engine.ws
+        if path == "mxu":
+            if has_ex and self._dym_mask is not None:
+                raise ValueError(
+                    "sparse_path='mxu' with an extended (mf_ex) table does "
+                    "not compose with per-slot dynamic mf dims — drop "
+                    "slot_mf_dims or the expand embedding")
+        elif path == "fast":
             if self.engine.config.sgd.optimizer != "adagrad":
                 raise ValueError(
                     "sparse_path='fast' implements the adagrad rule only "
                     f"(got {self.engine.config.sgd.optimizer!r})")
+        elif path == "ragged":
+            if has_ex:
+                raise ValueError(
+                    "sparse_path='ragged' pulls only the 3+D pooled "
+                    "columns — extended (mf_ex) tables need the mxu path")
+        elif path == "reference":
+            if self.async_dense is not None:
+                raise ValueError(
+                    "dense_sync_mode='async_table' requires the mxu, "
+                    "fast or ragged sparse path")
         elif path == "mxu_sharded":
             raise ValueError("sparse_path 'mxu_sharded' is not ported to "
                              "the PyTorch package")
-        elif path not in ("mxu", "ragged", "reference"):
+        else:
             raise ValueError(f"unknown sparse_path {path!r}")
 
     def _crossing_modes(self, s: int, l: int, b: int,
@@ -218,7 +285,8 @@ class SparseTrainer:
         legacy payload carries the exact slot column, so it never crosses
         in bf16."""
         p = s * l * b
-        d = int(self.engine.ws["mf"].shape[1])
+        d = (int(self.engine.ws["mf"].shape[1])
+             + mxu_path._ex_dim(self.engine.ws))
         dev = self.device.type
         dt = ("bfloat16" if flags.get_flags("mxu_crossing_bf16")
               else "float32")
@@ -271,14 +339,57 @@ class SparseTrainer:
 
     def _dense_step(self, x, dense, labels, valid, extras=None):
         """Model fwd/bwd, dense optimizer step and AUC; the backward also
-        fills ``.grad`` of whatever leaf ``x`` came from.  Returns (loss,
-        preds)."""
+        fills ``.grad`` of whatever leaf ``x`` came from.  Under the async
+        dense table the step stops at the grads (the table applies them,
+        :meth:`_async_dense_step`).  Returns (loss, preds)."""
         loss, preds = self._loss_and_preds(x, dense, labels, valid, extras)
         self.dense_opt.zero_grad(set_to_none=True)
         loss.backward()
-        self.dense_opt.step()
+        if self.async_dense is None:
+            self.dense_opt.step()
         self._accumulate_metrics(preds, labels, valid)
         return loss.detach(), preds
+
+    def _require_main_thread(self, what: str) -> None:
+        """The async table's device traffic (grads to the host, params
+        back) runs on the main thread only; the table's own thread is
+        numpy only."""
+        if threading.current_thread() is not threading.main_thread():
+            raise RuntimeError(
+                f"{what} on thread {threading.current_thread().name!r}: it "
+                "copies between the device and the host, so only the main "
+                "thread may run it")
+
+    def _load_async_params(self) -> None:
+        """Copy the table's snapshot into the module's parameters in place
+        (≙ PullDense's snapshot refresh, boxps_worker.cc:1301)."""
+        self._require_main_thread("the async dense pull")
+        snap = self.async_dense.pull()
+        with torch.no_grad():
+            for n, p in self.model.named_parameters():
+                p.copy_(torch.from_numpy(snap[n]))
+
+    def _async_dense_step(self, n_done: int, log) -> None:
+        """After batch ``n_done`` (1-based) under the async table: the
+        dense grads to the host and into the table (≙ PushDense,
+        boxps_worker.cc:252), and every ``sync_weight_step`` batches the
+        table's snapshot back into the module."""
+        self._require_main_thread("the async dense push")
+        t0 = time.perf_counter()
+        grads = {n: (p.grad.detach().cpu().numpy() if p.grad is not None
+                     else np.zeros(tuple(p.shape), np.float32))
+                 for n, p in self.model.named_parameters()}
+        log["dense_copy_s"] += time.perf_counter() - t0
+        self.async_dense.push(grads)
+        if n_done % max(self.trainer_config.sync_weight_step, 1) == 0:
+            self._load_async_params()
+
+    def _finish_async_dense(self) -> None:
+        """End of a pass: every pushed grad applied, then the table's
+        params into the module."""
+        if self.async_dense is not None:
+            self.async_dense.drain()
+            self._load_async_params()
 
     def _pooled_dense_half(self, pooled, dense, labels, valid, extras=None):
         """Dense half of the pooled-based steps (mxu/fast/ragged): returns
@@ -429,10 +540,11 @@ class SparseTrainer:
         return stats
 
     def _timed_step(self, path, log, *args, plan=None, extras=None,
-                    uid=None) -> None:
+                    uid=None, dump=None) -> None:
         """Run one step, append its loss (and CUDA events) to ``log``.
         ``uid``: (uids, labels, valid) of the batch on the host, when the
-        per-user AUC is on."""
+        per-user AUC is on; ``dump``: (ins_ids, labels) of the batch's
+        real records on the host, when the instance dump is on."""
         cuda = self.device.type == "cuda"
         m_step = time.monotonic()
         if cuda:
@@ -446,10 +558,24 @@ class SparseTrainer:
             log["events"].append(ev)
         # host enqueue window (the device may run past it)
         intervals.record("device", m_step, time.monotonic())
+        if self.async_dense is not None:
+            self._async_dense_step(len(log["losses"]) + 1, log)
         if self._check_nan and not np.isfinite(float(loss)):
             raise FloatingPointError(
                 f"NaN/Inf loss at batch {len(log['losses'])}")
         log["losses"].append(loss)
+        if dump is not None:
+            t0 = time.perf_counter()
+            ids, lbl = dump
+            cnt = len(lbl)
+            if cnt:
+                p = preds if preds.dim() == 1 else preds[:, 0]
+                p = p[:cnt].cpu().numpy()
+                ids = ids if ids is not None else [""] * cnt
+                log["dump_file"].write("".join(
+                    f"{ids[j]}\t{lbl[j]:g}\t{p[j]:.6f}\n"
+                    for j in range(cnt)))
+            log["dump_s"] += time.perf_counter() - t0
         if uid is not None:
             t0 = time.perf_counter()
             uids, lbl, valid = uid
@@ -474,7 +600,26 @@ class SparseTrainer:
         if self.wuauc is not None:
             # host seconds of the per-batch preds copy and record append
             out["wuauc_s"] = log["wuauc_s"]
+        if self.async_dense is not None:
+            # host seconds of the dense grads' copies to the host
+            out["dense_copy_s"] = log["dense_copy_s"]
+        if log["dump_file"] is not None:
+            # host seconds of the preds' copies and the dump writes
+            out["dump_s"] = log["dump_s"]
         return out
+
+    def _new_log(self) -> Dict:
+        """A pass's step log, with the dump file opened when
+        ``dump_path`` is set (≙ TrainerDesc dump_fields/dump_path,
+        trainer_desc.proto:38-40, DumpWorkField)."""
+        log = {"losses": [], "events": [], "wuauc_s": 0.0,
+               "dense_copy_s": 0.0, "dump_s": 0.0, "dump_file": None}
+        if self.trainer_config.dump_path:
+            os.makedirs(self.trainer_config.dump_path, exist_ok=True)
+            log["dump_file"] = open(os.path.join(
+                self.trainer_config.dump_path,
+                f"dump-pass-{self.engine.pass_id}.txt"), "w")
+        return log
 
     def _train_stream(self, dataset: SlotDataset, prefetch: int,
                       pack_threads: int, progress) -> Dict[str, float]:
@@ -517,7 +662,7 @@ class SparseTrainer:
 
         t = threading.Thread(target=packer_thread, daemon=True)
         t.start()
-        log = {"losses": [], "events": [], "wuauc_s": 0.0}
+        log = self._new_log()
         try:
             while True:
                 try:
@@ -528,17 +673,23 @@ class SparseTrainer:
                     self._put_batch(batch)
                 uid = ((batch.uid, batch.labels, batch.valid)
                        if self.wuauc is not None else None)
+                dump = None
+                if log["dump_file"] is not None:
+                    dump = (batch.ins_ids, batch.labels[:batch.num_real])
                 self._timed_step(path, log, indices.permute(0, 2, 1),
                                  lengths, dense, labels, valid,
-                                 extras=extras, uid=uid)
+                                 extras=extras, uid=uid, dump=dump)
                 if progress is not None:
                     progress(len(log["losses"]))
         finally:
             # on any exit unblock the producer, reap it and cancel queued
-            # packs
+            # packs, and never leak the dump file across failed passes
             ch.close()
             t.join()
             pool.shutdown(wait=False, cancel_futures=True)
+            if log["dump_file"] is not None:
+                log["dump_file"].close()
+        self._finish_async_dense()
         return self._pass_stats(log)
 
     # ------------------------------------------------------------------
@@ -580,18 +731,22 @@ class SparseTrainer:
         return arrays
 
     def finish_pass_feed(self, arrays: pf.HostPassArrays,
-                         staged: Optional[pf.PlaneStager] = None
-                         ) -> pf.PackedPassFeed:
+                         staged: Optional[pf.PlaneStager] = None,
+                         keep_host: bool = False) -> pf.PackedPassFeed:
         """Device half of :meth:`build_pass_feed`: upload + relayout the
         packed planes and build the lowering's per-batch plans.  Needs
         the pass's working set adopted (plan dims read its height), so the
         prefetcher calls it on the main thread right after
         ``engine.begin_pass()``.  ``staged``: the PlaneStager that
-        pack_pass_host was handed (its planes are already uploading)."""
+        pack_pass_host was handed (its planes are already uploading).
+        ``keep_host`` (always, when ``dump_path`` is set): the feed keeps
+        the host arrays (``feed.host``), which the dump reads."""
         assert self.engine.ws is not None, "engine lifecycle must run first"
         path = self._resolve_path()
         self._validate_path(path)
-        feed = pf.upload_pass(arrays, self.device, staged=staged)
+        keep = keep_host or bool(self.trainer_config.dump_path)
+        feed = pf.upload_pass(arrays, self.device, staged=staged,
+                              keep_host=keep)
         if path == "mxu":
             n, s, l, b = feed.data["indices"].shape
             dims = mxu_path.make_dims(s * l * b,
@@ -613,11 +768,13 @@ class SparseTrainer:
             feed.plan_dims = self._ragged_plan_key(feed)
         return feed
 
-    def build_pass_feed(self, dataset: SlotDataset) -> pf.PackedPassFeed:
+    def build_pass_feed(self, dataset: SlotDataset,
+                        keep_host: bool = False) -> pf.PackedPassFeed:
         """Pack + translate + upload the whole pass and build its plans
         (pack_pass_host, then finish_pass_feed)."""
         assert self.engine.ws is not None, "engine lifecycle must run first"
-        return self.finish_pass_feed(self.pack_pass_host(dataset))
+        return self.finish_pass_feed(self.pack_pass_host(dataset),
+                                     keep_host=keep_host)
 
     def _require_pv_for_rank(self, dataset) -> None:
         """rank_offset / ads_offset mean something only when every batch
@@ -684,24 +841,40 @@ class SparseTrainer:
             raise ValueError(
                 "uid_slot is configured but this feed carries no host "
                 "uids/labels — build it with build_pass_feed")
-        log = {"losses": [], "events": [], "wuauc_s": 0.0}
+        if self.trainer_config.dump_path and feed.host is None:
+            raise ValueError(
+                "dump_path requires build_pass_feed(keep_host=True)")
+        log = self._new_log()
         b = feed.batch_size
-        for i in range(feed.n_batches):
-            bt = pf.slice_batch(feed.data, i)
-            plan = (pf.plan_tuple(pf.slice_batch(plans, i))
-                    if plans is not None else None)
-            # rank_offset rows are batch-local: the slice needs no base
-            extras = {k: v for k, v in bt.items() if k not in _STEP_PLANES}
-            uid = None
-            if self.wuauc is not None:
-                sl = slice(i * b, (i + 1) * b)
-                uid = (feed.uid[sl], feed.host_labels[sl],
-                       feed.host_valid[sl])
-            self._timed_step(path, log, bt["indices"], bt["lengths"],
-                             bt["dense"], bt["labels"], bt["valid"],
-                             plan=plan, extras=extras, uid=uid)
-            if progress is not None:
-                progress(i + 1)
+        try:
+            for i in range(feed.n_batches):
+                bt = pf.slice_batch(feed.data, i)
+                plan = (pf.plan_tuple(pf.slice_batch(plans, i))
+                        if plans is not None else None)
+                # rank_offset rows are batch-local: the slice needs no base
+                extras = {k: v for k, v in bt.items()
+                          if k not in _STEP_PLANES}
+                uid = None
+                if self.wuauc is not None:
+                    sl = slice(i * b, (i + 1) * b)
+                    uid = (feed.uid[sl], feed.host_labels[sl],
+                           feed.host_valid[sl])
+                dump = None
+                if log["dump_file"] is not None:
+                    h = feed.host
+                    lo, cnt, base = h.real_range(i)
+                    dump = (h.ins_ids[base:base + cnt] if h.ins_ids
+                            else None, h.labels[lo:lo + cnt])
+                self._timed_step(path, log, bt["indices"], bt["lengths"],
+                                 bt["dense"], bt["labels"], bt["valid"],
+                                 plan=plan, extras=extras, uid=uid,
+                                 dump=dump)
+                if progress is not None:
+                    progress(i + 1)
+        finally:
+            if log["dump_file"] is not None:
+                log["dump_file"].close()
+        self._finish_async_dense()
         return self._pass_stats(log)
 
     def _finalize_metrics(self, auc_state) -> Dict[str, float]:

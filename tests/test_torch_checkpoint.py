@@ -311,3 +311,25 @@ def test_engine_persistence_verbs(tmp_path):
     assert eng2.load(str(tmp_path / "all")) == eng.table.size()
     assert_same_table(eng.table, eng2.table)
     assert eng2.shrink() >= 0
+
+
+def test_gen_mtime_matches_jax(tmp_path):
+    """gen_mtime(n) is generation n's commit time (its STATE.json mtime):
+    the port's reads its own generations as the JAX package's reader does,
+    and a later generation never reads earlier."""
+    eng, tr = tengine(), StubTrainer()
+    ck = TCheckpoint(str(tmp_path / "ckpt"))
+    gens = [ck.save(eng, tr)]
+    mini_pass(eng, 0)
+    tr.step(0)
+    gens.append(ck.save_pass(eng, tr))
+    jck = JCheckpoint(str(tmp_path / "ckpt"))
+    times = []
+    for n in gens:
+        t = ck.gen_mtime(n)
+        assert t == jck.gen_mtime(n) == os.path.getmtime(
+            os.path.join(ck._gen_dir(n), "STATE.json"))
+        times.append(t)
+    assert times[0] <= times[1]
+    with pytest.raises(OSError):
+        ck.gen_mtime(gens[-1] + 1)

@@ -35,17 +35,19 @@ def pass_data(day, p):
     return cfg, ds
 
 
-def make_pair(path, double=False):
+def make_pair(path, double=False, expand=0):
+    """Engine and trainer of one run; ``expand``: the table's expand
+    (mf_ex) width, the model's input widened to match."""
     t = h.TORCH
-    eng = t.Engine(t.Table(embedding_dim=MF, shard_num=4,
+    eng = t.Engine(t.Table(embedding_dim=MF, shard_num=4, expand_dim=expand,
                            sgd=t.Sgd(mf_create_thresholds=0.0),
                            accessor=AccessorConfig(
                                accessor_type="ctr_double" if double
                                else "ctr")),
                    seed=7, device="cpu")
     cfg, _ = pass_data(0, 0)
-    tr = t.Trainer(eng, DeepFM(S, 3 + MF, DENSE, hidden=(16, 16)), cfg,
-                   batch_size=B, seed=3, sparse_path=path, device="cpu")
+    tr = t.Trainer(eng, DeepFM(S, 3 + MF + expand, DENSE, hidden=(16, 16)),
+                   cfg, batch_size=B, seed=3, sparse_path=path, device="cpu")
     return eng, tr
 
 
@@ -133,8 +135,8 @@ RUNS = {"serial": run_serial, "prefetch": run_prefetch,
         "pipelined": run_pipelined}
 
 
-def run(path, mode, double=False):
-    eng, tr = make_pair(path, double)
+def run(path, mode, double=False, expand=0):
+    eng, tr = make_pair(path, double, expand)
     rec = Recorder()
     out = RUNS[mode](eng, tr, rec)
     return (out, eng, tr), rec

@@ -88,10 +88,12 @@ def datasets(pkg, seed=0, n_labels=1, b=B, nb=NB, disjoint=False):
     return cfg, out
 
 
-def engine(pkg, data, **sgd_kw):
-    """A pass over every key of ``data``, begun (host rows from seed 7)."""
+def engine(pkg, data, table_kw=None, **sgd_kw):
+    """A pass over every key of ``data``, begun (host rows from seed 7).
+    ``table_kw``: more table config (``expand_dim``, say)."""
     sgd = pkg.Sgd(**{"mf_create_thresholds": 1.0, **sgd_kw})
-    eng = pkg.Engine(pkg.Table(embedding_dim=MF, shard_num=4, sgd=sgd),
+    eng = pkg.Engine(pkg.Table(embedding_dim=MF, shard_num=4, sgd=sgd,
+                               **(table_kw or {})),
                      seed=7, **pkg.kw)
     eng.begin_feed_pass()
     for ds in data:
