@@ -164,9 +164,28 @@ result line is printed):
    kernels' traced device ms a step, the grads' copy ms, the dump's host
    seconds, the variants' ms and the sampler's.
 
-Depth cuts of phases 10-11 (the widths are the bench model's): a day of
+14. cluster — the PS service tier: DeepFM on auto → mxu at the bench
+   widths, over phase 10's 2 M key space, 2 days × 2 passes of 4 × 16384
+   records written as slot text files, through ``fleet.train_passes``
+   with ``RemoteTableAdapter(PSClient(flt.addrs), delta_mode=True)`` as
+   the engine's table over an in-process ``launch.PSFleet`` on loopback:
+   (a) N = 1 serial, (b) N = 4 serial, (c) N = 4 prefetched, (d) N = 4
+   with the device cache (2,097,152 rows), (e) N = 4 under seeded chaos
+   (one shard killed mid push_sparse_delta, one server ack dropped).
+   Runs (a)-(e) must leave the same bits (per-batch losses, dense weights
+   and Adam state, the union of the shards' tables with no key on two
+   shards); (e) must restart a shard and (d) must hit; ``gather_sorted``
+   and ``scatter_add_sorted`` launch exactly once a batch in every run;
+   (a)'s first step = the CPU's (rtol 1e-4).  Prints per run the median
+   pass wall, the ``pull_sparse`` and ``push_sparse_delta`` chunk
+   latency medians, wire bytes a pass, ``end_day`` seconds, (d)'s hit
+   rate and (e)'s restart seconds; the loopback MB/s and one pull through
+   ``ps_streams`` 1 against 4 (4 MiB frames, the same rows); and phase
+   10's local-table serial mxu pass wall of the same call.
+
+Depth cuts (the widths are the bench model's): phases 10-11, a day of
 3 passes of 4 batches; the cache runs of phase 10 stop after the first
-pass of day 2 (4 passes).
+pass of day 2 (4 passes); phase 14, 2 days of 2 passes of 4 batches.
 
 Every phase sets the launch counters to 0 just before its main run and
 reads them just after; a kernel of the path that did not launch fails
@@ -193,6 +212,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -1186,14 +1206,19 @@ def same_world(what: str, a: dict, b: dict) -> None:
         raise AssertionError(f"{what}: dense tensors {diff} differ")
 
 
-def world_of(engine, trainer, losses) -> dict:
+def dense_state(trainer) -> dict:
+    """Copies of the dense weights and the dense optimizer's state."""
     dense = {f"model.{k}": v.detach().clone()
              for k, v in trainer.model.state_dict().items()}
     for i, st in trainer.dense_opt.state_dict()["state"].items():
         for k, v in st.items():
             dense[f"opt.{i}.{k}"] = v.clone()
+    return dense
+
+
+def world_of(engine, trainer, losses) -> dict:
     return {"losses": losses, "table": table_state(engine.table),
-            "dense": dense}
+            "dense": dense_state(trainer)}
 
 
 def heat_summary() -> dict:
@@ -1713,30 +1738,37 @@ def parser_check(path: str) -> dict:
             "python_parse_s": secs["python"]}
 
 
-def recovery_phase(seed: int = 6, device: str = "cuda"):
+def write_pass_files(work: str, seed: int, n: int) -> list:
+    """``n`` slot text files of N_BATCHES × BATCH fresh records each (keys
+    from the KEY_SPACE), one a pass, in ``work``."""
+    rng = np.random.default_rng(seed)
+    t0 = time.perf_counter()
+    paths = []
+    for p in range(n):
+        paths.append(os.path.join(work, f"pass{p}.txt"))
+        write_slot_file(paths[-1], make_block(rng, N_BATCHES * BATCH))
+    log(f"files: {n} files of {N_BATCHES * BATCH} records written in "
+        f"{time.perf_counter() - t0:.2f} s")
+    return paths
+
+
+def recovery_phase(seed: int = 6, device: str = "cuda", paths=None):
     """fleet.train_passes over slot text files (REC_PASSES passes of
     N_BATCHES × BATCH records, one reader thread, the native parser) with
     a TrainCheckpoint: a fault-free run, then seeded kills at end_pass
     (serial, prefetched, and prefetched with the device cache on) and at
     ckpt_commit (serial), each resumed (resume=2) to the fault-free run's
-    bits."""
+    bits.  ``paths``: the pass files (written here when None)."""
     from paddlebox_tpu_torch import fleet
     from paddlebox_tpu_torch.io.checkpoint import TrainCheckpoint
     from paddlebox_tpu_torch.ps import faults
     from paddlebox_tpu_torch.utils import flight
     from paddlebox_tpu_torch.utils.monitor import stat_snapshot
-    rng = np.random.default_rng(seed)
     work = tempfile.mkdtemp(prefix="chip_smoke_recovery_")
     try:
-        files = []
-        t0 = time.perf_counter()
-        for p in range(REC_PASSES):
-            path = os.path.join(work, f"pass{p}.txt")
-            write_slot_file(path, make_block(rng, N_BATCHES * BATCH))
-            files.append([path])
-        write_s = time.perf_counter() - t0
-        log(f"recovery: {REC_PASSES} files of {N_BATCHES * BATCH} records "
-            f"written in {write_s:.2f} s")
+        if paths is None:
+            paths = write_pass_files(work, seed, REC_PASSES)
+        files = [[p] for p in paths[:REC_PASSES]]
         launches, out, base = {}, parser_check(files[0][0]), None
         for case, point, hit, prefetch, cache_rows in RECOVERY_CASES:
             what = f"recovery[{case}]"
@@ -2462,6 +2494,270 @@ def options_phase(seed: int = 14, device: str = "cuda"):
                       "alias": alias_phase(dev)}
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the PS service tier under the day loop
+# ---------------------------------------------------------------------------
+
+CLUSTER_PASSES = 2                 # passes per day of LIFE_DATES
+CLUSTER_WIDE = 4
+MICROBENCH_KEYS = 524_288          # the ps_streams 1 vs 4 pull
+# (label, PS shards, prefetch, device-cache rows, chaos)
+CLUSTER_RUNS = (("a", 1, False, 0, False),
+                ("b", CLUSTER_WIDE, False, 0, False),
+                ("c", CLUSTER_WIDE, True, 0, False),
+                ("d", CLUSTER_WIDE, False, CACHE_ROWS, False),
+                ("e", CLUSTER_WIDE, False, 0, True))
+
+
+def cluster_plan():
+    """The chaos run's seeded faults: one server ack dropped (applied,
+    unacknowledged: the retry resolves through the dedup window) and one
+    shard killed mid push_sparse_delta (its supervisor restarts it on the
+    same port with the dead instance's dedup window)."""
+    from paddlebox_tpu_torch.ps import faults
+    return (faults.FaultPlan(seed=17)
+            .drop("send", role="server", at=(2,))
+            .kill_server(cmd="push_sparse_delta", at=(5,)))
+
+
+def fleet_world(tables, trainer, losses) -> dict:
+    """``world_of`` over a PS fleet: the union of the shards' tables
+    (every key, every field), which must hold no key on two shards."""
+    keys, rows = [], []
+    for t in tables:
+        k = np.sort(t.export_keys())
+        keys.append(k)
+        rows.append(t.bulk_pull(k))
+    allk = np.concatenate(keys)
+    if len(np.unique(allk)) != len(allk):
+        raise AssertionError("cluster: a key is held by two shards")
+    order = np.argsort(allk, kind="stable")
+    table = (allk[order], {f: np.concatenate([r[f] for r in rows])[order]
+                           for f in rows[0]})
+    return {"losses": losses, "table": table, "dense": dense_state(trainer)}
+
+
+def cluster_run(files, n: int, prefetch: bool, cache_rows: int,
+                chaos: bool, device: str = "cuda"):
+    """``fleet.train_passes`` over ``files`` (one list of pass filelists
+    per day of LIFE_DATES) with a delta-mode ``RemoteTableAdapter`` over
+    an in-process ``PSFleet(n)`` on loopback as the engine's table.
+    Returns the world it left, the engine's initial dense params, the
+    parsed first pass's first block and the run's readings."""
+    from paddlebox_tpu_torch import fleet
+    from paddlebox_tpu_torch.launch import PSFleet
+    from paddlebox_tpu_torch.ps import faults
+    from paddlebox_tpu_torch.ps.service import PSClient, RemoteTableAdapter
+    from paddlebox_tpu_torch.utils import flight
+    from paddlebox_tpu_torch.utils.monitor import (StatRegistry,
+                                                   stat_snapshot)
+    flt = PSFleet(n, config=EmbeddingTableConfig(
+        embedding_dim=MF_DIM, shard_num=8,
+        sgd=SparseSGDConfig(mf_create_thresholds=0.0)), seed=0,
+        max_restarts=16)
+    client = PSClient(flt.addrs, retries=None, retry_sleep=0.05,
+                      backoff_cap=0.3, deadline=300)
+    try:
+        with engine_flags(cache_rows):
+            engine, trainer = day_trainer(device, "auto")
+        engine.table = RemoteTableAdapter(client, delta_mode=True)
+        params0 = trainer.model.jax_params()
+        ds = fleet.BoxPSDataset(feed_config(), engine=engine,
+                                read_threads=1)
+        StatRegistry.instance().reset()     # per-run latency histograms
+        m0 = time.monotonic()
+        reset_counts()
+        if chaos:
+            flags.set_flags({"ps_fault_injection": True})
+            faults.install(cluster_plan())
+        metrics, day_s = [], []
+        try:
+            for date, day in zip(LIFE_DATES, files):
+                t0 = time.perf_counter()
+                metrics += fleet.train_passes(trainer, ds, day, date=date,
+                                              prefetch=prefetch)
+                day_s.append(time.perf_counter() - t0)
+        finally:
+            faults.uninstall()
+            flags.set_flags({"ps_fault_injection": False})
+        if device == "cuda":
+            torch.cuda.synchronize()
+        launches = read_counts()
+        snap = stat_snapshot("")
+        ends = sorted(e["mono"] for e in flight.events(kind="pass_end")
+                      if e["mono"] >= m0)
+        walls = [float(x) for x in np.diff([m0] + ends)]
+        restarts = sorted((e["mono"], e["kind"]) for e in flight.events(
+            kind="resume_begin,resume_ok")
+            if e.get("role") == "ps_server" and e["mono"] >= m0)
+        restart_s = [b[0] - a[0] for a, b in zip(restarts, restarts[1:])
+                     if a[1] == "resume_begin" and b[1] == "resume_ok"]
+        n_pass = len(metrics)
+        wire = sum(v for k, v in snap.items()
+                   if k.startswith("ps.wire.") and k.endswith(".tx_bytes"))
+        hits = snap.get("ps.cache.hits", 0.0)
+        miss = snap.get("ps.cache.misses", 0.0)
+        timers = {name: (secs, c) for name, secs, c in engine.timers.rows()}
+        r = {"shards": n, "prefetch": prefetch, "cache_rows": cache_rows,
+             "chaos": chaos, "passes": n_pass, "day_s": day_s,
+             "pass_wall_s": walls,
+             "median_pass_wall_s": float(np.median(walls)),
+             "pull_sparse_p50_s": snap.get(
+                 "ps.client.pull_sparse.latency_s.p50"),
+             "push_sparse_delta_p50_s": snap.get(
+                 "ps.client.push_sparse_delta.latency_s.p50"),
+             "wire_bytes_per_pass": wire / max(n_pass, 1),
+             "end_day_s": timers.get("end_day", (0.0, 0))[0],
+             "supervisor_restarts": snap.get("ps.supervisor.restarts", 0.0),
+             "restart_s": restart_s,
+             "dedup_hits": snap.get("ps.server.dedup_hit", 0.0),
+             "client_retries": snap.get("ps.client.retry", 0.0),
+             "launches": launches}
+        if cache_rows:
+            r["cache_hits"] = hits
+            r["cache_hit_rate"] = hits / max(hits + miss, 1.0)
+        losses = [m["losses"] for m in metrics]
+        world = fleet_world([s.table for s in flt.sups], trainer, losses)
+        return world, params0, r
+    finally:
+        client.close()
+        # each server's drain waits out its listener's poll: stop the
+        # shards together
+        stops = [threading.Thread(target=s.stop) for s in flt.sups]
+        for t in stops:
+            t.start()
+        for t in stops:
+            t.join()
+
+
+def wire_microbench(keys: np.ndarray) -> dict:
+    """Loopback MB/s of the wire (a 16 MB f64 dense blob pushed and
+    pulled, best of 3) and one multi-chunk pull of ``keys`` (4 MiB
+    frames) through 1 stream / window 1 against 4 streams / window 8 on
+    one server: the same rows either way."""
+    from paddlebox_tpu_torch.ps.host_table import ShardedHostTable
+    from paddlebox_tpu_torch.ps.service import PSClient, PSServer
+    srv = PSServer(ShardedHostTable(EmbeddingTableConfig(
+        embedding_dim=MF_DIM, shard_num=8,
+        sgd=SparseSGDConfig(mf_create_thresholds=0.0)), seed=0))
+    try:
+        client = PSClient(srv.addr)
+        blob = np.random.default_rng(0).random(16 << 20 >> 3)
+        client.push_dense("blob", blob)
+        best = 0.0
+        for _ in range(3):
+            t0 = time.perf_counter()
+            client.push_dense("blob", blob)
+            back = client.pull_dense("blob")
+            best = max(best, 2 * blob.nbytes / 1e6
+                       / (time.perf_counter() - t0))
+        if not np.array_equal(back, blob):
+            raise AssertionError("cluster: the loopback blob came back "
+                                 "changed")
+        client.pull_sparse(keys, create=True)
+        out, rows = {"loopback_MBps": best}, {}
+        for streams, window in ((1, 1), (4, 8)):
+            c = PSClient(srv.addr, max_frame=1 << 24, streams=streams,
+                         window=window)
+            c.pull_sparse(keys[:1024])          # learn the row width
+            t0 = time.perf_counter()
+            rows[streams] = c.pull_sparse(keys)
+            out[f"pull_streams{streams}_s"] = time.perf_counter() - t0
+            c.close()
+        for f in rows[1]:
+            if not np.array_equal(rows[1][f], rows[4][f]):
+                raise AssertionError(f"cluster: the 4-stream pull's {f} "
+                                     "differs from the 1-stream pull's")
+        out["pull_keys"] = len(keys)
+        out["streams4_speedup"] = out["pull_streams1_s"] / \
+            out["pull_streams4_s"]
+        client.close()
+        return out
+    finally:
+        srv.shutdown()
+
+
+def cluster_phase(seed: int = 18, device: str = "cuda",
+                  local_pass_wall_s: float = None, paths=None):
+    """Phase 14 (see the module docstring).  ``paths``: the pass files,
+    CLUSTER_PASSES a day (written here when None)."""
+    from paddlebox_tpu_torch.data.data_feed import DataFeed
+    work = tempfile.mkdtemp(prefix="chip_smoke_cluster_")
+    try:
+        n_files = len(LIFE_DATES) * CLUSTER_PASSES
+        if paths is None:
+            paths = write_pass_files(work, seed, n_files)
+        files = [[[p] for p in paths[d * CLUSTER_PASSES:
+                                     (d + 1) * CLUSTER_PASSES]]
+                 for d in range(len(LIFE_DATES))]
+        first = SlotRecordBlock.concat(
+            list(DataFeed(feed_config()).read_file(files[0][0][0])))
+        n_batches = len(LIFE_DATES) * CLUSTER_PASSES * N_BATCHES
+        launches, out, base = {}, {}, None
+        for label, n, prefetch, cache_rows, chaos in CLUSTER_RUNS:
+            what = (f"cluster[{label}: N={n},"
+                    f"{'prefetch' if prefetch else 'serial'}"
+                    + (f",cache={cache_rows}" if cache_rows else "")
+                    + (",chaos" if chaos else "") + "]")
+            world, params0, r = cluster_run(files, n, prefetch, cache_rows,
+                                            chaos, device)
+            launches[label] = r["launches"]
+            for name in ("gather_sorted", "scatter_add_sorted"):
+                if r["launches"][name] != n_batches:
+                    raise AssertionError(
+                        f"{what}: {name} launched {r['launches'][name]} "
+                        f"times over {n_batches} batches (want 1 a batch)")
+            if r["launches"]["gather_pool"]:
+                raise AssertionError(f"{what}: gather_pool launched")
+            flat = [x for p in world["losses"] for x in p]
+            if len(flat) != n_batches or not all(map(math.isfinite, flat)):
+                raise AssertionError(f"{what}: losses {world['losses']}")
+            if base is None:
+                base = world
+                r["cpu_first_loss"] = cpu_first_loss(
+                    "cluster", first, flat[0], params0)
+                r["microbench"] = wire_microbench(
+                    np.unique(first.all_keys())[:MICROBENCH_KEYS])
+            else:
+                same_world(f"{what} vs cluster[a]", base, world)
+            if chaos and r["supervisor_restarts"] < 1:
+                raise AssertionError(f"{what}: no shard was restarted")
+            if cache_rows and r.get("cache_hits", 0) <= 0:
+                raise AssertionError(f"{what}: the device cache never hit")
+            del world
+            out[label] = r
+            log(f"{what}: median pass wall {r['median_pass_wall_s']:.3f} s "
+                f"(passes {[round(x, 3) for x in r['pass_wall_s']]}), "
+                f"pull_sparse p50 {r['pull_sparse_p50_s']} s, "
+                f"push_sparse_delta p50 {r['push_sparse_delta_p50_s']} s, "
+                f"wire {r['wire_bytes_per_pass'] / 2**20:.1f} MiB a pass, "
+                f"end_day {r['end_day_s']:.3f} s, launches {r['launches']}"
+                + ("" if label == "a" else "; = cluster[a] bitwise")
+                + (f"; cache hit rate {r['cache_hit_rate']:.4f} "
+                   f"({int(r['cache_hits'])} hits)" if cache_rows else "")
+                + (f"; shard restarts {int(r['supervisor_restarts'])} in "
+                   f"{[round(x, 3) for x in r['restart_s']]} s, dedup hits "
+                   f"{int(r['dedup_hits'])}, client retries "
+                   f"{int(r['client_retries'])}" if chaos else ""))
+        mb = out["a"]["microbench"]
+        log(f"cluster: loopback {mb['loopback_MBps']:.1f} MB/s; a pull of "
+            f"{mb['pull_keys']} keys in 4 MiB frames: ps_streams 1 "
+            f"{mb['pull_streams1_s']:.3f} s, 4 {mb['pull_streams4_s']:.3f} s "
+            f"({mb['streams4_speedup']:.2f}×), the same rows")
+        if local_pass_wall_s is not None:
+            out["local_serial_mxu_pass_wall_s"] = local_pass_wall_s
+            log(f"cluster: local-table serial mxu pass wall (phase 10, this "
+                f"call) {local_pass_wall_s:.3f} s against "
+                f"{out['a']['median_pass_wall_s']:.3f} s through N=1 and "
+                f"{out['b']['median_pass_wall_s']:.3f} s through N=4")
+        log(f"cluster: runs a-e bitwise equal (per-batch losses, dense "
+            f"weights and Adam state, {len(base['table'][0])} table keys × "
+            "every field over the union of the shards, no key on two)")
+        return launches, out
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def profile_phase(seed: int = 1, symbols=SYMBOLS) -> dict:
     """Short traced passes (2 batches) of the lowerings that phases 3-4
     run once untraced: device time by kernel, per step, and the
@@ -2520,9 +2816,21 @@ def main() -> int:
     cross_launches, cross_out = timed("crossing", crossing_phase,
                                       packed_block, packed_params)
     life_launches, life_out = timed("lifecycle", lifecycle_phase)
-    rec_launches, rec_out = timed("recovery", recovery_phase)
-    rank_launches, rank_out = timed("rank", rank_phase)
-    opt_launches, opt_out = timed("options", options_phase)
+    # the pass files of phases 11 and 14 (phase 11 reads the first
+    # REC_PASSES of them), written once
+    work = tempfile.mkdtemp(prefix="chip_smoke_files_")
+    try:
+        paths = timed("files", write_pass_files, work, 6,
+                      max(REC_PASSES, len(LIFE_DATES) * CLUSTER_PASSES))
+        rec_launches, rec_out = timed("recovery", recovery_phase,
+                                      paths=paths)
+        rank_launches, rank_out = timed("rank", rank_phase)
+        opt_launches, opt_out = timed("options", options_phase)
+        cl_launches, cl_out = timed(
+            "cluster", cluster_phase, paths=paths,
+            local_pass_wall_s=life_out["mxu_serial"]["median_pass_wall_s"])
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     profile_out = timed("profile", profile_phase)
 
     by_path = {"slice_mxu": slice_launches,
@@ -2535,7 +2843,8 @@ def main() -> int:
                **{f"lifecycle_{p}": n for p, n in life_launches.items()},
                **{f"recovery_{p}": n for p, n in rec_launches.items()},
                **{f"rank_{p}": n for p, n in rank_launches.items()},
-               **{f"options_{p}": n for p, n in opt_launches.items()}}
+               **{f"options_{p}": n for p, n in opt_launches.items()},
+               **{f"cluster_{p}": n for p, n in cl_launches.items()}}
     line = {"kernels": []}
     for name in KERNELS:
         k = kern["uniform"][name]
@@ -2567,6 +2876,7 @@ def main() -> int:
                                  "crossing": cross_out,
                                  "lifecycle": life_out, "recovery": rec_out,
                                  "rank": rank_out, "options": opt_out,
+                                 "cluster": cl_out,
                                  "profile": profile_out,
                                  "phase_s": phase_s}))
     print(json.dumps(line), flush=True)

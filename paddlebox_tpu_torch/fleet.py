@@ -14,8 +14,9 @@ A reference user drives training as:
     fleet.train_from_dataset(trainer, dataset)
     dataset.end_pass(True)
 or hands a day's per-pass filelists to :func:`train_passes`.  This module
-offers the same verbs over the port's one-card engine and trainer.  Not
-ported yet: the trainer fleet (``run_trainer_fleet``) and topologies.
+offers the same verbs over the port's one-card engine and trainer, whose
+table may be local or a remote PS fleet.  Not ported yet: the trainer
+fleet (``run_trainer_fleet``) and topologies.
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ from paddlebox_tpu_torch.metrics import quality
 from paddlebox_tpu_torch.metrics.auc import MetricGroup
 from paddlebox_tpu_torch.ps import faults
 from paddlebox_tpu_torch.ps.pass_manager import BoxPSEngine
+from paddlebox_tpu_torch.ps.service import ServerErrorReply
 from paddlebox_tpu_torch.trainer.trainer import SparseTrainer
 from paddlebox_tpu_torch.utils.backoff import Backoff
 from paddlebox_tpu_torch.utils.monitor import stat_add
@@ -188,12 +190,17 @@ def train_from_dataset(trainer: SparseTrainer, dataset: BoxPSDataset,
 def _resumable(e: BaseException) -> bool:
     """A crash the resume tier may roll back and re-drive: a lost
     connection or a simulated process death (faults.InjectedFault is a
-    ConnectionError), raised directly or by the prefetch worker
+    ConnectionError), or a PS server's error reply (ServerErrorReply, as
+    the JAX tier re-drives it), raised directly or by the prefetch worker
     (PassPrefetcher.next_pass and the engine's async build wrap the
-    failing thread's error in RuntimeError)."""
-    while isinstance(e, RuntimeError) and e.__cause__ is not None:
+    failing thread's error in RuntimeError).  Any other error is a fault
+    of the program."""
+    while True:
+        if isinstance(e, (ConnectionError, ServerErrorReply)):
+            return True
+        if not isinstance(e, RuntimeError) or e.__cause__ is None:
+            return False
         e = e.__cause__
-    return isinstance(e, ConnectionError)
 
 
 def train_passes(trainer: SparseTrainer, dataset: BoxPSDataset,
@@ -231,9 +238,17 @@ def train_passes(trainer: SparseTrainer, dataset: BoxPSDataset,
     process death (faults.InjectedFault from a lifecycle kill site) or an
     exhausted in-place retry tears the prefetcher down, reloads the last
     generation (rolling back any partial pass) and re-drives the
-    remaining passes.  Only a ``ConnectionError`` (InjectedFault is one),
-    or the prefetcher's RuntimeError wrapping one, is resumed: any other
+    remaining passes.  Only a ``ConnectionError`` (InjectedFault is one)
+    or a PS server's error reply (``ps.service.ServerErrorReply``), or
+    the prefetcher's RuntimeError wrapping either, is resumed: any other
     exception is a fault of the program and propagates at once.
+
+    Remote tables: with ``engine.table = RemoteTableAdapter(PSClient(
+    addrs), delta_mode=True)`` over a ``launch.PSFleet``, the loop trains
+    through the PS service tier unchanged; a change of date runs the
+    fleet's two-phase ``end_day`` (decayed exactly once at N > 1, under
+    retries too), and a checkpoint saves one ``shard-<k:03d>/`` dir per
+    PS shard.
     Bit-identity vs a fault-free run is asserted by
     tests/test_torch_fleet.py.
 

@@ -9,12 +9,16 @@ pass).
 
 Layout (immutable generations + one atomic pointer)::
 
-  <root>/MANIFEST.json        {"generation": n} — the ONLY mutable file,
+  <root>/MANIFEST.json        {"generation": n, "shards": N[, "ps_epoch",
+                              "ps_addrs"]} — the ONLY mutable file,
                               swapped via tmp+rename (_atomic_write)
   <root>/gen-<n>/STATE.json   {generation, kind, chain, day_id, pass_id,
-                              phase, rows, ...extra}
+                              phase, rows, shards, ps_epoch, ...extra}
   <root>/gen-<n>/sparse/…     per-shard npz: the full table (kind=base)
-                              or just the rows the pass wrote (kind=delta)
+                              or just the rows the pass wrote (kind=delta);
+                              through a remote table over an N-shard PS
+                              fleet, one ``shard-<k:03d>/`` dir a shard,
+                              each server's ``DEDUP.bin`` beside its rows
   <root>/gen-<n>/dense.pt     ``torch.save`` of {"model": the trainer's
                               module state_dict, "opt": its dense
                               optimizer's state_dict}; tensors only, so
@@ -120,6 +124,8 @@ class TrainCheckpoint:
             return None
         with open(path) as f:
             gen = json.load(f).get("generation")
+        # a membership-only manifest (commit_membership before any
+        # checkpoint ever committed) carries generation: null
         return None if gen is None else int(gen)
 
     def _sparse_dir(self, n: int) -> str:
@@ -215,9 +221,18 @@ class TrainCheckpoint:
                     "opt": trainer.dense_opt.state_dict()},
                    os.path.join(tmpdir, DENSE))
 
+        # cluster topology rides in the generation record: at n > 1 the
+        # sparse dir holds per-shard ``shard-<k:03d>/`` subdirs (the
+        # client's save fan-out, ps/cluster.cluster_save) and THIS
+        # MANIFEST advance below is the single cluster-wide commit point
+        # naming all N shard heads at once
+        smap = getattr(engine.table, "server_map", None)
+        n_shards = getattr(smap, "n", 1)
         state = {"generation": gen, "kind": kind, "chain": chain,
                  "day_id": engine.day_id, "pass_id": engine.pass_id,
-                 "phase": engine.phase, "rows": int(rows)}
+                 "phase": engine.phase, "rows": int(rows),
+                 "shards": int(n_shards),
+                 "ps_epoch": int(getattr(smap, "epoch", 0) or 0)}
         if extra:
             state.update(extra)
         with open(os.path.join(tmpdir, "STATE.json"), "w") as f:
@@ -233,8 +248,15 @@ class TrainCheckpoint:
             # the crash window the MANIFEST swap closes: generation dir
             # complete, pointer not yet advanced → old generation loads
             faults.on_lifecycle("ckpt_commit")
+        man = {"generation": gen, "shards": int(n_shards)}
+        if smap is not None and getattr(smap, "epoch", 0):
+            # elastic fleet: the manifest names the committed membership
+            # alongside the generation head — a restart reads BOTH from
+            # one atomically-swapped pointer (ps/reshard.py rollback)
+            man["ps_epoch"] = int(smap.epoch)
+            man["ps_addrs"] = [[h, int(p)] for h, p in smap.addrs]
         _atomic_write(os.path.join(self.root, MANIFEST),
-                      json.dumps({"generation": gen}).encode())
+                      json.dumps(man).encode())
         dt = time.monotonic() - t0
         stat_observe("ckpt.save_s", dt)
         stat_set("ckpt.generation", float(gen))
@@ -268,18 +290,30 @@ class TrainCheckpoint:
                           kept=len(keep))
 
     # -- resume --------------------------------------------------------------
-    def load_table(self, table) -> Optional[int]:
-        """Table-only restore: walk the head generation's chain into
-        ``table`` — base load, then delta upserts — without touching any
-        trainer state.  Returns the head generation number, or None when
+    def load_table(self, table, shard: Optional[int] = None
+                   ) -> Optional[int]:
+        """Table-only restore (the PSServerSupervisor's reload path,
+        launch.py): walk the head generation's chain into ``table`` —
+        base load, then delta upserts — without touching any trainer
+        state.  ``shard`` narrows the walk to one cluster shard's
+        ``shard-<k:03d>/`` subdirs (a restarting shard reloads ONLY its
+        own rows + DEDUP.bin).  A server-side table also recovers its
+        dedup window here (the load verb restores DEDUP.bin,
+        ps/service.py).  Returns the head generation number, or None when
         empty."""
         head = self._manifest()
         if head is None:
             return None
         chain = self._state(head).get("chain", [head])
-        table.load(self._sparse_dir(chain[0]))
+
+        def sparse_dir(n: int) -> str:
+            p = self._sparse_dir(n)
+            return p if shard is None else os.path.join(
+                p, f"shard-{shard:03d}")
+
+        table.load(sparse_dir(chain[0]))
         for n in chain[1:]:
-            table.load(self._sparse_dir(n), mode="upsert")
+            table.load(sparse_dir(n), mode="upsert")
         return head
 
     # -- generation readers: a read-only face of the chain walk ------------
@@ -300,8 +334,18 @@ class TrainCheckpoint:
             os.path.join(self._gen_dir(n), "STATE.json"))
 
     def gen_sparse_dirs(self, n: int) -> List[str]:
-        """Sparse dump dirs of generation ``n`` (one per table save)."""
-        return [self._sparse_dir(n)]
+        """Sparse dump dirs of generation ``n``: the flat ``sparse/`` dir
+        for a single-table save, else its per-cluster-shard
+        ``shard-<k:03d>/`` subdirs (cluster_save layout) — the trainer's
+        shard count need not match a reader's, so readers walk every
+        subdir and re-filter by key hash themselves."""
+        base = self._sparse_dir(n)
+        subs = sorted(
+            os.path.join(base, d) for d in os.listdir(base)
+            if d.startswith("shard-")
+            and os.path.isdir(os.path.join(base, d))) \
+            if os.path.isdir(base) else []
+        return subs or [base]
 
     def read_gen_rows(self, n: int, template: Dict[str, np.ndarray],
                       missing_fill: Optional[Dict[str, float]] = None
@@ -422,3 +466,46 @@ class TrainCheckpoint:
         flight.record("resume_ok", generation=head,
                       pass_id=engine.pass_id, restore_s=round(dt, 3))
         return state
+
+
+def commit_membership(root: str, server_map) -> bool:
+    """Record a committed PS membership (epoch + addresses) in the
+    checkpoint MANIFEST — the durable half of the reshard cutover
+    (ps/reshard.py phase 5).  Atomic pointer swap like every MANIFEST
+    advance: a crash before this call leaves the OLD membership in the
+    manifest, and a restart resharding-on-load against it is the whole
+    rollback story.  Epoch-guarded (a stale/duplicate commit no-ops);
+    preserves the generation head untouched.  Returns True when the
+    manifest advanced."""
+    os.makedirs(root, exist_ok=True)
+    path = os.path.join(root, MANIFEST)
+    man: Dict = {"generation": None}
+    if os.path.exists(path):
+        with open(path) as f:
+            man = json.load(f)
+    if int(man.get("ps_epoch", 0)) >= int(server_map.epoch):
+        return False
+    man["ps_epoch"] = int(server_map.epoch)
+    man["ps_addrs"] = [[h, int(p)] for h, p in server_map.addrs]
+    man["shards"] = int(server_map.n)
+    _atomic_write(path, json.dumps(man).encode())
+    flight.record("membership_commit", epoch=int(server_map.epoch),
+                  shards=int(server_map.n))
+    return True
+
+
+def read_membership(root: str):
+    """The committed PS membership from ``<root>/MANIFEST.json`` as a
+    ServerMap, or None when the manifest is absent or membership-less
+    (pre-elastic checkpoints)."""
+    from paddlebox_tpu_torch.ps import cluster as ps_cluster
+    path = os.path.join(root, MANIFEST)
+    if not os.path.exists(path):
+        return None
+    with open(path) as f:
+        man = json.load(f)
+    addrs = man.get("ps_addrs")
+    if not addrs:
+        return None
+    return ps_cluster.make_server_map([tuple(a) for a in addrs],
+                                      epoch=int(man.get("ps_epoch", 0)))

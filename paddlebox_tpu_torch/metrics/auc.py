@@ -175,6 +175,24 @@ class WuAucCalculator:
         }
 
 
+def allreduce_auc_state(state, client, world: int, key: str):
+    """EXACT cross-process metrics: sum the pos/neg bucket tables + scalar
+    sums over every worker through the PS service's keyed allreduce, so
+    each worker finalizes the same GLOBAL AUC — ≙ fleet.metrics.auc's gloo
+    all_reduce of stat_pos/stat_neg (fleet/metrics/metric.py:144), not an
+    average of worker-local AUCs (which is biased whenever shards differ).
+
+    state: the trainer's bucket state (torch tensors on any device) or
+    its numpy copy; the device-to-host copy runs here, on the calling
+    thread, so the wire only ever sees numpy.  client: ps.service.PSClient;
+    key must be fresh per collective (e.g. f"auc-{pass_id}").  Returns a
+    summed numpy state finalizable by AucCalculator.merge_device_state /
+    compute."""
+    arrs = {k: (v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
+                else np.asarray(v)) for k, v in state.items()}
+    return client.allreduce(arrs, world, key=key)
+
+
 class AucCalculator:
     """Host wrapper with the reference's result surface
     (auc/bucket_error/mae/rmse/actual_ctr/predicted_ctr, metrics.h:108-121)."""

@@ -38,12 +38,16 @@ values ``build_working_set`` would produce from the host row last written
 back (same f32/int32 casts; under ctr_double the f64 show/click are cast
 host-side from the merged write-back values), and its mirrored show and
 click equal the written row's — so a cache hit yields the same
-working-set bits and the same f64 pulled-stats base as a table pull of
-the row just written.
+working-set bits, the same f64 pulled-stats base and (over a delta-mode
+remote table) the same write-back base as a pull of the row just
+written.
 
-Left out until the PS service tier is ported: the cluster half
-(``attach_server_map``, ``update_server_map``, ``invalidate_shard`` and
-the owned-key admission filter).
+The cluster half: with the PS fleet's ``ServerMap`` attached
+(``attach_server_map``, lazily at the engine's first feed pass), an
+engine of rank r in a world of w admits only keys with
+``shard_of_keys(key) % w == r``; ``update_server_map`` drops exactly the
+key range a reshard moved, and ``invalidate_shard`` the rows of one
+restarted PS shard.  All of it is numpy on the host.
 """
 
 from __future__ import annotations
@@ -85,17 +89,19 @@ class CacheIndexSnapshot:
 class CachePlan:
     """What a feed-thread build decided against a snapshot: which pass
     positions it expects to fill from the cache (so it did NOT pull them)
-    and how many keys it pulled.  Consumed at adoption on the main
+    and which keys it actually pulled.  Consumed at adoption on the main
     thread, where the hit set is re-validated against the live index."""
 
-    __slots__ = ("keys", "pos", "snap", "n_miss")
+    __slots__ = ("keys", "pos", "snap", "n_miss", "pulled_keys")
 
     def __init__(self, keys: np.ndarray, pos: np.ndarray,
-                 snap: CacheIndexSnapshot, n_miss: int):
+                 snap: CacheIndexSnapshot, n_miss: int,
+                 pulled_keys: Optional[np.ndarray]):
         self.keys = keys            # snapshot-hit keys (sorted)
         self.pos = pos              # their positions in the pass key array
         self.snap = snap
         self.n_miss = n_miss
+        self.pulled_keys = pulled_keys   # table-pulled key set (None if none)
 
 
 class DeviceRowCache:
@@ -106,11 +112,10 @@ class DeviceRowCache:
     * ``_store``  — device tensors ``[capacity, ...]`` per working-set
       field (f32/int32, the exact dtypes ``build_working_set`` emits) on
       ``device`` (``cuda`` unless the caller passes ``device="cpu"``);
-    * ``_mirror`` — host arrays of ``show`` and ``click`` in the table's
-      dtypes (f64 under ctr_double): the f64 pulled-stats base of a hit.
-      The JAX cache mirrors every table field, as the write-back base of
-      delta-mode remote tables; those are not ported, and no other field
-      is read back, so the port keeps these two.
+    * ``_mirror`` — host arrays per table field (the table's dtypes, f64
+      show/click under ctr_double, plus ``unseen_days``): the write-back
+      base of a hit over a delta-mode remote table and the f64 stats
+      source.
 
     Admission/eviction ranks by the same day-scale score ``shrink`` uses
     (``nonclk_coeff*(show-click) + clk_coeff*click``) plus pass recency;
@@ -140,8 +145,93 @@ class DeviceRowCache:
         self._slot_pass = np.full((self.capacity,), -1, np.int64)
         self._store: Optional[Dict[str, torch.Tensor]] = None
         self._mirror: Optional[Dict[str, np.ndarray]] = None
-        self._layout: Optional[Dict[str, tuple]] = None  # host row layout
         self.row_bytes = 0          # device bytes per cached row
+        # cluster topology (optional): the fleet's ServerMap plus this
+        # engine's rank/world.  With a map attached, admission is keyed
+        # by the SAME splitmix64 placement the PS cluster uses — each
+        # engine caches a disjoint slice of the key space
+        self._server_map = None
+        self._device_rank = 0
+        self._device_world = 1
+        # epoch stamp of the owned mask: the membership epoch the current
+        # admission placement was computed under.  A live reshard bumps it
+        # via update_server_map(), which also drops exactly the moved range
+        self._map_epoch = 0
+
+    def attach_server_map(self, server_map, device_rank: int = 0,
+                          device_world: int = 1) -> None:
+        """Adopt the PS cluster's key placement for cache admission.
+
+        ``shard_of_keys(key) % device_world == device_rank`` defines this
+        engine's owned slice.  Already-resident rows outside the slice are
+        left to age out via normal eviction (attach happens before the
+        first admission in practice, so the set is empty).  Main thread
+        only, between passes.
+        """
+        with self._lock:
+            self._server_map = server_map
+            self._device_rank = int(device_rank)
+            self._device_world = max(1, int(device_world))
+            self._map_epoch = int(getattr(server_map, "epoch", 0))
+
+    @property
+    def map_epoch(self) -> int:
+        """Membership epoch the resident set's owned mask was stamped
+        under (0 when no ServerMap is attached)."""
+        return self._map_epoch
+
+    def update_server_map(self, new_map, reason: str = "") -> None:
+        """Adopt a post-reshard ServerMap, invalidating ONLY the moved
+        key range: rows whose owning shard is the same under the old and
+        new placement keep their device/host planes hot; rows whose
+        owner changed are dropped (their authoritative copy just moved
+        between PS processes).  The owned admission mask is re-stamped
+        with the new map's epoch.  Numpy only (the client's map-change
+        hook may call it on a verb's thread); between passes.
+        """
+        with self._lock:
+            old_map = self._server_map
+            if old_map is None or (
+                    getattr(old_map, "n", 1) == getattr(new_map, "n", 1)
+                    and getattr(old_map, "addrs", None)
+                    == getattr(new_map, "addrs", None)):
+                # first attach, or a no-op refresh (same membership):
+                # nothing moved, just restamp
+                self._server_map = new_map
+                self._map_epoch = int(getattr(new_map, "epoch", 0))
+                return
+            keys = self._keys
+            slots = self._slots
+        if len(keys):
+            moved = old_map.shard_of_keys(keys) != new_map.shard_of_keys(keys)
+        else:
+            moved = np.zeros((0,), bool)
+        self._drop(keys, slots, moved, server_map=new_map)
+        flight.record("cache_invalidate_moved", epoch=self._map_epoch,
+                      reason=reason or "reshard", dropped=int(moved.sum()),
+                      kept=int((~moved).sum()))
+
+    def _drop(self, keys: np.ndarray, slots: np.ndarray, gone: np.ndarray,
+              server_map=None) -> None:
+        """Free the slots of the resident keys masked by ``gone`` and swap
+        in the index without them (optionally with a new map).  The
+        version bumps even when nothing is dropped: in-flight snapshots
+        may predate the change and must resolve all-miss."""
+        drop_slots = slots[gone]
+        self._slot_key[drop_slots] = 0
+        self._slot_score[drop_slots] = 0.0
+        self._slot_pass[drop_slots] = -1
+        keep = ~gone
+        with self._lock:
+            self.version += 1
+            self._keys = keys[keep]
+            self._slots = slots[keep]
+            if server_map is not None:
+                self._server_map = server_map
+                self._map_epoch = int(getattr(server_map, "epoch", 0))
+            left = len(self._keys)
+        stat_set("ps.cache.resident_rows", float(left))
+        stat_add("ps.cache.invalidations")
 
     # -- index (cross-thread surface) ---------------------------------------
     def snapshot(self) -> CacheIndexSnapshot:
@@ -180,8 +270,8 @@ class DeviceRowCache:
     def read_mirror(self, slots: np.ndarray,
                     fields: Optional[Tuple[str, ...]] = None
                     ) -> Dict[str, np.ndarray]:
-        """Host-mirror rows for the given slots (the f64 stats source).
-        Main thread only."""
+        """Host-mirror rows for the given slots (delta-mode write-back
+        base / f64 stats source).  Main thread only."""
         assert self._mirror is not None
         names = fields if fields is not None else tuple(self._mirror)
         return {f: self._mirror[f][slots]
@@ -192,10 +282,10 @@ class DeviceRowCache:
         used when a pass has no misses at all (no table pull to derive
         the SoA layout from).  Numpy only: runs on the build thread."""
         with self._lock:
-            layout = self._layout
-        assert layout is not None
-        return {f: np.zeros((n,) + shape, dtype)
-                for f, (shape, dtype) in layout.items()}
+            mirror = self._mirror
+        assert mirror is not None
+        return {f: np.zeros((n,) + v.shape[1:], v.dtype)
+                for f, v in mirror.items()}
 
     def scatter_into(self, ws: Dict[str, torch.Tensor], rows: np.ndarray,
                      slots: np.ndarray) -> Dict[str, torch.Tensor]:
@@ -221,10 +311,10 @@ class DeviceRowCache:
             w = ws[f]
             store[f] = torch.zeros((self.capacity,) + tuple(w.shape[1:]),
                                    dtype=w.dtype, device=self.device)
-        self._mirror = {f: np.zeros((self.capacity,), soa[f].dtype)
-                        for f in ("show", "click")}
+        mirror = {f: np.zeros((self.capacity,) + v.shape[1:], v.dtype)
+                  for f, v in soa.items()}
         with self._lock:
-            self._layout = {f: (v.shape[1:], v.dtype) for f, v in soa.items()}
+            self._mirror = mirror
         self._store = store
         self.row_bytes = int(sum(
             v.element_size() * int(np.prod(v.shape[1:], dtype=np.int64))
@@ -275,6 +365,16 @@ class DeviceRowCache:
         cand_mask = np.ones((n,), bool)
         cand_mask[res_idx] = False
         cand = np.flatnonzero(cand_mask)
+        # the topology trio is co-mutated under _lock (attach_server_map /
+        # update_server_map): snapshot it atomically
+        with self._lock:
+            smap = self._server_map
+            rank, world = self._device_rank, self._device_world
+        if smap is not None and world > 1:
+            # sharded topology: only admit this engine's owned slice of
+            # the key space (same ServerMap placement the wire uses)
+            owned = (smap.shard_of_keys(keys[cand]) % world) == rank
+            cand = cand[owned]
         order = np.lexsort((keys[cand], -scores[cand]))
         cand = cand[order]
 
@@ -316,7 +416,8 @@ class DeviceRowCache:
         upd_slots = np.concatenate([res_slots, adm_s]).astype(np.int64)
         if len(upd_idx):
             for f, mirror in self._mirror.items():
-                mirror[upd_slots] = soa[f][upd_idx]
+                if f in soa:
+                    mirror[upd_slots] = soa[f][upd_idx]
             rows_d = torch.as_tensor(upd_idx + 1, device=self.device)
             slots_d = torch.as_tensor(upd_slots, device=self.device)
             for f, buf in self._store.items():
@@ -379,3 +480,20 @@ class DeviceRowCache:
         stat_add("ps.cache.invalidations")
         flight.record("cache_invalidate", reason=reason or "unspecified",
                       dropped=had)
+
+    def invalidate_shard(self, shard: int, reason: str = "") -> None:
+        """Drop only one PS cluster shard's resident rows (single-shard
+        supervisor restart behind a fan-out: the other N-1 shards never
+        lost state, so their cached rows stay hot).  Falls back to a full
+        invalidate when no ServerMap is attached.  Main thread only."""
+        if self._server_map is None:
+            self.invalidate(reason or f"shard-{shard}")
+            return
+        with self._lock:
+            keys = self._keys
+            slots = self._slots
+        hit = self._server_map.shard_of_keys(keys) == int(shard)
+        self._drop(keys, slots, hit)
+        flight.record("cache_invalidate_shard", shard=int(shard),
+                      reason=reason or "unspecified",
+                      dropped=int(hit.sum()))

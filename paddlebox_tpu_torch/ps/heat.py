@@ -24,9 +24,11 @@ Sites (one sketch bundle per literal site name, tenant-bounded):
   batches (the training fan).
 * ``cache_admit`` / ``cache_evict`` — DeviceRowCache admissions and
   evictions at the end_pass fold-back.
-* ``serve.<tenant>`` — serving row lookups per tenant, and
-  ``observe_shard``'s per-PS-shard load: their callers (the serving
-  tier and the PS service tier) are not ported yet.
+* ``fault_in`` — SSDTieredTable promotions SSD→DRAM (ps/ssd_table.py).
+* ``observe_shard`` — per-PS-shard key load of a sharded ``PSClient``'s
+  pull and push fan-outs (ps/service.py).
+* ``serve.<tenant>`` — serving row lookups per tenant: its caller (the
+  serving tier) is not ported yet.
 
 Derived gauges (published at LITERAL stat_set sites so the PB207
 SloRule gate can see them; the "heat." prefix makes them timeline

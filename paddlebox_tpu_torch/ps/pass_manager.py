@@ -42,8 +42,18 @@ thread at a time: ``dedup_keys``/``build_pull``/``end_day`` by the feed
 side, ``build_device``/``cache_gather``/``refresh_stale``/
 ``dump_to_cpu``/``cache_fold``/``train`` by the training side.
 
-Not ported yet (ROADMAP): the cache's cluster half and remote-table (PS
-service) adoption, and serving-frozen working sets.
+Remote tables (``engine.table = RemoteTableAdapter(PSClient(addrs),
+delta_mode=True)``, ps/service.py): the first feed pass attaches the
+fleet's ``ServerMap`` to the cache (owned-key admission, and the moved
+range dropped when the client adopts a new map); adoption installs the
+assembled pass rows — hits from the cache's host mirror — as the
+write-back base (``seed_snapshot``); the fold-back takes the rows the
+server materialized (``pop_write_effect``), so the cache holds the
+server's bits; a failed write-back leaves the engine and the adapter's
+snapshot intact, so ``end_pass`` re-drives exactly once.  Every wire
+call is host code, on whichever thread pulls or writes.
+
+Not ported yet (ROADMAP): serving-frozen working sets.
 """
 
 from __future__ import annotations
@@ -80,7 +90,8 @@ class BoxPSEngine:
     ``device="cpu"``)."""
 
     def __init__(self, config: Optional[EmbeddingTableConfig] = None,
-                 seed: int = 0, device: DeviceLike = None):
+                 seed: int = 0, device: DeviceLike = None,
+                 device_rank: int = 0, device_world: int = 1):
         self.config = config or EmbeddingTableConfig()
         self.device = resolve_device(device)
         heat.maybe_enable_from_flags()
@@ -112,7 +123,14 @@ class BoxPSEngine:
         self._pass_obs0 = None
         self._pass_feed_report = None
 
-        # HBM tier: device-resident hot-row cache (ps/device_cache.py)
+        # HBM tier: device-resident hot-row cache (ps/device_cache.py).
+        # Under a sharded PS cluster the cache keys admission by the
+        # fleet's ServerMap (attached lazily at the first feed pass — a
+        # remote table is wired to the engine AFTER __init__), and
+        # (device_rank, device_world) partitions the cached slice
+        self.device_rank = int(device_rank)
+        self.device_world = max(1, int(device_world))
+        self._cache_smap_attached = False
         self.cache: Optional[DeviceRowCache] = None
         if flags.get_flags("ps_device_cache"):
             cap = int(flags.get_flags("ps_device_cache_rows"))
@@ -163,6 +181,27 @@ class BoxPSEngine:
         }
         flight.record("pass_feed_begin", pass_id=self.pass_id + 1,
                       day=self.day_id)
+        # lazy cluster attach: a RemoteTableAdapter over a sharded fleet
+        # is wired to the engine after __init__, so adopt its ServerMap
+        # for cache admission at the first feed that sees one
+        if self.cache is not None and not self._cache_smap_attached:
+            smap = getattr(self.table, "server_map", None)
+            if smap is not None:
+                self.cache.attach_server_map(
+                    smap, device_rank=self.device_rank,
+                    device_world=self.device_world)
+                # elastic fleet: when a fence redirect adopts a newer
+                # map, invalidate exactly the moved key range (stale
+                # cached rows now belong to a different shard)
+                client = getattr(self.table, "client", None)
+                if client is not None \
+                        and hasattr(client, "on_map_change"):
+                    cache = self.cache
+                    client.on_map_change(
+                        lambda m: cache.update_server_map(
+                            m, reason="map_refresh"))
+                # pboxlint: disable-next=PB102 -- single-coordinator lifecycle flag
+                self._cache_smap_attached = True
         # publish the cache index snapshot for THIS feed (prefetcher-safe:
         # the build thread intersects against this frozen view; hit
         # resolution re-checks the live index at adoption)
@@ -214,7 +253,8 @@ class BoxPSEngine:
                 else:
                     host_rows = self.cache.host_templates(len(uniq))
                 plan = CachePlan(uniq[hit_mask], np.flatnonzero(hit_mask),
-                                 snap, len(miss))
+                                 snap, len(miss),
+                                 miss if len(miss) else None)
                 pulled_n = len(miss)
             else:
                 host_rows = self.table.bulk_pull(uniq)
@@ -251,9 +291,9 @@ class BoxPSEngine:
                plan: Optional[CachePlan]) -> Dict[str, torch.Tensor]:
         """Main-thread working-set assembly: resolve the feed's cache plan
         against the live index, pull any hit that was evicted since the
-        snapshot, read the f64 pulled-stats base of the hits from the
-        mirror, upload the miss rows and gather the hit rows on the
-        device."""
+        snapshot, read the hits' f64 pulled-stats base (and, over a
+        delta-mode remote table, their write-back base) from the mirror,
+        upload the miss rows and gather the hit rows on the device."""
         if plan is None or self.cache is None:
             if self.cache is not None:
                 # a cold pass (empty snapshot): this pass's rate, set on
@@ -277,11 +317,28 @@ class BoxPSEngine:
                          float(len(inv_keys)))
             hit_pos = plan.pos[valid]
             hit_slots = np.asarray(slots[valid], np.int64)
-            if n_valid and host_rows["show"].dtype == np.float64:
-                # ctr_double: the f64 stats base comes from the mirror
-                for f, v in self.cache.read_mirror(
-                        hit_slots, fields=("show", "click")).items():
-                    host_rows[f][hit_pos] = v
+            delta_seed = (getattr(self.table, "delta_mode", False)
+                          and hasattr(self.table, "seed_snapshot"))
+            if n_valid:
+                if delta_seed:
+                    # the write-back base for hit rows is the cache's host
+                    # mirror (exactly what this engine last wrote back)
+                    for f, v in self.cache.read_mirror(hit_slots).items():
+                        if f in host_rows:
+                            host_rows[f][hit_pos] = v
+                elif host_rows["show"].dtype == np.float64:
+                    # ctr_double: the f64 stats base comes from the mirror
+                    for f, v in self.cache.read_mirror(
+                            hit_slots, fields=("show", "click")).items():
+                        host_rows[f][hit_pos] = v
+            if delta_seed:
+                # delta-mode remotes snapshot what they pull — only the
+                # misses here.  Install the full assembled key set as the
+                # write-back base, dropping the partial pull snapshots.
+                consumed = [k for k in (plan.pulled_keys, inv_keys)
+                            if k is not None and len(k)]
+                self.table.seed_snapshot(mapper.sorted_keys, host_rows,
+                                         consumed=consumed)
             ws = self._upload(host_rows)
             if n_valid:
                 ws = self.cache.scatter_into(
@@ -431,8 +488,12 @@ class BoxPSEngine:
                  delta_path: str = "") -> None:
         """Write the trained working set back to the host table.
 
-        If the write-back raises, ``ws``, ``mapper`` and the pulled stats
-        stay intact, so calling ``end_pass`` again writes the same rows."""
+        Pass-level recovery contract: if the write-back raises (a remote
+        PS unreachable past the client's retry deadline), ``ws``,
+        ``mapper`` and the pulled stats stay intact, and a delta-mode
+        RemoteTableAdapter restores its pull snapshot and pins the
+        chunks' rid group, so calling ``end_pass`` again replays the SAME
+        write-back exactly once (chunks that landed dedup server-side)."""
         assert self.ws is not None and self.mapper is not None
         if faults.ACTIVE is not None:
             # seeded kill site: the trainer dies with a trained but
@@ -466,14 +527,24 @@ class BoxPSEngine:
             # write succeeded, so a failed write-back replays end_pass
             # with the cache untouched (exactly-once)
             with self.timers("cache_fold"):
-                casts = None
-                if soa["show"].dtype == np.float64:
+                fold, casts = soa, None
+                pop = getattr(self.table, "pop_write_effect", None)
+                eff = pop() if pop is not None else None
+                if eff is not None:
+                    # delta-mode remote: the server materialized
+                    # base+delta, which can differ from the written soa
+                    # in the last ulp — the cache must hold the SERVER's
+                    # bits or a later hit diverges from the pull it
+                    # replaces
+                    fold = eff
+                    casts = {f: eff[f] for f in eff if f != "unseen_days"}
+                elif soa["show"].dtype == np.float64:
                     # hit rows must replay the same f64→f32 cast a table
                     # pull of the written row would
                     casts = {f: soa[f].astype(np.float32)
                              for f in ("show", "click")}
                 self.cache.update_after_pass(
-                    self.mapper.sorted_keys, soa, self.ws,
+                    self.mapper.sorted_keys, fold, self.ws,
                     pass_id=self.pass_id, host_casts=casts)
         self.ws = None
         self._last_written = np.asarray(self.mapper.sorted_keys)

@@ -413,10 +413,108 @@ def test_matches_the_jax_cache_on_the_same_fold_backs():
         np.testing.assert_array_equal(tc._slots, jc._slots)
         np.testing.assert_array_equal(tc._slot_score, jc._slot_score)
         np.testing.assert_array_equal(tc._slot_pass, jc._slot_pass)
-        assert set(tc._mirror) == {"show", "click"}
+        assert set(tc._mirror) == set(jc._mirror)
         for f in tc._mirror:
             np.testing.assert_array_equal(tc._mirror[f], jc._mirror[f])
         for f in jc._store:
             np.testing.assert_array_equal(tc._store[f].numpy(),
                                           np.asarray(jc._store[f]))
     assert stat_get("ps.cache.evictions") > 0
+
+
+def test_cluster_half_matches_the_jax_cache():
+    """The cache's cluster half against the JAX cache's: with a 4-shard
+    ServerMap attached at rank 1 of a world of 2, only the owned slice is
+    admitted; a reshard to 3 shards drops exactly the keys whose owner
+    moved (and restamps the epoch); a restart of shard 2 drops its rows
+    only.  Both caches keep the same keys, slots and mirror throughout."""
+    from paddlebox_tpu.ps import cluster as jcluster
+    from paddlebox_tpu_torch.ps import cluster
+    addrs = [("127.0.0.1", 7000 + i) for i in range(4)]
+    rng = np.random.default_rng(9)
+    jc, tc = JCache(capacity=64), DeviceRowCache(capacity=64, device="cpu")
+    jc.attach_server_map(jcluster.make_server_map(addrs, epoch=1), 1, 2)
+    tc.attach_server_map(cluster.make_server_map(addrs, epoch=1), 1, 2)
+
+    def same():
+        np.testing.assert_array_equal(tc.snapshot().keys, jc.snapshot().keys)
+        np.testing.assert_array_equal(tc._slots, jc._slots)
+        for f in jc._mirror:
+            np.testing.assert_array_equal(tc._mirror[f], jc._mirror[f])
+        assert tc.map_epoch == jc.map_epoch and tc.version == jc.version
+
+    smap = cluster.make_server_map(addrs, epoch=1)
+    for pass_id in range(3):
+        keys = rng.choice(np.arange(1, 400), size=60, replace=False)
+        shows, clicks = rng.integers(1, 50, 60), rng.integers(0, 2, 60)
+        tc.update_after_pass(*mk_pass(keys, shows, clicks), pass_id=pass_id)
+        jc.update_after_pass(*mk_pass(keys, shows, clicks, lib=jnp),
+                             pass_id=pass_id)
+        same()
+    res = tc.snapshot().keys
+    assert len(res) and (smap.shard_of_keys(res) % 2 == 1).all()
+    new = cluster.make_server_map(addrs[:3], epoch=2)
+    moved = smap.shard_of_keys(res) != new.shard_of_keys(res)
+    assert moved.any() and (~moved).any()
+    tc.update_server_map(new, reason="test")
+    jc.update_server_map(jcluster.make_server_map(addrs[:3], epoch=2),
+                         reason="test")
+    same()
+    np.testing.assert_array_equal(tc.snapshot().keys, res[~moved])
+    assert tc.map_epoch == 2
+    kept = tc.snapshot().keys
+    tc.invalidate_shard(2, reason="restart")
+    jc.invalidate_shard(2, reason="restart")
+    same()
+    np.testing.assert_array_equal(tc.snapshot().keys,
+                                  kept[new.shard_of_keys(kept) != 2])
+
+
+def test_cache_chaos_delta_mode_bit_identical():
+    """Cache + prefetch + delta-mode remote PS under seeded connection
+    chaos (counterpart of the JAX test of the same name): the miss-only
+    pull snapshots only misses, so the engine seeds the full-key
+    write-back base itself from the cache mirror, and the fold-back
+    keeps the server's bits — the day must equal the fault-free
+    cache-off serial run over the same remote table bit for bit."""
+    from paddlebox_tpu_torch.ps.host_table import ShardedHostTable
+    from paddlebox_tpu_torch.ps.service import (PSClient, PSServer,
+                                                RemoteTableAdapter)
+    from torch_day_loop import RUNS, Recorder
+
+    def remote_run(mode):
+        eng, tr = make_pair("mxu")
+        table = ShardedHostTable(eng.config, seed=7)
+        srv = PSServer(table)
+        client = PSClient(srv.addr, retries=None, retry_sleep=0.01,
+                          backoff_cap=0.1, deadline=60)
+        eng.table = RemoteTableAdapter(client, delta_mode=True)
+        try:
+            out = RUNS[mode](eng, tr, Recorder())
+        finally:
+            faults.uninstall()
+            client.close()
+            srv.shutdown()
+        return out, table, tr
+
+    flags.set_flags({"ps_fault_injection": True})
+    cache_off()
+    want, t_want, tr_want = remote_run("serial")
+    cache_on()
+    faults.install(
+        faults.FaultPlan(seed=17)
+        .drop("send", role="client", prob=0.04)
+        .drop("recv", role="client", prob=0.03)
+        .delay("send", 0.002, role="client", prob=0.1))
+    got, t_got, tr_got = remote_run("prefetch")
+    assert [m["losses"] for m in want] == [m["losses"] for m in got]
+    keys = np.sort(t_want.export_keys())
+    np.testing.assert_array_equal(keys, np.sort(t_got.export_keys()))
+    s1, s2 = t_want.bulk_pull(keys), t_got.bulk_pull(keys)
+    for f in s1:
+        np.testing.assert_array_equal(s1[f], s2[f],
+                                      err_msg=f"table field {f!r}")
+    for k, v in tr_want.model.state_dict().items():
+        assert torch.equal(v, tr_got.model.state_dict()[k]), k
+    assert stat_get("ps.cache.hits") > 0
+    assert stat_get("ps.fault.send.drop") + stat_get("ps.fault.recv.drop") > 0

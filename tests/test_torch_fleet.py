@@ -40,6 +40,7 @@ from paddlebox_tpu_torch.io.checkpoint import TrainCheckpoint
 from paddlebox_tpu_torch.models.deepfm import DeepFM
 from paddlebox_tpu_torch.ps import faults
 from paddlebox_tpu_torch.ps.pass_manager import BoxPSEngine
+from paddlebox_tpu_torch.ps.service import ServerErrorReply
 from paddlebox_tpu_torch.trainer.trainer import SparseTrainer
 from paddlebox_tpu_torch.utils import flight
 from paddlebox_tpu_torch.utils.monitor import StatRegistry, stat_get
@@ -280,6 +281,7 @@ def test_kill_under_slow_prefetch_load_waits_for_worker(pass_files, baseline,
 @pytest.mark.parametrize("prefetch", [False, True])
 @pytest.mark.parametrize("exc,resumed", [
     (ConnectionError, True),     # a lost peer: rolled back and re-driven
+    (ServerErrorReply, True),    # a PS server's error reply, as in JAX
     (AssertionError, False),     # a fault of the program: propagates
     (RuntimeError, False),       # not caused by a lost connection
 ])

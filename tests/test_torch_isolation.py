@@ -34,6 +34,12 @@ print("ok", len(sys.argv) - 1)
 """
 
 
+# the PS service tier: host modules, JAX-free in the reference too
+PS_TIER = tuple(f"paddlebox_tpu_torch.{m}" for m in (
+    "ps.wire", "ps.cluster", "ps.service", "ps.geo_table", "ps.ssd_table",
+    "ps.reshard", "ps.server_main", "launch"))
+
+
 def _port_modules():
     import paddlebox_tpu_torch
     names = ["paddlebox_tpu_torch"]
@@ -47,6 +53,7 @@ def test_port_modules_import_without_jax():
     mods = _port_modules()
     assert "paddlebox_tpu_torch.trainer.trainer" in mods
     assert "paddlebox_tpu_torch.ops.sorted_spmm" in mods
+    assert set(PS_TIER) <= set(mods)
     scripts = ["chip_smoke", "kernel_ab"]
     proc = subprocess.run([sys.executable, "-c", _PROBE, *mods, *scripts],
                           cwd=REPO, capture_output=True, text=True,
@@ -76,3 +83,26 @@ def test_port_sources_name_no_jax_import(path):
                                "flax"):
                         bad.append(f"{fn}:{i}: {s}")
     assert not bad, bad
+
+
+def test_ps_tier_imports_without_torch_and_server_main_runs():
+    """The PS tier alone, in a JAX-blocked interpreter: its modules load
+    without importing torch (a shard process stays in the numpy/socket
+    layer), and ``python -m paddlebox_tpu_torch.ps.server_main --help``
+    runs."""
+    probe = _PROBE + r"""
+assert "torch" not in sys.modules, "the PS tier imported torch"
+import runpy
+sys.argv = ["server_main", "--help"]
+try:
+    runpy.run_module("paddlebox_tpu_torch.ps.server_main",
+                     run_name="__main__")
+except SystemExit as e:
+    assert e.code in (0, None), e.code
+"""
+    mods = list(PS_TIER)
+    proc = subprocess.run([sys.executable, "-c", probe, *mods], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.startswith(f"ok {len(mods)}")
+    assert "--ckpt_root" in proc.stdout and "--membership" in proc.stdout
