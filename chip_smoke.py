@@ -182,10 +182,46 @@ result line is printed):
    rate and (e)'s restart seconds; the loopback MB/s and one pull through
    ``ps_streams`` 1 against 4 (4 MiB frames, the same rows); and phase
    10's local-table serial mxu pass wall of the same call.
+15. serving — the serving tier over phase 14's pass files, DeepFM at the
+   bench widths: (a) a local engine trains 2 days × 2 passes on auto →
+   mxu through ``fleet.train_passes`` with a ``TrainCheckpoint`` saving
+   every pass, and each day ends with ``save_xbox`` (the native writer;
+   the accessor's default base threshold filters the rows); day 1's dump
+   is published (``publish_xbox_manifest``) and loaded by a
+   ``BoxPSEngine(mode="serving")``, whose table must hold the trained
+   rows as the dump's ``%.6g`` text carries them (uncreated mf as zeros,
+   mf_size from any(mf != 0)); (b) that engine runs the pass lifecycle
+   over the first pass file's keys and ``freeze_for_serving()`` on the
+   card: mf becomes int16; ``pull_sparse`` of 65,536 keys keeps columns
+   0-2 bit for bit and mf within scale/2; the mxu and fast
+   ``pull_pool_cvm`` of the pass's first packed batch, each with the
+   launch counters set to 0 just before and read just after, must launch
+   ``gather_sorted`` / ``gather_pool`` and stay within 3·scale/2 of the
+   f32 pull, their gathers bit-equal to the CPU's over the same frozen
+   tensors and their pools within rtol 1e-6; ``end_pass`` and the
+   trainer must refuse the frozen set; (c) a ``ServingReplica`` serves
+   day 1 to tenants ads and feed through ``ServingRouter``s: queries of
+   1,024 samples × 26 slots × 1-3 keys, 10 % of them unseen, answered
+   as ``FrozenHostTable.lookup_rows`` / ``_pool_rows`` bit for bit, under
+   8 client threads × 50 queries; (d) under the same load
+   ``watch_manifest`` hot-swaps to day 2 when it is published: no
+   failed query, every answer whole from one day, day 2's rows after;
+   (e) 4 shards × 1 replica with 4,096 replicated hot keys answer like
+   the single replica bit for bit, then 4 shards × 2 replicas with one
+   killed under load: no failed query, every answer the single
+   replica's; (f) a replica over the checkpoint chain runs
+   ``watch_ckpt``, the trainer runs one more pass with ``save_pass``, the
+   replica patches it within its poll interval and serves the trained
+   rows exactly (the checkpoint carries f32).  Prints one
+   ``serving[<step>]:`` line per step: dump and load rows, MB and
+   seconds, the frozen set's bytes, QPS and the tenants' latency p50 and
+   p99, the swap's seconds, the fleet's build seconds, the patch's
+   staleness and rows.
 
 Depth cuts (the widths are the bench model's): phases 10-11, a day of
 3 passes of 4 batches; the cache runs of phase 10 stop after the first
-pass of day 2 (4 passes); phase 14, 2 days of 2 passes of 4 batches.
+pass of day 2 (4 passes); phases 14 and 15, 2 days of 2 passes of 4
+batches (phase 15 one more pass for (f)).
 
 Every phase sets the launch counters to 0 just before its main run and
 reads them just after; a kernel of the path that did not launch fails
@@ -2758,6 +2794,659 @@ def cluster_phase(seed: int = 18, device: str = "cuda",
         shutil.rmtree(work, ignore_errors=True)
 
 
+SERVE_TENANTS = ("ads", "feed")
+SERVE_SAMPLES = 1024               # a query: samples × N_SLOTS × 1..CAP keys
+SERVE_QUERIES = 8                  # distinct queries the clients cycle
+SERVE_THREADS, SERVE_PER_THREAD = 8, 50
+SERVE_UNSEEN = 0.1                 # share of a query's keys not in the dump
+SERVE_PULL_KEYS = 65_536           # (b)'s pull_sparse
+SERVE_SHARDS, SERVE_HOT_KEYS = 4, 4096
+SERVE_POLL_S = 0.2                 # manifest and checkpoint watch cadence
+
+
+def g6(a: np.ndarray) -> np.ndarray:
+    """The dump's ``%.6g`` text round trip of float32 values, as a
+    replica serving the dump reads them back."""
+    a = np.asarray(a)
+    flat = [float(f"{x:.6g}") for x in a.astype(np.float64).ravel()]
+    return np.asarray(flat, np.float32).reshape(a.shape)
+
+
+def digest(rows) -> str:
+    """A short fingerprint of a pull answer (every field's bytes) or of
+    a forward answer."""
+    import hashlib
+    h = hashlib.blake2b(digest_size=16)
+    if isinstance(rows, dict):
+        for f in sorted(rows):
+            h.update(f.encode())
+            h.update(np.ascontiguousarray(rows[f]).tobytes())
+    else:
+        h.update(np.ascontiguousarray(rows).tobytes())
+    return h.hexdigest()
+
+
+def serve_config() -> EmbeddingTableConfig:
+    """The table config of phase 15's trainer and of every serving
+    engine and replica (the dump carries no schema: it must match)."""
+    return EmbeddingTableConfig(embedding_dim=MF_DIM, shard_num=8,
+                                sgd=SparseSGDConfig(mf_create_thresholds=0.0))
+
+
+def serving_train_dump(files, work: str, device: str):
+    """(a) A local engine trains LIFE_DATES × CLUSTER_PASSES passes on
+    auto → mxu through ``fleet.train_passes``, a TrainCheckpoint saving
+    every pass; each day ends with ``save_xbox``.  Day 1's dump is
+    published at once and loaded by a ``mode="serving"`` engine, whose
+    table must hold the trained day-1 rows as the dump's text carries
+    them.  Returns the trainer side and the readings."""
+    from paddlebox_tpu_torch import fleet
+    from paddlebox_tpu_torch.io.checkpoint import (TrainCheckpoint,
+                                                   load_xbox,
+                                                   publish_xbox_manifest,
+                                                   save_xbox)
+    from paddlebox_tpu_torch.native import dump_writer
+    if not dump_writer.available():
+        raise AssertionError("serving[a]: the native xbox writer did not "
+                             "build")
+    engine = BoxPSEngine(serve_config(), seed=0, device=device)
+    trainer = SparseTrainer(engine, make_model("deepfm"), feed_config(),
+                            batch_size=BATCH, seed=0, sparse_path="auto",
+                            device=device)
+    ds = fleet.BoxPSDataset(feed_config(), engine=engine, read_threads=1)
+    ck = TrainCheckpoint(os.path.join(work, "ckpt"))
+    root = os.path.join(work, "xbox")
+    out = {"days": []}
+    reset_counts()
+    dumps = []
+    serve_eng = None
+    for d, (date, day) in enumerate(zip(LIFE_DATES, files)):
+        t0 = time.perf_counter()
+        metrics = fleet.train_passes(trainer, ds, day, date=date,
+                                     prefetch=False, checkpoint=ck,
+                                     resume=0)
+        train_s = time.perf_counter() - t0
+        losses = [x for m in metrics for x in m["losses"]]
+        if not losses or not all(map(math.isfinite, losses)):
+            raise AssertionError(f"serving[a]: day {date} losses {losses}")
+        path = os.path.join(root, f"xbox-{date}")
+        t0 = time.perf_counter()
+        rows = save_xbox(engine, path)
+        dump_s = time.perf_counter() - t0
+        dumps.append((path, date))
+        day_out = {"date": date, "train_s": train_s, "dump_rows": rows,
+                   "dump_MB": os.path.getsize(path) / 1e6,
+                   "dump_s": dump_s, "table_rows": engine.table.size()}
+        if d == 0:
+            publish_xbox_manifest(root, path, generation=1, day=date)
+            serve_eng = BoxPSEngine(serve_config(), seed=0, device=device,
+                                    mode="serving")
+            t0 = time.perf_counter()
+            keys = load_xbox(serve_eng, path)
+            day_out["load_s"] = time.perf_counter() - t0
+            day_out["load_rows"] = len(keys)
+            check_loaded(serve_eng, engine, keys)
+        out["days"].append(day_out)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    launches = read_counts()
+    n_batches = len(LIFE_DATES) * CLUSTER_PASSES * N_BATCHES
+    for name in ("gather_sorted", "scatter_add_sorted"):
+        if device == "cuda" and launches[name] != n_batches:
+            raise AssertionError(f"serving[a]: {name} launched "
+                                 f"{launches[name]} times over {n_batches} "
+                                 "batches (want 1 a batch)")
+    out["checkpoint_generations"] = ck.head()
+    for day_out in out["days"]:
+        log(f"serving[a]: day {day_out['date']} trained in "
+            f"{day_out['train_s']:.2f} s; save_xbox (native writer) "
+            f"{day_out['dump_rows']} of {day_out['table_rows']} table rows, "
+            f"{day_out['dump_MB']:.1f} MB in {day_out['dump_s']:.3f} s"
+            + (f"; load_xbox {day_out['load_rows']} rows in "
+               f"{day_out['load_s']:.3f} s into a serving engine: its table "
+               "= the trained rows through %.6g key for key"
+               if "load_s" in day_out else ""))
+    return {"engine": engine, "trainer": trainer, "ds": ds, "ck": ck,
+            "root": root, "dumps": dumps, "serve_engine": serve_eng,
+            "launches": launches, "out": out}
+
+
+def check_loaded(serve_eng, engine, keys) -> None:
+    """The serving engine's table holds the trained table's rows as the
+    dump's ``%.6g`` text carries them: show / click / embed_w / mf (mf
+    zero where uncreated) within the text's relative rounding for every
+    key and exactly through ``g6`` for a sample, ``mf_size`` from any(mf
+    != 0), the fields the dump does not carry zero."""
+    keys = np.sort(keys)
+    got = serve_eng.table.bulk_pull(keys)
+    want = engine.table.bulk_pull(keys)
+    want["mf"] = np.where((want["mf_size"] > 0)[:, None], want["mf"],
+                          np.float32(0))
+    for f in ("show", "click", "embed_w", "mf"):
+        w = want[f].astype(np.float64)
+        err = np.abs(got[f].astype(np.float64) - w)
+        if not np.all(err <= 5.1e-6 * np.abs(w) + 1e-45):
+            raise AssertionError(f"serving[a]: loaded {f} is off the "
+                                 f"dump's %.6g text by {err.max()}")
+    sample = np.random.default_rng(0).choice(len(keys), min(
+        len(keys), SERVE_PULL_KEYS), replace=False)
+    for f in ("show", "click", "embed_w", "mf"):
+        if not np.array_equal(got[f][sample], g6(want[f][sample])):
+            raise AssertionError(f"serving[a]: loaded {f} != g6(trained)")
+    created = np.any(want["mf"] != 0, axis=1)
+    if not np.array_equal(got["mf_size"], np.where(created, MF_DIM, 0)):
+        raise AssertionError("serving[a]: loaded mf_size != any(mf != 0)")
+    for f in ("embed_g2sum", "mf_g2sum", "delta_score"):
+        if f in got and np.any(got[f]):
+            raise AssertionError(f"serving[a]: loaded {f} is not zero")
+
+
+def ws_bytes(ws: dict) -> int:
+    return int(sum(t.numel() * t.element_size() for t in ws.values()))
+
+
+def serving_freeze(serve_eng, block: SlotRecordBlock, device: str):
+    """(b) The serving engine runs the pass lifecycle over one pass's
+    keys and freezes the working set on the card; its pulls over the
+    frozen set are held against the f32 set's and the CPU's."""
+    from paddlebox_tpu_torch.data import pass_feed as pf
+    from paddlebox_tpu_torch.ps import embedding, fast_path, mxu_path
+    ds = one_pass_dataset(block)
+    serve_eng.begin_feed_pass()
+    serve_eng.add_keys(block.all_keys())
+    serve_eng.end_feed_pass()
+    serve_eng.begin_pass()
+    trainer = SparseTrainer(serve_eng, make_model("deepfm"), feed_config(),
+                            batch_size=BATCH, seed=0, sparse_path="mxu",
+                            device=device)
+    feed = trainer.build_pass_feed(ds)
+    bt = pf.slice_batch(feed.data, 0)
+    plan = pf.plan_tuple(pf.slice_batch(feed.plans, 0))
+    s, l, b = bt["indices"].shape
+    dims = mxu_path.make_dims(s * l * b, serve_eng.ws["show"].shape[0])
+    rng = np.random.default_rng(0)
+    pull_keys = rng.choice(serve_eng.mapper.sorted_keys, min(
+        SERVE_PULL_KEYS, serve_eng.num_keys), replace=False)
+    pull_idx = torch.as_tensor(serve_eng.mapper(pull_keys).astype(np.int64),
+                               device=serve_eng.device)
+    f32 = dict(serve_eng.ws)
+    before = ws_bytes(f32)
+    pull0 = embedding.pull_sparse(f32, pull_idx)
+    mxu0 = mxu_path.pull_pool_cvm(f32, plan, dims, (s, l, b))
+    fast0 = fast_path.pull_pool_cvm(f32, bt["indices"], bt["lengths"])
+    max_mf = float(f32["mf"].abs().max())
+    t0 = time.perf_counter()
+    serve_eng.freeze_for_serving()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    freeze_s = time.perf_counter() - t0
+    ws = serve_eng.ws
+    after = ws_bytes(ws)
+    if ws["mf"].dtype != torch.int16 or ws["mf_scale"].dim() != 0:
+        raise AssertionError("serving[b]: the frozen mf is not int16 with "
+                             "a 0-d scale")
+    scale = float(ws["mf_scale"])
+    pull1 = embedding.pull_sparse(ws, pull_idx)
+    if not torch.equal(pull1[:, :3], pull0[:, :3]):
+        raise AssertionError("serving[b]: pull_sparse columns 0-2 changed "
+                             "at the freeze")
+    pull_err = float((pull1[:, 3:] - pull0[:, 3:]).abs().max())
+    if pull_err > scale / 2 + 1e-9:
+        raise AssertionError(f"serving[b]: frozen pull_sparse mf off by "
+                             f"{pull_err} (> scale/2)")
+    # the main path of (b): each pull with the counts set to 0 just
+    # before and read just after
+    launches, pooled = {}, {}
+    for name, kern in (("mxu", "gather_sorted"), ("fast", "gather_pool")):
+        reset_counts()
+        pooled[name] = (
+            mxu_path.pull_pool_cvm(ws, plan, dims, (s, l, b))
+            if name == "mxu" else
+            fast_path.pull_pool_cvm(ws, bt["indices"], bt["lengths"]))
+        if device == "cuda":
+            torch.cuda.synchronize()
+        launches[name] = read_counts()
+        if device == "cuda" and launches[name][kern] < 1:
+            raise AssertionError(f"serving[b]: the frozen {name} pull did "
+                                 f"not launch {kern}")
+    errs = {}
+    for name, ref in (("mxu", mxu0), ("fast", fast0)):
+        err = float((pooled[name] - ref).abs().max())
+        errs[name] = err
+        if err > 3 * scale / 2 + 1e-6:
+            raise AssertionError(f"serving[b]: the frozen {name} pull is "
+                                 f"off the f32 pull by {err}")
+    # the same calls on the CPU over the same frozen tensors: the gathers
+    # bit-equal, the pooled values within rtol 1e-6
+    cpu = {f: t.cpu() for f, t in ws.items()}
+    plan_cpu = tuple(t.cpu() for t in plan)
+    idx_cpu, len_cpu = bt["indices"].cpu(), bt["lengths"].cpu()
+    eff = mxu_path.plan_eff_dims(plan, dims) or dims
+
+    def pool_gather(w, idx, lengths):
+        rows = idx.permute(0, 2, 1).reshape(s * b, l).to(torch.int32)
+        return pg.gather_pool(fast_path._pull_table(w), rows.contiguous(),
+                              lengths.reshape(s * b).to(torch.int32)
+                              .contiguous())
+
+    on_cpu = {
+        "mxu": (sp.gather_sorted(mxu_path._pull_table(ws, dims), plan[0],
+                                 eff).cpu(),
+                sp.gather_sorted(mxu_path._pull_table(cpu, dims),
+                                 plan_cpu[0], eff),
+                mxu_path.pull_pool_cvm(cpu, plan_cpu, dims, (s, l, b))),
+        "fast": (pool_gather(ws, bt["indices"], bt["lengths"]).cpu(),
+                 pool_gather(cpu, idx_cpu, len_cpu),
+                 fast_path.pull_pool_cvm(cpu, idx_cpu, len_cpu))}
+    for name, (card_g, cpu_g, cpu_pool) in on_cpu.items():
+        if not torch.equal(card_g, cpu_g):
+            raise AssertionError(f"serving[b]: the frozen {name} gather "
+                                 "differs from the CPU's")
+        if not torch.allclose(pooled[name].cpu(), cpu_pool, rtol=1e-6,
+                              atol=0.0):
+            raise AssertionError(f"serving[b]: the frozen {name} pool "
+                                 "differs from the CPU's beyond rtol 1e-6")
+    try:
+        serve_eng.end_pass()
+    except RuntimeError as e:
+        if "serving-frozen" not in str(e):
+            raise
+    else:
+        raise AssertionError("serving[b]: end_pass wrote back a frozen set")
+    try:
+        trainer.train_pass(feed)
+    except ValueError as e:
+        if "serving-frozen" not in str(e):
+            raise
+    else:
+        raise AssertionError("serving[b]: SparseTrainer trained a frozen "
+                             "set")
+    out = {"pass_keys": serve_eng.num_keys, "ws_bytes_f32": before,
+           "ws_bytes_frozen": after, "freeze_s": freeze_s,
+           "max_abs_mf": max_mf, "pull_sparse_mf_err": pull_err,
+           "pool_err": errs, "launches": launches}
+    log(f"serving[b]: froze {serve_eng.num_keys} pass keys in "
+        f"{freeze_s:.4f} s: working set {before / 2**20:.1f} MiB → "
+        f"{after / 2**20:.1f} MiB (mf int16, max |mf| {max_mf:.4f}); "
+        f"pull_sparse of {len(pull_keys)} keys: columns 0-2 bitwise, mf "
+        f"within {pull_err:.3g}; mxu pool within {errs['mxu']:.3g}, fast "
+        f"within {errs['fast']:.3g} of the f32 pulls, = the CPU's; launches "
+        f"mxu {launches['mxu']}, fast {launches['fast']}; end_pass and "
+        "SparseTrainer refuse the frozen set")
+    serve_eng.ws = None
+    return launches, out
+
+
+def serving_queries(dump_keys: np.ndarray, seed: int):
+    """SERVE_QUERIES queries of SERVE_SAMPLES samples × N_SLOTS slots ×
+    1..CAP keys (``lod``: each sample's key span), SERVE_UNSEEN of the
+    keys outside the dump."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(SERVE_QUERIES):
+        per_sample = rng.integers(1, CAP + 1, (SERVE_SAMPLES, N_SLOTS)).sum(1)
+        lod = np.zeros(SERVE_SAMPLES + 1, np.int64)
+        np.cumsum(per_sample, out=lod[1:])
+        n = int(lod[-1])
+        keys = dump_keys[rng.integers(0, len(dump_keys), n)]
+        unseen = rng.random(n) < SERVE_UNSEEN
+        keys[unseen] = (KEY_SPACE + rng.integers(
+            1, 2 ** 40, int(unseen.sum()))).astype(np.uint64)
+        out.append((keys, lod))
+    return out
+
+
+def expected_answers(frozen, queries) -> dict:
+    """The digest of every query's pull and forward answer over one
+    frozen table."""
+    from paddlebox_tpu_torch.ps.serving import _pool_rows
+    out = {}
+    for qi, (keys, lod) in enumerate(queries):
+        rows = frozen.lookup_rows(keys)
+        out[("pull", qi)] = digest(rows)
+        out[("forward", qi)] = digest(_pool_rows(rows, lod))
+    return out
+
+
+def serving_load(routers, queries, per_thread: int, until=None,
+                 after: int = 0):
+    """SERVE_THREADS client threads, each on its tenant's router,
+    alternating pull_sparse and forward over the queries: ``per_thread``
+    queries each, or (``until`` an Event) until it is set and ``after``
+    more.  Returns (wall s, queries, failures, [(kind, query, digest)])."""
+    answers, errors = [], []
+    lock = threading.Lock()
+
+    def client(t: int) -> None:
+        router = routers[t % len(routers)]
+        j, left = 0, None
+        while True:
+            if until is None:
+                if j >= per_thread:
+                    return
+            elif left is None and until.is_set():
+                left = after
+            if left is not None:
+                if left <= 0:
+                    return
+                left -= 1
+            qi = (t + j) % len(queries)
+            keys, lod = queries[qi]
+            kind = "pull" if j % 2 == 0 else "forward"
+            try:
+                got = (router.pull_sparse(keys) if kind == "pull"
+                       else router.forward(keys, lod))
+                with lock:
+                    answers.append((kind, qi, digest(got)))
+            except Exception as e:  # noqa: BLE001 — every failure is counted and fails the phase
+                with lock:
+                    errors.append(repr(e))
+            j += 1
+
+    threads = [threading.Thread(target=client, args=(t,))
+               for t in range(SERVE_THREADS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return time.perf_counter() - t0, len(answers), errors, answers
+
+
+def latency_line(tenant: str) -> str:
+    from paddlebox_tpu_torch.utils.monitor import stat_snapshot
+    snap = stat_snapshot(f"serving.{tenant}.latency_s")
+    return (f"{tenant} p50 {snap.get(f'serving.{tenant}.latency_s.p50'):.4f}"
+            f" s p99 {snap.get(f'serving.{tenant}.latency_s.p99'):.4f} s")
+
+
+def build_replicas(kw_list):
+    """ServingReplicas built in parallel threads (each parses the whole
+    dump, numpy and the native parser release the GIL)."""
+    from paddlebox_tpu_torch.ps.serving import ServingReplica
+    out = [None] * len(kw_list)
+    errs = []
+
+    def make(i: int) -> None:
+        try:
+            out[i] = ServingReplica(**kw_list[i])
+        except Exception as e:  # noqa: BLE001 — re-raised below
+            errs.append(e)
+
+    threads = [threading.Thread(target=make, args=(i,))
+               for i in range(len(kw_list))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errs:
+        for r in out:
+            if r is not None:
+                r.shutdown(drain_timeout=2.0)
+        raise errs[0]
+    return out
+
+
+def shutdown_all(replicas, routers) -> None:
+    for r in routers:
+        r.close()
+    stops = [threading.Thread(target=r.shutdown, kwargs={
+        "drain_timeout": 2.0}) for r in replicas if r is not None]
+    for t in stops:
+        t.start()
+    for t in stops:
+        t.join()
+
+
+def serving_replica_swap_fleet(tr: dict, seed: int):
+    """(c) one replica over day 1 under load, (d) the hot swap to day 2
+    under load, (e) the sharded fleet against the single replica and a
+    replica killed under load."""
+    from paddlebox_tpu_torch.io.checkpoint import publish_xbox_manifest
+    from paddlebox_tpu_torch.ps.serving import (ServingRouter, _pool_rows)
+    from paddlebox_tpu_torch.utils.monitor import StatRegistry
+    (day1, date1), (day2, date2) = tr["dumps"]
+    cfg = serve_config()
+    engine = tr["engine"]
+    out = {}
+    rep = build_replicas([dict(config=cfg, xbox_path=day1, day=date1,
+                               generation=1,
+                               tenants=list(SERVE_TENANTS))])[0]
+    routers = [ServingRouter([rep.addr], tenant=t) for t in SERVE_TENANTS]
+    fleet_reps, fleet_routers = [], []
+    try:
+        frozen1 = rep._gen.tables[f"{SERVE_TENANTS[0]}/embedding"]
+        queries = serving_queries(frozen1._keys, seed)
+        for keys, lod in queries[:2]:
+            rows = routers[0].pull_sparse(keys)
+            want = frozen1.lookup_rows(keys)
+            if set(rows) != set(want) or any(
+                    not np.array_equal(rows[f], want[f]) for f in want):
+                raise AssertionError("serving[c]: pull_sparse != "
+                                     "FrozenHostTable.lookup_rows")
+            if not np.array_equal(routers[1].forward(keys, lod),
+                                  _pool_rows(want, lod)):
+                raise AssertionError("serving[c]: forward != _pool_rows")
+        exp1 = expected_answers(frozen1, queries)
+        StatRegistry.instance().reset()
+        wall, n, errors, answers = serving_load(routers, queries,
+                                                SERVE_PER_THREAD)
+        if errors or n != SERVE_THREADS * SERVE_PER_THREAD:
+            raise AssertionError(f"serving[c]: {len(errors)} failed "
+                                 f"queries: {errors[:3]}")
+        bad = [a for a in answers if exp1[a[:2]] != a[2]]
+        if bad:
+            raise AssertionError(f"serving[c]: {len(bad)} answers differ "
+                                 "from the frozen table's")
+        n_keys = int(np.mean([len(k) for k, _ in queries]))
+        out["c"] = {"rows": frozen1.size(), "queries": n, "wall_s": wall,
+                    "qps": n / wall, "keys_per_query": n_keys,
+                    "latency": {t: latency_line(t) for t in SERVE_TENANTS}}
+        log(f"serving[c]: one replica, {frozen1.size()} rows of day 1, "
+            f"tenants {','.join(SERVE_TENANTS)}: {SERVE_THREADS} threads × "
+            f"{SERVE_PER_THREAD} queries of {SERVE_SAMPLES} samples "
+            f"(~{n_keys} keys, pull_sparse and forward alternating) in "
+            f"{wall:.2f} s = {n / wall:.1f} QPS; "
+            + "; ".join(out["c"]["latency"].values())
+            + "; every answer = lookup_rows / _pool_rows bitwise")
+
+        # (d) the hot swap under the same load
+        rep.watch_manifest(tr["root"], poll_s=SERVE_POLL_S)
+        swapped = threading.Event()
+        holder = {}
+
+        def swap() -> None:
+            t0 = time.perf_counter()
+            publish_xbox_manifest(tr["root"], day2, generation=2, day=date2)
+            while rep._gen.generation != 2:
+                time.sleep(0.005)
+            holder["swap_s"] = time.perf_counter() - t0
+            swapped.set()
+
+        StatRegistry.instance().reset()
+        swapper = threading.Timer(1.0, swap)
+        swapper.start()
+        wall, n, errors, answers = serving_load(
+            routers, queries, 0, until=swapped, after=10)
+        swapper.join()
+        if errors:
+            raise AssertionError(f"serving[d]: {len(errors)} failed "
+                                 f"queries during the swap: {errors[:3]}")
+        frozen2 = rep._gen.tables[f"{SERVE_TENANTS[0]}/embedding"]
+        exp2 = expected_answers(frozen2, queries)
+        n1 = sum(exp1[a[:2]] == a[2] for a in answers)
+        n2 = sum(exp2[a[:2]] == a[2] for a in answers)
+        if n1 + n2 != len(answers) or not n1 or not n2:
+            raise AssertionError(f"serving[d]: {len(answers)} answers, "
+                                 f"{n1} whole from day 1, {n2} from day 2")
+        # after the swap: day 2's rows, as the dump's text carries them
+        sample = np.sort(np.unique(queries[0][0]))
+        sample = sample[np.isin(sample, frozen2._keys)][:4096]
+        got = routers[0].pull_sparse(sample)
+        want = engine.table.bulk_pull(sample)
+        for f in ("show", "click", "embed_w"):
+            if not np.array_equal(got[f], g6(want[f])):
+                raise AssertionError(f"serving[d]: {f} after the swap is "
+                                     "not day 2's")
+        out["d"] = {"swap_s": holder["swap_s"], "queries": n,
+                    "day1_answers": n1, "day2_answers": n2,
+                    "day2_rows": frozen2.size()}
+        log(f"serving[d]: watch_manifest swapped to day 2 ({frozen2.size()}"
+            f" rows) {holder['swap_s']:.3f} s after the publish, under "
+            f"{SERVE_THREADS} threads: {n} queries, 0 failed, {n1} answers "
+            f"whole from day 1 and {n2} from day 2; reads after the swap = "
+            "day 2's trained rows through %.6g")
+
+        # (e) 4 shards × 1 replica with a replicated hot set, then 4 × 2
+        # with one replica killed under load
+        uk, counts = np.unique(np.concatenate([k for k, _ in queries]),
+                               return_counts=True)
+        resident = np.isin(uk, frozen2._keys)
+        hot = np.sort(uk[resident][np.argsort(
+            -counts[resident], kind="stable")[:SERVE_HOT_KEYS]])
+        t0 = time.perf_counter()
+        fleet_reps = build_replicas([dict(
+            config=cfg, xbox_path=day2, day=date2, generation=2,
+            tenants=list(SERVE_TENANTS), shard=k, n_shards=SERVE_SHARDS,
+            hot_keys=hot) for k in range(SERVE_SHARDS)])
+        build1_s = time.perf_counter() - t0
+        fan = ServingRouter(shard_groups=[[r.addr] for r in fleet_reps],
+                            tenant=SERVE_TENANTS[0], hot_keys=hot)
+        fleet_routers.append(fan)
+        for qi, (keys, lod) in enumerate(queries):
+            if digest(fan.pull_sparse(keys)) != exp2[("pull", qi)] or \
+                    digest(fan.forward(keys, lod)) != exp2[("forward", qi)]:
+                raise AssertionError(f"serving[e]: the {SERVE_SHARDS}-shard"
+                                     f" fleet answers query {qi} unlike the "
+                                     "single replica")
+        t0 = time.perf_counter()
+        fleet_reps += build_replicas([dict(
+            config=cfg, xbox_path=day2, day=date2, generation=2,
+            tenants=list(SERVE_TENANTS), shard=k, n_shards=SERVE_SHARDS,
+            hot_keys=hot) for k in range(SERVE_SHARDS)])
+        build2_s = time.perf_counter() - t0
+        groups = [[fleet_reps[k].addr, fleet_reps[SERVE_SHARDS + k].addr]
+                  for k in range(SERVE_SHARDS)]
+        fans = [ServingRouter(shard_groups=groups, tenant=t, hot_keys=hot)
+                for t in SERVE_TENANTS]
+        fleet_routers += fans
+        killed = threading.Event()
+        victim = fleet_reps[1]
+        killer = threading.Timer(0.5, lambda: (victim.kill(), killed.set()))
+        killer.start()
+        wall, n, errors, answers = serving_load(fans, queries, 0,
+                                                until=killed, after=6)
+        killer.join()
+        if errors:
+            raise AssertionError(f"serving[e]: {len(errors)} failed queries"
+                                 f" with a replica killed: {errors[:3]}")
+        bad = [a for a in answers if exp2[a[:2]] != a[2]]
+        if bad:
+            raise AssertionError(f"serving[e]: {len(bad)} of {n} answers "
+                                 "differ from the single replica's")
+        out["e"] = {"shards": SERVE_SHARDS, "hot_keys": len(hot),
+                    "build_4x1_s": build1_s, "build_more_4_s": build2_s,
+                    "queries_under_kill": n, "wall_s": wall}
+        log(f"serving[e]: {SERVE_SHARDS} shards × 1 replica ({len(hot)} hot "
+            f"keys replicated; built in parallel in {build1_s:.2f} s) = the "
+            f"single replica bitwise on {len(queries)} queries, pull_sparse "
+            f"and forward; {SERVE_SHARDS} × 2 (4 more in {build2_s:.2f} s) "
+            f"with shard 1's primary killed under load: {n} queries, 0 "
+            "failed, every answer = the single replica's")
+        return out
+    finally:
+        shutdown_all([rep] + fleet_reps, routers + fleet_routers)
+
+
+def serving_delta(tr: dict, files, device: str):
+    """(f) A replica streams the trainer's checkpoint chain; one more
+    pass with save_pass reaches it within its poll interval, and the
+    patched rows equal the trained table's exactly."""
+    from paddlebox_tpu_torch import fleet
+    from paddlebox_tpu_torch.ps.serving import ServingReplica, ServingRouter
+    from paddlebox_tpu_torch.utils.monitor import (StatRegistry,
+                                                   stat_snapshot)
+    ck, engine = tr["ck"], tr["engine"]
+    t0 = time.perf_counter()
+    rep = ServingReplica(config=serve_config(), ckpt_root=ck.root,
+                         tenants=list(SERVE_TENANTS))
+    build_s = time.perf_counter() - t0
+    router = ServingRouter([rep.addr], tenant=SERVE_TENANTS[0])
+    try:
+        head0 = rep._gen.generation
+        if head0 != ck.head():
+            raise AssertionError("serving[f]: the replica did not load the "
+                                 "chain's head")
+        StatRegistry.instance().reset()
+        rep.watch_ckpt(poll_s=SERVE_POLL_S)
+        reset_counts()
+        t0 = time.perf_counter()
+        fleet.train_passes(tr["trainer"], tr["ds"], files, date=LIFE_DATES[-1],
+                           prefetch=False, checkpoint=ck, resume=0)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        launches = read_counts()
+        saved = time.perf_counter()
+        head = ck.head()
+        st = ck.gen_state(head)
+        if st["kind"] != "delta":
+            raise AssertionError(f"serving[f]: the pass saved a {st['kind']}")
+        while rep._gen.generation != head:
+            if time.perf_counter() - saved > 10 * SERVE_POLL_S + 30:
+                raise AssertionError("serving[f]: the replica never patched")
+            time.sleep(0.005)
+        seen_s = time.perf_counter() - saved
+        keys = np.sort(engine._last_written)
+        got = router.pull_sparse(keys)
+        want = engine.table.bulk_pull(keys)
+        diff = [f for f in want if f not in got
+                or not np.array_equal(got[f], want[f])]
+        if diff:
+            raise AssertionError(f"serving[f]: patched fields {diff} differ "
+                                 "from the trained table's")
+        snap = stat_snapshot("serving.")
+        out = {"build_s": build_s, "rows_patched": int(st["rows"]),
+               "pass_train_s": saved - t0, "seen_after_save_s": seen_s,
+               "staleness_s": snap.get("serving.staleness_s.max"),
+               "patch_s": snap.get("serving.patch_s.max"),
+               "generation": head, "launches": launches}
+        log(f"serving[f]: a replica over the checkpoint chain (gen {head0}, "
+            f"built in {build_s:.2f} s) patched gen {head} "
+            f"({out['rows_patched']} rows) {seen_s:.3f} s after save_pass "
+            f"(poll {SERVE_POLL_S} s): serving.staleness_s "
+            f"{out['staleness_s']:.3f} s, patch {out['patch_s']:.3f} s; "
+            "every patched row = the trained table's, every field")
+        return out
+    finally:
+        router.close()
+        rep.shutdown(drain_timeout=2.0)
+
+
+def serving_phase(paths, seed: int = 20, device: str = "cuda"):
+    """Phase 15 (see the module docstring)."""
+    from paddlebox_tpu_torch.data.data_feed import DataFeed
+    work = tempfile.mkdtemp(prefix="chip_smoke_serving_")
+    try:
+        files = [[[p] for p in paths[d * CLUSTER_PASSES:
+                                     (d + 1) * CLUSTER_PASSES]]
+                 for d in range(len(LIFE_DATES))]
+        tr = serving_train_dump(files, work, device)
+        block = SlotRecordBlock.concat(
+            list(DataFeed(feed_config()).read_file(paths[0])))
+        freeze_launches, freeze_out = serving_freeze(tr["serve_engine"],
+                                                     block, device)
+        tr["serve_engine"] = None
+        out = {"a": tr["out"], "b": freeze_out}
+        out.update(serving_replica_swap_fleet(tr, seed))
+        out["f"] = serving_delta(tr, [[paths[0]]], device)
+        launches = {"train": tr["launches"], "mxu": freeze_launches["mxu"],
+                    "fast": freeze_launches["fast"],
+                    "delta_pass": out["f"]["launches"]}
+        return launches, out
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def profile_phase(seed: int = 1, symbols=SYMBOLS) -> dict:
     """Short traced passes (2 batches) of the lowerings that phases 3-4
     run once untraced: device time by kernel, per step, and the
@@ -2829,6 +3518,8 @@ def main() -> int:
         cl_launches, cl_out = timed(
             "cluster", cluster_phase, paths=paths,
             local_pass_wall_s=life_out["mxu_serial"]["median_pass_wall_s"])
+        serve_launches, serve_out = timed("serving", serving_phase,
+                                          paths=paths)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     profile_out = timed("profile", profile_phase)
@@ -2844,7 +3535,8 @@ def main() -> int:
                **{f"recovery_{p}": n for p, n in rec_launches.items()},
                **{f"rank_{p}": n for p, n in rank_launches.items()},
                **{f"options_{p}": n for p, n in opt_launches.items()},
-               **{f"cluster_{p}": n for p, n in cl_launches.items()}}
+               **{f"cluster_{p}": n for p, n in cl_launches.items()},
+               **{f"serving_{p}": n for p, n in serve_launches.items()}}
     line = {"kernels": []}
     for name in KERNELS:
         k = kern["uniform"][name]
@@ -2877,6 +3569,7 @@ def main() -> int:
                                  "lifecycle": life_out, "recovery": rec_out,
                                  "rank": rank_out, "options": opt_out,
                                  "cluster": cl_out,
+                                 "serving": serve_out,
                                  "profile": profile_out,
                                  "phase_s": phase_s}))
     print(json.dumps(line), flush=True)

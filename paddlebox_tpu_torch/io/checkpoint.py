@@ -23,11 +23,21 @@ Layout (immutable generations + one atomic pointer)::
                               module state_dict, "opt": its dense
                               optimizer's state_dict}; tensors only, so
                               ``torch.load(weights_only=True)`` reads it
+  <root>/XBOX_MANIFEST.json   the serving day pointer {generation, path,
+                              day} (publish_xbox_manifest)
 
 MANIFEST, STATE and the sparse files are the JAX package's layout, so the
 sparse half of a generation loads into either package's table
 (``load_table``).  The dense half is each package's own: the JAX package
 writes flax msgpack.
+
+The xbox half (``save_xbox``, ``dump_table_xbox``, ``load_xbox``, the
+swap manifest) is a copy of the JAX package's, with the native TSV
+writer/parser of ``native/dump_writer.cc``: either package reads the
+other's dumps, and both writers give the same bytes.  Only the dense
+half imports torch (inside the functions that need it), so the host
+tier — a PS server's ``dump_xbox`` verb, a serving replica's loader and
+its delta watcher — uses this module without loading torch.
 
 Crash-safety: a generation is assembled under ``gen-<n>.tmp``, renamed to
 ``gen-<n>``, and only THEN does MANIFEST advance.  A crash at any point
@@ -51,20 +61,23 @@ each delta in order, then restore the dense weights, the optimizer state
 from __future__ import annotations
 
 import json
+import math
 import os
 import shutil
 import tempfile
 import time
-from typing import Dict, List, Optional, Tuple
+import warnings
+from typing import TYPE_CHECKING, Dict, List, Optional, Tuple
 
 import numpy as np
-import torch
 
 from paddlebox_tpu_torch import flags
 from paddlebox_tpu_torch.ps import faults
-from paddlebox_tpu_torch.ps.pass_manager import BoxPSEngine
 from paddlebox_tpu_torch.utils import flight
 from paddlebox_tpu_torch.utils.monitor import stat_add, stat_observe, stat_set
+
+if TYPE_CHECKING:
+    from paddlebox_tpu_torch.ps.pass_manager import BoxPSEngine
 
 flags.define_flag(
     "ckpt_keep", 3,
@@ -217,6 +230,7 @@ class TrainCheckpoint:
             # the previous generation loadable
             faults.on_lifecycle("ckpt_sparse")
 
+        import torch
         torch.save({"model": trainer.model.state_dict(),
                     "opt": trainer.dense_opt.state_dict()},
                    os.path.join(tmpdir, DENSE))
@@ -415,6 +429,7 @@ class TrainCheckpoint:
         ``Parameter`` objects (the optimizer stays bound to them) and
         moves the moments onto the parameters' device; Adam's step counts
         stay where Adam keeps them."""
+        import torch
         dense = torch.load(os.path.join(self._gen_dir(n), DENSE),
                            map_location="cpu", weights_only=True)
         trainer.model.load_state_dict(dense["model"])
@@ -509,3 +524,292 @@ def read_membership(root: str):
         return None
     return ps_cluster.make_server_map([tuple(a) for a in addrs],
                                       epoch=int(man.get("ps_epoch", 0)))
+
+
+def save_xbox(engine: BoxPSEngine, path: str, base: bool = True) -> int:
+    """Serving-model dump (≙ the "xbox" base/delta format written by
+    SaveBase/SaveDelta, box_wrapper.cc:1286): one line per surviving
+    feature — key \\t show \\t click \\t embed_w \\t mf...  Quantization of
+    embedx (quant_bits) applies here when configured.
+
+    A local engine table dumps in-process (dump_table_xbox).  An engine
+    running against a remote PS — including an N-way sharded cluster —
+    asks each server to dump ITS rows server-side (the ``dump_xbox``
+    verb) into per-shard part files, then concatenates them; row
+    ownership is disjoint by the ServerMap, so the concatenation is the
+    exact union and the downstream last-wins load semantics are
+    unaffected by part order.
+    """
+    acc = engine.config.accessor
+    qbits = engine.config.quant_bits
+    table = engine.table
+    if not hasattr(table, "_shards") and hasattr(table, "client"):
+        return _save_xbox_remote(
+            table.client, getattr(table, "table", None), path, base,
+            float(acc.base_threshold), float(acc.delta_threshold),
+            int(qbits or 0))
+    return dump_table_xbox(table, path, base=base,
+                           base_threshold=float(acc.base_threshold),
+                           delta_threshold=float(acc.delta_threshold),
+                           quant_bits=int(qbits or 0))
+
+
+def _save_xbox_remote(client, table_name: Optional[str], path: str,
+                      base: bool, base_threshold: float,
+                      delta_threshold: float, quant_bits: int) -> int:
+    """Fan the xbox dump out across the PS cluster: every shard writes a
+    ``<path>.shard-<k:03d>`` part server-side (itself tmp+rename atomic),
+    then the parts concatenate under ``path + ".tmp"`` and rename into
+    place — the published file appears atomically, never partially."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    n = 0
+    parts = []
+    for shard in range(getattr(client, "n_shards", 1)):
+        part = f"{path}.shard-{shard:03d}"
+        resp = client._call(
+            {"cmd": "dump_xbox", "path": part, "base": base,
+             "base_threshold": base_threshold,
+             "delta_threshold": delta_threshold,
+             "quant_bits": quant_bits, "table": table_name},
+            shard=shard, timeout=120)
+        n += int(resp["dumped"])
+        parts.append(part)
+    tmp_path = path + ".tmp"
+    with open(tmp_path, "wb") as out:
+        for part in parts:
+            with open(part, "rb") as fh:
+                shutil.copyfileobj(fh, out)
+            os.remove(part)
+    os.replace(tmp_path, path)
+    return n
+
+
+def dump_table_xbox(table, path: str, base: bool = True,
+                    base_threshold: float = 0.0,
+                    delta_threshold: float = 0.0,
+                    quant_bits: int = 0) -> int:
+    """Dump one LOCAL ShardedHostTable in the xbox TSV format — the body
+    shared by the in-process save_xbox path and the server-side
+    ``dump_xbox`` verb (each cluster shard dumps its own rows).
+
+    Row selection/masking is vectorized per shard and formatting runs in
+    the native TSV writer (native/dump_writer.cc, ≙ the reference's
+    native dump IO through PaddleFileMgr) with a per-row Python fallback.
+    The dump assembles under ``path + ".tmp"`` and renames into place so
+    a crashed dump never leaves a half-written file at the final path
+    (PB502 tmp+rename discipline).
+    """
+    from paddlebox_tpu_torch.native import dump_writer
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    qbits = quant_bits
+    n = 0
+    tmp_path = path + ".tmp"
+    fh = None if dump_writer.available() else open(tmp_path, "w")
+    try:
+        for shard in table._shards:
+            with shard.lock:
+                soa = shard.soa
+                score = table._score(soa)
+                keep = (score >= base_threshold) if base else \
+                    (np.abs(soa["delta_score"]) >= delta_threshold)
+                idx = np.nonzero(keep)[0]
+                if not len(idx):
+                    continue
+                keys = shard.keys[idx]
+                show = soa["show"][idx]
+                click = soa["click"][idx]
+                embed_w = soa["embed_w"][idx]
+                # uncreated embedx serves zeros in training (pull_sparse
+                # masks by mf_size) — dump the SAME values or the serving
+                # side would see the random candidate init
+                mf = np.where((soa["mf_size"][idx] > 0)[:, None],
+                              soa["mf"][idx], np.float32(0))
+                if qbits:
+                    scale = (1 << (qbits - 1)) - 1
+                    mf = np.round(mf * scale) / scale
+            if fh is None:
+                dump_writer.dump_rows(tmp_path, append=n > 0, keys=keys,
+                                      show=show, click=click,
+                                      embed_w=embed_w, mf=mf)
+            else:
+                for i in range(len(keys)):
+                    vals = " ".join(f"{v:.6g}" for v in mf[i])
+                    fh.write(f"{keys[i]}\t{show[i]:.6g}\t{click[i]:.6g}\t"
+                             f"{embed_w[i]:.6g}\t{vals}\n")
+            n += len(idx)
+        if fh is None and n == 0:
+            open(tmp_path, "w").close()  # empty dump still creates the file
+    finally:
+        if fh is not None:
+            fh.close()
+    os.replace(tmp_path, path)
+    return n
+
+
+def load_xbox(engine: BoxPSEngine, path: str) -> np.ndarray:
+    """Serving-side read-back of an xbox dump — the loader the reference
+    keeps in its serving stack (the dump of SaveBase/SaveDelta,
+    box_wrapper.cc:1286, is what the online predictor consumes).
+
+    Writes the dumped rows into the engine's host table (optimizer state
+    zero-initialized — serving never pushes) and returns the loaded keys;
+    the caller then runs the normal pass lifecycle over them and
+    optionally `engine.freeze_for_serving()` for int16 embedx pulls:
+
+        keys = load_xbox(engine, path)
+        engine.begin_feed_pass(); engine.add_keys(keys)
+        engine.end_feed_pass(); engine.begin_pass()
+        engine.freeze_for_serving()
+    """
+    if getattr(engine, "mode", "train") != "serving":
+        warnings.warn(
+            "load_xbox on a training-mode engine: the xbox dump re-derives "
+            "mf_size as any(mf != 0), so a created row whose embedx "
+            "trained to exactly all zeros round-trips as uncreated and "
+            "would re-initialize on training resume.  Use load_checkpoint "
+            "(TrainCheckpoint.resume) for training resume, or build the "
+            "engine with mode='serving' for a serving path.",
+            UserWarning, stacklevel=2)
+    from paddlebox_tpu_torch.native import dump_writer
+    d = engine.config.embedding_dim
+    native = dump_writer.load_rows(path, d)
+    if native is not None:
+        keys, shows, clicks, ws_, mf_mat = native
+    else:
+        keys, shows, clicks, ws_, mfs = [], [], [], [], []
+        # Parity contract: for WRITER-PRODUCED files (save_xbox / the
+        # native dump_writer — plain decimal, single-tab-separated), this
+        # fallback and pbox_load_xbox give the same verdict and the same
+        # reported row index.  Hand-edited exotica (hex floats, '_' digit
+        # grouping, whitespace-padded fields) are outside that contract
+        # and may parse differently between the two.
+        with open(path) as f:
+            lineno = 0      # counts parsed (non-empty) rows, exactly like
+            for line in f:  # the native parser's -(row+1) — same file,
+                # same reported index on native and fallback hosts
+                parts = line.rstrip("\n").split("\t")
+                if not line.strip():
+                    continue
+                lineno += 1
+                if len(parts) != 5:
+                    raise ValueError(
+                        f"malformed xbox line {lineno}: {line[:80]!r}")
+                try:
+                    key = int(parts[0])
+                    if not 0 <= key < 1 << 64:
+                        raise ValueError("key out of uint64 range")
+                    stats = [float(parts[1]), float(parts[2]),
+                             float(parts[3])]
+                    with np.errstate(over="ignore"):  # inf rejected below
+                        mf = (np.array(parts[4].split(), np.float32)
+                              if parts[4] else np.zeros((0,), np.float32))
+                except ValueError as e:
+                    raise ValueError(
+                        f"malformed xbox line {lineno}: {line[:80]!r}"
+                    ) from e
+                keys.append(key)
+                # reject overflow-to-inf exactly like the native parser
+                # (pbox_load_xbox), so the same file parses — or fails —
+                # identically on fallback-only hosts
+                if not all(map(math.isfinite, stats)) or \
+                        not np.all(np.isfinite(mf)):
+                    raise ValueError(
+                        f"malformed xbox line {lineno}: non-finite value "
+                        f"in {line[:80]!r}")
+                shows.append(stats[0])
+                clicks.append(stats[1])
+                ws_.append(stats[2])
+                if len(mf) != d:
+                    raise ValueError(
+                        f"malformed xbox line {lineno}: mf width "
+                        f"{len(mf)} != table dim {d}")
+                mfs.append(mf)
+        mf_mat = (np.stack(mfs) if mfs
+                  else np.zeros((0, d), np.float32))
+    keys = np.asarray(keys, np.uint64)
+    if not len(keys):
+        return keys
+    shows = np.asarray(shows, np.float32)
+    clicks = np.asarray(clicks, np.float32)
+    ws_ = np.asarray(ws_, np.float32)
+    # dedupe LAST-wins: a concatenated base+delta file naturally repeats
+    # keys, and the table's upsert contract requires unique keys per call
+    # (host_table.py — duplicates would double-insert)
+    last = len(keys) - 1 - np.unique(keys[::-1], return_index=True)[1]
+    if len(last) != len(keys):
+        sel = np.sort(last)
+        keys = keys[sel]
+        shows, clicks, ws_ = shows[sel], clicks[sel], ws_[sel]
+        mf_mat = mf_mat[sel]
+    rows = engine.table.bulk_pull(keys)     # schema defaults
+    rows["show"] = shows
+    rows["click"] = clicks
+    rows["embed_w"] = ws_
+    rows["mf"] = np.asarray(mf_mat, np.float32)
+    # the dump writes zeros for uncreated embedx (see save_xbox) — derive
+    # mf_size so serving pulls mask exactly like training did.  SERVING-ONLY
+    # contract: a created row whose embedding trained to exactly all zeros
+    # round-trips as uncreated (served values identical — zeros either way),
+    # but resuming TRAINING from an xbox dump would re-initialize such rows'
+    # embedx; use save_checkpoint/load_checkpoint (which carry mf_size
+    # explicitly) for training resume.
+    created = np.any(rows["mf"] != 0.0, axis=1)
+    rows["mf_size"] = np.where(created, d, 0).astype(rows["mf_size"].dtype)
+    # zero every field the dump does not carry (optimizer state, scores)
+    # — serving never pushes, and a delta-refresh over existing rows must
+    # not resurrect their stale training state
+    keep = {"show", "click", "embed_w", "mf", "mf_size", "slot"}
+    for fld in rows:
+        if fld not in keep:
+            rows[fld] = np.zeros_like(rows[fld])
+    engine.table.bulk_write(keys, rows)
+    # coherence point (hot-swap contract): the rows just changed UNDER
+    # every consumer that mirrors them.  A device-resident row cache now
+    # holds the retired day's values, and a PSClient's learned row-width
+    # estimates were sized from the old contents — both must drop HERE,
+    # not just in freeze_for_serving (a replica that load_xbox'es day N+1
+    # over day N never calls freeze again).
+    cache = getattr(engine, "cache", None)
+    if cache is not None:
+        cache.invalidate("load_xbox")
+    inval = getattr(engine.table, "invalidate_row_width", None)
+    if inval is not None:
+        inval()
+    return keys
+
+
+# -- xbox swap manifest (train→serve day pointer) ---------------------------
+# The dump itself lands via save_xbox's tmp+rename; this publishes WHICH
+# dump is current — the trainer's last act of a day, the serving fleet's
+# swap trigger (ServingReplica.watch_manifest).  Same discipline as the
+# checkpoint MANIFEST: one mutable file, swapped whole via _atomic_write,
+# so a reader sees the old complete pointer or the new one, never a torn
+# write or a pointer to a half-written dump.
+XBOX_MANIFEST = "XBOX_MANIFEST.json"
+
+
+def publish_xbox_manifest(root: str, path: str, generation: int,
+                          day: str = "") -> str:
+    """Atomically point ``<root>/XBOX_MANIFEST.json`` at the dump at
+    ``path`` (already fully written — call this AFTER save_xbox
+    returns).  Returns the manifest path."""
+    os.makedirs(root, exist_ok=True)
+    man = os.path.join(root, XBOX_MANIFEST)
+    _atomic_write(man, json.dumps(
+        {"generation": int(generation), "path": path, "day": day,
+         "published_unix": time.time()}).encode())
+    return man
+
+
+def read_xbox_manifest(root: str) -> Optional[Dict]:
+    """The current swap pointer, or None when nothing is published yet.
+    Raises on a malformed manifest — tmp+rename means a torn file is a
+    bug upstream, not a transient to paper over."""
+    man = os.path.join(root, XBOX_MANIFEST)
+    if not os.path.exists(man):
+        return None
+    with open(man, "r") as f:
+        out = json.load(f)
+    if "generation" not in out or "path" not in out:
+        raise ValueError(f"malformed xbox manifest {man}: {out!r}")
+    return out

@@ -1,18 +1,22 @@
-"""Parameter-server launcher half: supervised PS servers, the sharded
-PS fleet and its elastic watcher.
+"""Launcher halves for the parameter-server and serving tiers:
+supervised PS servers, the sharded PS fleet and its elastic watcher, and
+supervised serving replicas.
 
-Port of the PS half of ``paddlebox_tpu/launch.py``: ``PSServerSupervisor``
-(restart-in-place with dedup / checkpoint handoff), ``PSFleet`` (N
-supervised shards forming one cluster, live ``resize`` through
-ps/reshard.py) and ``PSElasticWatcher`` (file-driven grow / shrink).
-Host code only (numpy, sockets, threads): no device call on any thread
-here.  The classes are copies with the import paths rewritten.
+Port of the PS and serving halves of ``paddlebox_tpu/launch.py``:
+``PSServerSupervisor`` (restart-in-place with dedup / checkpoint
+handoff), ``PSFleet`` (N supervised shards forming one cluster, live
+``resize`` through ps/reshard.py), ``PSElasticWatcher`` (file-driven
+grow / shrink), ``ServingReplicaSupervisor`` (restart-in-place of a
+``ServingReplica`` that re-resolves the xbox swap manifest) and
+``serve_fleet`` (N supervised replicas, optionally in shard groups,
+behind one ``ServingRouter``).  Host code only (numpy, sockets,
+threads): no device call on any thread here.  The classes are copies
+with the import paths rewritten.
 
 Not ported yet (ROADMAP Queue 1): the worker launcher (``launch``,
-``launch_elastic``, ``init_distributed``, ``main``), the trainer fleet's
-``TrainerSupervisor`` and the cluster scraper (items 8 and 10), and the
-serving supervisors (``ServingReplicaSupervisor``, ``serve_fleet``,
-item 7).
+``launch_elastic``, ``init_distributed``, ``main``, which parses the
+``--serve*`` arguments ``serve_fleet`` reads), the trainer fleet's
+``TrainerSupervisor`` and the cluster scraper (items 8 and 10).
 
 A one-host fleet, trained through::
 
@@ -390,3 +394,191 @@ class PSElasticWatcher:
     def stop(self) -> None:
         self._stop.set()
         self._thread.join(timeout=30.0)
+
+
+class ServingReplicaSupervisor:
+    """PSServerSupervisor's serving-tier sibling: own a ServingReplica,
+    watch it, restart it in place when it dies.  Restart keeps the
+    router's world intact: the new replica binds the SAME port, inherits
+    the dead instance's dedup window, and re-resolves the CURRENT xbox
+    swap manifest before serving — a replica that died on day N and
+    restarts after the trainer published day N+1 comes back serving
+    N+1, not a stale dump.  ``stop()`` joins the watch and drains the
+    replica (PB405 lifecycle)."""
+
+    def __init__(self, config=None, xbox_path: Optional[str] = None,
+                 manifest_root: Optional[str] = None, tenants=None,
+                 max_inflight: Optional[int] = None,
+                 host: str = "127.0.0.1", port: int = 0,
+                 max_restarts: int = 8, backoff_base: float = 0.05,
+                 backoff_cap: float = 1.0, poll_s: float = 0.02,
+                 watch_s: float = 0.0, seed: int = 0,
+                 shard: int = 0, n_shards: int = 1,
+                 ckpt_root: Optional[str] = None, hot_keys=None):
+        from paddlebox_tpu_torch.ps.serving import ServingReplica
+        self._make = ServingReplica
+        self.config = config
+        self.xbox_path = xbox_path
+        self.manifest_root = manifest_root
+        self.tenants = tenants
+        self.max_inflight = max_inflight
+        self.host = host
+        self.watch_s = watch_s
+        self.seed = seed
+        self.shard = int(shard)
+        self.n_shards = max(1, int(n_shards))
+        self.ckpt_root = ckpt_root
+        self.hot_keys = hot_keys
+        self.max_restarts = int(max_restarts)
+        self.restarts = 0
+        self._backoff = (backoff_base, backoff_cap)
+        self._poll_s = poll_s
+        self._stop = threading.Event()
+        path, day, gen = self._resolve_dump()
+        self.replica = ServingReplica(
+            config=config, xbox_path=path, tenants=tenants,
+            max_inflight=max_inflight, host=host, port=port,
+            day=day, generation=gen, seed=seed,
+            shard=self.shard, n_shards=self.n_shards,
+            ckpt_root=ckpt_root, hot_keys=hot_keys)
+        self.port = self.replica.addr[1]
+        self._arm_watch()
+        self._watch = threading.Thread(target=self._run,
+                                       name="pbox-serving-supervisor",
+                                       daemon=True)
+        self._watch.start()
+
+    @property
+    def addr(self):
+        return (self.host, self.port)
+
+    def _resolve_dump(self):
+        """(path, day, generation) of the dump to load NOW — the swap
+        manifest when one is published, else the pinned --serve_xbox."""
+        if self.manifest_root:
+            from paddlebox_tpu_torch.io.checkpoint import read_xbox_manifest
+            man = read_xbox_manifest(self.manifest_root)
+            if man:
+                return (man["path"], str(man.get("day", "")),
+                        int(man["generation"]))
+        return self.xbox_path, "", 1
+
+    def _arm_watch(self) -> None:
+        # ckpt delta-streaming trumps day-granularity manifest polling:
+        # a replica fed from a TrainCheckpoint gets pass-level freshness
+        if self.ckpt_root:
+            self.replica.watch_ckpt(self.ckpt_root)
+        elif self.manifest_root and self.watch_s > 0:
+            self.replica.watch_manifest(self.manifest_root, self.watch_s)
+
+    def _restart(self) -> bool:
+        from paddlebox_tpu_torch.utils.backoff import Backoff
+        from paddlebox_tpu_torch.utils.monitor import stat_add
+        old = self.replica
+        self.restarts += 1
+        flight.record("resume_begin", role="serving_replica",
+                      restart=self.restarts, port=self.port)
+        dedup = old.dedup_state()
+        path, day, gen = self._resolve_dump()
+        bo = Backoff(base=self._backoff[0], cap=self._backoff[1],
+                     deadline=30.0)
+        attempt = 0
+        while not self._stop.is_set():
+            try:
+                self.replica = self._make(
+                    config=self.config, xbox_path=path,
+                    tenants=self.tenants, max_inflight=self.max_inflight,
+                    host=self.host, port=self.port, day=day,
+                    generation=gen, seed=self.seed, dedup_state=dedup,
+                    shard=self.shard, n_shards=self.n_shards,
+                    ckpt_root=self.ckpt_root, hot_keys=self.hot_keys)
+                break
+            except OSError:
+                attempt += 1
+                if not bo.sleep(attempt):
+                    return False
+        else:
+            return False
+        self._arm_watch()
+        stat_add("serving.supervisor.restarts")
+        flight.record("resume_ok", role="serving_replica",
+                      restart=self.restarts, port=self.port)
+        return True
+
+    def _run(self) -> None:
+        while not self._stop.is_set():
+            if self.replica._dead:
+                if self.restarts >= self.max_restarts:
+                    flight.record("supervisor_give_up",
+                                  role="serving_replica",
+                                  restarts=self.restarts)
+                    return
+                if not self._restart():
+                    return
+            self._stop.wait(self._poll_s)
+
+    def stop(self) -> None:
+        self._stop.set()
+        self._watch.join(timeout=30.0)
+        self.replica.shutdown()
+
+
+def serve_fleet(args) -> int:
+    """--serve N: run N supervised serving replicas in this process and
+    block until interrupted.  Prints the replica addresses (one per
+    line, ``host:port``) so a router — ``ServingRouter([...])`` or an
+    external LB — can be pointed at the fleet.
+
+    With ``--serve_shards S`` the N replicas split into S ServerMap
+    shard groups (replica i serves shard i % S) and the router runs in
+    ``shard_groups`` mode: per-shard fan, p2c hot-key routing, group
+    failover.  ``--serve_ckpt`` feeds the fleet pass-delta freshness
+    from a TrainCheckpoint instead of day-granularity xbox manifests."""
+    from paddlebox_tpu_torch.config import EmbeddingTableConfig
+    from paddlebox_tpu_torch.ps.serving import ServingRouter
+    tenants = [t.strip() for t in (args.serve_tenants or "default"
+                                   ).split(",") if t.strip()]
+    config = EmbeddingTableConfig(embedding_dim=args.serve_mf_dim)
+    n_shards = max(1, int(getattr(args, "serve_shards", 1) or 1))
+    if n_shards > args.serve:
+        raise SystemExit(f"--serve_shards {n_shards} needs at least that "
+                         f"many replicas (--serve {args.serve})")
+    ckpt_root = getattr(args, "serve_ckpt", "") or None
+    sups = [ServingReplicaSupervisor(
+        config=config,
+        xbox_path=args.serve_xbox or None,
+        manifest_root=args.serve_manifest or None,
+        tenants=tenants,
+        max_inflight=args.serve_max_inflight,
+        watch_s=args.serve_watch_s,
+        seed=args.serve_seed,
+        shard=i % n_shards, n_shards=n_shards,
+        ckpt_root=ckpt_root,
+        max_restarts=args.max_restarts or 8)
+        for i in range(args.serve)]
+    for s in sups:
+        print(f"[serve] replica {s.addr[0]}:{s.addr[1]} "
+              f"shard={s.shard}/{n_shards} "
+              f"tenants={','.join(tenants)}", file=sys.stderr)
+    if n_shards > 1:
+        groups = [[s.addr for s in sups if s.shard == k]
+                  for k in range(n_shards)]
+        router = ServingRouter(shard_groups=groups, tenant=tenants[0])
+        router.refresh_hot_keys()
+    else:
+        router = ServingRouter([s.addr for s in sups], tenant=tenants[0])
+    try:
+        while True:
+            time.sleep(5.0)
+            router.observe_generation()    # fleet-wide swap coherence
+            gens = router.generations()
+            if len(gens) > 1:
+                print(f"[serve] hot-swap in flight: generations {gens}",
+                      file=sys.stderr)
+    except KeyboardInterrupt:
+        pass
+    finally:
+        router.close()
+        for s in sups:
+            s.stop()
+    return 0

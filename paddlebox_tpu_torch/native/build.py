@@ -1,10 +1,11 @@
 """Build the port's native host library (g++ → .so, loaded via ctypes).
 
-Port of ``paddlebox_tpu/native/build.py``: the slot parser and the key
-hash (``slot_parser.cc``, ``hash_shard.cc``) compiled into one shared
-library on first use.  Failures degrade to the pure-Python fallbacks
-(``data_feed.SlotParser``, ``PassKeyMapper``'s binary search).  Three things differ from the JAX
-package's build:
+Port of ``paddlebox_tpu/native/build.py``: the slot parser, the key
+hash and the xbox dump writer (``slot_parser.cc``, ``hash_shard.cc``,
+``dump_writer.cc``) compiled into one shared library on first use.
+Failures degrade to the pure-Python fallbacks (``data_feed.SlotParser``,
+``PassKeyMapper``'s binary search, ``io.checkpoint``'s per-row xbox
+writer and parser).  Three things differ from the JAX package's build:
 
 * the library lands in ``build/native/`` at the repository root (listed
   in ``.gitignore``), never in the package directory;
@@ -30,7 +31,7 @@ from typing import Optional
 
 _DIR = Path(__file__).resolve().parent
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "native"
-_SOURCES = ("slot_parser.cc", "hash_shard.cc")
+_SOURCES = ("slot_parser.cc", "hash_shard.cc", "dump_writer.cc")
 CXX = "g++"
 CXX_FLAGS = ["-O3", "-march=native", "-shared", "-fPIC", "-std=c++17",
              "-pthread"]

@@ -133,9 +133,37 @@ def scatter_device_rows(ws: Dict[str, torch.Tensor], rows,
 def dump_working_set(ws: Dict[str, torch.Tensor], n: int
                      ) -> Dict[str, np.ndarray]:
     """Device→host for end_pass write-back (≙ dump_pool_to_cpu_func,
-    ps_gpu_wrapper.cc:983+): rows 1..n of every field."""
+    ps_gpu_wrapper.cc:983+): rows 1..n of every field.  Table-wide
+    scalars (a serving freeze's 0-d ``mf_scale``) are not row data and
+    are skipped."""
     return {f: ws[f][1:n + 1].cpu().numpy() for f in ws
             if ws[f].dim() >= 1}
+
+
+def quantize_working_set(ws: Dict[str, torch.Tensor], quant_bits: int = 16,
+                         scale: float = 1.0 / 32767.0
+                         ) -> Dict[str, torch.Tensor]:
+    """Serving-mode freeze: re-encode mf as int16 grid points,
+    ``clip(round(mf / scale), ±32767)``, so embedx pulls read half the
+    bytes and the set holds half the memory (≙ the quant feature value +
+    EmbedxQuantOp dequant-on-pull, box_wrapper.cu:37-44, table-wide
+    pull_embedx_scale box_wrapper.h:655).  ``mf_scale`` is a 0-d float32
+    tensor on the working set's device; the division is by that tensor,
+    so it is an IEEE f32 division on either device (a Python float would
+    let a card kernel multiply by its reciprocal instead), and
+    ``torch.round`` rounds half to even as ``jnp.round`` does.
+
+    The quantized working set is PULL-ONLY: pushes need the f32 store
+    (the reference likewise quantizes only dumped/serving tables)."""
+    if quant_bits != 16:
+        raise ValueError("only quant_bits=16 (int16 grid) is supported")
+    out = dict(ws)
+    mf = ws["mf"]
+    s = torch.tensor(scale, dtype=torch.float32, device=mf.device)
+    q = torch.clamp(torch.round(mf / s), -32767, 32767)
+    out["mf"] = q.to(torch.int16)
+    out["mf_scale"] = s
+    return out
 
 
 def mf_values(ws: Dict[str, torch.Tensor], gathered: torch.Tensor

@@ -27,8 +27,8 @@ Sites (one sketch bundle per literal site name, tenant-bounded):
 * ``fault_in`` — SSDTieredTable promotions SSD→DRAM (ps/ssd_table.py).
 * ``observe_shard`` — per-PS-shard key load of a sharded ``PSClient``'s
   pull and push fan-outs (ps/service.py).
-* ``serve.<tenant>`` — serving row lookups per tenant: its caller (the
-  serving tier) is not ported yet.
+* ``serve.<tenant>`` — ServingReplica row lookups per tenant
+  (ps/serving.py).
 
 Derived gauges (published at LITERAL stat_set sites so the PB207
 SloRule gate can see them; the "heat." prefix makes them timeline

@@ -53,7 +53,11 @@ server's bits; a failed write-back leaves the engine and the adapter's
 snapshot intact, so ``end_pass`` re-drives exactly once.  Every wire
 call is host code, on whichever thread pulls or writes.
 
-Not ported yet (ROADMAP): serving-frozen working sets.
+Serving (``mode="serving"``, io/checkpoint.load_xbox): after the pass
+lifecycle over a loaded dump, ``freeze_for_serving`` re-encodes the
+working set's embedx as an int16 grid with a table-wide ``mf_scale``;
+every pull dequantizes after its gather, and ``end_pass`` and the
+trainer refuse a frozen set.
 """
 
 from __future__ import annotations
@@ -91,10 +95,18 @@ class BoxPSEngine:
 
     def __init__(self, config: Optional[EmbeddingTableConfig] = None,
                  seed: int = 0, device: DeviceLike = None,
-                 device_rank: int = 0, device_world: int = 1):
+                 device_rank: int = 0, device_world: int = 1,
+                 mode: str = "train"):
+        if mode not in ("train", "serving"):
+            raise ValueError(f"mode must be 'train' or 'serving', "
+                             f"got {mode!r}")
         self.config = config or EmbeddingTableConfig()
         self.device = resolve_device(device)
         heat.maybe_enable_from_flags()
+        # declared intent, not enforcement: io/checkpoint.py uses it to
+        # warn when a serving-only loader (load_xbox) feeds a training
+        # engine — the xbox dump cannot round-trip mf_size exactly
+        self.mode = mode
         self.table = ShardedHostTable(self.config, seed=seed)
         self.timers = TimerRegistry()
         self.day_id: Optional[str] = None
@@ -499,6 +511,12 @@ class BoxPSEngine:
             # seeded kill site: the trainer dies with a trained but
             # unwritten pass; auto-resume re-drives it from a checkpoint
             faults.on_lifecycle("end_pass")
+        if embedding.is_quantized(self.ws):
+            raise RuntimeError(
+                "serving-frozen working set cannot write back (its embedx "
+                "is an int16 grid, not the f32 store) — a frozen pass ends "
+                "by discarding the device copy (engine.ws = None) or "
+                "rebuilding the pass")
         with self.timers("dump_to_cpu"), \
                 trace.span("ps.engine.end_pass_write",
                            pass_id=self.pass_id, keys=self.num_keys):
@@ -600,6 +618,21 @@ class BoxPSEngine:
             # cold (covers TrainCheckpoint.resume, PassPrefetcher.abort and
             # fleet.train_passes' auto-resume loop)
             self.cache.invalidate("reset")
+
+    def freeze_for_serving(self, scale: float = 1.0 / 32767.0) -> None:
+        """Re-encode the live working set's embedx as int16 for pull-only
+        serving (≙ loading a quant-feature table + EmbedxQuantOp dequant,
+        box_wrapper.cu:37 / pull_embedx_scale box_wrapper.h:655): embedx
+        pulls read half the bytes, the set holds half the memory.  Runs
+        on the working set's device.  Training on a frozen set raises —
+        re-run the pass lifecycle to train."""
+        assert self.ws is not None, "no live working set to freeze"
+        qb = self.config.quant_bits or 16
+        self.ws = embedding.quantize_working_set(self.ws, qb, scale)
+        if self.cache is not None:
+            # a frozen pass never writes back — don't let its rows serve
+            # as a later pass's write base
+            self.cache.invalidate("freeze")
 
     # -- persistence ---------------------------------------------------------
     def _save(self, path: str, mode: str) -> int:

@@ -2,11 +2,10 @@
 
 Copy of ``paddlebox_tpu/ps/service.py`` with the import paths rewritten;
 host code only (numpy, sockets, threads), so no server, client, pump or
-pool thread ever makes a CUDA call.  Two departures: a server's
+pool thread ever makes a CUDA call.  One departure: a server's
 ``{"ok": False}`` error reply is raised as :class:`ServerErrorReply` (a
 ``RuntimeError``, so every caller that catches ``RuntimeError`` keeps
-working; ``fleet.train_passes`` resumes it), and the ``dump_xbox`` verb
-answers with an error reply until the xbox writer is ported.
+working; ``fleet.train_passes`` resumes it).
 
 ≙ PSCORE's brpc server/client (ps/service/brpc_ps_server.{h,cc},
 brpc_ps_client.{h,cc}): push/pull sparse & dense against tables sharded by
@@ -1105,12 +1104,17 @@ class PSServer:
             return {"ok": True, "moved": moved,
                     "frozen": bool(rs["frozen"])}
         if cmd == "dump_xbox":
-            # the xbox writer (io/checkpoint.dump_table_xbox) belongs to
-            # the serving slice and is not ported: refuse by name
-            return {"ok": False,
-                    "error": "dump_xbox: the xbox writer "
-                             "(io.checkpoint.dump_table_xbox) is not "
-                             "ported to the PyTorch package"}
+            # server-side xbox dump of THIS shard's rows (cluster fan-out
+            # writes per-shard part files the client concatenates); lazy
+            # import avoids a ps -> io import at module load
+            from paddlebox_tpu_torch.io.checkpoint import dump_table_xbox
+            n = dump_table_xbox(
+                self._table(req), req["path"],
+                base=bool(req.get("base", True)),
+                base_threshold=float(req.get("base_threshold", 0.0)),
+                delta_threshold=float(req.get("delta_threshold", 0.0)),
+                quant_bits=int(req.get("quant_bits", 0)))
+            return {"ok": True, "dumped": n}
         if cmd == "size":
             return {"ok": True, "size": self._table(req).size()}
         if cmd == "list_tables":

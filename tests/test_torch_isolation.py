@@ -39,6 +39,14 @@ PS_TIER = tuple(f"paddlebox_tpu_torch.{m}" for m in (
     "ps.wire", "ps.cluster", "ps.service", "ps.geo_table", "ps.ssd_table",
     "ps.reshard", "ps.server_main", "launch"))
 
+# the serving tier and the observability modules it runs under: host
+# modules too (a replica serves a frozen host table), and the xbox half
+# of io.checkpoint with the native dump writer, which the PS server's
+# dump_xbox verb and a replica's loader call
+SERVING_TIER = tuple(f"paddlebox_tpu_torch.{m}" for m in (
+    "ps.serving", "io.checkpoint", "native.dump_writer", "utils.timeline",
+    "utils.doctor", "utils.obs_server", "serve"))
+
 
 def _port_modules():
     import paddlebox_tpu_torch
@@ -54,6 +62,7 @@ def test_port_modules_import_without_jax():
     assert "paddlebox_tpu_torch.trainer.trainer" in mods
     assert "paddlebox_tpu_torch.ops.sorted_spmm" in mods
     assert set(PS_TIER) <= set(mods)
+    assert set(SERVING_TIER) <= set(mods)
     scripts = ["chip_smoke", "kernel_ab"]
     proc = subprocess.run([sys.executable, "-c", _PROBE, *mods, *scripts],
                           cwd=REPO, capture_output=True, text=True,
@@ -106,3 +115,25 @@ except SystemExit as e:
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert proc.stdout.startswith(f"ok {len(mods)}")
     assert "--ckpt_root" in proc.stdout and "--membership" in proc.stdout
+
+
+def test_serving_tier_imports_without_torch_and_serve_runs():
+    """The serving tier alone, in a JAX-blocked interpreter: its modules
+    load without importing torch, and ``python -m
+    paddlebox_tpu_torch.serve --help`` runs."""
+    probe = _PROBE + r"""
+assert "torch" not in sys.modules, "the serving tier imported torch"
+import runpy
+sys.argv = ["serve", "--help"]
+try:
+    runpy.run_module("paddlebox_tpu_torch.serve", run_name="__main__")
+except SystemExit as e:
+    assert e.code in (0, None), e.code
+assert "torch" not in sys.modules, "serve imported torch"
+"""
+    mods = list(SERVING_TIER)
+    proc = subprocess.run([sys.executable, "-c", probe, *mods], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.startswith(f"ok {len(mods)}")
+    assert "--manifest" in proc.stdout and "--n_shards" in proc.stdout

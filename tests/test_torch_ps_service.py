@@ -4,8 +4,10 @@ the engine over a remote table on the CPU, the typed wire codec (no
 pickle; a torch tensor is refused, not converted), multi-table routing,
 the keyed allreduce and ``allreduce_auc_state`` over the port's torch
 bucket state, transparent chunking, the per-table row-width estimate and
-the ``dump_xbox`` verb's refusal."""
+the ``dump_xbox`` verb (a server-side xbox dump; an unknown table is
+refused by name)."""
 
+import os
 import threading
 
 import numpy as np
@@ -330,17 +332,30 @@ def test_row_size_estimate_is_per_table_and_locked():
         srv.shutdown()
 
 
-def test_dump_xbox_verb_refuses_by_name(server):
-    """The server's xbox dump needs the serving slice's writer, which the
-    port does not have yet: the verb answers with an error reply naming
-    it (raised as the client's ServerErrorReply, a RuntimeError)."""
+def test_dump_xbox_verb_refuses_by_name(server, tmp_path):
+    """The server's xbox dump: the verb writes the server's rows through
+    ``io.checkpoint.dump_table_xbox`` (the same bytes as a local dump of
+    the same table), and a dump of a table the server does not hold is
+    refused by name with an error reply (the client's ServerErrorReply,
+    a RuntimeError) while the server keeps serving."""
+    from paddlebox_tpu_torch.io.checkpoint import dump_table_xbox
     from paddlebox_tpu_torch.ps.service import ServerErrorReply
     client = PSClient(server.addr)
-    client.pull_sparse(np.array([1, 2], np.uint64), create=True)
-    with pytest.raises(ServerErrorReply, match="dump_table_xbox"):
-        client._call({"cmd": "dump_xbox", "table": None, "path": "x"})
-    with pytest.raises(RuntimeError, match="not ported"):
-        client._call({"cmd": "dump_xbox", "table": None, "path": "x"})
+    keys = np.array([1, 2], np.uint64)
+    rows = client.pull_sparse(keys, create=True)
+    rows["show"][:] = [10.0, 20.0]
+    client.push_sparse(keys, rows)
+    path = str(tmp_path / "remote.xbox")
+    resp = client._call({"cmd": "dump_xbox", "table": None, "path": path})
+    assert resp["dumped"] == 2
+    local = str(tmp_path / "local.xbox")
+    assert dump_table_xbox(server.tables["embedding"], local) == 2
+    with open(path, "rb") as a, open(local, "rb") as b:
+        assert a.read() == b.read()
+    with pytest.raises(ServerErrorReply, match="unknown table 'nope'"):
+        client._call({"cmd": "dump_xbox", "table": "nope",
+                      "path": str(tmp_path / "x")})
+    assert not os.path.exists(tmp_path / "x")
     assert client.size() == 2               # the server keeps serving
 
 
