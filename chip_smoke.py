@@ -218,10 +218,38 @@ result line is printed):
    p99, the swap's seconds, the fleet's build seconds, the patch's
    staleness and rows.
 
+16. trainer_fleet — the trainer fleet: DeepFM at the bench widths (26
+   slots × capacity 3, mf_dim 8, 13 dense, MLP 400-400-400, batch 16384)
+   through ``fleet.run_trainer_fleet`` (supervised ranks as threads of
+   this process, every rank on the card) over a loopback ``PSFleet`` of
+   4 shards, V = 8 virtual slices, 2 days × 2 passes of 65,536 records
+   (one phase-11 pass file a pass, keys from the 2 M key space; ~8,192
+   records and one batch a slice):
+   (a) N = 1 serial, (b) N = 4 serial, (c) N = 4 prefetched, (d) N = 4
+   with rank 1's first incarnation killed at ``fleet_allreduce`` of pass
+   2 and restarted by its ``TrainerSupervisor``.  Runs (a)-(d) must leave
+   the same bits (per-pass loss, AUC and batches, every rank's dense
+   weights and Adam state, the union of the shards' tables with no key
+   on two shards); every shard's ``end_day`` runs once a day;
+   ``gather_sorted`` and ``scatter_add_sorted`` launch once per trained
+   batch, (b) exactly as often as (a), and (d) more by exactly the
+   batches of rank 1's slices in the replayed pass (counted from the
+   data); pass 1 of (a) again with ``device="cpu"`` gives the card's
+   mean loss and AUC within rtol 1e-3 (``FLEET_CPU_RTOL`` says why); (e)
+   ``python -m paddlebox_tpu_torch.trainer.fleet_main`` over its own spec
+   (26 slots of capacity 2, mf_dim 8, 13 dense, the module's DeepFM
+   (16, 8)) as one and as two processes on the card: their histories
+   bitwise equal.  Prints one ``trainer_fleet[<run>]:`` line per run:
+   the pass walls, ``trainer.fleet.shuffle_s``, the straggler gap, the
+   shadow replays, the restarts, the PS wire and shuffle bytes a pass,
+   and the phase's seconds.
+
 Depth cuts (the widths are the bench model's): phases 10-11, a day of
 3 passes of 4 batches; the cache runs of phase 10 stop after the first
 pass of day 2 (4 passes); phases 14 and 15, 2 days of 2 passes of 4
-batches (phase 15 one more pass for (f)).
+batches (phase 15 one more pass for (f)); phase 16, 2 days of 2 passes
+of 4 batches' records (65,536, one half-full batch a virtual slice;
+131,072 took the phase 265 s).
 
 Every phase sets the launch counters to 0 just before its main run and
 reads them just after; a kernel of the path that did not launch fails
@@ -245,6 +273,7 @@ import json
 import math
 import os
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -582,12 +611,13 @@ def feed_config(n_labels: int = 1) -> DataFeedConfig:
            for i in range(N_SLOTS)]))
 
 
-def make_block(rng, n: int, n_labels: int = 1) -> SlotRecordBlock:
-    """n records: 1..CAP feasigns per slot from the key space, 0/1 labels
+def make_block(rng, n: int, n_labels: int = 1,
+               cap: int = CAP) -> SlotRecordBlock:
+    """n records: 1..cap feasigns per slot from the key space, 0/1 labels
     (one per label slot) and DENSE_DIM normal dense features."""
     blk = SlotRecordBlock(n=n)
     for i in range(N_SLOTS):
-        lens = rng.integers(1, CAP + 1, size=n)
+        lens = rng.integers(1, cap + 1, size=n)
         offsets = np.zeros((n + 1,), np.int64)
         np.cumsum(lens, out=offsets[1:])
         blk.uint64_slots[f"s{i}"] = (rng.integers(
@@ -2556,9 +2586,10 @@ def cluster_plan():
             .kill_server(cmd="push_sparse_delta", at=(5,)))
 
 
-def fleet_world(tables, trainer, losses) -> dict:
+def fleet_world(tables, dense: dict, losses) -> dict:
     """``world_of`` over a PS fleet: the union of the shards' tables
-    (every key, every field), which must hold no key on two shards."""
+    (every key, every field), which must hold no key on two shards, and
+    ``dense`` (``dense_state``'s names)."""
     keys, rows = [], []
     for t in tables:
         k = np.sort(t.export_keys())
@@ -2566,11 +2597,11 @@ def fleet_world(tables, trainer, losses) -> dict:
         rows.append(t.bulk_pull(k))
     allk = np.concatenate(keys)
     if len(np.unique(allk)) != len(allk):
-        raise AssertionError("cluster: a key is held by two shards")
+        raise AssertionError("a key is held by two PS shards")
     order = np.argsort(allk, kind="stable")
     table = (allk[order], {f: np.concatenate([r[f] for r in rows])[order]
                            for f in rows[0]})
-    return {"losses": losses, "table": table, "dense": dense_state(trainer)}
+    return {"losses": losses, "table": table, "dense": dense}
 
 
 def cluster_run(files, n: int, prefetch: bool, cache_rows: int,
@@ -2653,17 +2684,12 @@ def cluster_run(files, n: int, prefetch: bool, cache_rows: int,
             r["cache_hits"] = hits
             r["cache_hit_rate"] = hits / max(hits + miss, 1.0)
         losses = [m["losses"] for m in metrics]
-        world = fleet_world([s.table for s in flt.sups], trainer, losses)
+        world = fleet_world([s.table for s in flt.sups],
+                            dense_state(trainer), losses)
         return world, params0, r
     finally:
         client.close()
-        # each server's drain waits out its listener's poll: stop the
-        # shards together
-        stops = [threading.Thread(target=s.stop) for s in flt.sups]
-        for t in stops:
-            t.start()
-        for t in stops:
-            t.join()
+        stop_fleet(flt)
 
 
 def wire_microbench(keys: np.ndarray) -> dict:
@@ -3447,6 +3473,398 @@ def serving_phase(paths, seed: int = 20, device: str = "cuda"):
         shutil.rmtree(work, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the trainer fleet
+# ---------------------------------------------------------------------------
+
+FLEET_V = 8                        # virtual slices: one batch each
+# one 65,536-record pass file a pass: at 131,072 records (two files) the
+# phase took 265 s on an H100 (PERF.md §6), over its ~180 s share
+FLEET_FILES_PER_PASS = 1
+FLEET_WIDE = 4                     # ranks of runs b-d
+FLEET_KILL_PASS = 2                # (d): rank 1 dies at this pass's fold
+# (label, ranks, prefetch, killed rank or None, launches_by_path name)
+FLEET_RUNS = (("a", 1, False, None, "fleet_n1"),
+              ("b", FLEET_WIDE, False, None, "fleet_n4"),
+              ("c", FLEET_WIDE, True, None, "fleet_n4_prefetch"),
+              ("d", FLEET_WIDE, False, 1, "fleet_kill"))
+# (e): fleet_main processes over their own spec (26 slots of capacity 2,
+# mf_dim 8, 13 dense; the module fixes DeepFM (16, 8))
+FLEET_MAIN_RECORDS = 16_384        # a pass
+FLEET_MAIN_BATCH = 2048            # one batch a slice
+# card vs CPU over pass 1 of (a): every slice's first batch starts from
+# the same dense state on both devices (first-step agreement is rtol
+# 1e-4), but a slice holding more than one batch takes its second after
+# an Adam step, whose first update is lr·m/(√v + eps) ≈ lr·sign(g): a
+# gradient entry near 0 may step either way on the two devices, so the
+# pass means are held to rtol 1e-3
+FLEET_CPU_RTOL = 1e-3
+
+
+def fleet_free_ports(n: int, base: list) -> list:
+    """``n`` fixed trainer ports below the ephemeral range: a restarted
+    rank re-binds its own address, which no outbound dial may hold."""
+    out = []
+    while len(out) < n:
+        base[0] += 1
+        s = socket.socket()
+        try:
+            s.bind(("127.0.0.1", base[0]))
+            out.append(base[0])
+        except OSError:
+            pass
+        finally:
+            s.close()
+    return out
+
+
+def fleet_table_config() -> EmbeddingTableConfig:
+    return EmbeddingTableConfig(
+        embedding_dim=MF_DIM, shard_num=8,
+        sgd=SparseSGDConfig(mf_create_thresholds=0.0))
+
+
+def count_end_days(flt) -> list:
+    """Wrap every shard table's ``end_day`` with a call count (the
+    fleet's exactly-once day rollover, seen from the servers)."""
+    counts = []
+    for s in flt.sups:
+        box, orig = [0], s.table.end_day
+
+        def counted(*a, _orig=orig, _box=box, **kw):
+            _box[0] += 1
+            return _orig(*a, **kw)
+
+        s.table.end_day = counted
+        counts.append(box)
+    return counts
+
+
+def stop_fleet(flt) -> None:
+    """Each server's drain waits out its listener's poll: stop the
+    shards together."""
+    stops = [threading.Thread(target=s.stop) for s in flt.sups]
+    for t in stops:
+        t.start()
+    for t in stops:
+        t.join()
+
+
+def fleet_result_dense(res: dict) -> dict:
+    """A rank's final dense weights and Adam state, as ``dense_state``
+    names them."""
+    dense = {f"model.{k}": v for k, v in res["params"].items()}
+    for i, st in res["opt_state"].items():
+        for k, v in st.items():
+            dense[f"opt.{i}.{k}"] = torch.as_tensor(v)
+    return dense
+
+
+def fleet_slice_batches(files) -> np.ndarray:
+    """Batches each virtual slice trains over ``files``: the records
+    routed there (``slice_of`` of ``route_keys``), cut into BATCH-record
+    batches — counted from the data, independently of the run."""
+    from paddlebox_tpu_torch.data.data_feed import DataFeed
+    from paddlebox_tpu_torch.data.pass_feed import route_keys
+    from paddlebox_tpu_torch.data.shuffle_transport import slice_of
+    counts = np.zeros(FLEET_V, np.int64)
+    for f in files:
+        for block in DataFeed(feed_config()).read_file(f):
+            counts += np.bincount(slice_of(route_keys(block), FLEET_V),
+                                  minlength=FLEET_V)
+    return -(-counts // BATCH)
+
+
+def fleet_run(days, world: int, prefetch: bool, killed, device: str,
+              ports: list):
+    """``fleet.run_trainer_fleet`` (ranks as threads, supervised) over a
+    loopback ``PSFleet`` of CLUSTER_WIDE shards.  Returns the world it
+    left (history, every rank's dense state, the union of the shards'
+    tables), the per-rank results and the run's readings."""
+    from paddlebox_tpu_torch import fleet
+    from paddlebox_tpu_torch.launch import PSFleet
+    from paddlebox_tpu_torch.ps import faults
+    from paddlebox_tpu_torch.utils import flight
+    from paddlebox_tpu_torch.utils.monitor import (StatRegistry,
+                                                   stat_snapshot)
+    work = tempfile.mkdtemp(prefix="chip_smoke_fleet_")
+    flt = PSFleet(CLUSTER_WIDE, config=fleet_table_config(), seed=0,
+                  max_restarts=16)
+    try:
+        end_days = count_end_days(flt)
+        plans = ({killed: faults.FaultPlan(seed=19).kill_at(
+            "fleet_allreduce", at=(FLEET_KILL_PASS - 1,))}
+            if killed is not None else None)
+        addrs = ([("127.0.0.1", p) for p in fleet_free_ports(world, ports)]
+                 if world > 1 else None)
+        StatRegistry.instance().reset()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        reset_counts()
+        m0 = time.monotonic()
+        results = fleet.run_trainer_fleet(
+            world, flt.addrs, work, fleet_table_config(),
+            lambda: make_model("deepfm"), feed_config(), days,
+            batch_size=BATCH, virtual_shards=FLEET_V, table_seed=0,
+            trainer_seed=0, prefetch=prefetch, trainer_addrs=addrs,
+            fault_plans=plans, max_restarts=3, client_deadline=300.0,
+            device=device)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        wall = time.monotonic() - m0
+        launches = read_counts()
+        snap = stat_snapshot("")
+        # a pass's cursor save may be recorded by more than one rank (a
+        # poked duty after a leader's death): one end per pass epoch
+        by_epoch = {}
+        for e in flight.events(kind="fleet_cursor"):
+            if e["mono"] >= m0 and e.get("pass_index", 0) > 0:
+                by_epoch[e["epoch"]] = min(by_epoch.get(e["epoch"], 1e30),
+                                           e["mono"])
+        ends = [by_epoch[k] for k in sorted(by_epoch)]
+        walls = [float(x) for x in np.diff([m0] + ends)]
+        hist = results[0]["history"]
+        n_pass = len(hist)
+        wire = sum(v for k, v in snap.items()
+                   if k.startswith("ps.wire.") and k.endswith(".tx_bytes"))
+        world_state = fleet_world(
+            [s.table for s in flt.sups], fleet_result_dense(results[0]),
+            [(h["loss"], h["auc"], h["batches"]) for h in hist])
+        r = {"ranks": world, "prefetch": prefetch, "killed": killed,
+             "wall_s": wall, "pass_wall_s": walls,
+             "median_pass_wall_s": float(np.median(walls)) if walls
+             else None,
+             "history": [{k: h[k] for k in ("loss", "auc", "batches")}
+                         for h in hist],
+             "batches": int(sum(h["batches"] for h in hist)),
+             "shuffle_s_max": snap.get("trainer.fleet.shuffle_s.max"),
+             "shuffle_s_sum": snap.get("trainer.fleet.shuffle_s.sum"),
+             "shuffle_s_count": snap.get("trainer.fleet.shuffle_s.count"),
+             "straggler_gap_s_max": snap.get(
+                 "trainer.fleet.straggler_gap_s.max"),
+             "straggler_gap_s_p50": snap.get(
+                 "trainer.fleet.straggler_gap_s.p50"),
+             "shadow_replays": snap.get("trainer.fleet.shadow_replays", 0.0),
+             "restarts": snap.get("trainer.supervisor.restarts", 0.0),
+             "restart_mttr_s_max": snap.get(
+                 "trainer.fleet.restart_mttr_s.max"),
+             "ps_wire_bytes_per_pass": wire / max(n_pass, 1),
+             "shuffle_tx_bytes_per_pass": snap.get(
+                 "trainer.fleet.shuffle_tx_bytes", 0.0) / max(n_pass, 1),
+             "end_day_calls": [b[0] for b in end_days],
+             "launches": launches}
+        return world_state, results, r
+    finally:
+        stop_fleet(flt)
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def fleet_main_run(spec_path: str, world: int, work: str, ports: list,
+                   device: str) -> dict:
+    """(e): ``python -m paddlebox_tpu_torch.trainer.fleet_main`` as
+    ``world`` rank processes on ``device`` over a loopback PSFleet of
+    CLUSTER_WIDE shards with fleet_main's table config; returns each
+    rank's FLEETMAIN record and the wall."""
+    from paddlebox_tpu_torch.launch import PSFleet
+    flt = PSFleet(CLUSTER_WIDE, config=EmbeddingTableConfig(
+        embedding_dim=MF_DIM, shard_num=4,
+        sgd=SparseSGDConfig(mf_create_thresholds=2.0)), seed=1,
+        max_restarts=16)
+    procs = []
+    try:
+        ps = ",".join(f"{h}:{p}" for h, p in flt.addrs)
+        tr = ",".join(f"127.0.0.1:{p}"
+                      for p in fleet_free_ports(world, ports))
+        wd = os.path.join(work, f"wd-{world}")
+        t0 = time.monotonic()
+        for rank in range(world):
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "paddlebox_tpu_torch.trainer.fleet_main",
+                 "--rank", str(rank), "--world", str(world), "--ps", ps,
+                 "--trainer_addrs", tr if world > 1 else "",
+                 "--workdir", wd, "--spec", spec_path,
+                 "--batch_size", str(FLEET_MAIN_BATCH),
+                 "--virtual_shards", str(FLEET_V), "--table_seed", "1",
+                 "--device", device],
+                cwd=os.path.dirname(os.path.abspath(__file__)),
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        outs = []
+        for rank, proc in enumerate(procs):
+            out, err = proc.communicate(timeout=300)
+            if proc.returncode != 0:
+                raise AssertionError(
+                    f"trainer_fleet[e]: fleet_main rank {rank}/{world} "
+                    f"exited {proc.returncode}:\n{err[-3000:]}")
+            line = [ln for ln in out.splitlines()
+                    if ln.startswith("FLEETMAIN ")]
+            if len(line) != 1:
+                raise AssertionError(f"trainer_fleet[e]: rank {rank}/"
+                                     f"{world} printed {len(line)} "
+                                     "FLEETMAIN lines")
+            outs.append(json.loads(line[0][len("FLEETMAIN "):]))
+        return {"ranks": outs, "wall_s": time.monotonic() - t0}
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        stop_fleet(flt)
+
+
+def fleet_main_phase(seed: int, work: str, ports: list,
+                     device: str) -> dict:
+    """(e): fleet_main's own spec and files, as one and as two
+    processes; the two histories must be bitwise equal."""
+    rng = np.random.default_rng(seed)
+    days = []
+    for d, date in enumerate(LIFE_DATES):
+        passes = []
+        for p in range(CLUSTER_PASSES):
+            path = os.path.join(work, f"main-d{d}p{p}.txt")
+            write_slot_file(path, make_block(rng, FLEET_MAIN_RECORDS,
+                                             cap=2))
+            passes.append([path])
+        days.append([date, passes])
+    spec = os.path.join(work, "spec.json")
+    with open(spec, "w") as f:
+        json.dump({"days": days, "n_slots": N_SLOTS, "mf_dim": MF_DIM,
+                   "dense_dim": DENSE_DIM}, f)
+    runs = {w: fleet_main_run(spec, w, work, ports, device) for w in (1, 2)}
+    solo = runs[1]["ranks"][0]["history"]
+    for rank, rec in enumerate(runs[2]["ranks"]):
+        if rec["history"] != solo:
+            raise AssertionError(
+                f"trainer_fleet[e]: 2-process rank {rank}'s history "
+                f"{rec['history']} != the 1-process run's {solo}")
+    if not solo or not all(math.isfinite(h["loss"]) for h in solo):
+        raise AssertionError(f"trainer_fleet[e]: history {solo}")
+    return {"history": solo,
+            "wall_s": {w: runs[w]["wall_s"] for w in runs},
+            "rank_wall_s": {w: [r["wall_s"] for r in runs[w]["ranks"]]
+                            for w in runs},
+            "restarts": {w: [r["restarts"] for r in runs[w]["ranks"]]
+                         for w in runs},
+            "shuffle_tx_bytes": [r["stats"].get(
+                "trainer.fleet.shuffle_tx_bytes", 0.0)
+                for r in runs[2]["ranks"]]}
+
+
+def trainer_fleet_phase(paths, seed: int = 21, device: str = "cuda"):
+    """Phase 16 (see the module docstring).  ``paths``: the pass files,
+    FLEET_FILES_PER_PASS a pass, CLUSTER_PASSES passes a day."""
+    t_phase = time.perf_counter()
+    per_day = FLEET_FILES_PER_PASS * CLUSTER_PASSES
+    days = [(date, [paths[d * per_day + p * FLEET_FILES_PER_PASS:
+                          d * per_day + (p + 1) * FLEET_FILES_PER_PASS]
+                    for p in range(CLUSTER_PASSES)])
+            for d, date in enumerate(LIFE_DATES)]
+    ports = [27100]
+    kill_files = days[(FLEET_KILL_PASS - 1) // CLUSTER_PASSES][1][
+        (FLEET_KILL_PASS - 1) % CLUSTER_PASSES]
+    kill_pass_batches = fleet_slice_batches(kill_files)
+    launches, out, base = {}, {}, None
+    for label, world, prefetch, killed, name in FLEET_RUNS:
+        what = (f"trainer_fleet[{label}: N={world},"
+                f"{'prefetch' if prefetch else 'serial'}"
+                + (f",rank {killed} killed at fleet_allreduce of pass "
+                   f"{FLEET_KILL_PASS}" if killed is not None else "")
+                + "]")
+        world_state, results, r = fleet_run(days, world, prefetch, killed,
+                                            device, ports)
+        flat = [x[0] for x in world_state["losses"]]
+        if len(flat) != len(LIFE_DATES) * CLUSTER_PASSES or \
+                not all(map(math.isfinite, flat)):
+            raise AssertionError(f"{what}: history {r['history']}")
+        if r["end_day_calls"] != [len(LIFE_DATES)] * CLUSTER_WIDE:
+            raise AssertionError(f"{what}: end_day applied "
+                                 f"{r['end_day_calls']} times per shard "
+                                 f"over {len(LIFE_DATES)} days")
+        for res in results[1:]:
+            same_world(f"{what}: rank {res['rank']} vs rank 0",
+                       world_state, dict(world_state,
+                                         dense=fleet_result_dense(res)))
+        if base is None:
+            base = world_state
+            if r["history"][FLEET_KILL_PASS - 1]["batches"] != \
+                    int(kill_pass_batches.sum()):
+                raise AssertionError(
+                    f"{what}: pass {FLEET_KILL_PASS} trained "
+                    f"{r['history'][FLEET_KILL_PASS - 1]['batches']} "
+                    f"batches, its slices hold {kill_pass_batches}")
+        else:
+            same_world(f"{what} vs trainer_fleet[a]", base, world_state)
+        if device == "cuda":
+            want = r["batches"]
+            if killed is not None:
+                r["replayed_batches"] = int(kill_pass_batches[
+                    killed::world].sum())
+                want += r["replayed_batches"]
+                if r["restarts"] < 1 or r["shadow_replays"] < 1:
+                    raise AssertionError(f"{what}: restarts "
+                                         f"{r['restarts']}, shadow replays "
+                                         f"{r['shadow_replays']}")
+            for k in ("gather_sorted", "scatter_add_sorted"):
+                if r["launches"][k] != want:
+                    raise AssertionError(
+                        f"{what}: {k} launched {r['launches'][k]} times "
+                        f"for {want} trained batches")
+            if r["launches"]["gather_pool"]:
+                raise AssertionError(f"{what}: gather_pool launched")
+            if label == "b" and r["launches"] != out["a"]["launches"]:
+                raise AssertionError(f"{what}: launches {r['launches']} "
+                                     f"!= trainer_fleet[a]'s "
+                                     f"{out['a']['launches']}")
+        launches[name] = r["launches"]
+        out[label] = r
+        log(f"{what}: wall {r['wall_s']:.3f} s, pass walls "
+            f"{[round(x, 3) for x in r['pass_wall_s']]} s, "
+            f"trainer.fleet.shuffle_s max {r['shuffle_s_max']} s (sum "
+            f"{r['shuffle_s_sum']} over {r['shuffle_s_count']} samples), "
+            f"straggler gap max {r['straggler_gap_s_max']} s, shadow "
+            f"replays {int(r['shadow_replays'])}, restarts "
+            f"{int(r['restarts'])}, PS wire "
+            f"{r['ps_wire_bytes_per_pass'] / 2**20:.1f} MiB a pass, shuffle "
+            f"{r['shuffle_tx_bytes_per_pass'] / 2**20:.1f} MiB a pass, "
+            f"{r['batches']} batches, launches {r['launches']}"
+            + (f" (= {r['batches']} + {r['replayed_batches']} replayed)"
+               if killed is not None and device == "cuda" else "")
+            + ("" if label == "a" else "; = trainer_fleet[a] bitwise"))
+    hist_a = out["a"]["history"]
+    # pass 1 of (a) again on the CPU, from the same seeds and data
+    cpu_state, _, cpu_r = fleet_run([(LIFE_DATES[0], days[0][1][:1])], 1,
+                                    False, None, "cpu", ports)
+    cpu_h = cpu_r["history"][0]
+    for k in ("loss", "auc"):
+        if not math.isclose(cpu_h[k], hist_a[0][k], rel_tol=FLEET_CPU_RTOL):
+            raise AssertionError(f"trainer_fleet[cpu]: pass 1 {k} card "
+                                 f"{hist_a[0][k]} vs CPU {cpu_h[k]}")
+    if cpu_h["batches"] != hist_a[0]["batches"]:
+        raise AssertionError("trainer_fleet[cpu]: pass 1 batches differ")
+    out["cpu_pass1"] = cpu_h
+    log(f"trainer_fleet[cpu]: pass 1 loss card {hist_a[0]['loss']!r} vs "
+        f"CPU {cpu_h['loss']!r}, AUC card {hist_a[0]['auc']!r} vs CPU "
+        f"{cpu_h['auc']!r} (rtol {FLEET_CPU_RTOL})")
+    work = tempfile.mkdtemp(prefix="chip_smoke_fleet_main_")
+    try:
+        out["e"] = fleet_main_phase(seed, work, ports, device)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    e = out["e"]
+    log(f"trainer_fleet[e: fleet_main, 1 and 2 processes]: walls "
+        f"{ {w: round(s, 3) for w, s in e['wall_s'].items()} } s (per rank "
+        f"{e['rank_wall_s']}), restarts {e['restarts']}, shuffle "
+        f"{[round(b / 2**20, 1) for b in e['shuffle_tx_bytes']]} MiB per "
+        f"rank; histories bitwise equal ({len(e['history'])} passes)")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"trainer_fleet: runs a-d bitwise equal (history, every rank's "
+        f"dense weights and Adam state, {len(base['table'][0])} table keys "
+        f"× every field over the union of the shards, no key on two); "
+        f"end_day once a day on every shard; phase "
+        f"{out['phase_s']:.1f} s")
+    return launches, out
+
+
+
 def profile_phase(seed: int = 1, symbols=SYMBOLS) -> dict:
     """Short traced passes (2 batches) of the lowerings that phases 3-4
     run once untraced: device time by kernel, per step, and the
@@ -3505,12 +3923,14 @@ def main() -> int:
     cross_launches, cross_out = timed("crossing", crossing_phase,
                                       packed_block, packed_params)
     life_launches, life_out = timed("lifecycle", lifecycle_phase)
-    # the pass files of phases 11 and 14 (phase 11 reads the first
-    # REC_PASSES of them), written once
+    # the pass files of phases 11, 14, 15 and 16 (phase 11 reads the
+    # first REC_PASSES of them, phases 14 and 15 one a pass, phase 16
+    # FLEET_FILES_PER_PASS a pass), written once
     work = tempfile.mkdtemp(prefix="chip_smoke_files_")
     try:
         paths = timed("files", write_pass_files, work, 6,
-                      max(REC_PASSES, len(LIFE_DATES) * CLUSTER_PASSES))
+                      max(REC_PASSES, len(LIFE_DATES) * CLUSTER_PASSES
+                          * FLEET_FILES_PER_PASS))
         rec_launches, rec_out = timed("recovery", recovery_phase,
                                       paths=paths)
         rank_launches, rank_out = timed("rank", rank_phase)
@@ -3520,6 +3940,8 @@ def main() -> int:
             local_pass_wall_s=life_out["mxu_serial"]["median_pass_wall_s"])
         serve_launches, serve_out = timed("serving", serving_phase,
                                           paths=paths)
+        fleet_launches, fleet_out = timed("trainer_fleet",
+                                          trainer_fleet_phase, paths)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     profile_out = timed("profile", profile_phase)
@@ -3536,7 +3958,8 @@ def main() -> int:
                **{f"rank_{p}": n for p, n in rank_launches.items()},
                **{f"options_{p}": n for p, n in opt_launches.items()},
                **{f"cluster_{p}": n for p, n in cl_launches.items()},
-               **{f"serving_{p}": n for p, n in serve_launches.items()}}
+               **{f"serving_{p}": n for p, n in serve_launches.items()},
+               **fleet_launches}
     line = {"kernels": []}
     for name in KERNELS:
         k = kern["uniform"][name]
@@ -3570,6 +3993,7 @@ def main() -> int:
                                  "rank": rank_out, "options": opt_out,
                                  "cluster": cl_out,
                                  "serving": serve_out,
+                                 "trainer_fleet": fleet_out,
                                  "profile": profile_out,
                                  "phase_s": phase_s}))
     print(json.dumps(line), flush=True)

@@ -12,11 +12,13 @@ native C++ parser (``native/slot_parser.py``) when the native library
 builds and no string slot is configured, else the pure-Python
 ``SlotParser``; ``use_native=False`` forces the Python one.
 ``load_parser_plugin`` loads a site-specific parser by spec, as the JAX
-package's does.  Remote (non-local) file schemes are not ported yet.
+package's does.  A scheme-prefixed path (``hdfs://...``) is read
+through the filesystem registered for its scheme (``io/fs.py``).
 """
 
 from __future__ import annotations
 
+import gzip
 import io
 import subprocess
 from typing import Iterator, List, Sequence, Tuple
@@ -25,6 +27,7 @@ import numpy as np
 
 from paddlebox_tpu_torch.config import DataFeedConfig, SlotConfig
 from paddlebox_tpu_torch.data.slot_record import SlotRecordBlock
+from paddlebox_tpu_torch.io import fs as pfs
 from paddlebox_tpu_torch.utils.monitor import stat_add
 
 
@@ -132,8 +135,19 @@ class SlotParser:
 
 
 def open_file(path: str, pipe_command: str = "") -> io.TextIOBase:
-    """≙ fs_open_read (framework/io/fs.cc): optional shell pipe and gz
-    support for local files."""
+    """≙ fs_open_read (framework/io/fs.cc): optional shell pipe, gz
+    support, and scheme-dispatched remote filesystems (hdfs://... through
+    the registered ShellFS — io/fs.py)."""
+    scheme, _ = pfs.split_scheme(path)
+    if scheme and scheme != "file":
+        if pipe_command:
+            raise ValueError(
+                "pipe_command over a remote path is not supported — "
+                "preprocess into the remote store or read locally")
+        raw = io.BufferedReader(pfs.open_read(path))
+        if path.endswith(".gz"):
+            return io.TextIOWrapper(gzip.GzipFile(fileobj=raw))
+        return io.TextIOWrapper(raw)
     if pipe_command:
         cmd = f"cat '{path}' | {pipe_command}" if path else pipe_command
         proc = subprocess.Popen(cmd, shell=True, stdout=subprocess.PIPE)

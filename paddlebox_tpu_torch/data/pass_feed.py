@@ -18,8 +18,8 @@ pass-scope key translation DedupKeysAndFillIdx, box_wrapper_impl.h:129):
 Besides the step's five planes the pass carries the page-view planes
 (``rank_offset`` [N*B, 1+2*max_rank] with batch-local rows, ``ads_offset``
 [N, B+1]), the InputTable aux index planes and the uid plane; the uids
-stay on the host, where the per-user AUC reads them.  Not ported:
-sharded feeds.
+stay on the host, where the per-user AUC reads them.  ``route_keys`` is
+the trainer fleet's per-record shuffle key.  Not ported: sharded feeds.
 """
 
 from __future__ import annotations
@@ -102,6 +102,29 @@ def _record_ranges(n: int, threads: int) -> List[tuple]:
     bounds = np.linspace(0, n, chunks + 1).astype(np.int64)
     return [(int(bounds[i]), int(bounds[i + 1]))
             for i in range(len(bounds) - 1) if bounds[i + 1] > bounds[i]]
+
+
+def route_keys(block: SlotRecordBlock) -> np.ndarray:
+    """Per-record shuffle route key for the fleet's global shuffle-by-key
+    (≙ the reference's shuffle_by_uid / global_shuffle key extraction):
+    the FIRST feasign of the record's first non-empty uint64 slot, slots
+    visited in sorted-name order.  Both orders are properties of the data
+    alone — independent of reader thread, file split, or fleet size — so
+    every fleet width routes a given record identically.  Records with no
+    sparse key at all route as key 0 (all land on one slice; degenerate
+    but still deterministic)."""
+    keys = np.zeros(block.n, dtype=np.uint64)
+    found = np.zeros(block.n, dtype=bool)
+    for name in sorted(block.uint64_slots):
+        vals, offs = block.uint64_slots[name]
+        has = offs[1:] > offs[:-1]
+        take = has & ~found
+        if take.any():
+            keys[take] = vals[offs[:-1][take]]
+            found |= has
+        if found.all():
+            break
+    return keys
 
 
 def pack_pass(blocks: Sequence[SlotRecordBlock], feed_config: DataFeedConfig,

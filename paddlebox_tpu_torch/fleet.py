@@ -15,8 +15,9 @@ A reference user drives training as:
     dataset.end_pass(True)
 or hands a day's per-pass filelists to :func:`train_passes`.  This module
 offers the same verbs over the port's one-card engine and trainer, whose
-table may be local or a remote PS fleet.  Not ported yet: the trainer
-fleet (``run_trainer_fleet``) and topologies.
+table may be local or a remote PS fleet; :func:`run_trainer_fleet`
+drives N supervised trainer ranks over one PS fleet.  Not ported yet:
+topologies.
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ from paddlebox_tpu_torch.config import (DataFeedConfig, DistributedStrategy,
                                         EmbeddingTableConfig)
 from paddlebox_tpu_torch.data.dataset import ShuffleTransport, SlotDataset
 from paddlebox_tpu_torch.data.prefetch import PassPrefetcher
-from paddlebox_tpu_torch.device import DeviceLike
+from paddlebox_tpu_torch.device import DeviceLike, resolve_device
 from paddlebox_tpu_torch.io.checkpoint import TrainCheckpoint
 from paddlebox_tpu_torch.metrics import quality
 from paddlebox_tpu_torch.metrics.auc import MetricGroup
@@ -411,3 +412,74 @@ def train_passes(trainer: SparseTrainer, dataset: BoxPSDataset,
             del metrics[new_start:]
             metrics.extend([None] * (new_start - len(metrics)))
             todo = list(range(new_start, len(passes)))
+
+
+def run_trainer_fleet(world, ps_addrs, workdir, table_config, model_fn,
+                      feed_config, days, *, batch_size: int = 128,
+                      virtual_shards: Optional[int] = None,
+                      table_seed: int = 0, trainer_seed: int = 0,
+                      prefetch: bool = False,
+                      trainer_addrs: Optional[Sequence] = None,
+                      fault_plans: Optional[Dict[int, object]] = None,
+                      max_restarts: int = 3,
+                      client_deadline: float = 60.0,
+                      auc_table_size: int = 100_000,
+                      device: DeviceLike = "cuda") -> list:
+    """Drive ``world`` supervised fleet trainers over one PS cluster —
+    the N x M data-parallel entry (trainer/fleet_runner.py protocol,
+    launch.TrainerSupervisor restarts).  The ranks are threads of this
+    process; every rank's engines and trainer work on ``device``.
+
+    Every rank's supervisor builds a FULL fresh incarnation per attempt
+    (PSClient + shuffle transport + FleetRunner); ``fault_plans`` (rank →
+    ps.faults.FaultPlan) arm only the FIRST incarnation, so an injected
+    kill exercises the same recovery path a real crash would.  Returns
+    the per-rank run() results in rank order; any rank that spent its
+    restart budget re-raises its terminal error from ``join()``.
+
+    ``trainer_addrs``: one (host, port) per rank for the shuffle
+    transport — required when world > 1.  Use fixed, non-ephemeral
+    ports: a restarted rank re-binds its OWN address, which must not be
+    squattable by concurrent outbound dials."""
+    from paddlebox_tpu_torch.data.shuffle_transport import \
+        TcpShuffleTransport
+    from paddlebox_tpu_torch.launch import TrainerSupervisor
+    from paddlebox_tpu_torch.ps.service import PSClient
+    from paddlebox_tpu_torch.trainer.fleet_runner import FleetRunner
+
+    device = resolve_device(device)     # no card: raise here, not per rank
+    if world is None:
+        world = int(flags.get_flags("trainers"))   # --trainers knob
+    if world > 1 and not trainer_addrs:
+        raise ValueError("world > 1 requires trainer_addrs for the "
+                         "shuffle transport")
+    plans = dict(fault_plans or {})
+
+    def factory(rank: int):
+        plan = plans.pop(rank, None)     # first incarnation only
+        client = PSClient(ps_addrs, deadline=client_deadline)
+        transport = (TcpShuffleTransport(rank, list(trainer_addrs))
+                     if world > 1 else None)
+        return FleetRunner(
+            rank=rank, world=world, client=client, workdir=workdir,
+            table_config=table_config, model_fn=model_fn,
+            feed_config=feed_config, batch_size=batch_size,
+            virtual_shards=virtual_shards, table_seed=table_seed,
+            trainer_seed=trainer_seed, prefetch=prefetch,
+            transport=transport, fault_plan=plan,
+            auc_table_size=auc_table_size, device=device)
+
+    sups = [TrainerSupervisor(factory, r, days, max_restarts=max_restarts)
+            for r in range(world)]
+    results, errors = [], []
+    for s in sups:
+        try:
+            results.append(s.join())
+        except BaseException as e:  # noqa: BLE001 — surface after joining all
+            errors.append(e)
+            results.append(None)
+    for s in sups:
+        s.stop()
+    if errors:
+        raise errors[0]
+    return results

@@ -35,6 +35,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_LAUNCH_LOCK = threading.Lock()
 
 
 def nvcc_path() -> str:
@@ -96,6 +97,14 @@ def library(name: str) -> ctypes.CDLL:
                 lib = ctypes.CDLL(str(_lib_path(name)))
                 _LIBS[name] = lib
     return lib
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches``: the wrappers count every kernel
+    they launch, and the ranks of a thread-mode trainer fleet launch from
+    several threads at once."""
+    with _LAUNCH_LOCK:
+        wrapper.launches += 1
 
 
 def check(status: int, what: str) -> None:

@@ -122,7 +122,7 @@ def gather_pool(table: torch.Tensor, idx: torch.Tensor,
             table.data_ptr(), ld, idx.data_ptr(), lengths.data_ptr(),
             out.data_ptr(), r, l_cap, d, int(_vector_rows(table)), stream),
             "gather_pool")
-    gather_pool.launches += 1
+    cuda_lib.count_launch(gather_pool)
     return out
 
 

@@ -274,7 +274,7 @@ def gather_sorted(table_fm: torch.Tensor, rows2d: torch.Tensor,
         cuda_lib.check(_lib().pbt_gather_sorted(
             table_fm.data_ptr(), n_kernel, rows2d.data_ptr(),
             out.data_ptr(), p_pad, w, stream), "gather_sorted")
-    gather_sorted.launches += 1
+    cuda_lib.count_launch(gather_sorted)
     return out
 
 
@@ -311,7 +311,7 @@ def scatter_add_sorted(payload_fm: torch.Tensor, rows2d: torch.Tensor,
             payload_fm.data_ptr(), p_pad, rows2d.data_ptr(),
             scratch.data_ptr(), out.data_ptr(), dims.n_kernel, w, stream),
             "scatter_add_sorted")
-    scatter_add_sorted.launches += 1
+    cuda_lib.count_launch(scatter_add_sorted)
     return out
 
 

@@ -39,6 +39,16 @@ PS_TIER = tuple(f"paddlebox_tpu_torch.{m}" for m in (
     "ps.wire", "ps.cluster", "ps.service", "ps.geo_table", "ps.ssd_table",
     "ps.reshard", "ps.server_main", "launch"))
 
+# the trainer fleet's host modules: elastic membership, the fleet's
+# collective over the PS verbs and the TCP shuffle — torch-free, as the
+# PS tier is (a trainer process imports torch for its trainer only)
+FLEET_HOST = tuple(f"paddlebox_tpu_torch.{m}" for m in (
+    "elastic", "parallel.collective", "data.shuffle_transport"))
+
+# the trainer fleet's torch modules and the launcher
+FLEET = tuple(f"paddlebox_tpu_torch.{m}" for m in (
+    "trainer.fleet_runner", "trainer.fleet_main", "launch", "fleet"))
+
 # the serving tier and the observability modules it runs under: host
 # modules too (a replica serves a frozen host table), and the xbox half
 # of io.checkpoint with the native dump writer, which the PS server's
@@ -63,6 +73,7 @@ def test_port_modules_import_without_jax():
     assert "paddlebox_tpu_torch.ops.sorted_spmm" in mods
     assert set(PS_TIER) <= set(mods)
     assert set(SERVING_TIER) <= set(mods)
+    assert set(FLEET_HOST) <= set(mods) and set(FLEET) <= set(mods)
     scripts = ["chip_smoke", "kernel_ab"]
     proc = subprocess.run([sys.executable, "-c", _PROBE, *mods, *scripts],
                           cwd=REPO, capture_output=True, text=True,
@@ -137,3 +148,34 @@ assert "torch" not in sys.modules, "serve imported torch"
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert proc.stdout.startswith(f"ok {len(mods)}")
     assert "--manifest" in proc.stdout and "--n_shards" in proc.stdout
+
+
+def test_fleet_host_modules_import_without_torch_and_launch_runs():
+    """The trainer fleet's host modules in a JAX-blocked interpreter:
+    they load without importing torch, the fleet's torch modules load
+    without JAX, and ``python -m paddlebox_tpu_torch.launch --help``
+    (the launcher's whole argument surface, ``--serve*`` included) runs
+    without torch."""
+    probe = _PROBE + r"""
+assert "torch" not in sys.modules, "a fleet host module imported torch"
+import runpy
+sys.argv = ["launch", "--help"]
+try:
+    runpy.run_module("paddlebox_tpu_torch.launch", run_name="__main__")
+except SystemExit as e:
+    assert e.code in (0, None), e.code
+assert "torch" not in sys.modules, "launch --help imported torch"
+for mod in FLEET:
+    importlib.import_module(mod)
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+assert not leaked, leaked
+"""
+    mods = list(FLEET_HOST)
+    proc = subprocess.run(
+        [sys.executable, "-c", f"FLEET = {list(FLEET)!r}\n" + probe, *mods],
+        cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.startswith(f"ok {len(mods)}")
+    for arg in ("--nproc_per_node", "--elastic_dir", "--ps_servers",
+                "--serve", "--serve_shards", "--serve_ckpt"):
+        assert arg in proc.stdout, arg

@@ -3,12 +3,14 @@ test_timeline.py, run against ``paddlebox_tpu_torch``): ring wrap and
 rate derivation vs hand-computed deltas (counter reset included), breach
 → ``slo_breach`` flight-event round-trip with per-rule latching, the
 serving rule set, the /timelinez + /clusterz endpoints and ?prefix=
-scrape filters, quality monitor gauges and postmortem timeline tails.
-The launcher's ClusterScraper and the pboxlint rule are not part of the
-port; /clusterz is driven through a registered provider instead."""
+scrape filters, quality monitor gauges and postmortem timeline tails,
+and the launcher's ClusterScraper behind /clusterz (its merged fold and
+a worker killed mid-scrape).  The pboxlint rule is not part of the
+port."""
 
 import json
 import time
+import types
 import urllib.error
 import urllib.request
 
@@ -16,6 +18,7 @@ import numpy as np
 import pytest
 
 from paddlebox_tpu_torch import flags
+from paddlebox_tpu_torch.launch import ClusterScraper
 from paddlebox_tpu_torch.metrics import quality
 from paddlebox_tpu_torch.utils import flight, obs_server, timeline
 from paddlebox_tpu_torch.utils.monitor import (StatRegistry, stat_add,
@@ -365,26 +368,81 @@ def test_serving_rules_page_on_tenant_p99_and_sustained_shed():
     assert wd.states()["serving_feed_p99"] is False
 
 
+def test_cluster_scraper_merged_equals_per_worker_sums():
+    """Stubbed per-worker snapshots with DISTINCT values: the merged
+    timeline must carry their sum (counters) and worst (quantiles)."""
+    scraper = ClusterScraper([7001, 7002, 7003], interval_s=600.0)
+    snaps = {7001: {"w.ops": 10.0, "w.lat_s.p99": 0.2},
+             7002: {"w.ops": 4.0, "w.lat_s.p99": 0.9},
+             7003: {"w.ops": 1.0, "w.lat_s.p99": 0.1}}
+    real = scraper._obs
+    scraper._obs = types.SimpleNamespace(
+        scrape=lambda port, **kw: dict(snaps[port]),
+        merge_snapshots=real.merge_snapshots,
+        set_clusterz_provider=real.set_clusterz_provider)
+    assert scraper.scrape_once() == 3
+    latest = scraper.ring.samples()[-1]["stats"]
+    assert latest["w.ops"] == 15.0                      # summed
+    assert latest["w.lat_s.p99"] == 0.9                 # worst worker
+    idx = scraper.render()
+    assert idx["workers"] == {"7001": True, "7002": True, "7003": True}
+    assert idx["latest"]["w.ops"] == 15.0
+
+
+def test_cluster_scraper_survives_mid_scrape_worker_kill():
+    """Chaos: worker 2's obs server is shut down while the scrape round
+    is in flight — the round folds whoever answered, marks the corpse
+    dead, and the merged series carries on (with a counter 'reset'
+    handled as restart-from-zero when it comes back smaller)."""
+    stat_add("cl.ops", 6.0)
+    srv1, srv2 = obs_server.ObsServer(port=0), obs_server.ObsServer(port=0)
+    p1, p2 = srv1.addr[1], srv2.addr[1]
+    try:
+        scraper = ClusterScraper([p1, p2], interval_s=600.0)
+        assert scraper.scrape_once() == 2
+        # both workers serve the same process registry → merged = 2x
+        assert scraper.ring.samples()[-1]["stats"]["cl.ops"] == 12.0
+        # kill worker 2 in the MIDDLE of the next round: after worker 1
+        # answered, before worker 2 is polled
+        real = scraper._obs
+
+        def killing_scrape(port, **kw):
+            if port == p2:
+                srv2.shutdown()
+            return real.scrape(port, **kw)
+
+        scraper._obs = types.SimpleNamespace(
+            scrape=killing_scrape,
+            merge_snapshots=real.merge_snapshots,
+            set_clusterz_provider=real.set_clusterz_provider)
+        assert scraper.scrape_once() == 1               # survived
+        assert scraper.ring.samples()[-1]["stats"]["cl.ops"] == 6.0
+        idx = scraper.render()
+        assert idx["workers"] == {str(p1): True, str(p2): False}
+        # the fold dropping a worker halves the counter: rate derivation
+        # treats it as a reset, never a negative rate
+        rates = scraper.ring.samples()[-1]["rates"]
+        assert rates["cl.ops"] >= 0.0
+    finally:
+        srv1.shutdown()
+        srv2.shutdown()
+
+
 def test_clusterz_endpoint_provider_registration():
-    """/clusterz serves whatever provider is registered (the launcher's
-    ClusterScraper in a fleet; a ring of this process's own samples
-    here) and falls back to disabled when it is unregistered."""
+    """/clusterz serves the registered provider — the launcher's
+    ClusterScraper over this process's own exporter here — and falls
+    back to disabled when it is unregistered."""
     stat_add("cz.n", 2.0)
-    ring = timeline.TimelineRing(8)
-    ring.append(stat_snapshot(), mono=time.monotonic())
-
-    def provider(name=None, n=None):
-        if name is None:
-            return {"enabled": True, "names": ring.names()}
-        return ring.series(name, n)
-
     srv = obs_server.ObsServer(port=0)
     try:
         port = srv.addr[1]
         assert json.loads(_get(port, "/clusterz")) == {"enabled": False}
-        obs_server.set_clusterz_provider(provider)
+        scraper = ClusterScraper([srv.addr[1]], interval_s=600.0)
+        obs_server.set_clusterz_provider(scraper.render)
+        scraper.scrape_once()
         idx = json.loads(_get(port, "/clusterz"))
         assert idx["enabled"] is True and "cz.n" in idx["names"]
+        assert idx["workers"] == {str(port): True}
         ser = json.loads(_get(port, "/clusterz?name=cz.n&n=4"))
         assert ser["points"][-1][1] == 2.0
         obs_server.set_clusterz_provider(None)
