@@ -244,6 +244,28 @@ result line is printed):
    shadow replays, the restarts, the PS wire and shuffle bytes a pass,
    and the phase's seconds.
 
+17. sharded — the multi-shard mxu lowering (``mxu_sharded``), one
+   controller driving every shard on the card: DeepFM at the bench widths
+   on the packed phase's data and weights (one packed pass of 4 × 16384
+   records, ~1.6 M keys of the 2 M key space) over three topologies:
+   (a) ``MeshConfig(dp=4)``, a flat pool of 4 table shards; (b)
+   ``MeshConfig(dp=2, sharding=2)``, the multi-node layout (the table
+   split within a node, replicated across the two); (c) as (a) under
+   FLAGS_sharded_exchange_bf16.  Each: ``auto`` resolves to mxu_sharded;
+   finite losses and an AUC; ``gather_sorted`` and ``scatter_add_sorted``
+   exactly once a shard a step (4 in each run: (b)'s 2 table shards in
+   each of 2 nodes), ``gather_pool`` never; the first step within rtol
+   1e-4 of the packed one-device mxu pass and of the same topology on
+   the CPU ((c): 1e-2, the exchanged values rounded to bf16); a second
+   pass from the same state leaves the same bits.  Both sorted kernels
+   on shard 1 of (a)'s first batch (the sentinel run ~5/6 of the
+   gathered domain) against their plain versions, as in phase 2, twice
+   bit-identical, with device ms beside phase 2's.  Prints
+   ``sharded[<run>]:`` lines (steady step ms, plan and feed bytes,
+   ``build_pass_feed`` seconds) and ``sharded[kernels, ...]:`` lines;
+   the kernels' times at the sharded shapes ride the ``kernels`` line
+   as ``at_sharded``.
+
 Depth cuts (the widths are the bench model's): phases 10-11, a day of
 3 passes of 4 batches; the cache runs of phase 10 stop after the first
 pass of day 2 (4 passes); phases 14 and 15, 2 days of 2 passes of 4
@@ -645,24 +667,33 @@ def read_counts() -> dict:
 def make_trainer(block: SlotRecordBlock, device: str, params=None,
                  path: str = "mxu", model: str = "deepfm", amp: bool = False,
                  optimizer: str = "adagrad", batch: int = 0,
-                 trainer_config=None):
+                 trainer_config=None, mesh: dict = None):
     """Engine lifecycle up to begin_pass over ``block``'s keys, and a
     trainer on ``device`` (from ``params`` when given).  model "mmoe"
     trains through MultiTaskSparseTrainer on two label slots (the
     reference lowering); ``path`` names the lowering of the others.
     ``batch``: the batch size, BATCH when 0.  Model "ctr_dnn_ex" trains
     over a table with an EX_DIM-wide expand embedding;
-    ``trainer_config``: the trainer's TrainerConfig.  Returns (engine,
-    trainer, a dataset of ``block``, the model's initial params)."""
+    ``trainer_config``: the trainer's TrainerConfig.  ``mesh``: the
+    degrees of a topology (every shard on ``device``) for the engine and
+    the trainer.  Returns (engine, trainer, a dataset of ``block``, the
+    model's initial params)."""
     n_labels = 2 if model == "mmoe" else 1
     cfg = feed_config(n_labels)
     dataset = SlotDataset(cfg)
     dataset._blocks = [block]
+    # a topology only when asked, so an older checkout (kernel_ab) takes
+    # the same call
+    topo = {}
+    if mesh is not None:
+        from paddlebox_tpu_torch.config import MeshConfig
+        from paddlebox_tpu_torch.parallel.topology import HybridTopology
+        topo["topology"] = HybridTopology(MeshConfig(**mesh), device=device)
     engine = BoxPSEngine(EmbeddingTableConfig(
         embedding_dim=MF_DIM, shard_num=8,
         expand_dim=EX_DIM if model == "ctr_dnn_ex" else 0,
         sgd=SparseSGDConfig(mf_create_thresholds=0.0, optimizer=optimizer)),
-        seed=0, device=device)
+        seed=0, device=device, **topo)
     engine.begin_feed_pass()
     engine.add_keys(block.all_keys())
     engine.end_feed_pass()
@@ -681,7 +712,8 @@ def make_trainer(block: SlotRecordBlock, device: str, params=None,
             extra["trainer_config"] = trainer_config
         trainer = SparseTrainer(engine, make_model(model), cfg,
                                 batch_size=batch or BATCH, seed=0,
-                                sparse_path=path, device=device, **extra)
+                                sparse_path=path, device=device, **extra,
+                                **topo)
     if params is not None:
         trainer.model.load_jax_params(params)
     return engine, trainer, dataset, trainer.model.jax_params()
@@ -698,7 +730,8 @@ def run_pass(block: SlotRecordBlock, device: str, params=None,
     keep_ws, a copy of the trained working set taken before end_pass.
     ``around_train()`` is a context manager entered around the
     train_pass call alone.  ``hold``: a dict that gets the engine, the
-    trainer and (with keep_ws) the working set before training."""
+    trainer, (packed) the feed and (with keep_ws) the working set before
+    training."""
     engine, trainer, dataset, params0 = make_trainer(
         block, device, params, path, **kw)
     if hold is not None:
@@ -713,6 +746,12 @@ def run_pass(block: SlotRecordBlock, device: str, params=None,
         if device == "cuda":
             torch.cuda.synchronize()
         extra["build_pass_feed_s"] = time.perf_counter() - t0
+        if hold is not None:
+            hold["feed"] = feed
+        if trainer._resolve_path() == "mxu_sharded":
+            extra["feed_bytes"] = feed.device_bytes()
+            extra["plan_bytes"] = sum(t.numel() * t.element_size()
+                                      for t in feed.plans.values())
         if path == "mxu":
             kept = feed.plans["rows2d"].shape[1] * feed.plan_dims.chunk
             extra["mxu_kept_fraction"] = kept / feed.plan_dims.p_pad
@@ -768,17 +807,17 @@ def check_launches(what: str, launches: dict, per_batch: dict,
 
 
 def cpu_first_loss(what: str, block: SlotRecordBlock, card_loss: float,
-                   params, **kw) -> float:
+                   params, rtol: float = 1e-4, **kw) -> float:
     """The first step again on the CPU, from the same weights and data;
     f32 sums run in another order on the two devices: rtol 1e-4."""
     cpu_stats, _, _ = run_pass(block.slice(0, BATCH), "cpu", params=params,
                                **kw)
     cpu_loss = cpu_stats["losses"][0]
-    if not math.isclose(cpu_loss, card_loss, rel_tol=1e-4):
+    if not math.isclose(cpu_loss, card_loss, rel_tol=rtol):
         raise AssertionError(f"{what}: first-step loss card {card_loss} vs "
                              f"CPU {cpu_loss}")
     log(f"{what}: first-step loss card {card_loss!r} vs CPU {cpu_loss!r} "
-        "(rtol 1e-4)")
+        f"(rtol {rtol:g})")
     return cpu_loss
 
 
@@ -3864,6 +3903,190 @@ def trainer_fleet_phase(paths, seed: int = 21, device: str = "cuda"):
     return launches, out
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the multi-shard mxu lowering, every shard on the card
+# ---------------------------------------------------------------------------
+
+# (run, mesh degrees, FLAGS_sharded_exchange_bf16, first-step rtol): the
+# bf16 exchange rounds every pulled value and pushed gradient to 8
+# mantissa bits (~4e-3 relative), hence (c)'s rtol 1e-2
+SHARDED_RUNS = (("a", {"dp": 4}, False, 1e-4),
+                ("b", {"dp": 2, "sharding": 2}, False, 1e-4),
+                ("c", {"dp": 4}, True, 1e-2))
+
+
+def sharded_kernels(stats: dict, feed, shard: int = 1) -> dict:
+    """Both sorted kernels on ``shard``'s plan of the pass's first batch
+    (the feed's resident plan) against their plain versions, with device
+    times by phase 2's method: the gather over the shard's trained
+    feature-major block (bit-exact, zeros on the sentinel run), the
+    scatter over a seeded payload (rtol 1e-5 plus 1e-5 of each row's sum
+    of |terms|), each twice bit-identical."""
+    ws = stats["ws"]
+    dev = ws["show"].device
+    n_shards = feed.plans["rows2d"].shape[1]
+    rows_loc = ws["show"].shape[0] // n_shards
+    rows2d = feed.plans["rows2d"][0, shard]
+    first_occ = feed.plans["first_occ"][0, shard]
+    dims = sp.spmm_dims(feed.plans["inv_perm"].shape[2], rows_loc)
+    flat = rows2d.reshape(-1)
+    outside = flat == dims.sentinel
+    cols = [ws["show"], ws["click"], ws["embed_w"], *ws["mf"].T,
+            ws["mf_size"].to(torch.float32)]
+    table = torch.zeros((W_PULL, dims.n_kernel), device=dev)
+    table[:, :rows_loc] = torch.stack(cols)[:, shard * rows_loc:
+                                            (shard + 1) * rows_loc]
+    gen = torch.Generator(device=dev).manual_seed(shard)
+    payload = torch.randn((W_PUSH, dims.p_pad), generator=gen, device=dev)
+    payload[:, dims.p:] = 0.0
+    n_unique = int(first_occ.sum().item())
+    runs = torch.unique_consecutive(flat, return_counts=True)[1]
+    out = {"shard": shard, "rows_loc": rows_loc, "p": dims.p,
+           "p_pad": dims.p_pad, "n_kernel": dims.n_kernel,
+           "distinct_rows": n_unique, "longest_run": int(runs.max()),
+           "sentinel_share": float(outside.float().mean())}
+
+    got = twice("sharded gather_sorted",
+                lambda: sp.gather_sorted(table, rows2d, dims))
+    want = sp.gather_sorted_plain(table, rows2d, dims)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError("sharded: gather_sorted != plain")
+    if got[:, outside].any():
+        raise AssertionError("sharded: gather_sorted read nonzero values "
+                             "on the sentinel run")
+    rows_l = flat.long()
+    g = {"ms": time_ms("sharded gather_sorted",
+                       lambda: sp.gather_sorted(table, rows2d, dims)),
+         "plain_ms": time_ms("sharded gather_sorted_plain",
+                             lambda: sp.gather_sorted_plain(table, rows2d,
+                                                            dims)),
+         "library_ms": time_ms("sharded index_select",
+                               lambda: torch.index_select(table, 1, rows_l)),
+         "max_abs_err": float((got - want).abs().max())}
+    g["bound_ms"], g["bound_by"] = bound_ms(
+        4 * dims.p_pad + 4 * W_PULL * n_unique + 4 * W_PULL * dims.p_pad, 0)
+
+    got = twice("sharded scatter_add_sorted",
+                lambda: sp.scatter_add_sorted(payload, rows2d, first_occ,
+                                              dims))
+    want = sp.scatter_add_sorted_plain(payload, rows2d, first_occ, dims)
+    abs_sum = sp.scatter_add_sorted_plain(payload.abs(), rows2d, first_occ,
+                                          dims)
+    torch.cuda.synchronize()
+    err = (got - want).abs()
+    if not bool((err <= 1e-5 * want.abs() + 1e-5 * abs_sum + 1e-6).all()):
+        raise AssertionError(f"sharded: scatter_add_sorted != plain: max "
+                             f"err {float(err.max())}")
+    if got[:, rows_loc:dims.sentinel].any() \
+            or got[:, dims.sentinel + 1:].any():
+        raise AssertionError("sharded: scatter_add_sorted wrote outside the "
+                             "owned rows and the sentinel row")
+    s = {"ms": time_ms("sharded scatter_add_sorted",
+                       lambda: sp.scatter_add_sorted(payload, rows2d,
+                                                     first_occ, dims)),
+         "plain_ms": time_ms("sharded scatter_add_sorted_plain",
+                             lambda: sp.scatter_add_sorted_plain(
+                                 payload, rows2d, first_occ, dims)),
+         "library_ms": time_ms("sharded index_add_", lambda: torch.zeros(
+             (W_PUSH, dims.n_kernel), device=dev).index_add_(
+                 1, rows_l, payload)),
+         "max_abs_err": float(err.max())}
+    s["bound_ms"], s["bound_by"] = bound_ms(
+        4 * W_PUSH * dims.p_pad + 4 * dims.p_pad
+        + 4 * W_PUSH * dims.n_kernel, W_PUSH * dims.p)
+    out["gather_sorted"], out["scatter_add_sorted"] = g, s
+    return out
+
+
+def sharded_phase(block: SlotRecordBlock, params0, mxu_first: float,
+                  one_device: dict):
+    """The mxu_sharded lowering at the bench widths on the packed phase's
+    data and weights, every shard on the card: ``SHARDED_RUNS`` (a) dp 4,
+    a flat pool of 4 table shards; (b) dp 2 × sharding 2, the multi-node
+    layout; (c) as (a) under FLAGS_sharded_exchange_bf16.  Each: auto
+    resolves to mxu_sharded; finite losses and an AUC; gather_sorted and
+    scatter_add_sorted exactly once a shard a step (4: (b)'s two nodes
+    each hold both table shards), gather_pool never; the first step
+    within the run's rtol of the packed one-device mxu pass and of the
+    same topology on the CPU; a second pass from the same state (traced)
+    leaves the same bits.  Then both kernels on shard 1 of (a)'s
+    first batch against their plain versions, timed beside the
+    one-device times of phase 2 (``one_device``)."""
+    t_phase = time.perf_counter()
+    launches, out = {}, {}
+    for label, mesh, bf16, rtol in SHARDED_RUNS:
+        what = f"sharded[{label}]"
+        shards = int(np.prod(list(mesh.values())))
+        flags.set_flags({"sharded_exchange_bf16": bf16})
+        try:
+            reset_counts()
+            hold = {}
+            t0 = time.perf_counter()
+            stats, _, n_keys = run_pass(block, "cuda", params=params0,
+                                        path="auto", packed=True,
+                                        keep_ws=True, mesh=mesh, hold=hold)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches[label] = read_counts()
+            if stats["path"] != "mxu_sharded":
+                raise AssertionError(f"{what}: auto resolved to "
+                                     f"{stats['path']}")
+            check_pass(what, stats, launches[label],
+                       {"gather_sorted": shards, "scatter_add_sorted": shards,
+                        "gather_pool": 0}, exact=True)
+            first = stats["losses"][0]
+            if not math.isclose(first, mxu_first, rel_tol=rtol):
+                raise AssertionError(f"{what}: first-step loss {first} vs "
+                                     f"the one-device mxu pass's "
+                                     f"{mxu_first} (rtol {rtol:g})")
+            cpu_loss = cpu_first_loss(what, block, first, params0,
+                                      rtol=rtol, path="auto", packed=True,
+                                      mesh=mesh)
+            holder = {}
+            again, _, _ = run_pass(
+                block, "cuda", params=params0, path="auto", packed=True,
+                keep_ws=True, mesh=mesh, around_train=tracer(holder))
+            same_bits(what, stats, again)
+        finally:
+            flags.set_flags({"sharded_exchange_bf16": False})
+        steady = float(np.median(stats["step_ms"][1:]))
+        r = {"mesh": mesh, "bf16": bf16, "rtol": rtol, "shards": shards,
+             "losses": stats["losses"], "auc": stats["auc"],
+             "first_loss_vs_mxu": first / mxu_first - 1.0,
+             "cpu_first_loss": cpu_loss, "step_ms": stats["step_ms"],
+             "steady_step_ms": steady, "pass_wall_s": wall,
+             "pass_keys": n_keys, "feed_bytes": stats["feed_bytes"],
+             "plan_bytes": stats["plan_bytes"],
+             "build_pass_feed_s": stats["build_pass_feed_s"],
+             "launches": launches[label], "deterministic": True,
+             "profile": profiled(what, holder["prof"], again)}
+        if label == "a":
+            out["kernels"] = sharded_kernels(stats, hold["feed"])
+        out[label] = r
+        log(f"{what}: mesh {mesh}{', bf16 exchange' if bf16 else ''}, "
+            f"losses {stats['losses']}, auc {stats['auc']}, launches "
+            f"{launches[label]} ({shards} shards x {N_BATCHES} steps), "
+            f"step device ms {stats['step_ms']} (steady median "
+            f"{steady:.3f}), plans {stats['plan_bytes'] / 2**20:.1f} MiB of "
+            f"a {stats['feed_bytes'] / 2**20:.1f} MiB feed, build_pass_feed "
+            f"{stats['build_pass_feed_s']:.2f} s, pass wall {wall:.2f} s; "
+            f"first step {first!r} vs one-device mxu {mxu_first!r} (rtol "
+            f"{rtol:g}); rerun bit-identical")
+        del hold
+    k = out["kernels"]
+    for name in ("gather_sorted", "scatter_add_sorted"):
+        x, one = k[name], one_device[name]
+        log(f"sharded[kernels, shard {k['shard']} of a]: {name} "
+            f"{x['ms']:.4f} ms (plain {x['plain_ms']:.4f}, library "
+            f"{x['library_ms']:.4f}, bound {x['bound_ms']:.4f}) at p "
+            f"{k['p']}, rows_loc {k['rows_loc']}, sentinel share "
+            f"{k['sentinel_share']:.4f}, longest run {k['longest_run']}; "
+            f"one-device {one['ms']:.4f} ms (bound {one['bound_ms']:.4f})")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"sharded: runs a-c passed; phase {out['phase_s']:.1f} s")
+    return launches, out
+
 
 def profile_phase(seed: int = 1, symbols=SYMBOLS) -> dict:
     """Short traced passes (2 batches) of the lowerings that phases 3-4
@@ -3944,6 +4167,9 @@ def main() -> int:
                                           trainer_fleet_phase, paths)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    sharded_launches, sharded_out = timed(
+        "sharded", sharded_phase, packed_block, packed_params,
+        packed_out["mxu"]["losses"][0], kern["uniform"])
     profile_out = timed("profile", profile_phase)
 
     by_path = {"slice_mxu": slice_launches,
@@ -3959,19 +4185,26 @@ def main() -> int:
                **{f"options_{p}": n for p, n in opt_launches.items()},
                **{f"cluster_{p}": n for p, n in cl_launches.items()},
                **{f"serving_{p}": n for p, n in serve_launches.items()},
-               **fleet_launches}
+               **fleet_launches,
+               **{f"sharded_{p}": n for p, n in sharded_launches.items()}}
     line = {"kernels": []}
     for name in KERNELS:
         k = kern["uniform"][name]
-        at_w20 = {}
+        at = {}
         if name in kern_ex["uniform"]:
             # the expand table's width, uniform ids (phase 13's path)
             k20 = kern_ex["uniform"][name]
-            at_w20 = {"at_w20": {
+            at = {"at_w20": {
                 f: k20[f] for f in ("ms", "plain_ms", "bound_ms", "bound_by",
                                     "library_ms")} | {
                 "max_abs_err": max(kern_ex[d][name]["max_abs_err"]
                                    for d in kern_ex)}}
+        if name in sharded_out["kernels"]:
+            # shard 1 of phase 17's run (a): the sentinel-heavy domain
+            at["at_sharded"] = {
+                f: sharded_out["kernels"][name][f]
+                for f in ("ms", "plain_ms", "bound_ms", "bound_by",
+                          "library_ms", "max_abs_err")}
         line["kernels"].append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name],
@@ -3981,7 +4214,7 @@ def main() -> int:
                                if name in kern[d]),
             "ms": k["ms"], "plain_ms": k["plain_ms"],
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
-            "library_ms": k["library_ms"], **at_w20})
+            "library_ms": k["library_ms"], **at})
     log("detail: " + json.dumps({"kernels_by_dist": kern,
                                  "kernels_by_dist_w20": kern_ex,
                                  "gather_pool_by_layout": pool,
@@ -3994,6 +4227,7 @@ def main() -> int:
                                  "cluster": cl_out,
                                  "serving": serve_out,
                                  "trainer_fleet": fleet_out,
+                                 "sharded": sharded_out,
                                  "profile": profile_out,
                                  "phase_s": phase_s}))
     print(json.dumps(line), flush=True)

@@ -335,8 +335,9 @@ class PackedPassFeed:
       valid    [N, B]       bool
     and, when the feed has them, ``rank_offset`` [N, B, 1+2*max_rank],
     one [N, B, cap] int32 plane per InputTable slot and ``ads_offset``
-    [N, B+1].  plans: the mxu lowering's sorted-spmm plans or the ragged
-    lowering's CSR plans, each array stacked on axis 0; ``plan_dims``
+    [N, B+1].  plans: the mxu lowering's sorted-spmm plans, the
+    mxu_sharded lowering's per-shard plans ([N, shards, ...]) or the
+    ragged lowering's CSR plans, each array stacked on axis 0; ``plan_dims``
     identifies the geometry they were built for.  ``uid`` with its
     ``host_labels`` / ``host_valid`` stay on the host (uid_slot only);
     ``host`` is the pass's HostPassArrays when the feed was built to keep
@@ -352,6 +353,12 @@ class PackedPassFeed:
     host_labels: Optional[np.ndarray] = None  # [N*B(, T)]
     host_valid: Optional[np.ndarray] = None   # [N*B] bool
     host: Optional[HostPassArrays] = None     # kept for the dump
+
+    def device_bytes(self) -> int:
+        """Bytes the feed keeps on its device: the stacked planes and the
+        plans."""
+        tensors = list(self.data.values()) + list((self.plans or {}).values())
+        return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -452,7 +459,7 @@ def _static_planes(plan: Dict[str, torch.Tensor], labels_b: torch.Tensor,
     }
 
 
-_PLAN_KEYS = ("rows2d", "perm", "inv_perm", "ch", "tl", "fg", "fs",
+PLAN_KEYS = ("rows2d", "perm", "inv_perm", "ch", "tl", "fg", "fs",
               "first_occ")
 
 
@@ -472,7 +479,7 @@ def precompute_plans(feed: PackedPassFeed, dims: sp.SpmmDims,
     n, s, l, b = idx_all.shape
     per = []
     for i in range(n):
-        plan = dict(zip(_PLAN_KEYS,
+        plan = dict(zip(PLAN_KEYS,
                         sp.build_plan(idx_all[i].reshape(-1), dims, eff)))
         per.append(plan)
     labels = feed.data["labels"]
@@ -563,7 +570,7 @@ def plan_tuple(p: Dict[str, torch.Tensor]):
     by the static payload planes when present."""
     if "u_rows" in p:      # ragged-lowering CSR plan (build_csr_plans)
         return (p["seg"], p["inv"], p["occ_w"], p["u_rows"], p["u_slot"])
-    base = tuple(p[k] for k in _PLAN_KEYS)
+    base = tuple(p[k] for k in PLAN_KEYS)
     if "bs" in p:
         return base + (p["bs"], p["labelcol"], p["slotcol"])
     return base

@@ -66,9 +66,16 @@ define_flag("auc_runner_mode", False,
             "enable AucRunner slot-replacement eval (flags.cc:972; "
             "metrics/auc_runner.py)")
 define_flag("sparse_step_path", "auto",
-            "sparse step lowering: auto | mxu | fast | ragged | reference.  "
-            "It overrides an 'auto' construction only; with one device "
-            "'auto' resolves to mxu (reference with fast_path=False)")
+            "sparse step lowering: auto | mxu | mxu_sharded | fast | ragged "
+            "| reference.  It overrides an 'auto' construction only; with "
+            "no topology 'auto' resolves to mxu (reference with "
+            "fast_path=False), on a shardable topology to mxu_sharded")
+define_flag("sharded_exchange_bf16", False,
+            "move the mxu_sharded exchange's VALUE traffic (pull "
+            "psum_scatter + push payload all_gather) in bfloat16 — halves "
+            "ICI bytes at ~1e-2 relative error (EQuARX-style reduced-"
+            "precision collectives; ids/plans stay exact).  Read at step-"
+            "BUILD time: the trainer reads it at the start of each pass")
 define_flag("mxu_crossing", "auto",
             "sorted<->canonical crossing lowering of the mxu path: take | "
             "sort | auto.  'auto' times both once per geometry on a card "

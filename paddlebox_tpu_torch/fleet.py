@@ -16,8 +16,9 @@ A reference user drives training as:
 or hands a day's per-pass filelists to :func:`train_passes`.  This module
 offers the same verbs over the port's one-card engine and trainer, whose
 table may be local or a remote PS fleet; :func:`run_trainer_fleet`
-drives N supervised trainer ranks over one PS fleet.  Not ported yet:
-topologies.
+drives N supervised trainer ranks over one PS fleet.  A ``topology``
+(parallel/topology.py) reaches the engine through ``init_engine``, and
+``worker_num`` is its world size.
 """
 
 from __future__ import annotations
@@ -48,8 +49,10 @@ _GLOBAL: Dict = {"fleet": None}
 class Fleet:
     """Process-wide runtime handle (≙ fleet_base.Fleet singleton)."""
 
-    def __init__(self, strategy: Optional[DistributedStrategy] = None):
+    def __init__(self, strategy: Optional[DistributedStrategy] = None,
+                 topology=None):
         self.strategy = strategy or DistributedStrategy()
+        self.topology = topology
         self.engine: Optional[BoxPSEngine] = None
         # the named metric registry (≙ BoxWrapper's metric maps,
         # box_wrapper.h:769)
@@ -58,20 +61,24 @@ class Fleet:
     # ≙ fleet.init(is_collective/role_maker)
     def init_engine(self, table_config: Optional[EmbeddingTableConfig] = None,
                     seed: int = 0, device: DeviceLike = None) -> BoxPSEngine:
+        """The engine over the fleet's topology (on the topology's device
+        unless ``device`` says otherwise)."""
         self.engine = BoxPSEngine(table_config or self.strategy.table,
-                                  seed=seed, device=device)
+                                  seed=seed, device=device,
+                                  topology=self.topology)
         return self.engine
 
     @property
     def worker_num(self) -> int:
-        return 1
+        return 1 if self.topology is None else self.topology.world_size
 
     def barrier_worker(self) -> None:
         pass  # one trainer
 
 
-def init(strategy: Optional[DistributedStrategy] = None) -> Fleet:
-    f = Fleet(strategy)
+def init(strategy: Optional[DistributedStrategy] = None,
+         topology=None) -> Fleet:
+    f = Fleet(strategy, topology)
     _GLOBAL["fleet"] = f
     return f
 

@@ -1,25 +1,47 @@
-"""The trainer fleet's host collective.
+"""Collectives: the named-axis device half and the trainer fleet's
+host half.
 
-Port of the host half of ``paddlebox_tpu/parallel/collective.py``
-(:class:`FleetCollective` — ≙ GlooWrapper/boxps::MPICluster): barriers
-and dense-state reduction between trainer ranks (threads or processes),
-riding the PS tier's rid-dedup'd barrier/dense verbs so every operation
-is replay-safe across a trainer crash + supervisor restart.  PB604
-discipline applies here the same as to locks: every wait carries a
-deadline, and expiry raises the typed :class:`PeerDead` instead of
-hanging the fleet.  Host code only (numpy over a PSClient; no torch).
-The named-axis device collectives of the JAX module are not ported yet.
+Port of ``paddlebox_tpu/parallel/collective.py``.
+
+The named-axis half (≙ distributed/collective/ProcessGroup.h:53-190
+AllReduce/AllGather/AllToAll/ReduceScatter/Send/Recv) works on a
+topology's shards from one controller: each function takes the list of
+per-shard tensors (indexed by flat shard number, see
+``parallel/topology.py``) and an axis name, or a tuple of them, and
+returns the per-shard results.  Where the JAX package calls ``lax.psum``
+inside ``shard_map``, the port calls ``all_reduce(xs, topo, axis)``
+over the list.  Every reduction adds the group's tensors one after the
+other in shard order — no atomics, the same bits on every run — and the
+members of one group share the one result tensor (read it, do not write
+it in place).  The reference's P2P walk paths (heter_comm.h:303) map to
+:func:`ppermute`; its MoE global_scatter/global_gather to
+:func:`all_to_all`.  torch is imported inside these functions only, so
+the host half stays torch-free.
+
+The host half (:class:`FleetCollective` — ≙ GlooWrapper/boxps::
+MPICluster): barriers and dense-state reduction between trainer ranks
+(threads or processes), riding the PS tier's rid-dedup'd barrier/dense
+verbs so every operation is replay-safe across a trainer crash +
+supervisor restart.  PB604 discipline applies here the same as to locks:
+every wait carries a deadline, and expiry raises the typed
+:class:`PeerDead` instead of hanging the fleet.  Host code only (numpy
+over a PSClient; no torch).
 """
 
 from __future__ import annotations
 
 import time
-from typing import Callable, Dict, List, Optional
+from typing import (TYPE_CHECKING, Callable, Dict, List,
+                    Optional, Sequence, Tuple, Union)
 
 import numpy as np
 
 from paddlebox_tpu_torch import flags
 from paddlebox_tpu_torch.utils.monitor import stat_add, stat_observe
+
+if TYPE_CHECKING:     # torch-free at import (see the module note)
+    import torch
+    from paddlebox_tpu_torch.parallel.topology import HybridTopology
 
 flags.define_flag(
     "fleet_deadline_s", 180.0,
@@ -157,3 +179,146 @@ class FleetCollective:
         stat_observe("trainer.fleet.allreduce_wait_s",
                      time.monotonic() - t0)
         return out
+
+
+# ---------------------------------------------------------------------------
+# named-axis collectives over a topology's shards
+# ---------------------------------------------------------------------------
+
+Axis = Union[str, Tuple[str, ...]]
+Shards = List["torch.Tensor"]
+
+
+def _groups(xs: Sequence, topo: "HybridTopology", axis: Axis):
+    if len(xs) != topo.world_size:
+        raise ValueError(f"{len(xs)} per-shard values for a topology of "
+                         f"{topo.world_size} shards")
+    return topo.axis_groups(axis)
+
+
+def _fold(parts: Sequence["torch.Tensor"], op: str) -> "torch.Tensor":
+    """The parts combined one after the other, in order (a new tensor)."""
+    acc = parts[0].clone()
+    for x in parts[1:]:
+        if op == "max":
+            acc = acc.maximum(x)
+        elif op == "min":
+            acc = acc.minimum(x)
+        else:
+            acc = acc + x
+    return acc
+
+
+def all_reduce(xs: Shards, topo: "HybridTopology", axis: Axis,
+               op: str = "sum") -> Shards:
+    """≙ lax.psum / pmax / pmin / pmean over ``axis``."""
+    if op not in ("sum", "max", "min", "mean"):
+        raise ValueError(f"unsupported all_reduce op: {op}")
+    out = [None] * len(xs)
+    for g in _groups(xs, topo, axis):
+        acc = _fold([xs[k] for k in g], op)
+        if op == "mean":
+            acc = acc / len(g)
+        for k in g:
+            out[k] = acc
+    return out
+
+
+def all_gather(xs: Shards, topo: "HybridTopology", axis: Axis, *,
+               concat_dim: int = 0, tiled: bool = True) -> Shards:
+    """≙ lax.all_gather: the group's tensors in axis order, concatenated
+    along ``concat_dim`` (tiled) or stacked on a new dim there."""
+    import torch
+    out = [None] * len(xs)
+    for g in _groups(xs, topo, axis):
+        parts = [xs[k] for k in g]
+        r = (torch.cat(parts, dim=concat_dim) if tiled
+             else torch.stack(parts, dim=concat_dim))
+        for k in g:
+            out[k] = r
+    return out
+
+
+def all_to_all(xs: Shards, topo: "HybridTopology", axis: Axis, *,
+               split_dim: int = 0, concat_dim: int = 0,
+               tiled: bool = True) -> Shards:
+    """≙ lax.all_to_all (tiled): member i receives chunk i of every
+    member's ``split_dim``, concatenated along ``concat_dim`` in axis
+    order."""
+    import torch
+    if not tiled:
+        raise ValueError("all_to_all: only the tiled form is ported")
+    out = [None] * len(xs)
+    for g in _groups(xs, topo, axis):
+        n = len(g)
+        chunks = [xs[k].chunk(n, dim=split_dim) for k in g]
+        for i, k in enumerate(g):
+            out[k] = torch.cat([c[i] for c in chunks], dim=concat_dim)
+    return out
+
+
+def reduce_scatter(xs: Shards, topo: "HybridTopology", axis: Axis, *,
+                   scatter_dim: int = 0) -> Shards:
+    """≙ lax.psum_scatter (tiled): the group's sum, in shard order, and
+    member i keeps block i of ``scatter_dim`` (a view of the sum)."""
+    out = [None] * len(xs)
+    for g in _groups(xs, topo, axis):
+        total = _fold([xs[k] for k in g], "sum")
+        if total.shape[scatter_dim] % len(g):
+            raise ValueError(
+                f"reduce_scatter: dim {scatter_dim} of size "
+                f"{total.shape[scatter_dim]} does not split over "
+                f"{len(g)} shards")
+        for i, part in enumerate(total.chunk(len(g), dim=scatter_dim)):
+            out[g[i]] = part
+    return out
+
+
+def ppermute(xs: Shards, topo: "HybridTopology", axis: Axis,
+             perm: Sequence[Tuple[int, int]]) -> Shards:
+    """≙ lax.ppermute: (src, dst) pairs of axis positions; a member that
+    no pair sends to receives zeros."""
+    out = [None] * len(xs)
+    for g in _groups(xs, topo, axis):
+        for src, dst in perm:
+            out[g[dst]] = xs[g[src]]
+        for k in g:
+            if out[k] is None:
+                out[k] = xs[k].new_zeros(xs[k].shape)
+    return out
+
+
+def axis_index(topo: "HybridTopology", axis: Axis) -> List[int]:
+    """≙ lax.axis_index: each shard's position along ``axis``."""
+    return [topo.axis_index(k, axis) for k in range(topo.world_size)]
+
+
+def shift_right(xs: Shards, topo: "HybridTopology", axis: str,
+                axis_size: Optional[int] = None) -> Shards:
+    """Ring shift: position i sends to i+1 (mod n) — the building block
+    of ring attention / pipelined CP."""
+    n = topo.axis_size(axis) if axis_size is None else axis_size
+    return ppermute(xs, topo, axis, [(i, (i + 1) % n) for i in range(n)])
+
+
+def shard_mapped(topo: "HybridTopology", in_specs, out_specs):
+    """≙ shard_map over the topology: the decorated ``fn`` takes, per
+    argument, the list of per-shard blocks (``topo.split`` by its spec)
+    and returns per-shard lists (one, or a tuple of them), which are
+    joined by ``out_specs`` (one Spec, or a tuple of them) into global
+    tensors.  ``fn`` calls the
+    collectives above on those lists."""
+    from paddlebox_tpu_torch.parallel.topology import Spec
+    single = isinstance(out_specs, Spec)
+
+    def wrap(fn):
+        def run(*args):
+            if len(args) != len(in_specs):
+                raise ValueError(f"{len(args)} arguments for "
+                                 f"{len(in_specs)} in_specs")
+            outs = fn(*[topo.split(a, s) for a, s in zip(args, in_specs)])
+            if single:
+                return topo.join(outs, out_specs)
+            return tuple(topo.join(o, s) for o, s in zip(outs, out_specs))
+        return run
+    return wrap

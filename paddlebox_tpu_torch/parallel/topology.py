@@ -1,0 +1,215 @@
+"""Hybrid-parallel topology: a mesh of logical shards.
+
+Port of ``paddlebox_tpu/parallel/topology.py`` (≙ CommunicateTopology /
+HybridCommunicateGroup, python/paddle/distributed/fleet/base/
+topology.py:52,134).  The JAX package builds one ``jax.sharding.Mesh``
+over devices and lets XLA place tensors by ``PartitionSpec``.  The port
+keeps the single-controller shape of that program (and of HeterPS, one
+process per node driving every card): a topology is a grid of logical
+shards with the axes [dp, sharding, pp, mp, sp, ep], and one process
+drives them all.  Sharded data is a list of per-shard tensors indexed by
+the flat shard number; the collectives of ``parallel/collective.py`` are
+explicit tensor ops over those lists in fixed shard order.
+
+A :class:`Spec` plays the role of ``PartitionSpec``: one entry per
+tensor dim, None (replicated), an axis name, or a tuple of axis names
+(the dim is split over their product, the first axis major).  ``split``
+gives each shard its block of a global tensor (views); ``join``
+assembles per-shard blocks back.
+
+Every shard of a topology lives on one device here: placing shards on
+distinct cards (peer copies, a process group for the cross-node dp axis)
+is ROADMAP Queue 1 item 4's multi-card placement, and a device list that
+spans devices raises ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from paddlebox_tpu_torch.config import MeshConfig
+from paddlebox_tpu_torch.device import DeviceLike, resolve_device
+
+AXES: Tuple[str, ...] = ("dp", "sharding", "pp", "mp", "sp", "ep")
+
+AxisLike = Union[str, Tuple[str, ...]]
+
+
+class Spec(tuple):
+    """Per-dim placement, ≙ ``jax.sharding.PartitionSpec``:
+    ``Spec(None, ("dp", "sharding"))`` splits dim 1 over dp × sharding
+    and replicates dim 0.  Trailing dims left out are replicated."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, entries)
+
+    def __repr__(self) -> str:
+        return f"Spec{tuple.__repr__(self)}"
+
+
+def _axes(axis: AxisLike) -> Tuple[str, ...]:
+    return (axis,) if isinstance(axis, str) else tuple(axis)
+
+
+class HybridTopology:
+    """≙ HybridCommunicateGroup (topology.py:134) over logical shards.
+
+    ``devices``: one device per shard (flat shard order, ``dp`` major);
+    without it every shard takes ``resolve_device(device)`` — ``cuda``
+    unless the caller names the CPU."""
+
+    def __init__(self, config: Optional[MeshConfig] = None,
+                 devices: Optional[Sequence[DeviceLike]] = None,
+                 device: DeviceLike = None):
+        self.config = config or MeshConfig()
+        degrees = [self.config.degrees()[a] for a in AXES]
+        world = int(np.prod(degrees))
+        if devices is None:
+            devices = [resolve_device(device)] * world
+        devices = [torch.device(d) for d in devices]
+        if world != len(devices):
+            raise ValueError(
+                f"mesh degrees {dict(zip(AXES, degrees))} require {world} "
+                f"devices, got {len(devices)}")
+        if len(set(devices)) != 1:
+            raise NotImplementedError(
+                f"shards on distinct devices {sorted(set(map(str, devices)))}"
+                ": placing a topology's shards on several cards is ROADMAP "
+                "Queue 1 item 4's multi-card placement, not ported yet — "
+                "every shard lives on one device")
+        self.devices: List[torch.device] = devices
+        self.device: torch.device = devices[0]
+        self._shape: Dict[str, int] = dict(zip(AXES, degrees))
+        # flat shard index at each mesh coordinate (≙ Mesh.devices)
+        self.grid = np.arange(world).reshape(degrees)
+
+    # -- ≙ CommunicateTopology.get_dim / get_rank_from_stage ----------------
+    def axis_size(self, axis: AxisLike) -> int:
+        n = 1
+        for a in _axes(axis):
+            n *= self._shape[a]
+        return n
+
+    @property
+    def world_size(self) -> int:
+        return int(self.grid.size)
+
+    def coord(self, shard: int) -> Tuple[int, ...]:
+        """Mesh coordinate of flat shard ``shard``, in AXES order."""
+        return tuple(int(i) for i in np.unravel_index(shard,
+                                                      self.grid.shape))
+
+    def axis_index(self, shard: int, axis: AxisLike) -> int:
+        """Position of ``shard`` along ``axis`` (a tuple: first axis
+        major), ≙ ``lax.axis_index`` inside shard_map."""
+        c = dict(zip(AXES, self.coord(shard)))
+        idx = 0
+        for a in _axes(axis):
+            idx = idx * self._shape[a] + c[a]
+        return idx
+
+    def axis_groups(self, axis: AxisLike) -> List[List[int]]:
+        """The shards that ``axis`` connects: one group per coordinate of
+        the other axes (in flat order of their first member), each group
+        ordered by :meth:`axis_index`."""
+        names = _axes(axis)
+        rest = [a for a in AXES if a not in names]
+        order = [AXES.index(a) for a in rest + list(names)]
+        g = np.transpose(self.grid, order)
+        return [list(map(int, row))
+                for row in g.reshape(-1, self.axis_size(names))]
+
+    # -- standard layouts ---------------------------------------------------
+    def batch_spec(self) -> Spec:
+        """Batch dim split over the data-parallel-like axes."""
+        return Spec(("dp", "sharding"))
+
+    def table_spec(self) -> Spec:
+        """Pass-working-set rows split over the non-pipeline axes in
+        contiguous blocks — the analogue of HeterComm's
+        ``key % device_count`` placement (heter_comm_inl.h:1117).  With
+        both dp > 1 and sharding > 1 the layout flips to the reference's
+        multi-node shape: split within a node (sharding), replicated
+        across nodes (dp) — the layout gather_multi_node_grad assumes
+        (heter_comm_inl.h:2131)."""
+        if self.multinode_table():
+            return Spec(("sharding", "mp", "sp", "ep"))
+        return Spec(("dp", "sharding", "mp", "sp", "ep"))
+
+    def multinode_table(self) -> bool:
+        """Single source of the multi-node layout predicate (table_spec
+        and the trainer's mxu_sharded step must agree): a pure
+        dp × sharding mesh with both axes real."""
+        return (self.axis_size("dp") > 1 and self.axis_size("sharding") > 1
+                and all(self.axis_size(a) == 1
+                        for a in ("pp", "mp", "sp", "ep")))
+
+    def mp_spec(self, dim: int, ndim: int) -> Spec:
+        """Tensor-parallel weight: dim ``dim`` of an ndim tensor split
+        over mp (≙ Col/RowParallelLinear, mp_layers.py:95,171)."""
+        spec = [None] * ndim
+        spec[dim] = "mp"
+        return Spec(*spec)
+
+    def num_table_shards(self) -> int:
+        return self.axis_size(("dp", "sharding", "mp", "sp", "ep"))
+
+    # -- placement ----------------------------------------------------------
+    def block(self, spec: Spec, shard: int, dim: int) -> Tuple[int, int]:
+        """(block index, block count) of ``shard`` along ``dim``."""
+        entry = spec[dim] if dim < len(spec) else None
+        if entry is None:
+            return 0, 1
+        return self.axis_index(shard, entry), self.axis_size(entry)
+
+    def _slices(self, spec: Spec, shape, shard: int) -> Tuple[slice, ...]:
+        out = []
+        for dim, size in enumerate(shape):
+            idx, n = self.block(spec, shard, dim)
+            if size % n:
+                raise ValueError(
+                    f"dim {dim} of size {size} does not split over {n} "
+                    f"shards ({spec})")
+            step = size // n
+            out.append(slice(idx * step, (idx + 1) * step))
+        return tuple(out)
+
+    def split(self, x: torch.Tensor, spec: Spec) -> List[torch.Tensor]:
+        """Each shard's block of ``x`` under ``spec`` (views, no copy)."""
+        return [x[self._slices(spec, x.shape, k)]
+                for k in range(self.world_size)]
+
+    def join(self, parts: Sequence[torch.Tensor], spec: Spec
+             ) -> torch.Tensor:
+        """Assemble per-shard blocks laid out by ``spec`` into the global
+        tensor.  Shards that hold the same block (replicated axes) must
+        agree; the first in flat order is taken, as an out_spec that
+        leaves an axis out takes any one replica."""
+        blk = parts[0].shape
+        full = [size * self.block(spec, 0, dim)[1]
+                for dim, size in enumerate(blk)]
+        out = torch.empty(full, dtype=parts[0].dtype,
+                          device=parts[0].device)
+        seen = set()
+        for k, p in enumerate(parts):
+            sl = self._slices(spec, full, k)
+            key = tuple((s.start, s.stop) for s in sl)
+            if key not in seen:
+                seen.add(key)
+                out[sl] = p
+        return out
+
+
+def single_host_topology(n: Optional[int] = None, device: DeviceLike = None,
+                         **degrees) -> HybridTopology:
+    """A topology of ``n`` shards on one device.  With degrees only, n is
+    their product; with no degrees, pure dp over n shards (1 by
+    default)."""
+    if not degrees:
+        degrees = {"dp": n or 1}
+    world = MeshConfig(**degrees).world_size
+    return HybridTopology(MeshConfig(**degrees),
+                          [resolve_device(device)] * (n or world))

@@ -96,12 +96,19 @@ def _pull_table(ws: Tensors, dims: sp.SpmmDims) -> torch.Tensor:
     return tab
 
 
-def pool_cvm_values(v: torch.Tensor, use_cvm: bool = True) -> torch.Tensor:
-    """Canonical per-occurrence pull values [S, L, B, 3+D] → pooled
-    [B, S, 3+D].  The created mask is already applied to the mf columns
-    (the mxu path does this in the sorted domain; the JAX package's
-    ``premasked=True`` form)."""
-    mf = v[..., 3:]
+def pool_cvm_values(v: torch.Tensor, use_cvm: bool = True,
+                    premasked: bool = False) -> torch.Tensor:
+    """Canonical per-occurrence pull values [S, L, B, 3+D+1] (last column
+    mf_size) → pooled [B, S, 3+D].  Shared by the one-device step and the
+    sharded one.
+
+    premasked: v is [S, L, B, 3+D] with the created mask already applied
+    to the mf columns (the mxu path does this in the sorted domain, so
+    the mf_size column never rides the crossing)."""
+    d = v.shape[-1] - (3 if premasked else 4)
+    mf = v[..., 3:3 + d]
+    if not premasked:
+        mf = mf * (v[..., 3 + d:] > 0).to(v.dtype)          # [S,L,B,1] mask
     show = torch.sum(v[..., 0], dim=1)                     # [S, B]
     click = torch.sum(v[..., 1], dim=1)
     w = torch.sum(v[..., 2], dim=1)
@@ -202,7 +209,7 @@ def pull_pool_cvm(ws: Tensors, plan, dims: sp.SpmmDims,
         v = g.T[torch.clamp(inv_perm, min=0).long()]
         v = v * (inv_perm >= 0).to(v.dtype)[:, None]
     v = v.reshape(s, l, b, w).to(torch.float32)
-    return pool_cvm_values(v, use_cvm)
+    return pool_cvm_values(v, use_cvm, premasked=True)
 
 
 def push_and_update(ws: Tensors, plan, dims: sp.SpmmDims,

@@ -91,17 +91,29 @@ flags.define_flag(
 class BoxPSEngine:
     """Host table + the pass's device working set ``ws`` (a dict of
     tensors on ``device``; ``cuda`` unless the caller passes
-    ``device="cpu"``)."""
+    ``device="cpu"``).
+
+    ``topology`` (parallel/topology.py): the mesh of shards the trainer's
+    ``mxu_sharded`` step splits the working set over.  The set stays one
+    set of tensors on the engine's device; shard d's row block is the
+    view ``topology.split(ws[f], topology.table_spec())[d]``.  Without a
+    ``device`` the engine takes the topology's."""
 
     def __init__(self, config: Optional[EmbeddingTableConfig] = None,
                  seed: int = 0, device: DeviceLike = None,
                  device_rank: int = 0, device_world: int = 1,
-                 mode: str = "train"):
+                 mode: str = "train", topology=None):
         if mode not in ("train", "serving"):
             raise ValueError(f"mode must be 'train' or 'serving', "
                              f"got {mode!r}")
         self.config = config or EmbeddingTableConfig()
+        if topology is not None and device is None:
+            device = topology.device
         self.device = resolve_device(device)
+        if topology is not None and topology.device != self.device:
+            raise ValueError(f"topology's shards live on {topology.device}, "
+                             f"the engine on {self.device}")
+        self.topology = topology
         heat.maybe_enable_from_flags()
         # declared intent, not enforcement: io/checkpoint.py uses it to
         # warn when a serving-only loader (load_xbox) feeds a training

@@ -3,11 +3,18 @@
 Port of ``paddlebox_tpu/trainer/trainer.py`` (≙ BoxPSTrainer::Run →
 BoxPSWorker::TrainFiles, boxps_trainer.cc:282, boxps_worker.cc:1278):
 pull → seqpool + CVM → model fwd/bwd → merged push → sparse optimizer
-rule → dense Adam → AUC buckets, on one of four sparse lowerings:
+rule → dense Adam → AUC buckets, on one of five sparse lowerings:
 
 * ``mxu``       — sorted gather / merged scatter kernels (ps/mxu_path.py);
-  what ``auto`` resolves to with one device; its two crossings take the
+  what ``auto`` resolves to with no topology; its two crossings take the
   "take" or "sort" lowering (ops/crossing.py, FLAGS_mxu_crossing);
+* ``mxu_sharded`` — the HeterComm-style sharded exchange
+  (ps/sharded_embedding.py) over a ``HybridTopology``: the working set
+  split in contiguous row blocks over the table axes, each shard's
+  batch block planned against its rows, both sorted kernels run once a
+  shard (see :meth:`SparseTrainer._sharded_step`); what ``auto``
+  resolves to on a pure dp × sharding mesh that divides the batch and
+  the table;
 * ``fast``      — padded-dense, its pull the fused ``gather_pool`` kernel
   (ps/fast_path.py); adagrad only;
 * ``ragged``    — CSR [U]-domain step (ps/ragged_path.py); needs the
@@ -52,13 +59,21 @@ dump_fields / DumpWorkField).
 
 PyTorch runs the step eagerly, so there is no jit and no donation: the
 working set, the dense params, the optimizer state and the AUC buckets
-are updated in place on the device.  Not ported yet: the multi-device
-lowering.
+are updated in place on the device.
+
+Under a topology one controller drives every shard, as HeterPS drives a
+node's cards from one process and the JAX package one program over its
+mesh; every shard lives on the engine's device (distinct cards are
+ROADMAP Queue 1 item 4).  The dense half runs once over the global
+batch, the function GSPMD computes for a replicated net, and explicit
+``mxu``, ``fast`` and ``reference`` run their one-device lowering over
+the global batch; ``_resolve_path()`` names the lowering that runs.
 """
 
 from __future__ import annotations
 
 import concurrent.futures
+import logging
 import os
 import threading
 import time
@@ -79,8 +94,10 @@ from paddlebox_tpu_torch.metrics.auc import (AucCalculator, WuAucCalculator,
 from paddlebox_tpu_torch.ops import crossing as cx
 from paddlebox_tpu_torch.ops import sorted_spmm as sp
 from paddlebox_tpu_torch.ops.seqpool_cvm import fused_seqpool_cvm
+from paddlebox_tpu_torch.parallel.topology import HybridTopology, Spec
 from paddlebox_tpu_torch.ps import embedding, fast_path, mxu_path, ragged_path
 from paddlebox_tpu_torch.ps import optimizer as sparse_opt
+from paddlebox_tpu_torch.ps import sharded_embedding as se
 from paddlebox_tpu_torch.ps.pass_manager import BoxPSEngine
 from paddlebox_tpu_torch.utils import intervals, trace
 from paddlebox_tpu_torch.utils.channel import Channel, ChannelClosed
@@ -101,7 +118,8 @@ class SparseTrainer:
                  amp: bool = False, fast_path: bool = True,
                  sparse_path: str = "auto", seed: int = 0,
                  device: DeviceLike = None,
-                 trainer_config: Optional[TrainerConfig] = None):
+                 trainer_config: Optional[TrainerConfig] = None,
+                 topology: Optional[HybridTopology] = None):
         """``model`` is re-initialised from ``seed`` (its
         ``reset_parameters(generator)``) and moved to ``device``; load
         other weights afterwards (``model.load_jax_params``).
@@ -112,11 +130,16 @@ class SparseTrainer:
         weights.  ``fast_path=False`` makes ``auto`` resolve to the
         ``reference`` lowering.  ``trainer_config``: the dense sync mode
         (``"async_table"`` with ``sync_weight_step`` and the table's Adam
-        settings) and ``dump_path``."""
+        settings) and ``dump_path``.  ``topology``: the shards of the
+        ``mxu_sharded`` lowering, all on this trainer's device."""
         self.device = resolve_device(device)
         if engine.device != self.device:
             raise ValueError(f"engine works on {engine.device}, trainer "
                              f"asked for {self.device}")
+        if topology is not None and topology.device != self.device:
+            raise ValueError(f"topology's shards live on {topology.device}, "
+                             f"the trainer on {self.device}")
+        self.topology = topology
         if self.device.type == "cuda":
             # the reference trains in full f32, and the parity tolerances
             # assume f32 products: TF32 would keep ~10 mantissa bits in
@@ -137,6 +160,9 @@ class SparseTrainer:
         # (pull, push) crossing lowerings of the mxu step, resolved at the
         # start of each pass (_crossing_modes)
         self._mxu_crossing = ("take", "take")
+        # FLAGS_sharded_exchange_bf16 as the mxu_sharded step reads it,
+        # taken at the start of each pass
+        self._exchange_bf16 = False
         self.timers = TimerRegistry()
         self.slot_ids = np.array(
             [s.slot_id for s in feed_config.sparse_slots], np.int32)
@@ -219,10 +245,11 @@ class SparseTrainer:
 
     # ------------------------------------------------------------------
     def _resolve_path(self) -> str:
-        """Resolve sparse_path='auto' against the live working set: with
-        one device and no topology the JAX package resolves to mxu, or to
-        reference under fast_path=False (its escape hatch to the exact
-        step)."""
+        """Resolve sparse_path='auto' against the live working set, as the
+        JAX package does: reference under fast_path=False (its escape
+        hatch to the exact step); mxu with no topology; mxu_sharded on a
+        shardable one (:meth:`_mxu_shardable`); else fast for adagrad and
+        reference for the other rules (an expand table raises there)."""
         assert self.engine.ws is not None, \
             "engine pass lifecycle must run before building the step " \
             "(begin_feed_pass/add_keys/end_feed_pass/begin_pass)"
@@ -232,15 +259,57 @@ class SparseTrainer:
                 "f32 store — rebuild the pass")
         if self.sparse_path != "auto":
             return self.sparse_path
+        has_ex = "mf_ex" in self.engine.ws
         if not self.fast_path:
             return "reference"
-        if "mf_ex" in self.engine.ws and self._dym_mask is not None:
+        if has_ex and self._dym_mask is not None:
             # no lowering trains mf_ex under per-slot dynamic dims
             raise ValueError(
                 "extended (mf_ex) tables do not compose with per-slot "
                 "dynamic mf dims — drop slot_mf_dims or the expand "
                 "embedding")
-        return "mxu"
+        if self.topology is None:
+            return "mxu"
+        if self._mxu_shardable():
+            return "mxu_sharded"
+        if has_ex:
+            # fast/reference pull only 3+D columns
+            raise ValueError(
+                "extended (mf_ex) tables need the mxu or mxu_sharded "
+                "path — this topology does not satisfy "
+                "_mxu_shardable (pure dp×sharding mesh, divisible "
+                "batch/table)")
+        if self.engine.config.sgd.optimizer == "adagrad":
+            return "fast"
+        return "reference"
+
+    def _mxu_shardable(self) -> bool:
+        """mxu_sharded wants the HeterComm-symmetric layout: every shard
+        holds a batch block and a table block, on a pure dp × sharding
+        mesh (pp/mp/sp/ep all 1) with an evenly divisible batch and
+        table.  With both axes > 1 the multi-node layout applies (table
+        split over ``sharding``, replicated over ``dp``), so the table
+        must divide by the sharding degree only."""
+        if self.topology is None:
+            return False
+        t = self.topology
+        if any(t.axis_size(a) != 1 for a in ("pp", "mp", "sp", "ep")):
+            return False
+        n_dev = t.axis_size(("dp", "sharding"))
+        n_tbl = t.axis_size("sharding") if t.multinode_table() else n_dev
+        return (self.batch_size % n_dev == 0
+                and self.engine.ws["show"].shape[0] % n_tbl == 0)
+
+    def _sharded_layout(self):
+        """(batch_axes, tbl_axes, n_tbl, rows_loc, multinode) of the
+        mxu_sharded exchange — one source for the step, the pass plans
+        and the stale-plan check."""
+        batch_axes = ("dp", "sharding")
+        multinode = self.topology.multinode_table()
+        tbl_axes = ("sharding",) if multinode else batch_axes
+        n_tbl = self.topology.axis_size(tbl_axes)
+        n_rows = self.engine.ws["show"].shape[0]
+        return batch_axes, tbl_axes, n_tbl, n_rows // n_tbl, multinode
 
     def _validate_path(self, path: str) -> None:
         """Reject configs a path cannot honor (both entry points), as the
@@ -254,6 +323,17 @@ class SparseTrainer:
                     "sparse_path='mxu' with an extended (mf_ex) table does "
                     "not compose with per-slot dynamic mf dims — drop "
                     "slot_mf_dims or the expand embedding")
+        elif path == "mxu_sharded":
+            if has_ex and self._dym_mask is not None:
+                raise ValueError(
+                    "sparse_path='mxu_sharded' with an extended (mf_ex) "
+                    "table does not compose with per-slot dynamic mf dims "
+                    "— drop slot_mf_dims or the expand embedding")
+            if not self._mxu_shardable():
+                raise ValueError(
+                    "sparse_path='mxu_sharded' needs a topology with a "
+                    "pure dp×sharding mesh (pp/mp/sp/ep == 1) and batch/"
+                    "table sizes divisible by the device count")
         elif path == "fast":
             if self.engine.config.sgd.optimizer != "adagrad":
                 raise ValueError(
@@ -263,15 +343,18 @@ class SparseTrainer:
             if has_ex:
                 raise ValueError(
                     "sparse_path='ragged' pulls only the 3+D pooled "
-                    "columns — extended (mf_ex) tables need the mxu path")
+                    "columns — extended (mf_ex) tables need the mxu or "
+                    "mxu_sharded path")
+            if self.topology is not None:
+                raise ValueError(
+                    "sparse_path='ragged' builds its CSR step plans "
+                    "host-side against a single-host working set — use "
+                    "mxu_sharded under a topology")
         elif path == "reference":
             if self.async_dense is not None:
                 raise ValueError(
                     "dense_sync_mode='async_table' requires the mxu, "
-                    "fast or ragged sparse path")
-        elif path == "mxu_sharded":
-            raise ValueError("sparse_path 'mxu_sharded' is not ported to "
-                             "the PyTorch package")
+                    "mxu_sharded, fast or ragged sparse path")
         else:
             raise ValueError(f"unknown sparse_path {path!r}")
 
@@ -444,6 +527,9 @@ class SparseTrainer:
         if path == "reference":
             return self._reference_step(idx_slb, lengths, dense, labels,
                                         valid, extras)
+        if path == "mxu_sharded":
+            return self._sharded_step(idx_slb, lengths, dense, labels,
+                                      valid, plan, extras)
         ws = self.engine.ws
         s, l, b = idx_slb.shape
         sgd = self.engine.config.sgd
@@ -487,6 +573,75 @@ class SparseTrainer:
             else:
                 ragged_path.push_and_update(ws, plan, d_pooled, ins_cvm,
                                             (s, l, b), sgd)
+        return loss, preds
+
+    def _sharded_step(self, idx_slb, lengths, dense, labels, valid,
+                      plan=None, extras=None):
+        """The mxu_sharded step (≙ heter_comm_inl.h:1296 pull_merge_sparse,
+        :1730 push merge, :2027 gather_one_node_grad).  Shard k reads
+        batch columns [k*B_loc, (k+1)*B_loc) (``batch_spec``) and owns the
+        working-set rows of its ``table_spec`` block.  Pull: its ids
+        gathered over the table axes, each shard's sorted gather over its
+        block, the values reduce-scattered back to their requesters and
+        pooled over the global batch.  Dense half once, over the global
+        batch.  Push: the legacy payload (slot id in column D + 3) split
+        by batch block, gathered over the table axes and merged by each
+        owner (multi-node: merged within a node, then summed across
+        nodes), then one optimizer step over the joined deltas.
+
+        plan: the feed's per-shard plans of this batch (each array with a
+        leading shard dim), else planned here."""
+        ws = self.engine.ws
+        topo = self.topology
+        batch_axes, tbl_axes, n_tbl, rows_loc, multinode = \
+            self._sharded_layout()
+        s, l, b = idx_slb.shape
+        d_main = ws["mf"].shape[1]
+        d = d_main + mxu_path._ex_dim(ws)
+        bspec = Spec(None, None, batch_axes)        # [S, L, B(, W)]
+        tspec = Spec(None, tbl_axes)                # [W, rows]
+        with torch.no_grad():
+            live = torch.arange(l, device=idx_slb.device)[
+                None, :, None] < lengths[:, None, :]
+            idx_slb = torch.where(live, idx_slb, torch.zeros_like(idx_slb))
+            idx_loc = [x.reshape(-1) for x in topo.split(idx_slb, bspec)]
+            if plan is None:
+                _, plans = se.local_plan(idx_loc, rows_loc, topo, tbl_axes)
+            else:
+                plans = [tuple(a[k] for a in plan)
+                         for k in range(topo.world_size)]
+            cols = [ws["show"], ws["click"], ws["embed_w"], *ws["mf"].T]
+            if "mf_ex" in ws:
+                cols += list(ws["mf_ex"].T)
+            cols.append(ws["mf_size"].to(torch.float32))
+            tab = torch.stack(cols)                 # [3 + D + 1, rows]
+            vals = se.pull_rows_sharded_mxu(
+                topo.split(tab, tspec), idx_loc, topo, tbl_axes, plans,
+                self._exchange_bf16)
+            b_loc = b // topo.axis_size(batch_axes)
+            v = topo.join([x.T.reshape(s, l, b_loc, 4 + d) for x in vals],
+                          bspec)
+            pooled = mxu_path.pool_cvm_values(v, self.use_cvm)
+        loss, preds, d_pooled = self._pooled_dense_half(pooled, dense,
+                                                        labels, valid, extras)
+        with torch.no_grad():
+            payload = mxu_path.push_payload(d_pooled, self._ins_cvm(labels),
+                                            self._slot_ids_dev, (s, l, b))
+            pay_loc = [x.reshape(-1, d + 4).T
+                       for x in topo.split(payload, bspec)]
+            if multinode:
+                delta = se.push_rows_sharded_mxu_multinode(
+                    idx_loc, pay_loc, rows_loc, topo, tbl_axes, "dp",
+                    first_only_col=d + 3, plans=plans,
+                    exchange_bf16=self._exchange_bf16)
+            else:
+                delta = se.push_rows_sharded_mxu(
+                    idx_loc, pay_loc, rows_loc, topo, tbl_axes,
+                    first_only_col=d + 3, plans=plans,
+                    exchange_bf16=self._exchange_bf16)
+            acc = mxu_path.acc_from_delta(topo.join(delta, tspec),
+                                          ws["show"].shape[0], d_main=d_main)
+            sparse_opt.apply_push(ws, acc, self.engine.config.sgd)
         return loss, preds
 
     def _put_batch(self, batch: PackedBatch):
@@ -637,6 +792,7 @@ class SparseTrainer:
             self._mxu_crossing = self._crossing_modes(
                 len(self.packer.sparse_slots), self.packer.capacity,
                 self.batch_size)
+        self._exchange_bf16 = bool(flags.get_flags("sharded_exchange_bf16"))
         engine = self.engine
         mapper = engine.mapper
         ch = Channel(capacity=prefetch)
@@ -757,6 +913,8 @@ class SparseTrainer:
             per_batch = arrays.lengths.reshape(s, n, b).sum(axis=(0, 2))
             eff = sp.trimmed_dims(dims, int(per_batch.max()))
             pf.precompute_plans(feed, dims, eff, slot_ids=self.slot_ids)
+        elif path == "mxu_sharded":
+            self._precompute_sharded_plans(feed, self.pass_shardings(arrays))
         elif path == "ragged":
             csr = arrays.csr
             if csr is None:
@@ -790,6 +948,65 @@ class SparseTrainer:
                 "before training (≙ GetRankOffset's whole-pv batches, "
                 "data_feed.cc:1855)")
 
+    def pass_shardings(self, arrays: pf.HostPassArrays
+                       ) -> Optional[Dict[str, Spec]]:
+        """Per-shard batch layout of the resident pass's planes under a
+        topology (the batch dim split over dp × sharding: shard k reads
+        batch columns [k*B_loc, (k+1)*B_loc)); None with no topology.
+        The planes stay one set of tensors: a shard's block is
+        ``topology.split(plane, spec)[k]``."""
+        if self.topology is None:
+            return None
+        dp = ("dp", "sharding")
+        specs = {
+            "indices": Spec(None, None, None, dp),      # [N, S, L, B]
+            "lengths": Spec(None, None, dp),            # [N, S, B]
+            "dense": Spec(None, dp, None),              # [N, B, D]
+            "labels": (Spec(None, dp) if arrays.labels.ndim == 1
+                       else Spec(None, dp, None)),
+            "valid": Spec(None, dp),
+        }
+        for k in arrays.extra_planes():
+            specs[k] = Spec(None, dp, None)
+        return specs
+
+    def _precompute_sharded_plans(self, feed: pf.PackedPassFeed,
+                                  specs: Dict[str, Spec]) -> None:
+        """Pass-resident per-shard exchange plans: each shard's localized
+        sorted-spmm plan of every batch, built once at pass build, so the
+        hot step sorts nothing (≙ the pass-scope shard index of
+        split_input_to_shard, heter_comm_inl.h:1117).  Each plan array is
+        stacked [N, shards, ...].
+
+        The plans are untrimmed (a shard's non-owned ids sort to the
+        back, so padding is no droppable prefix) and scale as
+        n_batches × shards × gathered P; their bytes are logged."""
+        _, tbl_axes, _, rows_loc, _ = self._sharded_layout()
+        topo = self.topology
+        blocks = topo.split(feed.data["indices"], specs["indices"])
+        per_batch = []
+        for i in range(feed.n_batches):
+            _, plans = se.local_plan([x[i].reshape(-1) for x in blocks],
+                                     rows_loc, topo, tbl_axes)
+            per_batch.append([torch.stack([pl[j] for pl in plans])
+                              for j in range(len(pf.PLAN_KEYS))])
+        feed.plans = {k: torch.stack([p[j] for p in per_batch])
+                      for j, k in enumerate(pf.PLAN_KEYS)}
+        feed.plan_dims = self._sharded_plan_key(feed)
+        logging.getLogger(__name__).info(
+            "sharded pass plans resident: %.0f MB (n_batches x shards x "
+            "gathered P, untrimmed)",
+            sum(t.numel() * t.element_size()
+                for t in feed.plans.values()) / 1e6)
+
+    def _sharded_plan_key(self, feed: pf.PackedPassFeed):
+        """Geometry sharded plans were built for (feed shape, table
+        height, table axes): any change makes resident plans corrupting,
+        so the packed loop compares it before every pass."""
+        _, tbl_axes, n_tbl, _, _ = self._sharded_layout()
+        return ("mxu_sharded", tuple(feed.data["indices"].shape),
+                self.engine.ws["show"].shape[0], tbl_axes, n_tbl)
+
     def _ragged_plan_key(self, feed: pf.PackedPassFeed):
         """Geometry a feed's CSR plans were built for: u_rows are
         pass-local rows, so a table resize makes them corrupting."""
@@ -820,6 +1037,15 @@ class SparseTrainer:
                     f"{cur} — rebuild the feed (build_pass_feed) after a "
                     "table resize")
             plans = feed.plans
+        elif path == "mxu_sharded" and feed.plans is not None:
+            cur = self._sharded_plan_key(feed)
+            if cur != feed.plan_dims:
+                raise ValueError(
+                    "PackedPassFeed sharded plans were built for "
+                    f"{feed.plan_dims}, but the exchange now needs {cur} — "
+                    "rebuild the feed (build_pass_feed) after a table or "
+                    "mesh change")
+            plans = feed.plans
         elif path == "ragged" and feed.plans is not None:
             cur = self._ragged_plan_key(feed)
             if cur != feed.plan_dims:
@@ -836,6 +1062,7 @@ class SparseTrainer:
                 eff_p_pad = int(r[1]) * int(r[3])
             self._mxu_crossing = self._crossing_modes(
                 s, l, b, eff_p_pad, plans is not None and "bs" in plans)
+        self._exchange_bf16 = bool(flags.get_flags("sharded_exchange_bf16"))
         if self.wuauc is not None and (feed.uid is None
                                        or feed.host_labels is None):
             raise ValueError(

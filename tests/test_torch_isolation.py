@@ -58,6 +58,13 @@ SERVING_TIER = tuple(f"paddlebox_tpu_torch.{m}" for m in (
     "utils.doctor", "utils.obs_server", "serve"))
 
 
+# the multi-shard mxu lowering: topology, ZeRO sharding and the sharded
+# exchange (torch modules; the named-axis collectives live in the
+# torch-free parallel.collective above)
+SHARDED = tuple(f"paddlebox_tpu_torch.{m}" for m in (
+    "parallel.topology", "parallel.sharding", "ps.sharded_embedding"))
+
+
 def _port_modules():
     import paddlebox_tpu_torch
     names = ["paddlebox_tpu_torch"]
@@ -74,6 +81,7 @@ def test_port_modules_import_without_jax():
     assert set(PS_TIER) <= set(mods)
     assert set(SERVING_TIER) <= set(mods)
     assert set(FLEET_HOST) <= set(mods) and set(FLEET) <= set(mods)
+    assert set(SHARDED) <= set(mods)
     scripts = ["chip_smoke", "kernel_ab"]
     proc = subprocess.run([sys.executable, "-c", _PROBE, *mods, *scripts],
                           cwd=REPO, capture_output=True, text=True,
@@ -179,3 +187,22 @@ assert not leaked, leaked
     for arg in ("--nproc_per_node", "--elastic_dir", "--ps_servers",
                 "--serve", "--serve_shards", "--serve_ckpt"):
         assert arg in proc.stdout, arg
+
+
+def test_sharded_modules_import_without_jax():
+    """The multi-shard lowering's modules, alone in a JAX-blocked
+    interpreter: they load, import nothing of jax or paddlebox_tpu, and
+    ``parallel`` hands out ``HybridTopology`` (loaded on first use, so
+    the host collective stays torch-free)."""
+    probe = _PROBE + r"""
+from paddlebox_tpu_torch.parallel import HybridTopology
+from paddlebox_tpu_torch.parallel.topology import HybridTopology as H
+assert HybridTopology is H
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+assert not leaked, leaked
+"""
+    proc = subprocess.run([sys.executable, "-c", probe, *SHARDED],
+                          cwd=REPO, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.startswith(f"ok {len(SHARDED)}")
