@@ -265,6 +265,51 @@ result line is printed):
    ``build_pass_feed`` seconds) and ``sharded[kernels, ...]:`` lines;
    the kernels' times at the sharded shapes ride the ``kernels`` line
    as ``at_sharded``.
+18. graph — the graph-learning mode at the system's widths: a
+   2,097,152-node graph (the feasigns 1..N of phases 10-11's 2 M key
+   space) of 16,777,216 directed edges whose endpoints both follow one
+   Zipf-1.2 popularity (out- and in-degrees power-law, mean 8), weights
+   U(0.1, 1), built into the CSR on the host and moved to the card; node
+   embeddings of mf_dim 8 as PS rows, opened by one pass lifecycle
+   (``begin_feed_pass`` / ``add_keys`` / ``end_feed_pass`` /
+   ``begin_pass``); 65,536 weighted walks of length 8 from nodes with an
+   out-edge, window 2 → skip-gram pairs; one epoch of batches of 16,384
+   pairs with K = 5 negatives through ``GraphEmbeddingTrainer.
+   train_pairs``, pull by ``gather_sorted`` and push by
+   ``scatter_add_sorted`` on one plan a step over its 114,688 rows, then
+   ``end_pass``.  Checks: the first step against the same step on the
+   CPU (same negatives): the loss within rtol 1e-5, the merged gradient
+   within rtol 1e-5 plus 1e-5 of each row's sum of |terms|, mf and
+   mf_g2sum updated from it within rtol 1e-5 (``graph_step_vs_cpu`` says
+   why the update is replayed); each sorted kernel exactly once a step,
+   ``gather_pool`` never; a rerun from the same seed (traced through the
+   port's ``utils/profiler.Profiler``) leaves the same losses, mf and
+   mf_g2sum bit for bit; ``end_pass`` writes the trained rows to the
+   host table; the JAX package's two-community graph separates on the
+   card (intra > inter + 0.2).  Both sorted kernels on the first step's
+   plan against their plain versions as in phase 2, with ``index_select`` /
+   ``index_add_`` and the byte bound; they ride the ``kernels`` line as
+   ``at_graph``.  Prints the graph build and CSR seconds, the walk ms,
+   the pairs, the median step (CUDA events) and pairs/s, the traced
+   device-busy share, and ``graph[kernels, ...]:`` with the plan's
+   longest run and hub share.
+19. parallel — the parallel layer library, every shard on the card
+   (``single_host_topology``), TF32 off, each run held against its dense
+   or sequential counterpart on the card within rtol 1e-4 (atol 2e-5):
+   the bench MLP's first two layers as a column-parallel 299 → 400 and a
+   row-parallel 400 → 400 (batch 16,384, mp 4); a vocab-parallel
+   embedding of 1,048,576 × 64 (bit-equal to the dense lookup);
+   parallel cross-entropy over 32,768 classes; MoE (d_model 400, hidden
+   1,600, 8 experts, ep 4, 16,384 tokens, capacity factor 2.5 so that
+   no token is dropped in either layout, which is checked) with both
+   gates; ring and Ulysses attention (B 2, T 4,096, H 8, Dh 64, sp 4),
+   causal and not; GPipe forward and backward, 1F1B (stash within its
+   2·pp slots) and hetero 1F1B over the bench MLP chain 299 → 400 →
+   400 → 400 → 1 (pp 4, 8 microbatches of 2,048; stages Linear(400,
+   400) + tanh); a ``FleetExecutor`` DAG whose compute nodes run those
+   stages against the serial run.  Prints ``parallel[<run>]:`` lines
+   with the max error and the ms of each side (CUDA events around a
+   call, the median of 3).
 
 Depth cuts (the widths are the bench model's): phases 10-11, a day of
 3 passes of 4 batches; the cache runs of phase 10 stop after the first
@@ -4088,6 +4133,719 @@ def sharded_phase(block: SlotRecordBlock, params0, mxu_first: float,
     return launches, out
 
 
+# ---------------------------------------------------------------------------
+# phase 18: graph-learning mode on the sorted kernels
+# ---------------------------------------------------------------------------
+
+GRAPH_NODES = 2_097_152            # feasigns 1..N: phases 10-11's key space
+GRAPH_MEAN_DEGREE = 8              # ~16.8 M directed edges
+GRAPH_ZIPF = 1.2
+GRAPH_WALKS, GRAPH_WALK_LEN = 65_536, 8
+GRAPH_WINDOW, GRAPH_NEGATIVES = 2, 5
+GRAPH_LR = 0.05
+GRAPH_BATCH = BATCH                # 16,384 pairs: the bench batch
+GRAPH_RTOL = 1e-5
+GRAPH_SYMBOLS = {k: SYMBOLS[k] for k in ("gather_sorted",
+                                         "scatter_add_sorted")}
+
+
+def power_law_graph(rng, n: int, mean_degree: int):
+    """n · mean_degree directed edges over nodes 1..n whose endpoints
+    are both drawn by one Zipf-1.2 popularity over a seeded permutation
+    of the nodes (a Chung-Lu graph): out- and in-degrees follow the
+    power law with the given mean, a few hubs hold most edges and most
+    nodes have none.  Weights U(0.1, 1)."""
+    m = n * mean_degree
+    perm = rng.permutation(n).astype(np.int64) + 1
+    src = perm[(rng.zipf(GRAPH_ZIPF, m) - 1) % n]
+    dst = perm[(rng.zipf(GRAPH_ZIPF, m) - 1) % n]
+    return np.stack([src, dst], 1), rng.uniform(0.1, 1.0, m)
+
+
+def graph_engine(n: int, seed: int, device) -> BoxPSEngine:
+    """A pass working set over keys 1..n with mf created (the graph
+    table's nodes are the PS's feasigns)."""
+    eng = BoxPSEngine(EmbeddingTableConfig(
+        embedding_dim=MF_DIM, sgd=SparseSGDConfig(
+            mf_create_thresholds=0.0, mf_initial_range=0.1)),
+        seed=seed, device=device)
+    eng.begin_feed_pass()
+    eng.add_keys(np.arange(1, n + 1, dtype=np.uint64))
+    eng.end_feed_pass()
+    eng.begin_pass()
+    eng.ws["mf_size"].fill_(MF_DIM)
+    return eng
+
+
+def graph_step_vs_cpu(mf_fm: torch.Tensor, g2: torch.Tensor,
+                      centers: torch.Tensor, contexts: torch.Tensor,
+                      negs: torch.Tensor, lr: float) -> dict:
+    """One graph step on the card (updating ``mf_fm`` and ``g2``) held
+    against the same step on the CPU, piece by piece: the loss within
+    rtol 1e-5; the plan equal; the merged gradient (the card's sorted
+    scatter of its per-occurrence gradients against the CPU's plain sum
+    of its own) within rtol 1e-5 plus 1e-5 of each row's sum of |terms|,
+    the sum's rounding bound; and the adagrad update of mf and mf_g2sum
+    replayed on the CPU from the card's merged gradient within rtol 1e-5
+    (atol 1e-7).  The update is replayed, as phase 7 replays its steps,
+    because adagrad's first step divides each row's merged gradient by
+    its own rms: a hub row whose thousands of terms cancel carries its
+    sum's rounding (tiles on the card, a sequence on the CPU) to the
+    update's scale."""
+    from paddlebox_tpu_torch.trainer import graph_trainer as gt
+    host = [t.to("cpu", copy=True)
+            for t in (mf_fm, g2, centers, contexts, negs)]
+    loss, pay, (rows2d, first_occ, dims) = gt.skipgram_grad(
+        mf_fm, centers, contexts, negs)
+    delta = sp.scatter_add_sorted(pay, rows2d, first_occ, dims)
+    h_loss, h_pay, (h_rows2d, h_first, _) = gt.skipgram_grad(
+        host[0], *host[2:])
+    h_delta = sp.scatter_add_sorted_plain(h_pay, h_rows2d, h_first, dims)
+    abs_sum = sp.scatter_add_sorted_plain(h_pay.abs(), h_rows2d, h_first,
+                                          dims)
+    out = {"loss": float(loss), "cpu_loss": float(h_loss)}
+    if not math.isclose(out["loss"], out["cpu_loss"], rel_tol=GRAPH_RTOL):
+        raise AssertionError(f"graph step: loss card {out['loss']} vs CPU "
+                             f"{out['cpu_loss']}")
+    if not torch.equal(rows2d.cpu(), h_rows2d):
+        raise AssertionError("graph step: the card's plan is not the CPU's")
+    err = (delta.cpu() - h_delta).abs()
+    if not bool((err <= GRAPH_RTOL * (h_delta.abs() + abs_sum)).all()):
+        raise AssertionError(f"graph step: merged gradient card vs CPU: max "
+                             f"err {float(err.max())}")
+    out["delta_max_err"] = float(err.max())
+    gt.adagrad_update(host[0], host[1], delta.cpu(), lr)
+    gt.adagrad_update(mf_fm, g2, delta, lr)
+    for name, card, want in (("mf", mf_fm, host[0]), ("mf_g2sum", g2,
+                                                      host[1])):
+        e = (card.cpu() - want).abs()
+        if not bool((e <= GRAPH_RTOL * want.abs() + 1e-7).all()):
+            raise AssertionError(f"graph step: {name} card vs CPU update: "
+                                 f"max err {float(e.max())}")
+        out[f"{name}_max_err"] = float(e.max())
+    return out
+
+
+def graph_first_step(eng, rows: np.ndarray, seed: int) -> dict:
+    """The epoch's first batch as one step on the card from a copy of the
+    pass state, held against the CPU by :func:`graph_step_vs_cpu` with
+    the same negatives."""
+    from paddlebox_tpu_torch.trainer import graph_trainer as gt
+    dev = eng.device
+    batch = torch.as_tensor(rows[:GRAPH_BATCH], device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    negs = torch.randint(1, eng.num_keys + 1, (GRAPH_BATCH, GRAPH_NEGATIVES),
+                         generator=gen, device=dev, dtype=torch.int32)
+    mf_fm, g2 = gt.to_feature_major(eng.ws["mf"], eng.ws["mf_g2sum"])
+    out = graph_step_vs_cpu(mf_fm, g2, batch[:, 0], batch[:, 1], negs,
+                            GRAPH_LR)
+    log(f"graph: first step card vs CPU: loss {out['loss']!r} / "
+        f"{out['cpu_loss']!r}; merged gradient max err "
+        f"{out['delta_max_err']:.3g} (rtol {GRAPH_RTOL:g} + {GRAPH_RTOL:g} "
+        f"of the sum of |terms|); update from it: mf max err "
+        f"{out['mf_max_err']:.3g}, mf_g2sum {out['mf_g2sum_max_err']:.3g}")
+    out["negs"] = negs
+    return out
+
+
+def graph_kernels(table_fm: torch.Tensor, rows: np.ndarray,
+                  negs: torch.Tensor, seed: int) -> dict:
+    """Both sorted kernels on a graph step's plan (the first batch's
+    centers, contexts and negatives, B·(2+K) rows) against their plain
+    versions by phase 2's method: the gather over the trained
+    feature-major table bit-exact, the scatter over a seeded payload
+    within rtol 1e-5 plus 1e-5 of each row's sum of |terms|, each twice
+    bit-identical; device times beside index_select / index_add_ and the
+    byte bound."""
+    dev = table_fm.device
+    w = table_fm.shape[0]
+    batch = torch.as_tensor(rows[:GRAPH_BATCH], device=dev)
+    ids = torch.cat([batch[:, 0], batch[:, 1], negs.reshape(-1)])
+    dims = sp.spmm_dims(ids.numel(), table_fm.shape[1] - sp.TILE)
+    plan = sp.build_plan(ids, dims)
+    rows2d, first_occ = plan[0], plan[7]
+    flat = rows2d.reshape(-1)
+    runs = torch.unique_consecutive(flat[:dims.p], return_counts=True)[1]
+    n_unique = int(first_occ.sum().item())
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    payload = torch.randn((w, dims.p_pad), generator=gen, device=dev)
+    payload[:, dims.p:] = 0.0
+    out = {"p": dims.p, "p_pad": dims.p_pad, "n_kernel": dims.n_kernel,
+           "distinct_rows": n_unique, "longest_run": int(runs.max()),
+           "hub_share": float(runs.max()) / dims.p}
+
+    got = twice("graph gather_sorted",
+                lambda: sp.gather_sorted(table_fm, rows2d, dims))
+    want = sp.gather_sorted_plain(table_fm, rows2d, dims)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError("graph: gather_sorted != plain")
+    rows_l = flat.long()
+    g = {"ms": time_ms("graph gather_sorted",
+                       lambda: sp.gather_sorted(table_fm, rows2d, dims)),
+         "plain_ms": time_ms("graph gather_sorted_plain",
+                             lambda: sp.gather_sorted_plain(table_fm, rows2d,
+                                                            dims)),
+         "library_ms": time_ms("graph index_select",
+                               lambda: torch.index_select(table_fm, 1,
+                                                          rows_l)),
+         "max_abs_err": float((got - want).abs().max())}
+    g["bound_ms"], g["bound_by"] = bound_ms(
+        4 * dims.p_pad + 4 * w * n_unique + 4 * w * dims.p_pad, 0)
+
+    got = twice("graph scatter_add_sorted",
+                lambda: sp.scatter_add_sorted(payload, rows2d, first_occ,
+                                              dims))
+    want = sp.scatter_add_sorted_plain(payload, rows2d, first_occ, dims)
+    abs_sum = sp.scatter_add_sorted_plain(payload.abs(), rows2d, first_occ,
+                                          dims)
+    torch.cuda.synchronize()
+    err = (got - want).abs()
+    if not bool((err <= 1e-5 * want.abs() + 1e-5 * abs_sum + 1e-6).all()):
+        raise AssertionError(f"graph: scatter_add_sorted != plain: max err "
+                             f"{float(err.max())}")
+    s = {"ms": time_ms("graph scatter_add_sorted",
+                       lambda: sp.scatter_add_sorted(payload, rows2d,
+                                                     first_occ, dims)),
+         "plain_ms": time_ms("graph scatter_add_sorted_plain",
+                             lambda: sp.scatter_add_sorted_plain(
+                                 payload, rows2d, first_occ, dims)),
+         "library_ms": time_ms("graph index_add_", lambda: torch.zeros(
+             (w, dims.n_kernel), device=dev).index_add_(1, rows_l, payload)),
+         "max_abs_err": float(err.max())}
+    s["bound_ms"], s["bound_by"] = bound_ms(
+        4 * w * dims.p_pad + 4 * dims.p_pad + 4 * w * dims.n_kernel,
+        w * dims.p)
+    out["gather_sorted"], out["scatter_add_sorted"] = g, s
+    log(f"graph[kernels, W={w}]: p {dims.p}, distinct rows {n_unique}, "
+        f"longest run {out['longest_run']} (hub share "
+        f"{out['hub_share']:.4f}); gather {g['ms']:.4f} ms (plain "
+        f"{g['plain_ms']:.4f}, index_select {g['library_ms']:.4f}, bound "
+        f"{g['bound_ms']:.4f}); scatter {s['ms']:.4f} ms (plain "
+        f"{s['plain_ms']:.4f}, index_add_ {s['library_ms']:.4f}, bound "
+        f"{s['bound_ms']:.4f}); max err {g['max_abs_err']} / "
+        f"{s['max_abs_err']}")
+    return out
+
+
+def graph_communities(device, seed: int = 0) -> dict:
+    """The JAX package's two-community test on the card: 40 nodes, 8
+    epochs of walks; intra-community cosine must beat inter by 0.2."""
+    from paddlebox_tpu_torch.graph.graph_table import GraphTable
+    from paddlebox_tpu_torch.trainer.graph_trainer import \
+        GraphEmbeddingTrainer
+    rng = np.random.default_rng(seed)
+    size, n = 20, 40
+    edges = [(a, b) for a in range(1, n + 1) for b in range(a + 1, n + 1)
+             if rng.random() < (0.6 if (a <= size) == (b <= size) else 0.02)]
+    edges = np.asarray(edges + [(b, a) for a, b in edges], np.int64)
+    eng = graph_engine(n, seed, device)
+    tr = GraphEmbeddingTrainer(eng, GraphTable(edges, num_nodes=n + 1,
+                                               device=device),
+                               n_negatives=4, learning_rate=0.1, window=2)
+    losses = [tr.train_walks(np.tile(np.arange(1, n + 1), 6), length=6,
+                             batch_size=2048, seed=s) for s in range(8)]
+    emb = eng.ws["mf"].cpu().numpy()[eng.mapper(
+        np.arange(1, n + 1, dtype=np.uint64))]
+    emb = emb / (np.linalg.norm(emb, axis=1, keepdims=True) + 1e-9)
+    sim = emb @ emb.T
+    intra = float((sim[:size, :size].mean() + sim[size:, size:].mean()) / 2)
+    inter = float(sim[:size, size:].mean())
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]
+            and intra > inter + 0.2):
+        raise AssertionError(f"graph: communities did not separate: losses "
+                             f"{losses}, intra {intra}, inter {inter}")
+    log(f"graph[communities]: losses {losses[0]:.4f} -> {losses[-1]:.4f}, "
+        f"intra {intra:.4f} > inter {inter:.4f} + 0.2")
+    return {"losses": losses, "intra": intra, "inter": inter}
+
+
+def graph_phase(seed: int = 22, device: str = "cuda"):
+    """Phase 18: the graph-learning mode at the system's widths — a
+    2,097,152-node power-law graph (the 2 M key space), node embeddings
+    of mf_dim 8 as PS rows, one epoch of skip-gram pairs from 65,536
+    walks inside one pass lifecycle, pull and push on the sorted
+    kernels."""
+    from paddlebox_tpu_torch.graph.graph_table import GraphTable
+    from paddlebox_tpu_torch.trainer import graph_trainer as gt
+    from paddlebox_tpu_torch.utils.profiler import Profiler
+    dev = torch.device(device)
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    out = {}
+    t0 = time.perf_counter()
+    edges, weights = power_law_graph(rng, GRAPH_NODES, GRAPH_MEAN_DEGREE)
+    out["graph_gen_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    graph = GraphTable(edges, weights=weights, num_nodes=GRAPH_NODES + 1,
+                       device=dev)
+    torch.cuda.synchronize()
+    out["csr_build_s"] = time.perf_counter() - t0
+    deg = np.diff(graph.indptr.cpu().numpy())
+    out["edges"], out["nodes_with_out_edges"] = graph.num_edges, int(
+        (deg > 0).sum())
+    out["max_out_degree"] = int(deg.max())
+    del edges, weights
+
+    t0 = time.perf_counter()
+    eng = graph_engine(GRAPH_NODES, seed, dev)
+    out["lifecycle_open_s"] = time.perf_counter() - t0
+    tr = gt.GraphEmbeddingTrainer(eng, graph, n_negatives=GRAPH_NEGATIVES,
+                                  learning_rate=GRAPH_LR,
+                                  window=GRAPH_WINDOW, seed=seed)
+    starts = rng.choice(np.nonzero(deg > 0)[0], GRAPH_WALKS)
+    wgen = torch.Generator(device=dev).manual_seed(seed)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    walks = graph.random_walk(torch.as_tensor(starts, device=dev),
+                              GRAPH_WALK_LEN, wgen)
+    torch.cuda.synchronize()
+    out["walk_ms"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    rows = tr.pair_rows(gt.walk_pairs(walks, GRAPH_WINDOW))
+    out["pair_rows_s"] = time.perf_counter() - t0
+    out["pairs"] = len(rows)
+    log(f"graph: {GRAPH_NODES} nodes, {out['edges']} edges "
+        f"({out['nodes_with_out_edges']} nodes with an out-edge, max "
+        f"out-degree {out['max_out_degree']}); generate "
+        f"{out['graph_gen_s']:.2f} s, CSR build {out['csr_build_s']:.2f} s, "
+        f"pass lifecycle open {out['lifecycle_open_s']:.2f} s; "
+        f"{GRAPH_WALKS} walks of {GRAPH_WALK_LEN} in {out['walk_ms']:.2f} "
+        f"ms; {out['pairs']} pairs ({out['pair_rows_s']:.2f} s to pass "
+        f"rows)")
+
+    mf0, g20 = eng.ws["mf"].clone(), eng.ws["mf_g2sum"].clone()
+    first = graph_first_step(eng, rows, seed + 1)
+    # the layout the sorted gather reads: re-laid once an epoch (the
+    # trainer's choice) against once a step
+    out["feature_major_ms"] = time_ms(
+        "graph to_feature_major",
+        lambda: gt.to_feature_major(eng.ws["mf"], eng.ws["mf_g2sum"]))
+
+    reset_counts()
+    t0 = time.perf_counter()
+    loss = tr.train_pairs(rows, batch_size=GRAPH_BATCH)
+    torch.cuda.synchronize()
+    out["epoch_s"] = time.perf_counter() - t0
+    launches = read_counts()
+    stats = dict(tr.stats)
+    steps = len(stats["losses"])
+    if launches != {"gather_sorted": steps, "scatter_add_sorted": steps,
+                    "gather_pool": 0}:
+        raise AssertionError(f"graph: launches {launches} over {steps} "
+                             f"steps (want one of each sorted kernel a "
+                             f"step, no gather_pool)")
+    if not (np.isfinite(loss) and all(np.isfinite(stats["losses"]))):
+        raise AssertionError(f"graph: non-finite losses {stats['losses']}")
+    trained = (eng.ws["mf"].clone(), eng.ws["mf_g2sum"].clone())
+    step_ms = float(np.median(stats["step_ms"]))
+    out.update(steps=steps, mean_loss=loss, losses=stats["losses"],
+               step_ms=stats["step_ms"], median_step_ms=step_ms,
+               pairs_per_s=GRAPH_BATCH / (step_ms / 1e3),
+               epoch_pairs_per_s=out["pairs"] / out["epoch_s"],
+               first_step=first)
+    if torch.equal(trained[0], mf0):
+        raise AssertionError("graph: the epoch left mf as it was")
+
+    # a rerun from the same state and seed, traced through the port's
+    # Profiler: the same bits, and the device-busy share of its steps
+    eng.ws["mf"].copy_(mf0)
+    eng.ws["mf_g2sum"].copy_(g20)
+    tr2 = gt.GraphEmbeddingTrainer(eng, graph, n_negatives=GRAPH_NEGATIVES,
+                                   learning_rate=GRAPH_LR,
+                                   window=GRAPH_WINDOW, seed=seed)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_graph_") as tdir:
+        with Profiler(log_dir=tdir) as prof:
+            tr2.train_pairs(rows, batch_size=GRAPH_BATCH)
+        out["profile"] = profiled("graph", prof.profile, tr2.stats,
+                                  GRAPH_SYMBOLS)
+    if tr2.stats["losses"] != stats["losses"] or not (
+            torch.equal(eng.ws["mf"], trained[0])
+            and torch.equal(eng.ws["mf_g2sum"], trained[1])):
+        raise AssertionError("graph: a rerun from the same seed left "
+                             "other bits")
+    out["kernels"] = graph_kernels(gt.to_feature_major(
+        eng.ws["mf"], eng.ws["mf_g2sum"])[0], rows, first.pop("negs"),
+        seed + 2)
+    log(f"graph: epoch {steps} steps of {GRAPH_BATCH} pairs, mean loss "
+        f"{loss:.5f} ({stats['losses'][0]:.5f} -> "
+        f"{stats['losses'][-1]:.5f}); median step {step_ms:.4f} ms (CUDA "
+        f"events), {out['pairs_per_s']:.0f} pairs/s; epoch "
+        f"{out['epoch_s']:.3f} s ({out['epoch_pairs_per_s']:.0f} "
+        f"pairs/s); to_feature_major {out['feature_major_ms']:.4f} ms (once "
+        f"an epoch, not a step); launches {launches}; rerun bit-identical; "
+        f"traced device busy {100 * out['profile']['busy_share']:.1f} %")
+
+    # end_pass writes the trained rows back to the host table
+    keys = np.unique(np.concatenate([
+        rng.integers(1, GRAPH_NODES + 1, 4096),
+        np.nonzero(deg > 0)[0][:64]])).astype(np.uint64)
+    want = eng.ws["mf"][torch.as_tensor(eng.mapper(keys).astype(np.int64),
+                                        device=dev)].cpu().numpy()
+    t0 = time.perf_counter()
+    eng.end_pass()
+    out["end_pass_s"] = time.perf_counter() - t0
+    back = eng.table.bulk_pull(keys)["mf"]
+    if not np.array_equal(back, want):
+        raise AssertionError("graph: end_pass did not write the trained "
+                             "rows back to the host table")
+    log(f"graph: end_pass wrote {GRAPH_NODES} rows back in "
+        f"{out['end_pass_s']:.2f} s; {len(keys)} sampled keys read back bit "
+        f"for bit")
+    out["communities"] = graph_communities(dev)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"graph: phase {out['phase_s']:.1f} s")
+    return {"graph": launches}, out
+
+
+# ---------------------------------------------------------------------------
+# phase 19: the parallel layer library, every shard on the card
+# ---------------------------------------------------------------------------
+
+PAR_MP, PAR_EP, PAR_SP, PAR_PP = 4, 4, 4, 4
+MLP_IN = N_SLOTS * (3 + MF_DIM) + DENSE_DIM   # 299: the bench MLP's input
+PAR_VOCAB, PAR_EMB, PAR_CLASSES = 1_048_576, 64, 32_768
+MOE_HIDDEN, MOE_EXPERTS, MOE_CF = 1600, 8, 2.5
+ATTN_SHAPE = (2, 4096, 8, 64)               # B, T, H, Dh
+PIPE_MICRO, PIPE_MB = 8, 2048
+PAR_RTOL, PAR_ATOL = 1e-4, 2e-5
+
+
+def event_ms(fn, reps: int = 3) -> float:
+    """Median of ``reps`` calls of ``fn`` timed by CUDA events around
+    each call after one warm call: device time with the host's gaps
+    inside the call counted (these runs launch many small ops from
+    Python)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def par_check(what: str, got, want, out: dict, rtol: float = PAR_RTOL,
+              atol: float = PAR_ATOL, fns=None) -> None:
+    """``got`` within rtol / atol of ``want``; records the max error and,
+    with ``fns`` ({label: fn}), each one's ms."""
+    pairs = (list(zip(got, want)) if isinstance(got, (list, tuple))
+             else [(got, want)])
+    err = 0.0
+    for g, w in pairs:
+        e = (g.detach() - w.detach()).abs()
+        if not bool((e <= rtol * w.detach().abs() + atol).all()):
+            raise AssertionError(f"parallel[{what}]: max err "
+                                 f"{float(e.max())} (rtol {rtol:g}, atol "
+                                 f"{atol:g})")
+        err = max(err, float(e.max()))
+    rec = {"max_abs_err": err}
+    for label, fn in (fns or {}).items():
+        rec[f"{label}_ms"] = event_ms(fn)
+    out[what] = rec
+    log(f"parallel[{what}]: max err {err:.3g}; " + ", ".join(
+        f"{k} {v:.3f}" for k, v in rec.items() if k.endswith("_ms")))
+
+
+def parallel_tp(dev, gen, out: dict) -> None:
+    from paddlebox_tpu_torch.parallel import tp_layers as tp
+    from paddlebox_tpu_torch.parallel.topology import (Spec, split_tree,
+                                                       single_host_topology)
+    topo = single_host_topology(device=dev, mp=PAR_MP)
+    # the bench MLP's first two layers, Megatron-paired: 299 → 400 column
+    # (output left split), relu, 400 → 400 row (input split)
+    col = tp.ColumnParallelLinear(MLP_IN, HIDDEN[0], gather_output=False)
+    row = tp.RowParallelLinear(HIDDEN[0], HIDDEN[1], input_is_parallel=True)
+    pc, pr = col.init(gen), row.init(gen)
+    pc["b"].normal_(generator=gen)
+    pr["b"].normal_(generator=gen)
+    x = torch.randn((BATCH, MLP_IN), generator=gen, device=dev)
+    lc = split_tree(pc, col.param_specs(), topo)
+    lr_ = split_tree(pr, row.param_specs(), topo)
+    xs = topo.split(x, Spec())
+
+    def sharded():
+        hs = [torch.relu(h) for h in col.apply_sharded(lc, xs, topo)]
+        return topo.join(row.apply_sharded(lr_, hs, topo), Spec())
+
+    def dense():
+        return row.apply(pr, torch.relu(col.apply(pc, x)))
+    par_check("tp_mlp", sharded(), dense(), out,
+              fns={"sharded": sharded, "dense": dense})
+
+    emb = tp.VocabParallelEmbedding(PAR_VOCAB, PAR_EMB)
+    pe = emb.init(gen)
+    ids = torch.randint(0, PAR_VOCAB, (BATCH, N_SLOTS), generator=gen,
+                        device=dev)
+    le = split_tree(pe, emb.param_specs(), topo)
+    ids_s = topo.split(ids, Spec())
+
+    def emb_sharded():
+        return topo.join(emb.apply_sharded(le, ids_s, topo), Spec())
+    got = emb_sharded()
+    if not torch.equal(got, emb.apply(pe, ids)):
+        raise AssertionError("parallel[vocab_embedding]: the masked sum "
+                             "over shards is not the dense lookup's bits")
+    par_check("vocab_embedding", got, emb.apply(pe, ids), out, 0.0, 0.0,
+              fns={"sharded": emb_sharded,
+                   "dense": lambda: emb.apply(pe, ids)})
+
+    logits = torch.randn((BATCH, PAR_CLASSES), generator=gen,
+                         device=dev) * 2
+    labels = torch.randint(0, PAR_CLASSES, (BATCH,), generator=gen,
+                           device=dev)
+    lg_s, lb_s = topo.split(logits, Spec(None, "mp")), topo.split(
+        labels, Spec())
+
+    def ce_sharded():
+        return topo.join(tp.parallel_cross_entropy(lg_s, lb_s, topo), Spec())
+
+    def ce_dense():
+        return -torch.log_softmax(logits, -1)[torch.arange(BATCH,
+                                                           device=dev),
+                                              labels]
+    par_check("cross_entropy", ce_sharded(), ce_dense(), out,
+              fns={"sharded": ce_sharded, "dense": ce_dense})
+
+
+def parallel_moe(dev, gen, out: dict) -> None:
+    from paddlebox_tpu_torch.parallel import moe
+    from paddlebox_tpu_torch.parallel.topology import (Spec, split_tree,
+                                                       single_host_topology)
+    topo = single_host_topology(device=dev, ep=PAR_EP)
+    x = torch.randn((BATCH, HIDDEN[0]), generator=gen, device=dev)
+    for gate, k in (("switch", 1), ("gshard", 2)):
+        layer = moe.MoELayer(moe.MoEConfig(
+            d_model=HIDDEN[0], d_hidden=MOE_HIDDEN, num_experts=MOE_EXPERTS,
+            capacity_factor=MOE_CF, gate=gate))
+        params = layer.init(gen)
+        locs = split_tree(params, layer.param_specs(), topo)
+        xs = topo.split(x, Spec("ep"))
+        # no token may overflow its bucket in either layout, or the two
+        # would drop different tokens
+        fn = moe.GATES[gate]
+        dense_kept = float(fn(x @ params["gate"],
+                              layer.capacity(BATCH, 1))[0].sum())
+        shard_kept = sum(float(fn(xx @ params["gate"], layer.capacity(
+            xx.shape[0], PAR_EP))[0].sum()) for xx in xs)
+        if dense_kept != k * BATCH or shard_kept != k * BATCH:
+            raise AssertionError(f"parallel[moe_{gate}]: tokens dropped "
+                                 f"(kept {dense_kept} / {shard_kept} of "
+                                 f"{k * BATCH})")
+
+        def sharded():
+            ys, _ = layer.apply_sharded(locs, xs, topo, ep=PAR_EP)
+            return topo.join(ys, Spec("ep"))
+
+        def dense():
+            return layer.apply_dense(params, x)[0]
+        par_check(f"moe_{gate}", sharded(), dense(), out,
+                  fns={"sharded": sharded, "dense": dense})
+
+
+def parallel_attention(dev, gen, out: dict) -> None:
+    from paddlebox_tpu_torch.parallel import ring_attention as ra
+    from paddlebox_tpu_torch.parallel import ulysses
+    from paddlebox_tpu_torch.parallel.topology import (Spec,
+                                                       single_host_topology)
+    topo = single_host_topology(device=dev, sp=PAR_SP)
+    q, k, v = (torch.randn(ATTN_SHAPE, generator=gen, device=dev)
+               for _ in range(3))
+    spec = Spec(None, "sp")
+    qs, ks, vs = (topo.split(t, spec) for t in (q, k, v))
+    for causal in (False, True):
+        tag = "causal" if causal else "full"
+
+        def dense():
+            return ra.reference_attention(q, k, v, causal=causal)
+
+        def ring():
+            return topo.join(ra.ring_attention(qs, ks, vs, topo, "sp",
+                                               PAR_SP, causal=causal), spec)
+
+        def uly():
+            return topo.join(ulysses.ulysses_attention(
+                qs, ks, vs, topo, "sp", causal=causal), spec)
+        want = dense()
+        par_check(f"ring_{tag}", ring(), want, out,
+                  fns={"sharded": ring, "dense": dense})
+        par_check(f"ulysses_{tag}", uly(), want, out,
+                  fns={"sharded": uly})
+
+
+def pipe_stage(p, x):
+    return torch.tanh(x @ p["w"] + p["b"])
+
+
+def parallel_pipelines(dev, gen, out: dict) -> None:
+    from paddlebox_tpu_torch.parallel import pipeline as pl
+    from paddlebox_tpu_torch.parallel.topology import (Spec, join_tree,
+                                                       split_tree,
+                                                       single_host_topology)
+    topo = single_host_topology(device=dev, pp=PAR_PP)
+    d = HIDDEN[0]
+    per_stage = [{"w": torch.randn((d, d), generator=gen, device=dev)
+                  * d ** -0.5,
+                  "b": torch.randn((d,), generator=gen, device=dev) * 0.1}
+                 for _ in range(PAR_PP)]
+    micro = torch.randn((PIPE_MICRO, PIPE_MB, d), generator=gen, device=dev)
+    tgt = torch.randn((PIPE_MICRO, PIPE_MB, d), generator=gen, device=dev)
+    stacked = pl.stack_stage_params(per_stage)
+    rep = topo.split(micro, Spec())
+
+    def sequential(params):
+        ys = []
+        for m in range(PIPE_MICRO):
+            y = micro[m]
+            for p in params:
+                y = pipe_stage(p, y)
+            ys.append(y)
+        return torch.stack(ys)
+
+    gpipe = pl.PipelineRunner(pipe_stage, PAR_PP)
+
+    def gpipe_fwd(params=stacked):
+        return topo.join(gpipe(split_tree(params, Spec("pp"), topo), rep,
+                               topo), Spec())
+    with torch.no_grad():
+        par_check("gpipe_forward", gpipe_fwd(), sequential(per_stage), out,
+                  fns={"pipelined": gpipe_fwd,
+                       "sequential": lambda: sequential(per_stage)})
+
+    def mse_grads(run):
+        params = {n: v.clone().requires_grad_() for n, v in stacked.items()}
+        loss = ((run(params) - tgt) ** 2).mean()
+        return torch.autograd.grad(loss, list(params.values()))
+
+    def seq_of(params):
+        return sequential([{n: v[i] for n, v in params.items()}
+                           for i in range(PAR_PP)])
+    par_check("gpipe_backward", mse_grads(gpipe_fwd), mse_grads(seq_of), out,
+              fns={"pipelined": lambda: mse_grads(gpipe_fwd),
+                   "sequential": lambda: mse_grads(seq_of)})
+
+    def mse(y, t):
+        return ((y - t) ** 2).mean()
+    f1b = pl.PipelineRunner1F1B(pipe_stage, mse, PAR_PP)
+    tgt_rep = topo.split(tgt, Spec())
+
+    def run_1f1b():
+        losses, grads = f1b(split_tree(stacked, Spec("pp"), topo), rep,
+                            tgt_rep, topo)
+        g = join_tree(grads, Spec("pp"), topo)
+        return [losses[0]] + [g[n] for n in stacked]
+
+    def seq_1f1b():
+        params = {n: v.clone().requires_grad_() for n, v in stacked.items()}
+        ys = seq_of(params)
+        loss = sum(mse(ys[m], tgt[m]) for m in range(PIPE_MICRO)) / PIPE_MICRO
+        return [loss.detach()] + list(torch.autograd.grad(
+            loss, list(params.values())))
+    par_check("1f1b", run_1f1b(), seq_1f1b(), out,
+              fns={"pipelined": run_1f1b, "sequential": seq_1f1b})
+    if not f1b.peak_stash <= f1b.stash_slots < PIPE_MICRO + 1:
+        raise AssertionError(f"parallel[1f1b]: stash peak {f1b.peak_stash}"
+                             f" of {f1b.stash_slots} slots")
+    out["1f1b"]["peak_stash"] = f1b.peak_stash
+
+    # hetero 1F1B over the bench MLP chain 299 → 400 → 400 → 400 → 1
+    widths = [MLP_IN, *HIDDEN, 1]
+    hparams = tuple({"w": torch.randn((widths[i], widths[i + 1]),
+                                      generator=gen, device=dev)
+                     * widths[i] ** -0.5,
+                     "b": torch.zeros((widths[i + 1],), device=dev)}
+                    for i in range(PAR_PP))
+
+    def mk(i):
+        def fn(p, x):
+            y = x @ p["w"] + p["b"]
+            return torch.relu(y) if i < PAR_PP - 1 else y
+        return fn
+    fns = [mk(i) for i in range(PAR_PP)]
+    hx = torch.randn((PIPE_MICRO, PIPE_MB, widths[0]), generator=gen,
+                     device=dev)
+    hy = torch.randint(0, 2, (PIPE_MICRO, PIPE_MB, 1), generator=gen,
+                       device=dev).float()
+
+    def bce(y, t):
+        return torch.nn.functional.binary_cross_entropy_with_logits(y, t)
+    hetero = pl.HeteroPipeline1F1B(fns, [(PIPE_MB, w) for w in widths], bce)
+
+    def run_hetero():
+        losses, grads = hetero(hparams, topo.split(hx, Spec()),
+                               topo.split(hy, Spec()), topo)
+        return [losses[0]] + [g[n] for g in grads[0] for n in ("w", "b")]
+
+    def serial_hetero():
+        ps = [{n: v.clone().requires_grad_() for n, v in p.items()}
+              for p in hparams]
+        tot = 0.0
+        for m in range(PIPE_MICRO):
+            y = hx[m]
+            for i in range(PAR_PP):
+                y = fns[i](ps[i], y)
+            tot = tot + bce(y, hy[m])
+        loss = tot / PIPE_MICRO
+        return [loss.detach()] + list(torch.autograd.grad(
+            loss, [p[n] for p in ps for n in ("w", "b")]))
+    par_check("hetero_1f1b", run_hetero(), serial_hetero(), out,
+              fns={"pipelined": run_hetero, "sequential": serial_hetero})
+
+    # the fleet executor: a DAG whose compute nodes run the stages
+    from paddlebox_tpu_torch.runtime.fleet_executor import (FleetExecutor,
+                                                            TaskNode)
+
+    def dag():
+        nodes = [TaskNode(0, "source", downstream=[1], max_runs=PIPE_MICRO)]
+        for i, p in enumerate(per_stage):
+            nodes.append(TaskNode(i + 1, "compute", upstream=[i],
+                                  downstream=[i + 2],
+                                  fn=lambda x, p=p: pipe_stage(p, x)))
+        nodes.append(TaskNode(PAR_PP + 1, "sink", upstream=[PAR_PP]))
+        with torch.no_grad():
+            res = FleetExecutor(nodes, source_generator=lambda m: micro[m]
+                                ).run(timeout=120)
+        torch.cuda.synchronize()
+        return torch.stack(res)
+    with torch.no_grad():
+        serial = sequential(per_stage)
+    got = dag()
+    par_check("fleet_executor", got, serial, out,
+              fns={"dag": dag, "serial": lambda: sequential(per_stage)})
+    out["fleet_executor"]["bit_equal"] = bool(torch.equal(got, serial))
+
+
+def parallel_phase(seed: int = 23):
+    """Phase 19: the parallel layer library with every shard on the card
+    (``single_host_topology``), each run held against its dense or
+    sequential counterpart on the card with TF32 off (rtol 1e-4, atol
+    2e-5), ms for each."""
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    reset_counts()
+    try:
+        parallel_tp(dev, gen, out)
+        parallel_moe(dev, gen, out)
+        parallel_attention(dev, gen, out)
+        parallel_pipelines(dev, gen, out)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, \
+            torch.backends.cudnn.allow_tf32 = tf32
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"parallel: {len(out) - 1} runs passed; phase {out['phase_s']:.1f} s")
+    return {"parallel": read_counts()}, out
+
+
 def profile_phase(seed: int = 1, symbols=SYMBOLS) -> dict:
     """Short traced passes (2 batches) of the lowerings that phases 3-4
     run once untraced: device time by kernel, per step, and the
@@ -4170,6 +4928,8 @@ def main() -> int:
     sharded_launches, sharded_out = timed(
         "sharded", sharded_phase, packed_block, packed_params,
         packed_out["mxu"]["losses"][0], kern["uniform"])
+    graph_launches, graph_out = timed("graph", graph_phase)
+    par_launches, par_out = timed("parallel", parallel_phase)
     profile_out = timed("profile", profile_phase)
 
     by_path = {"slice_mxu": slice_launches,
@@ -4186,7 +4946,8 @@ def main() -> int:
                **{f"cluster_{p}": n for p, n in cl_launches.items()},
                **{f"serving_{p}": n for p, n in serve_launches.items()},
                **fleet_launches,
-               **{f"sharded_{p}": n for p, n in sharded_launches.items()}}
+               **{f"sharded_{p}": n for p, n in sharded_launches.items()},
+               **graph_launches, **par_launches}
     line = {"kernels": []}
     for name in KERNELS:
         k = kern["uniform"][name]
@@ -4203,6 +4964,12 @@ def main() -> int:
             # shard 1 of phase 17's run (a): the sentinel-heavy domain
             at["at_sharded"] = {
                 f: sharded_out["kernels"][name][f]
+                for f in ("ms", "plain_ms", "bound_ms", "bound_by",
+                          "library_ms", "max_abs_err")}
+        if name in graph_out["kernels"]:
+            # a graph step's plan (phase 18): hub rows and K negatives
+            at["at_graph"] = {
+                f: graph_out["kernels"][name][f]
                 for f in ("ms", "plain_ms", "bound_ms", "bound_by",
                           "library_ms", "max_abs_err")}
         line["kernels"].append({
@@ -4228,6 +4995,8 @@ def main() -> int:
                                  "serving": serve_out,
                                  "trainer_fleet": fleet_out,
                                  "sharded": sharded_out,
+                                 "graph": graph_out,
+                                 "parallel": par_out,
                                  "profile": profile_out,
                                  "phase_s": phase_s}))
     print(json.dumps(line), flush=True)

@@ -277,13 +277,16 @@ def reduce_scatter(xs: Shards, topo: "HybridTopology", axis: Axis, *,
 def ppermute(xs: Shards, topo: "HybridTopology", axis: Axis,
              perm: Sequence[Tuple[int, int]]) -> Shards:
     """≙ lax.ppermute: (src, dst) pairs of axis positions; a member that
-    no pair sends to receives zeros."""
+    no pair sends to receives zeros.  A member may hold None (a pipeline
+    stage with no microbatch at a tick): None is moved like a value."""
     out = [None] * len(xs)
     for g in _groups(xs, topo, axis):
+        sent = set()
         for src, dst in perm:
             out[g[dst]] = xs[g[src]]
-        for k in g:
-            if out[k] is None:
+            sent.add(dst)
+        for i, k in enumerate(g):
+            if i not in sent and xs[k] is not None:
                 out[k] = xs[k].new_zeros(xs[k].shape)
     return out
 

@@ -203,6 +203,25 @@ class HybridTopology:
         return out
 
 
+def split_tree(tree: Dict[str, torch.Tensor], specs, topo: HybridTopology
+               ) -> List[Dict[str, torch.Tensor]]:
+    """Each shard's dict of blocks of a dict of tensors (≙ shard_map's
+    in_specs over a params dict): ``specs`` is a dict of Specs by key, or
+    one Spec for every leaf."""
+    per_leaf = {k: topo.split(v, specs[k] if isinstance(specs, dict)
+                              else specs) for k, v in tree.items()}
+    return [{k: blocks[i] for k, blocks in per_leaf.items()}
+            for i in range(topo.world_size)]
+
+
+def join_tree(parts: Sequence[Dict[str, torch.Tensor]], specs,
+              topo: HybridTopology) -> Dict[str, torch.Tensor]:
+    """The inverse of :func:`split_tree` (≙ out_specs over a dict)."""
+    return {k: topo.join([p[k] for p in parts],
+                         specs[k] if isinstance(specs, dict) else specs)
+            for k in parts[0]}
+
+
 def single_host_topology(n: Optional[int] = None, device: DeviceLike = None,
                          **degrees) -> HybridTopology:
     """A topology of ``n`` shards on one device.  With degrees only, n is

@@ -65,6 +65,18 @@ SHARDED = tuple(f"paddlebox_tpu_torch.{m}" for m in (
     "parallel.topology", "parallel.sharding", "ps.sharded_embedding"))
 
 
+# the last modules: graph-learning mode, the parallel layer library and
+# the profiler (torch modules) ...
+LAST_MODULES = tuple(f"paddlebox_tpu_torch.{m}" for m in (
+    "graph", "graph.graph_table", "trainer.graph_trainer",
+    "parallel.tp_layers", "parallel.moe", "parallel.pipeline",
+    "parallel.ring_attention", "parallel.ulysses", "utils.profiler"))
+
+# ... and the fleet executor, host threads over utils/channel (no torch)
+RUNTIME = tuple(f"paddlebox_tpu_torch.{m}" for m in (
+    "runtime", "runtime.fleet_executor"))
+
+
 def _port_modules():
     import paddlebox_tpu_torch
     names = ["paddlebox_tpu_torch"]
@@ -82,6 +94,7 @@ def test_port_modules_import_without_jax():
     assert set(SERVING_TIER) <= set(mods)
     assert set(FLEET_HOST) <= set(mods) and set(FLEET) <= set(mods)
     assert set(SHARDED) <= set(mods)
+    assert set(LAST_MODULES) <= set(mods) and set(RUNTIME) <= set(mods)
     scripts = ["chip_smoke", "kernel_ab"]
     proc = subprocess.run([sys.executable, "-c", _PROBE, *mods, *scripts],
                           cwd=REPO, capture_output=True, text=True,
@@ -206,3 +219,26 @@ assert not leaked, leaked
                           timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert proc.stdout.startswith(f"ok {len(SHARDED)}")
+
+
+@pytest.mark.parametrize("group", ["last_modules", "runtime"])
+def test_last_modules_import_without_jax(group):
+    """The graph mode, the parallel layer library and the profiler load
+    in a JAX-blocked interpreter and ``parallel`` hands out their names;
+    the fleet executor loads there without importing torch."""
+    mods = list(LAST_MODULES if group == "last_modules" else RUNTIME)
+    extra = (r"""
+from paddlebox_tpu_torch import parallel
+for name in parallel._LAZY:
+    getattr(parallel, name)
+""" if group == "last_modules" else r"""
+assert "torch" not in sys.modules, "the fleet executor imported torch"
+""")
+    probe = _PROBE + extra + r"""
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+assert not leaked, leaked
+"""
+    proc = subprocess.run([sys.executable, "-c", probe, *mods], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.startswith(f"ok {len(mods)}")
