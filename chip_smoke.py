@@ -310,6 +310,27 @@ result line is printed):
    stages against the serial run.  Prints ``parallel[<run>]:`` lines
    with the max error and the ms of each side (CUDA events around a
    call, the median of 3).
+20. multicard — ``mxu_sharded`` with its shards on distinct devices, on
+   the packed phase's data and weights at the bench widths: (a) dp 2
+   over the card and the host; (b) dp 2 × sharding 2, one node on the
+   card and one on the host; with two or more cards, (c) both meshes
+   over ``cuda:0`` and ``cuda:1``.  The card beside the host is a test
+   topology for a one-card machine: the host shards run the kernels'
+   plain versions because their tensors live in host memory.  Each run:
+   every working-set block, feed plane and plan on its shard's device;
+   the working set's and the feed's bytes on the card beside the same
+   mesh on one card (and the allocator's growth); ``gather_sorted`` and
+   ``scatter_add_sorted`` exactly once a card shard a step,
+   ``gather_pool`` never; the losses within rtol 1e-4 and the working set
+   within rtol 1e-5 / atol 1e-6 of the same mesh on one card; the dense
+   replicas bit-equal after the pass and the nodes' replicas of each
+   table block bit-equal after every step; a rerun (traced) leaves the
+   same bits; then both sorted kernels on the last card shard's block
+   and resident plan against their plain versions, timed (on the
+   ``kernels`` line as ``at_multicard`` for (a), ``at_multicard_b`` for
+   (b)).  Prints ``multicard[<run>]:`` lines with the device list, the
+   step device ms, the device-busy share and the card's name and power
+   limit; a run with a host shard is host-bound and says so.
 
 Depth cuts (the widths are the bench model's): phases 10-11, a day of
 3 passes of 4 batches; the cache runs of phase 10 stop after the first
@@ -712,7 +733,8 @@ def read_counts() -> dict:
 def make_trainer(block: SlotRecordBlock, device: str, params=None,
                  path: str = "mxu", model: str = "deepfm", amp: bool = False,
                  optimizer: str = "adagrad", batch: int = 0,
-                 trainer_config=None, mesh: dict = None):
+                 trainer_config=None, mesh: dict = None,
+                 devices=None):
     """Engine lifecycle up to begin_pass over ``block``'s keys, and a
     trainer on ``device`` (from ``params`` when given).  model "mmoe"
     trains through MultiTaskSparseTrainer on two label slots (the
@@ -720,8 +742,8 @@ def make_trainer(block: SlotRecordBlock, device: str, params=None,
     ``batch``: the batch size, BATCH when 0.  Model "ctr_dnn_ex" trains
     over a table with an EX_DIM-wide expand embedding;
     ``trainer_config``: the trainer's TrainerConfig.  ``mesh``: the
-    degrees of a topology (every shard on ``device``) for the engine and
-    the trainer.  Returns (engine, trainer, a dataset of ``block``, the
+    degrees of a topology (every shard on ``device``, or on ``devices``,
+    one a shard) for the engine and the trainer.  Returns (engine, trainer, a dataset of ``block``, the
     model's initial params)."""
     n_labels = 2 if model == "mmoe" else 1
     cfg = feed_config(n_labels)
@@ -733,7 +755,10 @@ def make_trainer(block: SlotRecordBlock, device: str, params=None,
     if mesh is not None:
         from paddlebox_tpu_torch.config import MeshConfig
         from paddlebox_tpu_torch.parallel.topology import HybridTopology
-        topo["topology"] = HybridTopology(MeshConfig(**mesh), device=device)
+        topo["topology"] = (
+            HybridTopology(MeshConfig(**mesh), device=device)
+            if devices is None
+            else HybridTopology(MeshConfig(**mesh), devices=devices))
     engine = BoxPSEngine(EmbeddingTableConfig(
         embedding_dim=MF_DIM, shard_num=8,
         expand_dim=EX_DIM if model == "ctr_dnn_ex" else 0,
@@ -3960,27 +3985,24 @@ SHARDED_RUNS = (("a", {"dp": 4}, False, 1e-4),
                 ("c", {"dp": 4}, True, 1e-2))
 
 
-def sharded_kernels(stats: dict, feed, shard: int = 1) -> dict:
-    """Both sorted kernels on ``shard``'s plan of the pass's first batch
-    (the feed's resident plan) against their plain versions, with device
-    times by phase 2's method: the gather over the shard's trained
-    feature-major block (bit-exact, zeros on the sentinel run), the
-    scatter over a seeded payload (rtol 1e-5 plus 1e-5 of each row's sum
-    of |terms|), each twice bit-identical."""
-    ws = stats["ws"]
-    dev = ws["show"].device
-    n_shards = feed.plans["rows2d"].shape[1]
-    rows_loc = ws["show"].shape[0] // n_shards
-    rows2d = feed.plans["rows2d"][0, shard]
-    first_occ = feed.plans["first_occ"][0, shard]
-    dims = sp.spmm_dims(feed.plans["inv_perm"].shape[2], rows_loc)
+def sharded_kernels(what: str, block: dict, rows2d: torch.Tensor,
+                    first_occ: torch.Tensor, p: int, shard: int) -> dict:
+    """Both sorted kernels on one shard's plan of the pass's first batch
+    (the feed's resident plan ``rows2d``/``first_occ`` over a gathered
+    ``p``) against their plain versions, with device times by phase 2's
+    method: the gather over the shard's trained feature-major block
+    (``block``: its working-set fields; bit-exact, zeros on the sentinel
+    run), the scatter over a seeded payload (rtol 1e-5 plus 1e-5 of each
+    row's sum of |terms|), each twice bit-identical."""
+    dev = rows2d.device
+    rows_loc = block["show"].shape[0]
+    dims = sp.spmm_dims(p, rows_loc)
     flat = rows2d.reshape(-1)
     outside = flat == dims.sentinel
-    cols = [ws["show"], ws["click"], ws["embed_w"], *ws["mf"].T,
-            ws["mf_size"].to(torch.float32)]
+    cols = [block["show"], block["click"], block["embed_w"],
+            *block["mf"].T, block["mf_size"].to(torch.float32)]
     table = torch.zeros((W_PULL, dims.n_kernel), device=dev)
-    table[:, :rows_loc] = torch.stack(cols)[:, shard * rows_loc:
-                                            (shard + 1) * rows_loc]
+    table[:, :rows_loc] = torch.stack(cols)
     gen = torch.Generator(device=dev).manual_seed(shard)
     payload = torch.randn((W_PUSH, dims.p_pad), generator=gen, device=dev)
     payload[:, dims.p:] = 0.0
@@ -3991,28 +4013,28 @@ def sharded_kernels(stats: dict, feed, shard: int = 1) -> dict:
            "distinct_rows": n_unique, "longest_run": int(runs.max()),
            "sentinel_share": float(outside.float().mean())}
 
-    got = twice("sharded gather_sorted",
+    got = twice(f"{what} gather_sorted",
                 lambda: sp.gather_sorted(table, rows2d, dims))
     want = sp.gather_sorted_plain(table, rows2d, dims)
     torch.cuda.synchronize()
     if not torch.equal(got, want):
-        raise AssertionError("sharded: gather_sorted != plain")
+        raise AssertionError(f"{what}: gather_sorted != plain")
     if got[:, outside].any():
-        raise AssertionError("sharded: gather_sorted read nonzero values "
-                             "on the sentinel run")
+        raise AssertionError(f"{what}: gather_sorted read nonzero "
+                             "values on the sentinel run")
     rows_l = flat.long()
-    g = {"ms": time_ms("sharded gather_sorted",
+    g = {"ms": time_ms(f"{what} gather_sorted",
                        lambda: sp.gather_sorted(table, rows2d, dims)),
-         "plain_ms": time_ms("sharded gather_sorted_plain",
+         "plain_ms": time_ms(f"{what} gather_sorted_plain",
                              lambda: sp.gather_sorted_plain(table, rows2d,
                                                             dims)),
-         "library_ms": time_ms("sharded index_select",
+         "library_ms": time_ms(f"{what} index_select",
                                lambda: torch.index_select(table, 1, rows_l)),
          "max_abs_err": float((got - want).abs().max())}
     g["bound_ms"], g["bound_by"] = bound_ms(
         4 * dims.p_pad + 4 * W_PULL * n_unique + 4 * W_PULL * dims.p_pad, 0)
 
-    got = twice("sharded scatter_add_sorted",
+    got = twice(f"{what} scatter_add_sorted",
                 lambda: sp.scatter_add_sorted(payload, rows2d, first_occ,
                                               dims))
     want = sp.scatter_add_sorted_plain(payload, rows2d, first_occ, dims)
@@ -4021,19 +4043,19 @@ def sharded_kernels(stats: dict, feed, shard: int = 1) -> dict:
     torch.cuda.synchronize()
     err = (got - want).abs()
     if not bool((err <= 1e-5 * want.abs() + 1e-5 * abs_sum + 1e-6).all()):
-        raise AssertionError(f"sharded: scatter_add_sorted != plain: max "
-                             f"err {float(err.max())}")
+        raise AssertionError(f"{what}: scatter_add_sorted != plain: "
+                             f"max err {float(err.max())}")
     if got[:, rows_loc:dims.sentinel].any() \
             or got[:, dims.sentinel + 1:].any():
-        raise AssertionError("sharded: scatter_add_sorted wrote outside the "
-                             "owned rows and the sentinel row")
-    s = {"ms": time_ms("sharded scatter_add_sorted",
+        raise AssertionError(f"{what}: scatter_add_sorted wrote outside "
+                             "the owned rows and the sentinel row")
+    s = {"ms": time_ms(f"{what} scatter_add_sorted",
                        lambda: sp.scatter_add_sorted(payload, rows2d,
                                                      first_occ, dims)),
-         "plain_ms": time_ms("sharded scatter_add_sorted_plain",
+         "plain_ms": time_ms(f"{what} scatter_add_sorted_plain",
                              lambda: sp.scatter_add_sorted_plain(
                                  payload, rows2d, first_occ, dims)),
-         "library_ms": time_ms("sharded index_add_", lambda: torch.zeros(
+         "library_ms": time_ms(f"{what} index_add_", lambda: torch.zeros(
              (W_PUSH, dims.n_kernel), device=dev).index_add_(
                  1, rows_l, payload)),
          "max_abs_err": float(err.max())}
@@ -4107,7 +4129,14 @@ def sharded_phase(block: SlotRecordBlock, params0, mxu_first: float,
              "launches": launches[label], "deterministic": True,
              "profile": profiled(what, holder["prof"], again)}
         if label == "a":
-            out["kernels"] = sharded_kernels(stats, hold["feed"])
+            feed, ws, shard = hold["feed"], stats["ws"], 1
+            rows_loc = ws["show"].shape[0] // feed.plans["rows2d"].shape[1]
+            out["kernels"] = sharded_kernels(
+                "sharded", {f: v[shard * rows_loc:(shard + 1) * rows_loc]
+                            for f, v in ws.items()},
+                feed.plans["rows2d"][0, shard],
+                feed.plans["first_occ"][0, shard],
+                feed.plans["inv_perm"].shape[2], shard)
         out[label] = r
         log(f"{what}: mesh {mesh}{', bf16 exchange' if bf16 else ''}, "
             f"losses {stats['losses']}, auc {stats['auc']}, launches "
@@ -4846,6 +4875,245 @@ def parallel_phase(seed: int = 23):
     return {"parallel": read_counts()}, out
 
 
+# ---------------------------------------------------------------------------
+# phase 20: mxu_sharded with its shards on distinct devices
+# ---------------------------------------------------------------------------
+
+# (run, mesh degrees, the shards' devices): the card beside the host is a
+# test topology for a machine with one card (the host shards run the
+# kernels' plain versions because their tensors live in host memory);
+# with two or more cards, (c) repeats both meshes over cuda:0 and cuda:1
+MULTICARD_RUNS = (("a", {"dp": 2}, ("cuda:0", "cpu")),
+                  ("b", {"dp": 2, "sharding": 2},
+                   ("cuda:0", "cuda:0", "cpu", "cpu")))
+MULTICARD_TWO = (("c_flat", {"dp": 2}, ("cuda:0", "cuda:1")),
+                 ("c_multinode", {"dp": 2, "sharding": 2},
+                  ("cuda:0", "cuda:0", "cuda:1", "cuda:1")))
+
+
+def host_ws(ws: dict) -> dict:
+    """The working set on the host, a ``Sharded`` field's blocks joined
+    in row order."""
+    from paddlebox_tpu_torch.parallel.topology import Sharded
+    return {k: torch.as_tensor(np.asarray(v)) if isinstance(v, Sharded)
+            else v.cpu() for k, v in ws.items()}
+
+
+def card_bytes(engine, feed) -> dict:
+    """Bytes of the working set and of the feed (planes and plans) on
+    each device, from the tensors' own sizes."""
+    from paddlebox_tpu_torch.parallel.topology import Sharded
+    ws = {}
+    for v in engine.ws.values():
+        per = (v.bytes_by_device() if isinstance(v, Sharded)
+               else {str(v.device): v.numel() * v.element_size()})
+        for d, n in per.items():
+            ws[d] = ws.get(d, 0) + n
+    return {"ws": ws, "feed": feed.bytes_by_device()}
+
+
+def check_table_replicas(engine) -> None:
+    """Under dp × sharding each node holds a replica of each table
+    block: the replicas on distinct devices must be bit-equal."""
+    from paddlebox_tpu_torch.parallel.topology import Sharded
+    for name, v in engine.ws.items():
+        if not isinstance(v, Sharded):
+            continue
+        first = {}
+        for k, blk in v.unique():
+            row0 = v.rows(k).start
+            if row0 not in first:
+                first[row0] = blk
+            elif not torch.equal(blk.cpu(), first[row0].cpu()):
+                raise AssertionError(f"multicard: the replicas of {name}'s "
+                                     f"block at row {row0} differ")
+
+
+def multicard_pass(block, params, mesh, devices=None, around=None,
+                   hold=None):
+    """One packed mxu_sharded pass over ``devices`` (None: every shard on
+    the card), the table blocks' replicas checked bit-equal after every
+    step: (stats, the working set on the host before end_pass, bytes by
+    device, the card's allocator growth over the engine and the feed,
+    build_pass_feed seconds, dense replicas).  ``hold``: receives the
+    feed and the trained working set."""
+    torch.cuda.synchronize()
+    m0 = torch.cuda.memory_allocated(0)
+    engine, trainer, dataset, _ = make_trainer(
+        block, "cuda", params, "auto", mesh=mesh,
+        devices=None if devices is None else list(devices))
+    t0 = time.perf_counter()
+    feed = trainer.build_pass_feed(dataset)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    alloc = torch.cuda.memory_allocated(0) - m0
+    nbytes = card_bytes(engine, feed)
+    if trainer._resolve_path() != "mxu_sharded":
+        raise AssertionError(f"multicard: auto resolved to "
+                             f"{trainer._resolve_path()}")
+    if devices is not None:
+        check_placement(trainer, engine, feed)
+    with (around or contextlib.nullcontext)():
+        stats = trainer.train_pass(
+            feed, progress=(None if devices is None or around is not None
+                            else lambda i: check_table_replicas(engine)))
+    torch.cuda.synchronize()
+    ws = host_ws(engine.ws)
+    if hold is not None:
+        hold["feed"], hold["ws"] = feed, dict(engine.ws)
+    reps = trainer.dense_replicas()
+    for r in reps[1:]:
+        for a, b in zip(reps[0].parameters(), r.parameters()):
+            if not torch.equal(a.cpu(), b.cpu()):
+                raise AssertionError("multicard: the dense replicas differ")
+    engine.end_pass()
+    if engine.table.size() != engine.num_keys:
+        raise AssertionError("multicard: end_pass did not write every key")
+    return stats, ws, nbytes, alloc, build_s, len(reps)
+
+
+def check_placement(trainer, engine, feed) -> None:
+    """Each shard's working-set block, feed planes and plans on its
+    shard's device."""
+    from paddlebox_tpu_torch.parallel.topology import same_device
+    topo = trainer.topology
+    for name, v in list(engine.ws.items()) + list(feed.data.items()):
+        for k, part in enumerate(v.parts):
+            if not same_device(part.device, topo.device_of(k)):
+                raise AssertionError(f"multicard: {name} block {k} on "
+                                     f"{part.device}, its shard on "
+                                     f"{topo.device_of(k)}")
+    for name, parts in feed.plans.items():
+        for k, part in enumerate(parts):
+            if not same_device(part.device, topo.device_of(k)):
+                raise AssertionError(f"multicard: plan {name} of shard {k} "
+                                     f"on {part.device}")
+
+
+def multicard_close(what: str, got: dict, ws: dict, ref: dict,
+                    ws_ref: dict) -> dict:
+    """Losses within rtol 1e-4 and the working set within rtol 1e-5 /
+    atol 1e-6 of the same mesh on one card (mf_size equal, the slot
+    column's touched rows equal)."""
+    first = [got["losses"][0], ref["losses"][0]]
+    if not np.allclose(got["losses"], ref["losses"], rtol=1e-4, atol=0):
+        raise AssertionError(f"{what}: losses {got['losses']} vs one card "
+                             f"{ref['losses']}")
+    worst = {}
+    for k, want in ws_ref.items():
+        a, b = ws[k].numpy(), want.numpy()
+        if k == "slot":
+            ok = np.array_equal(a != 0, b != 0)
+        elif b.dtype == np.int32:
+            ok = np.array_equal(a, b)
+        else:
+            ok = np.allclose(a, b, rtol=1e-5, atol=1e-6)
+            worst[k] = float(np.abs(a - b).max())
+        if not ok:
+            raise AssertionError(f"{what}: working-set field {k} differs "
+                                 "from the same mesh on one card")
+    return {"first_loss": first, "ws_max_abs_diff": worst}
+
+
+def multicard_phase(block: SlotRecordBlock, params0):
+    """mxu_sharded with its shards on distinct devices at the bench
+    widths on the packed phase's data and weights: ``MULTICARD_RUNS``
+    (a) dp 2 over the card and the host, (b) dp 2 × sharding 2 with one
+    node on each, and with two or more cards ``MULTICARD_TWO`` over
+    cuda:0 and cuda:1.  Each: every block, plane and plan on its shard's
+    device; the card's bytes beside the same mesh on one card; each
+    sorted kernel exactly once a card shard a step and gather_pool never;
+    the losses and working set within rtol 1e-4 / 1e-5 of the same mesh
+    on one card; the dense replicas bit-equal, the table blocks' replicas
+    bit-equal after every step; a rerun (traced) leaves the same bits;
+    both sorted kernels at the run's shape (:func:`sharded_kernels` on
+    the last card shard)."""
+    t_phase = time.perf_counter()
+    runs = MULTICARD_RUNS
+    if torch.cuda.device_count() >= 2:
+        runs += MULTICARD_TWO
+    launches, out, refs = {}, {"cards": torch.cuda.device_count()}, {}
+    for label, mesh, devices in runs:
+        what = f"multicard[{label}]"
+        key = tuple(sorted(mesh.items()))
+        if key not in refs:
+            refs[key] = multicard_pass(block, params0, mesh)
+        ref, ws_ref, bytes_ref, alloc_ref, _, _ = refs[key]
+        card_shards = sum(d.startswith("cuda") for d in devices)
+        hold = {}
+        reset_counts()
+        stats, ws, nbytes, alloc, build_s, n_reps = multicard_pass(
+            block, params0, mesh, devices, hold=hold)
+        launches[label] = read_counts()
+        check_pass(what, stats, launches[label],
+                   {"gather_sorted": card_shards,
+                    "scatter_add_sorted": card_shards, "gather_pool": 0},
+                   exact=True)
+        close = multicard_close(what, stats, ws, ref, ws_ref)
+        # both kernels at this run's shape: the last shard on cuda:0 (the
+        # card the timers read), its block and resident plan of batch 0
+        shard = max(k for k, d in enumerate(devices) if d == "cuda:0")
+        plans = hold["feed"].plans
+        kern = sharded_kernels(
+            what, {f: v.parts[shard] for f, v in hold["ws"].items()},
+            plans["rows2d"][shard][0], plans["first_occ"][shard][0],
+            plans["inv_perm"][shard].shape[1], shard)
+        del hold
+        holder = {}
+        again, ws2, _, _, _, _ = multicard_pass(
+            block, params0, mesh, devices, around=tracer(holder))
+        if again["losses"] != stats["losses"] or any(
+                not torch.equal(ws[k], ws2[k]) for k in ws):
+            raise AssertionError(f"{what}: a rerun left other bits")
+        steady = float(np.median(stats["step_ms"][1:]))
+        prof = profiled(what, holder["prof"], again)
+        host = any(d == "cpu" for d in devices)
+        out[label] = {
+            "mesh": mesh, "devices": list(devices), "replicas": n_reps,
+            "losses": stats["losses"], "auc": stats["auc"], **close,
+            "step_ms": stats["step_ms"], "steady_step_ms": steady,
+            "one_card_steady_step_ms": float(np.median(ref["step_ms"][1:])),
+            "bytes": nbytes, "one_card_bytes": bytes_ref,
+            "card_alloc_bytes": alloc, "one_card_alloc_bytes": alloc_ref,
+            "build_pass_feed_s": build_s, "launches": launches[label],
+            "busy_share": prof["busy_share"], "profile": prof,
+            "host_bound": host, "deterministic": True, "kernels": kern}
+        card = "cuda:0"
+        log(f"{what}: devices {list(devices)} (mesh {mesh}, "
+            f"{n_reps} dense replicas), losses {stats['losses']} vs one "
+            f"card {ref['losses']}, ws max |diff| "
+            f"{close['ws_max_abs_diff']}, launches {launches[label]} "
+            f"({card_shards} card shards x {N_BATCHES} steps); on {card}: "
+            f"working set {nbytes['ws'].get(card, 0) / 2**20:.1f} MiB + "
+            f"feed {nbytes['feed'].get(card, 0) / 2**20:.1f} MiB "
+            f"(allocator +{alloc / 2**20:.1f} MiB) vs one card "
+            f"{bytes_ref['ws'].get(card, 0) / 2**20:.1f} + "
+            f"{bytes_ref['feed'].get(card, 0) / 2**20:.1f} MiB (allocator "
+            f"+{alloc_ref / 2**20:.1f} MiB); step device ms "
+            f"{stats['step_ms']} (steady median {steady:.3f}, one card "
+            f"{out[label]['one_card_steady_step_ms']:.3f}), device busy "
+            f"{100 * prof['busy_share']:.1f} %, build_pass_feed "
+            f"{build_s:.2f} s; rerun bit-identical; {card_line()}"
+            + ("; a host shard bounds this step: it is no multi-card "
+               "speed" if host else ""))
+        for name in ("gather_sorted", "scatter_add_sorted"):
+            x = kern[name]
+            log(f"{what}[kernels, shard {shard} on {devices[shard]}]: "
+                f"{name} {x['ms']:.4f} ms (plain {x['plain_ms']:.4f}, "
+                f"library {x['library_ms']:.4f}, bound {x['bound_ms']:.4f}) "
+                f"at p {kern['p']}, rows_loc {kern['rows_loc']}, sentinel "
+                f"share {kern['sentinel_share']:.4f}, longest run "
+                f"{kern['longest_run']}; max |err| {x['max_abs_err']:.3g}; "
+                f"{card_line()}")
+    if len(runs) == len(MULTICARD_RUNS):
+        log("multicard: runs c_flat and c_multinode need two cards; this "
+            "machine has 1")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"multicard: runs {[r[0] for r in runs]} passed; phase "
+        f"{out['phase_s']:.1f} s")
+    return launches, out
+
+
 def profile_phase(seed: int = 1, symbols=SYMBOLS) -> dict:
     """Short traced passes (2 batches) of the lowerings that phases 3-4
     run once untraced: device time by kernel, per step, and the
@@ -4930,6 +5198,8 @@ def main() -> int:
         packed_out["mxu"]["losses"][0], kern["uniform"])
     graph_launches, graph_out = timed("graph", graph_phase)
     par_launches, par_out = timed("parallel", parallel_phase)
+    mc_launches, mc_out = timed("multicard", multicard_phase, packed_block,
+                                packed_params)
     profile_out = timed("profile", profile_phase)
 
     by_path = {"slice_mxu": slice_launches,
@@ -4947,7 +5217,8 @@ def main() -> int:
                **{f"serving_{p}": n for p, n in serve_launches.items()},
                **fleet_launches,
                **{f"sharded_{p}": n for p, n in sharded_launches.items()},
-               **graph_launches, **par_launches}
+               **graph_launches, **par_launches,
+               **{f"multicard_{p}": n for p, n in mc_launches.items()}}
     line = {"kernels": []}
     for name in KERNELS:
         k = kern["uniform"][name]
@@ -4966,6 +5237,14 @@ def main() -> int:
                 f: sharded_out["kernels"][name][f]
                 for f in ("ms", "plain_ms", "bound_ms", "bound_by",
                           "library_ms", "max_abs_err")}
+        for run in ("a", "b"):
+            # a card shard of phase 20's run: half the table over the
+            # run's gathered P
+            if name in mc_out[run]["kernels"]:
+                at["at_multicard" + ("" if run == "a" else "_b")] = {
+                    f: mc_out[run]["kernels"][name][f]
+                    for f in ("ms", "plain_ms", "bound_ms", "bound_by",
+                              "library_ms", "max_abs_err")}
         if name in graph_out["kernels"]:
             # a graph step's plan (phase 18): hub rows and K negatives
             at["at_graph"] = {
@@ -4997,6 +5276,7 @@ def main() -> int:
                                  "sharded": sharded_out,
                                  "graph": graph_out,
                                  "parallel": par_out,
+                                 "multicard": mc_out,
                                  "profile": profile_out,
                                  "phase_s": phase_s}))
     print(json.dumps(line), flush=True)

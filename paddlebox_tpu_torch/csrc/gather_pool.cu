@@ -44,6 +44,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "device_scope.h"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -184,8 +186,10 @@ cudaError_t launch(const float* table, int64_t ld, const int32_t* idx,
 extern "C" int pbt_gather_pool(const float* table, int64_t ld,
                                const int32_t* idx, const int32_t* lengths,
                                float* out, int64_t r_rows, int l_cap, int d,
-                               int vec, void* stream) {
+                               int vec, int device, void* stream) {
   if (r_rows == 0 || d == 0) return 0;
+  const DeviceScope scope(device);
+  if (scope.err != cudaSuccess) return static_cast<int>(scope.err);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
       vec ? launch<4, 1>(table, ld, idx, lengths, out, r_rows, l_cap, d, st)

@@ -66,11 +66,16 @@
 // streaming mxu lowerings against a 0.048 ms bound for the whole scatter.
 //
 // Plain C interface, loaded with ctypes: every function returns the
-// cudaError_t of its launch (0 = success).  Pointers and the stream come
-// from torch tensors / torch.cuda.current_stream() on the Python side.
+// cudaError_t of its launch (0 = success).  Pointers, the device ordinal
+// and the stream come from torch tensors / torch.cuda.current_stream() on
+// the Python side; the launch runs on that device.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "device_scope.h"
+
+#include <atomic>
 
 namespace {
 
@@ -456,17 +461,25 @@ size_t tile_smem_bytes(int w) {
          + sizeof(float) * kTile * static_cast<size_t>(w < kCols ? w : kCols);
 }
 
+constexpr int kMaxDevices = 64;
+
 template <bool kVec>
 cudaError_t launch_tiles(const float* payload, int64_t p_pad,
                          const int32_t* rows, float* carry, int32_t* flags,
-                         float* out, int64_t n_kernel, int w,
+                         float* out, int64_t n_kernel, int w, int device,
                          cudaStream_t st) {
-  // above 48 KB a block's dynamic shared memory must be opted into
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      scatter_tiles_kernel<kVec>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(tile_smem_bytes(kCols)));
-  if (attr != cudaSuccess) return attr;
+  // above 48 KB a block's dynamic shared memory must be opted into, once
+  // on each device (a repeated opt-in from a racing thread is harmless)
+  static std::atomic<bool> opted[kMaxDevices];
+  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (!opted[device].load()) {
+    const cudaError_t attr = cudaFuncSetAttribute(
+        scatter_tiles_kernel<kVec>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(tile_smem_bytes(kCols)));
+    if (attr != cudaSuccess) return attr;
+    opted[device].store(true);
+  }
   scatter_tiles_kernel<kVec><<<static_cast<unsigned int>(tiles_for(p_pad)),
                                kThreads, tile_smem_bytes(w), st>>>(
       payload, p_pad, rows, carry, flags, out, n_kernel, w);
@@ -477,8 +490,11 @@ cudaError_t launch_tiles(const float* payload, int64_t p_pad,
 
 extern "C" int pbt_gather_sorted(const float* table, int64_t n_kernel,
                                  const int32_t* rows, float* out,
-                                 int64_t p_pad, int w, void* stream) {
+                                 int64_t p_pad, int w, int device,
+                                 void* stream) {
   if (p_pad == 0) return 0;
+  const DeviceScope scope(device);
+  if (scope.err != cudaSuccess) return static_cast<int>(scope.err);
   gather_sorted_kernel<<<blocks_for(p_pad), kThreads, 0,
                          static_cast<cudaStream_t>(stream)>>>(
       table, n_kernel, rows, out, p_pad, w);
@@ -496,8 +512,10 @@ extern "C" int64_t pbt_scatter_scratch_floats(int64_t p_pad, int w) {
 extern "C" int pbt_scatter_add_sorted(const float* payload, int64_t p_pad,
                                       const int32_t* rows, float* scratch,
                                       float* out, int64_t n_kernel, int w,
-                                      void* stream) {
+                                      int device, void* stream) {
   if (p_pad == 0 || w == 0) return 0;
+  const DeviceScope scope(device);
+  if (scope.err != cudaSuccess) return static_cast<int>(scope.err);
   const int64_t n_tiles = tiles_for(p_pad);
   float* carry = scratch;
   int32_t* flags = reinterpret_cast<int32_t*>(scratch + n_tiles * 2 * w);
@@ -507,9 +525,9 @@ extern "C" int pbt_scatter_add_sorted(const float* payload, int64_t p_pad,
                    && reinterpret_cast<uintptr_t>(rows) % 16 == 0;
   cudaError_t err = vec
       ? launch_tiles<true>(payload, p_pad, rows, carry, flags, out, n_kernel,
-                           w, st)
+                           w, device, st)
       : launch_tiles<false>(payload, p_pad, rows, carry, flags, out,
-                            n_kernel, w, st);
+                            n_kernel, w, device, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   scatter_combine_kernel<<<blocks_for(n_tiles * 32), kThreads, 0, st>>>(
       carry, flags, rows, n_tiles, out, n_kernel, w);

@@ -19,7 +19,9 @@ Besides the step's five planes the pass carries the page-view planes
 (``rank_offset`` [N*B, 1+2*max_rank] with batch-local rows, ``ads_offset``
 [N, B+1]), the InputTable aux index planes and the uid plane; the uids
 stay on the host, where the per-user AUC reads them.  ``route_keys`` is
-the trainer fleet's per-record shuffle key.  Not ported: sharded feeds.
+the trainer fleet's per-record shuffle key.  Under a topology whose shards
+sit on distinct devices each shard's batch columns are uploaded to its own
+device (``upload_pass(topology=, shardings=)``).
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ from paddlebox_tpu_torch.data.rank_offset import (build_ads_offset_batched,
                                                   build_rank_offset_batched)
 from paddlebox_tpu_torch.data.slot_record import SlotRecordBlock
 from paddlebox_tpu_torch.ops import sorted_spmm as sp
+from paddlebox_tpu_torch.parallel.topology import Sharded
 from paddlebox_tpu_torch.utils import intervals, workpool
 from paddlebox_tpu_torch.utils.monitor import stat_observe
 
@@ -341,7 +344,10 @@ class PackedPassFeed:
     identifies the geometry they were built for.  ``uid`` with its
     ``host_labels`` / ``host_valid`` stay on the host (uid_slot only);
     ``host`` is the pass's HostPassArrays when the feed was built to keep
-    them (``keep_host``, for the instance dump).
+    them (``keep_host``, for the instance dump).  Under a topology whose
+    shards sit on distinct devices (``topology``) every plane is a
+    ``Sharded`` and every plan a list of per-shard [N, ...] stacks, each
+    on its shard's device.
     """
 
     data: Dict[str, torch.Tensor]
@@ -353,12 +359,30 @@ class PackedPassFeed:
     host_labels: Optional[np.ndarray] = None  # [N*B(, T)]
     host_valid: Optional[np.ndarray] = None   # [N*B] bool
     host: Optional[HostPassArrays] = None     # kept for the dump
+    topology: object = None                   # shards on distinct devices
+
+    def bytes_by_device(self) -> Dict[str, int]:
+        """Bytes the feed keeps on each device: the stacked planes and the
+        plans."""
+        out: Dict[str, int] = {}
+
+        def add(dev, n: int):
+            out[str(dev)] = out.get(str(dev), 0) + n
+        for v in list(self.data.values()) + list((self.plans or {}).values()):
+            if isinstance(v, Sharded):
+                for d, n in v.bytes_by_device().items():
+                    add(d, n)
+            elif isinstance(v, list):        # per-shard plans
+                for k, t in enumerate(v):
+                    add(self.topology.device_of(k),
+                        t.numel() * t.element_size())
+            else:
+                add(v.device, v.numel() * v.element_size())
+        return out
 
     def device_bytes(self) -> int:
-        """Bytes the feed keeps on its device: the stacked planes and the
-        plans."""
-        tensors = list(self.data.values()) + list((self.plans or {}).values())
-        return sum(t.numel() * t.element_size() for t in tensors)
+        """Bytes the feed keeps on its devices, all together."""
+        return sum(self.bytes_by_device().values())
 
 
 def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -397,21 +421,76 @@ class PlaneStager:
 
 def upload_pass(host_arrays: HostPassArrays, device: torch.device,
                 staged: Optional[PlaneStager] = None,
-                keep_host: bool = False) -> PackedPassFeed:
+                keep_host: bool = False, topology=None,
+                shardings: Optional[Dict] = None) -> PackedPassFeed:
     """One upload per plane + a relayout on the device into the
     step-ready stacked layout.  ``staged``: a PlaneStager whose planes
     are already on their way (those skip the upload here).
     ``keep_host``: the feed keeps ``host_arrays`` (the dump's ids,
-    labels and real ranges)."""
+    labels and real ranges).  Under a ``topology`` whose shards sit on
+    distinct devices, ``shardings`` (the trainer's ``pass_shardings``)
+    splits the batch dim over the shards: each shard's batch columns of
+    every plane are cut on the host, uploaded to the shard's device and
+    relaid there, so the whole pass never lands on one device
+    (≙ ``_h2d_sharding``); each plane is then a ``Sharded``."""
     t_up = time.perf_counter()
     m_up = time.monotonic()
     h = host_arrays
     N, B = h.n_batches, h.batch_size
-    pre = dict(staged.staged) if staged is not None else {}
+    if topology is not None and topology.multi_device:
+        if staged is not None:
+            raise NotImplementedError(
+                "a PlaneStager uploads whole planes to one device; staging "
+                "a pass under a topology whose shards sit on distinct "
+                "devices is ROADMAP Queue 1 item 4, not ported yet")
+        parts = [_relayout(_shard_put(h, topology, shardings, k), h, N,
+                           B // topology.block(shardings["valid"], k, 1)[1])
+                 for k in range(topology.world_size)]
+        data = {name: Sharded([p[name] for p in parts], topology,
+                              shardings[name]) for name in parts[0]}
+    else:
+        pre = dict(staged.staged) if staged is not None else {}
+
+        def put(name: str, a: np.ndarray) -> torch.Tensor:
+            return pre[name] if name in pre else to_device(a, device)
+        data = _relayout(put, h, N, B)
+    intervals.record("upload", m_up, time.monotonic())
+    stat_observe("data.pass_feed.upload_s", time.perf_counter() - t_up)
+    uid = h.uid is not None
+    multi = topology is not None and topology.multi_device
+    return PackedPassFeed(data=data, n_batches=N, batch_size=B,
+                          uid=h.uid, host_labels=h.labels if uid else None,
+                          host_valid=h.valid if uid else None,
+                          host=h if keep_host else None,
+                          topology=topology if multi else None)
+
+
+def _shard_put(h: HostPassArrays, topo, shardings: Dict, k: int):
+    """``put`` for shard ``k``: each plane cut to the shard's batch
+    columns of every batch on the host, then uploaded to its device."""
+    idx, n = topo.block(shardings["valid"], k, 1)
+    N, B = h.n_batches, h.batch_size
+    bl = B // n
+    cols = slice(idx * bl, (idx + 1) * bl)
+    dev = topo.device_of(k)
 
     def put(name: str, a: np.ndarray) -> torch.Tensor:
-        return pre[name] if name in pre else to_device(a, device)
+        if name == "ads_offset":         # replicated on every shard
+            return to_device(a.copy(), dev)
+        if name in ("indices", "lengths"):   # [S, N*B(, L)]
+            cut = a.reshape((a.shape[0], N, B) + a.shape[2:])[:, :, cols]
+            cut = cut.reshape((a.shape[0], N * bl) + a.shape[2:])
+        else:                                # [N*B, ...]
+            cut = a.reshape((N, B) + a.shape[1:])[:, cols]
+            cut = cut.reshape((N * bl,) + a.shape[1:])
+        return to_device(np.ascontiguousarray(cut), dev)
+    return put
 
+
+def _relayout(put, h: HostPassArrays, N: int, B: int
+              ) -> Dict[str, torch.Tensor]:
+    """The step-ready stacked planes of ``N`` batches of ``B`` records,
+    each plane uploaded by ``put(name, host array)``."""
     idx = put("indices", h.indices)                        # [S, N*B, L]
     s, _, l = idx.shape
     lbl = put("labels", h.labels)
@@ -427,13 +506,7 @@ def upload_pass(host_arrays: HostPassArrays, device: torch.device,
         data[k] = put(k, v).reshape(N, B, -1)
     if h.ads_offset is not None:             # per-batch plane [N, B+1]
         data["ads_offset"] = put("ads_offset", h.ads_offset)
-    intervals.record("upload", m_up, time.monotonic())
-    stat_observe("data.pass_feed.upload_s", time.perf_counter() - t_up)
-    uid = h.uid is not None
-    return PackedPassFeed(data=data, n_batches=N, batch_size=B,
-                          uid=h.uid, host_labels=h.labels if uid else None,
-                          host_valid=h.valid if uid else None,
-                          host=h if keep_host else None)
+    return data
 
 
 def _static_planes(plan: Dict[str, torch.Tensor], labels_b: torch.Tensor,
@@ -560,8 +633,11 @@ def build_csr_plans(indices: np.ndarray, slot_ids: Sequence[int],
 
 def slice_batch(tree: Dict[str, torch.Tensor], i: int
                 ) -> Dict[str, torch.Tensor]:
-    """Batch i of a dict of stacked tensors (views, no copy)."""
-    return {k: v[i] for k, v in tree.items()}
+    """Batch i of a dict of stacked tensors (views, no copy); of a
+    ``Sharded`` or a per-shard list, the list of the shards' batch i."""
+    return {k: ([p[i] for p in v.parts] if isinstance(v, Sharded)
+                else [p[i] for p in v] if isinstance(v, list) else v[i])
+            for k, v in tree.items()}
 
 
 def plan_tuple(p: Dict[str, torch.Tensor]):

@@ -5,8 +5,9 @@ for Hopper (``-gencode arch=compute_90a,code=sm_90a``) into a shared
 library with a plain C interface, and loaded with ``ctypes``.  No PyTorch
 header is compiled, so a build takes seconds.  Libraries land in
 ``build/kernels/`` at the repository root (listed in ``.gitignore``),
-named by a hash of their source, so an edited source is rebuilt and a
-stale library is never loaded.
+named by a hash of their source and the shared headers beside it
+(``csrc/*.h``), so an edited source is rebuilt and a stale library is
+never loaded.
 
 Nothing is built or loaded at import: the first CUDA launch builds, or
 ``build_all()`` builds every source at once, one ``nvcc`` process per
@@ -48,7 +49,9 @@ def nvcc_path() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (CSRC / SOURCES[name]).read_bytes()
+    # the source and every shared header it may include
+    src = (CSRC / SOURCES[name]).read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.h")))
     digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 

@@ -51,7 +51,8 @@ def _lib() -> ctypes.CDLL:
     if not getattr(lib, "_pbt_typed", False):
         lib.pbt_gather_pool.argtypes = [_P, ctypes.c_int64, _P, _P, _P,
                                         ctypes.c_int64, ctypes.c_int,
-                                        ctypes.c_int, ctypes.c_int, _P]
+                                        ctypes.c_int, ctypes.c_int,
+                                        ctypes.c_int, _P]
         lib.pbt_gather_pool.restype = ctypes.c_int
         lib._pbt_typed = True
     return lib
@@ -120,7 +121,8 @@ def gather_pool(table: torch.Tensor, idx: torch.Tensor,
         stream = torch.cuda.current_stream().cuda_stream
         cuda_lib.check(_lib().pbt_gather_pool(
             table.data_ptr(), ld, idx.data_ptr(), lengths.data_ptr(),
-            out.data_ptr(), r, l_cap, d, int(_vector_rows(table)), stream),
+            out.data_ptr(), r, l_cap, d, int(_vector_rows(table)),
+            table.device.index, stream),
             "gather_pool")
     cuda_lib.count_launch(gather_pool)
     return out

@@ -217,11 +217,13 @@ def _lib() -> ctypes.CDLL:
     lib = cuda_lib.library("sorted_spmm")
     if not getattr(lib, "_pbt_typed", False):
         lib.pbt_gather_sorted.argtypes = [_P, ctypes.c_int64, _P, _P,
-                                          ctypes.c_int64, ctypes.c_int, _P]
+                                          ctypes.c_int64, ctypes.c_int,
+                                          ctypes.c_int, _P]
         lib.pbt_gather_sorted.restype = ctypes.c_int
         lib.pbt_scatter_add_sorted.argtypes = [_P, ctypes.c_int64, _P, _P,
                                                _P, ctypes.c_int64,
-                                               ctypes.c_int, _P]
+                                               ctypes.c_int, ctypes.c_int,
+                                               _P]
         lib.pbt_scatter_add_sorted.restype = ctypes.c_int
         lib.pbt_scatter_scratch_floats.argtypes = [ctypes.c_int64,
                                                    ctypes.c_int]
@@ -273,7 +275,8 @@ def gather_sorted(table_fm: torch.Tensor, rows2d: torch.Tensor,
         stream = torch.cuda.current_stream().cuda_stream
         cuda_lib.check(_lib().pbt_gather_sorted(
             table_fm.data_ptr(), n_kernel, rows2d.data_ptr(),
-            out.data_ptr(), p_pad, w, stream), "gather_sorted")
+            out.data_ptr(), p_pad, w, table_fm.device.index, stream),
+            "gather_sorted")
     cuda_lib.count_launch(gather_sorted)
     return out
 
@@ -309,8 +312,8 @@ def scatter_add_sorted(payload_fm: torch.Tensor, rows2d: torch.Tensor,
         stream = torch.cuda.current_stream().cuda_stream
         cuda_lib.check(lib.pbt_scatter_add_sorted(
             payload_fm.data_ptr(), p_pad, rows2d.data_ptr(),
-            scratch.data_ptr(), out.data_ptr(), dims.n_kernel, w, stream),
-            "scatter_add_sorted")
+            scratch.data_ptr(), out.data_ptr(), dims.n_kernel, w,
+            payload_fm.device.index, stream), "scatter_add_sorted")
     cuda_lib.count_launch(scatter_add_sorted)
     return out
 

@@ -11,9 +11,11 @@ per-shard tensors (indexed by flat shard number, see
 returns the per-shard results.  Where the JAX package calls ``lax.psum``
 inside ``shard_map``, the port calls ``all_reduce(xs, topo, axis)``
 over the list.  Every reduction adds the group's tensors one after the
-other in shard order — no atomics, the same bits on every run — and the
-members of one group share the one result tensor (read it, do not write
-it in place).  The reference's P2P walk paths (heter_comm.h:303) map to
+other in shard order — no atomics, the same bits on every run.  Every
+member's result is a tensor of its own on the member's device: no two
+members share one, so an in-place write through one never reaches
+another.  Between devices a value moves by ``topology.move`` (a peer
+copy between cards; a blocking copy into host memory).  The reference's P2P walk paths (heter_comm.h:303) map to
 :func:`ppermute`; its MoE global_scatter/global_gather to
 :func:`all_to_all`.  torch is imported inside these functions only, so
 the host half stays torch-free.
@@ -196,10 +198,23 @@ def _groups(xs: Sequence, topo: "HybridTopology", axis: Axis):
     return topo.axis_groups(axis)
 
 
-def _fold(parts: Sequence["torch.Tensor"], op: str) -> "torch.Tensor":
-    """The parts combined one after the other, in order (a new tensor)."""
-    acc = parts[0].clone()
+def _on(x: "torch.Tensor", device, copy: bool = False) -> "torch.Tensor":
+    from paddlebox_tpu_torch.parallel.topology import on_device
+    return on_device(x, device, copy)
+
+
+def _one_device(topo: "HybridTopology", group: Sequence[int]) -> bool:
+    from paddlebox_tpu_torch.parallel.topology import device_key
+    return len({device_key(topo.devices[k]) for k in group}) == 1
+
+
+def _fold(parts: Sequence["torch.Tensor"], op: str, device
+          ) -> "torch.Tensor":
+    """The parts combined one after the other, in order, on ``device``
+    (a new tensor)."""
+    acc = _on(parts[0], device, copy=True)
     for x in parts[1:]:
+        x = _on(x, device)
         if op == "max":
             acc = acc.maximum(x)
         elif op == "min":
@@ -211,31 +226,41 @@ def _fold(parts: Sequence["torch.Tensor"], op: str) -> "torch.Tensor":
 
 def all_reduce(xs: Shards, topo: "HybridTopology", axis: Axis,
                op: str = "sum") -> Shards:
-    """≙ lax.psum / pmax / pmin / pmean over ``axis``."""
+    """≙ lax.psum / pmax / pmin / pmean over ``axis``: the group's fold
+    in shard order on its first member's device, copied to the others."""
     if op not in ("sum", "max", "min", "mean"):
         raise ValueError(f"unsupported all_reduce op: {op}")
     out = [None] * len(xs)
     for g in _groups(xs, topo, axis):
-        acc = _fold([xs[k] for k in g], op)
+        acc = _fold([xs[k] for k in g], op, topo.devices[g[0]])
         if op == "mean":
             acc = acc / len(g)
-        for k in g:
-            out[k] = acc
+        out[g[0]] = acc
+        for k in g[1:]:
+            out[k] = _on(acc, topo.devices[k], copy=True)
     return out
 
 
 def all_gather(xs: Shards, topo: "HybridTopology", axis: Axis, *,
                concat_dim: int = 0, tiled: bool = True) -> Shards:
     """≙ lax.all_gather: the group's tensors in axis order, concatenated
-    along ``concat_dim`` (tiled) or stacked on a new dim there."""
+    along ``concat_dim`` (tiled) or stacked on a new dim there, built on
+    each member's device."""
     import torch
+    from paddlebox_tpu_torch.parallel.topology import (device_key,
+                                                       physical_device)
     out = [None] * len(xs)
     for g in _groups(xs, topo, axis):
-        parts = [xs[k] for k in g]
-        r = (torch.cat(parts, dim=concat_dim) if tiled
-             else torch.stack(parts, dim=concat_dim))
+        made = {}
         for k in g:
-            out[k] = r
+            dev = topo.devices[k]
+            key = device_key(physical_device(dev))
+            if key in made:
+                out[k] = made[key].clone()
+                continue
+            parts = [_on(xs[j], dev) for j in g]
+            made[key] = out[k] = (torch.cat(parts, dim=concat_dim) if tiled
+                                  else torch.stack(parts, dim=concat_dim))
     return out
 
 
@@ -253,24 +278,32 @@ def all_to_all(xs: Shards, topo: "HybridTopology", axis: Axis, *,
         n = len(g)
         chunks = [xs[k].chunk(n, dim=split_dim) for k in g]
         for i, k in enumerate(g):
-            out[k] = torch.cat([c[i] for c in chunks], dim=concat_dim)
+            out[k] = torch.cat([_on(c[i], topo.devices[k]) for c in chunks],
+                               dim=concat_dim)
     return out
 
 
 def reduce_scatter(xs: Shards, topo: "HybridTopology", axis: Axis, *,
                    scatter_dim: int = 0) -> Shards:
     """≙ lax.psum_scatter (tiled): the group's sum, in shard order, and
-    member i keeps block i of ``scatter_dim`` (a view of the sum)."""
+    member i keeps block i of ``scatter_dim``.  On one device that is a
+    view of one sum (the members' blocks do not overlap); across devices
+    member i folds block i of every member on its own device."""
     out = [None] * len(xs)
     for g in _groups(xs, topo, axis):
-        total = _fold([xs[k] for k in g], "sum")
-        if total.shape[scatter_dim] % len(g):
+        size = xs[g[0]].shape[scatter_dim]
+        if size % len(g):
             raise ValueError(
                 f"reduce_scatter: dim {scatter_dim} of size "
-                f"{total.shape[scatter_dim]} does not split over "
-                f"{len(g)} shards")
-        for i, part in enumerate(total.chunk(len(g), dim=scatter_dim)):
-            out[g[i]] = part
+                f"{size} does not split over {len(g)} shards")
+        if _one_device(topo, g):
+            total = _fold([xs[k] for k in g], "sum", topo.devices[g[0]])
+            for i, part in enumerate(total.chunk(len(g), dim=scatter_dim)):
+                out[g[i]] = part
+            continue
+        chunks = [xs[k].chunk(len(g), dim=scatter_dim) for k in g]
+        for i, k in enumerate(g):
+            out[k] = _fold([c[i] for c in chunks], "sum", topo.devices[k])
     return out
 
 
@@ -278,12 +311,15 @@ def ppermute(xs: Shards, topo: "HybridTopology", axis: Axis,
              perm: Sequence[Tuple[int, int]]) -> Shards:
     """≙ lax.ppermute: (src, dst) pairs of axis positions; a member that
     no pair sends to receives zeros.  A member may hold None (a pipeline
-    stage with no microbatch at a tick): None is moved like a value."""
+    stage with no microbatch at a tick): None is moved like a value.
+    What a member receives is a copy on its own device."""
     out = [None] * len(xs)
     for g in _groups(xs, topo, axis):
         sent = set()
         for src, dst in perm:
-            out[g[dst]] = xs[g[src]]
+            x = xs[g[src]]
+            out[g[dst]] = (None if x is None
+                           else _on(x, topo.devices[g[dst]], copy=True))
             sent.add(dst)
         for i, k in enumerate(g):
             if i not in sent and xs[k] is not None:

@@ -28,7 +28,8 @@ from typing import Callable, Dict, List, Optional
 import torch
 
 from paddlebox_tpu_torch.parallel import collective
-from paddlebox_tpu_torch.parallel.topology import HybridTopology, Spec
+from paddlebox_tpu_torch.parallel.topology import (HybridTopology, Spec,
+                                                   on_device)
 
 
 def _is_shards(x) -> bool:
@@ -77,7 +78,8 @@ def zero_sharding(tree, topo: HybridTopology, axis: str = "sharding"):
 
 
 def place_like(tree, specs, topo: HybridTopology):
-    """Each leaf's per-shard blocks under its Spec (views)."""
+    """Each leaf's per-shard blocks under its Spec, each on its shard's
+    device (views where the leaf already lives there)."""
     return _tree_map(lambda x, s: topo.split(x, s), tree, specs)
 
 
@@ -144,9 +146,10 @@ class GroupShardedOptimizer:
         return p.narrow(d, idx * step, step)
 
     def init(self, params: Dict[str, torch.Tensor]) -> None:
-        """Each shard's owned slices of ``params`` (copies, the leaves its
-        optimizer steps) and its optimizer."""
-        self.local = [{k: self._slice(p, s).detach().clone()
+        """Each shard's owned slices of ``params`` (copies on the shard's
+        device, the leaves its optimizer steps) and its optimizer."""
+        self.local = [{k: on_device(self._slice(p, s).detach(),
+                                    self.topo.device_of(s), copy=True)
                        for k, p in params.items()}
                       for s in range(self.topo.world_size)]
         self.opts = [self.make_opt(list(loc.values())) for loc in self.local]

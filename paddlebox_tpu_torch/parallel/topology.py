@@ -17,10 +17,16 @@ tensor dim, None (replicated), an axis name, or a tuple of axis names
 gives each shard its block of a global tensor (views); ``join``
 assembles per-shard blocks back.
 
-Every shard of a topology lives on one device here: placing shards on
-distinct cards (peer copies, a process group for the cross-node dp axis)
-is ROADMAP Queue 1 item 4's multi-card placement, and a device list that
-spans devices raises ``NotImplementedError``.
+The shards may sit on one device (``single_host_topology``, the
+default) or on distinct devices named in an explicit device list, as a
+node's cards are (HeterPS drives them from one process).  ``split``
+places each block on its shard's device: a view where the block already
+lives there, a copy otherwise (a peer copy between cards).  ``place``
+keeps the blocks together as a :class:`Sharded` tensor, ≙ a ``jax.Array``
+under a ``NamedSharding``.  Devices are told apart by type and ordinal, so
+``cpu:0`` and ``cpu:1`` are two devices whose tensors both live in host
+memory: the CPU rehearsal of a multi-card placement.  A process group
+for a cross-node dp axis is not here (ROADMAP Queue 1 item 4).
 """
 
 from __future__ import annotations
@@ -36,6 +42,49 @@ from paddlebox_tpu_torch.device import DeviceLike, resolve_device
 AXES: Tuple[str, ...] = ("dp", "sharding", "pp", "mp", "sp", "ep")
 
 AxisLike = Union[str, Tuple[str, ...]]
+
+
+def device_key(device: DeviceLike) -> Tuple[str, Optional[int]]:
+    """(type, ordinal) that tells placements apart: an index-less card is
+    the current one; ``cpu``, ``cpu:0`` and ``cpu:1`` are three keys."""
+    d = torch.device(device)
+    if d.type == "cuda" and d.index is None:
+        return ("cuda", torch.cuda.current_device())
+    return (d.type, d.index)
+
+
+def physical_device(device: DeviceLike) -> torch.device:
+    """The device a tensor placed on ``device`` reports: host memory has
+    no ordinals (``cpu:1`` → ``cpu``)."""
+    d = torch.device(device)
+    return torch.device("cpu") if d.type == "cpu" else d
+
+
+def same_device(a: DeviceLike, b: DeviceLike) -> bool:
+    """Whether tensors placed on ``a`` and on ``b`` share one memory."""
+    return (device_key(physical_device(a))
+            == device_key(physical_device(b)))
+
+
+def move(t: torch.Tensor, device: DeviceLike) -> torch.Tensor:
+    """``t`` as a new tensor on ``device``.  Between cards this is a peer
+    copy that PyTorch orders after the source card's stream and before the
+    destination's.  Into host memory it is blocking, so the host may read
+    the result at once (a non-blocking copy out of a card would return a
+    pinned tensor the card has not written yet)."""
+    d = torch.device(device)
+    if d.type == "cpu":
+        return t.to(d, copy=True)
+    return t.to(d, non_blocking=True, copy=True)
+
+
+def on_device(t: torch.Tensor, device: DeviceLike, copy: bool = False
+              ) -> torch.Tensor:
+    """``t`` where it already lives in ``device``'s memory (with ``copy``,
+    a clone of it), else moved there by :func:`move`."""
+    if same_device(t.device, device):
+        return t.clone() if copy else t
+    return move(t, device)
 
 
 class Spec(tuple):
@@ -74,17 +123,36 @@ class HybridTopology:
             raise ValueError(
                 f"mesh degrees {dict(zip(AXES, degrees))} require {world} "
                 f"devices, got {len(devices)}")
-        if len(set(devices)) != 1:
-            raise NotImplementedError(
-                f"shards on distinct devices {sorted(set(map(str, devices)))}"
-                ": placing a topology's shards on several cards is ROADMAP "
-                "Queue 1 item 4's multi-card placement, not ported yet — "
-                "every shard lives on one device")
+        for d in set(devices):
+            resolve_device(d)
+            if d.type == "cuda" and d.index is not None \
+                    and d.index >= torch.cuda.device_count():
+                raise RuntimeError(
+                    f"{d} is not on this machine: it has "
+                    f"{torch.cuda.device_count()} CUDA device(s)")
         self.devices: List[torch.device] = devices
         self.device: torch.device = devices[0]
+        # the distinct devices in the order they first appear in flat
+        # shard order, and the shards each one holds
+        self.groups: List[Tuple[torch.device, List[int]]] = []
+        for k, d in enumerate(devices):
+            for dev, ks in self.groups:
+                if device_key(dev) == device_key(d):
+                    ks.append(k)
+                    break
+            else:
+                self.groups.append((d, [k]))
         self._shape: Dict[str, int] = dict(zip(AXES, degrees))
         # flat shard index at each mesh coordinate (≙ Mesh.devices)
         self.grid = np.arange(world).reshape(degrees)
+
+    @property
+    def multi_device(self) -> bool:
+        """Whether the shards sit on more than one device."""
+        return len(self.groups) > 1
+
+    def device_of(self, shard: int) -> torch.device:
+        return self.devices[shard]
 
     # -- ≙ CommunicateTopology.get_dim / get_rank_from_stage ----------------
     def axis_size(self, axis: AxisLike) -> int:
@@ -177,22 +245,44 @@ class HybridTopology:
             out.append(slice(idx * step, (idx + 1) * step))
         return tuple(out)
 
-    def split(self, x: torch.Tensor, spec: Spec) -> List[torch.Tensor]:
-        """Each shard's block of ``x`` under ``spec`` (views, no copy)."""
-        return [x[self._slices(spec, x.shape, k)]
-                for k in range(self.world_size)]
+    def split(self, x: torch.Tensor, spec: Spec, copy: bool = False
+              ) -> List[torch.Tensor]:
+        """Each shard's block of ``x`` under ``spec``, on the shard's
+        device: a view of ``x`` where ``x`` lives on that device (with
+        ``copy``, a copy there too), else a copy moved there.  Shards that
+        hold the same block on one device get the same tensor."""
+        src = device_key(x.device)
+        out, made = [], {}
+        for k in range(self.world_size):
+            sl = self._slices(spec, x.shape, k)
+            key = (tuple((s.start, s.stop) for s in sl),
+                   device_key(self.devices[k]))
+            if key not in made:
+                if key[1] == src:
+                    made[key] = x[sl].clone() if copy else x[sl]
+                else:
+                    made[key] = move(x[sl], self.devices[k])
+            out.append(made[key])
+        return out
 
-    def join(self, parts: Sequence[torch.Tensor], spec: Spec
-             ) -> torch.Tensor:
+    def place(self, x: torch.Tensor, spec: Spec) -> "Sharded":
+        """``x`` held as copies of its shards' blocks, so no device keeps
+        ``x``'s storage alive."""
+        return Sharded(self.split(x, spec, copy=True), self, spec)
+
+    def join(self, parts: Sequence[torch.Tensor], spec: Spec,
+             device: DeviceLike = None) -> torch.Tensor:
         """Assemble per-shard blocks laid out by ``spec`` into the global
-        tensor.  Shards that hold the same block (replicated axes) must
-        agree; the first in flat order is taken, as an out_spec that
-        leaves an axis out takes any one replica."""
+        tensor on ``device`` (default: the first block's).  Shards that
+        hold the same block (replicated axes) must agree; the first in
+        flat order is taken, as an out_spec that leaves an axis out takes
+        any one replica."""
         blk = parts[0].shape
         full = [size * self.block(spec, 0, dim)[1]
                 for dim, size in enumerate(blk)]
         out = torch.empty(full, dtype=parts[0].dtype,
-                          device=parts[0].device)
+                          device=(parts[0].device if device is None
+                                  else physical_device(device)))
         seen = set()
         for k, p in enumerate(parts):
             sl = self._slices(spec, full, k)
@@ -201,6 +291,77 @@ class HybridTopology:
                 seen.add(key)
                 out[sl] = p
         return out
+
+
+class Sharded:
+    """A global tensor held as its shards' blocks under ``spec``, each
+    block on its shard's device (``parts[k]``; shards that hold the same
+    block on one device share the tensor).  It has the global ``shape``
+    and ``dtype``; ``join`` assembles it on one device, and numpy reads
+    it through the host (``np.asarray``)."""
+
+    def __init__(self, parts: Sequence[torch.Tensor],
+                 topo: HybridTopology, spec: Spec):
+        if len(parts) != topo.world_size:
+            raise ValueError(f"{len(parts)} blocks for a topology of "
+                             f"{topo.world_size} shards")
+        self.parts = list(parts)
+        self.topo = topo
+        self.spec = spec
+        blk = self.parts[0].shape
+        self.shape = torch.Size(size * topo.block(spec, 0, dim)[1]
+                                for dim, size in enumerate(blk))
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.parts[0].dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.topo.device
+
+    @property
+    def ndim(self) -> int:
+        return len(self.shape)
+
+    def dim(self) -> int:
+        return len(self.shape)
+
+    def unique(self) -> List[Tuple[int, torch.Tensor]]:
+        """(first shard, block) of every distinct block tensor."""
+        seen, out = set(), []
+        for k, p in enumerate(self.parts):
+            if id(p) not in seen:
+                seen.add(id(p))
+                out.append((k, p))
+        return out
+
+    def rows(self, shard: int) -> slice:
+        """The global range of dim 0 that ``shard``'s block holds."""
+        return self.topo._slices(self.spec, self.shape, shard)[0]
+
+    def join(self, device: DeviceLike = None) -> torch.Tensor:
+        return self.topo.join(self.parts, self.spec, device)
+
+    def zeros_like(self) -> "Sharded":
+        made = {id(p): torch.zeros_like(p) for _, p in self.unique()}
+        return Sharded([made[id(p)] for p in self.parts], self.topo,
+                       self.spec)
+
+    def bytes_by_device(self) -> Dict[str, int]:
+        out: Dict[str, int] = {}
+        for k, p in self.unique():
+            d = str(self.topo.devices[k])
+            out[d] = out.get(d, 0) + p.numel() * p.element_size()
+        return out
+
+    def __array__(self, dtype=None, copy=None):
+        a = self.join("cpu").numpy()
+        return a if dtype is None else a.astype(dtype)
+
+    def __repr__(self) -> str:
+        return (f"Sharded(shape={tuple(self.shape)}, dtype={self.dtype}, "
+                f"spec={self.spec!r}, devices={sorted(self.bytes_by_device())})")
 
 
 def split_tree(tree: Dict[str, torch.Tensor], specs, topo: HybridTopology

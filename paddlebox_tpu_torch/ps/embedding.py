@@ -5,6 +5,12 @@ host against the pass's sorted unique key array (``PassKeyMapper``), and
 the working set as a dict of tensors on one explicit device, one tensor
 per field (``show`` [N], ``mf`` [N, D], ...).
 
+Under a topology whose shards sit on distinct devices, each field is a
+``parallel.topology.Sharded``: shard d's block of rows under
+``topology.table_spec()`` on shard d's device (≙ the JAX package's
+``sharding=``), so no device holds the whole set; the write-back joins
+the blocks on the host in row order.
+
 Row 0 is the reserved zero row: padding positions and unknown keys point
 at it, pull zeros and push nothing (≙ FLAGS_enable_pull_box_padding_zero).
 
@@ -25,7 +31,11 @@ import numpy as np
 import torch
 
 from paddlebox_tpu_torch.ops import sorted_spmm as sp
+from paddlebox_tpu_torch.parallel.topology import Sharded
 from paddlebox_tpu_torch.utils.monitor import stat_add
+
+MULTI_DEVICE_TODO = ("under a topology whose shards sit on distinct devices "
+                     "is ROADMAP Queue 1 item 4, not ported yet")
 
 
 def size_bucket(n: int, align: int = 8) -> int:
@@ -82,13 +92,15 @@ class PassKeyMapper:
 
 
 def build_working_set(host_soa: Dict[str, np.ndarray], device: torch.device,
-                      pad_to: Optional[int] = None
+                      pad_to: Optional[int] = None, topology=None
                       ) -> Dict[str, torch.Tensor]:
     """Assemble the working set from host rows (row 0 = zeros) on
     ``device``: one staging copy per field into a padded host buffer —
     pinned when the device is a card — then one asynchronous
     host→device copy per field (≙ BuildGPUTask's HBM pool fill,
-    ps_gpu_wrapper.cc:684-760).
+    ps_gpu_wrapper.cc:684-760).  Under a ``topology`` whose shards sit on
+    distinct devices each field is a ``Sharded`` of its
+    ``table_spec()`` row blocks, each copied to its shard's device.
 
     The reserved all-zero row 0 is load-bearing: the mxu path points
     padding occurrences at it so they pool as exact 0.0.
@@ -96,7 +108,8 @@ def build_working_set(host_soa: Dict[str, np.ndarray], device: torch.device,
     n = len(host_soa["show"])
     total = (pad_to if pad_to is not None else size_bucket(n + 1))
     assert total >= n + 1
-    pin = device.type == "cuda"
+    blocks = topology is not None and topology.multi_device
+    pin = device.type == "cuda" and not blocks
     ws = {}
     for f in host_soa:
         if f == "unseen_days":  # host-only lifecycle field
@@ -106,10 +119,44 @@ def build_working_set(host_soa: Dict[str, np.ndarray], device: torch.device,
         buf = torch.zeros((total,) + src.shape[1:], dtype=dtype,
                           pin_memory=pin)
         buf.numpy()[1:n + 1] = src
-        # each staging buffer is fresh and owned by its copy, so the
-        # non-blocking H2D cannot race a later rewrite
-        ws[f] = buf.to(device, non_blocking=True) if pin else buf
+        if blocks:
+            ws[f] = topology.place(buf, topology.table_spec())
+        else:
+            # each staging buffer is fresh and owned by its copy, so the
+            # non-blocking H2D cannot race a later rewrite
+            ws[f] = buf.to(device, non_blocking=True) if pin else buf
     return ws
+
+
+def zeros_like(t):
+    """A zero field shaped and placed like ``t`` (a tensor or a
+    ``Sharded``)."""
+    return t.zeros_like() if isinstance(t, Sharded) else torch.zeros_like(t)
+
+
+def write_rows(ws: Dict[str, torch.Tensor], rows: np.ndarray,
+               values: Dict[str, np.ndarray]) -> None:
+    """Overwrite the unique pass rows ``rows`` of every field in
+    ``values`` with host values, in place; under a ``Sharded`` field each
+    block takes the rows it holds."""
+    r = None
+    for f, t in ws.items():
+        if f not in values:
+            continue
+        if not isinstance(t, Sharded):
+            if r is None:
+                r = torch.as_tensor(rows.astype(np.int64), device=t.device)
+            t[r] = torch.as_tensor(values[f], dtype=t.dtype, device=t.device)
+            continue
+        for k, blk in t.unique():
+            sl = t.rows(k)
+            sel = (rows >= sl.start) & (rows < sl.stop)
+            if not sel.any():
+                continue
+            loc = torch.as_tensor((rows[sel] - sl.start).astype(np.int64),
+                                  device=blk.device)
+            blk[loc] = torch.as_tensor(values[f][sel], dtype=blk.dtype,
+                                       device=blk.device)
 
 
 def scatter_device_rows(ws: Dict[str, torch.Tensor], rows,
@@ -133,11 +180,13 @@ def scatter_device_rows(ws: Dict[str, torch.Tensor], rows,
 def dump_working_set(ws: Dict[str, torch.Tensor], n: int
                      ) -> Dict[str, np.ndarray]:
     """Device→host for end_pass write-back (≙ dump_pool_to_cpu_func,
-    ps_gpu_wrapper.cc:983+): rows 1..n of every field.  Table-wide
+    ps_gpu_wrapper.cc:983+): rows 1..n of every field (a ``Sharded``
+    field's blocks joined on the host in row order).  Table-wide
     scalars (a serving freeze's 0-d ``mf_scale``) are not row data and
     are skipped."""
-    return {f: ws[f][1:n + 1].cpu().numpy() for f in ws
-            if ws[f].dim() >= 1}
+    return {f: (ws[f].join("cpu") if isinstance(ws[f], Sharded)
+                else ws[f])[1:n + 1].cpu().numpy()
+            for f in ws if ws[f].dim() >= 1}
 
 
 def quantize_working_set(ws: Dict[str, torch.Tensor], quant_bits: int = 16,
@@ -157,6 +206,8 @@ def quantize_working_set(ws: Dict[str, torch.Tensor], quant_bits: int = 16,
     (the reference likewise quantizes only dumped/serving tables)."""
     if quant_bits != 16:
         raise ValueError("only quant_bits=16 (int16 grid) is supported")
+    if isinstance(ws["mf"], Sharded):
+        raise NotImplementedError(f"quantize_working_set {MULTI_DEVICE_TODO}")
     out = dict(ws)
     mf = ws["mf"]
     s = torch.tensor(scale, dtype=torch.float32, device=mf.device)

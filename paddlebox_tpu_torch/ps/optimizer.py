@@ -60,17 +60,19 @@ def _adagrad_update(w, g2sum, g, scale, lr, initial_g2sum, min_bound,
             torch.where(touched, g2sum + add_g2sum, g2sum))
 
 
-def push_touched(ws: Tensors, acc: Tensors) -> torch.Tensor:
+def push_touched(ws: Tensors, acc: Tensors, row0: int = 0) -> torch.Tensor:
     """THE touched mask: rows this push updates (g_show > 0, reserved row
-    0 excluded)."""
+    0 excluded).  ``row0``: the global row of ``ws``'s first row (a
+    block of the working set)."""
     row = torch.arange(ws["show"].shape[0], device=ws["show"].device)
-    return (acc["g_show"] > 0) & (row != 0)
+    return (acc["g_show"] > 0) & (row != -row0)
 
 
-def _common_stats(ws: Tensors, acc: Tensors, cfg: SparseSGDConfig):
+def _common_stats(ws: Tensors, acc: Tensors, cfg: SparseSGDConfig,
+                  row0: int = 0):
     """Shared show/click/delta accumulation + touched mask (the common
     prologue of every rule, ≙ optimizer.cuh.h:84-101)."""
-    touched = push_touched(ws, acc)
+    touched = push_touched(ws, acc, row0)
     show = torch.where(touched, ws["show"] + acc["g_show"], ws["show"])
     click = torch.where(touched, ws["click"] + acc["g_click"], ws["click"])
     delta = torch.where(
@@ -111,10 +113,10 @@ def _dym_dims(cfg: SparseSGDConfig, slot: torch.Tensor, mf_dim: int):
 
 
 def sparse_adagrad_apply(ws: Tensors, acc: Tensors, cfg: SparseSGDConfig,
-                         dims_row=None) -> Tensors:
+                         dims_row=None, row0: int = 0) -> Tensors:
     """One merged push → new working-set values (≙ HashTable::update with
     SparseAdagradOptimizer, hashtable_kernel.cu + optimizer.cuh.h:31)."""
-    touched, show, click, delta = _common_stats(ws, acc, cfg)
+    touched, show, click, delta = _common_stats(ws, acc, cfg, row0)
     slot = torch.where(touched, acc["slot"], ws["slot"])
 
     # embed_w (1-dim lr weight); slot-dependent lr (optimizer.cuh.h:52-56)
@@ -222,12 +224,12 @@ def _reset_beta_pows(create, b1p, b2p, cfg: SparseSGDConfig):
 
 
 def sparse_adam_apply(ws: Tensors, acc: Tensors, cfg: SparseSGDConfig,
-                      dims_row=None) -> Tensors:
+                      dims_row=None, row0: int = 0) -> Tensors:
     """SparseAdamShared (optimizer.cuh.h:330-477): shared per-row moments
     in embed_gsum/embed_g2sum (+ beta powers) for the lr weight and
     mf_gsum/mf_g2sum for the embedx group.  Needs the adam state fields
     (feature_value.ADAM_FIELDS)."""
-    touched, show, click, delta = _common_stats(ws, acc, cfg)
+    touched, show, click, delta = _common_stats(ws, acc, cfg, row0)
     slot = torch.where(touched, acc["slot"], ws["slot"])
 
     embed_w, e_m1, e_m2, e_b1, e_b2 = _shared_adam_group(
@@ -256,10 +258,10 @@ def sparse_adam_apply(ws: Tensors, acc: Tensors, cfg: SparseSGDConfig,
 
 
 def sparse_naive_apply(ws: Tensors, acc: Tensors, cfg: SparseSGDConfig,
-                       dims_row=None) -> Tensors:
+                       dims_row=None, row0: int = 0) -> Tensors:
     """SparseNaiveSGDRule (sparse_sgd_rule.h:77): plain SGD with bound
     clipping and show-scaled grads; the g2sum fields are left alone."""
-    touched, show, click, delta = _common_stats(ws, acc, cfg)
+    touched, show, click, delta = _common_stats(ws, acc, cfg, row0)
     slot = torch.where(touched, acc["slot"], ws["slot"])
     g_show = acc["g_show"]
     safe_scale = torch.where(g_show > 0, g_show, torch.ones_like(g_show))
@@ -282,11 +284,11 @@ def sparse_naive_apply(ws: Tensors, acc: Tensors, cfg: SparseSGDConfig,
 
 
 def sparse_std_adagrad_apply(ws: Tensors, acc: Tensors, cfg: SparseSGDConfig,
-                             dims_row=None) -> Tensors:
+                             dims_row=None, row0: int = 0) -> Tensors:
     """StdAdaGradSGDRule (sparse_sgd_rule.h:109): adagrad with a per-dim
     g2sum for the embedx group (field mf_g2sum_d [N, D]) instead of the
     shared per-row scalar; the 1-dim lr weight is plain adagrad."""
-    touched, show, click, delta = _common_stats(ws, acc, cfg)
+    touched, show, click, delta = _common_stats(ws, acc, cfg, row0)
     slot = torch.where(touched, acc["slot"], ws["slot"])
     lr_embed = torch.where(
         slot == cfg.nodeid_slot,
@@ -322,14 +324,14 @@ def sparse_std_adagrad_apply(ws: Tensors, acc: Tensors, cfg: SparseSGDConfig,
 
 
 def sparse_adam_dim_apply(ws: Tensors, acc: Tensors, cfg: SparseSGDConfig,
-                          dims_row=None) -> Tensors:
+                          dims_row=None, row0: int = 0) -> Tensors:
     """Per-dimension SparseAdam (sparse_sgd_rule.h:126 /
     optimizer.cuh.h:148): embedx keeps full [N, D] moments (mf_gsum_d /
     mf_g2sum_d) with shared per-row beta-power trackers; the 1-dim lr
     weight uses the scalar moment fields (the shared rule at dim 1)."""
     eps = cfg.ada_epsilon
     b1, b2 = cfg.beta1_decay_rate, cfg.beta2_decay_rate
-    touched, show, click, delta = _common_stats(ws, acc, cfg)
+    touched, show, click, delta = _common_stats(ws, acc, cfg, row0)
     slot = torch.where(touched, acc["slot"], ws["slot"])
     g_show = acc["g_show"]
     safe_scale = torch.where(g_show > 0, g_show, torch.ones_like(g_show))
@@ -378,22 +380,25 @@ OPTIMIZERS = {
 
 
 def apply_push(ws: Tensors, acc: Tensors, cfg: SparseSGDConfig,
-               dims_row=None) -> Tensors:
+               dims_row=None, row0: int = 0) -> Tensors:
     """Apply one merged push to ``ws`` IN PLACE and return it.
 
     dims_row: optional per-row [N] mf dims (≙ CtrDymfAccessor); rules
     divide and mask by the row's true width.  A rule returns only the
     fields it changes; the others keep their storage and values.
+    ``row0``: the global row of ``ws``'s first row, when ``ws`` is one
+    block of the working set (every rule is elementwise over rows, and
+    only the reserved global row 0 is never touched).
 
     The JAX step donates the working-set buffers to the jitted step and
     gets new ones back; here each field's new values are copied into the
     existing tensor instead, so the working set keeps its storage for the
     whole pass and callers holding ``ws`` see the update."""
-    out = OPTIMIZERS[cfg.optimizer](ws, acc, cfg, dims_row)
+    out = OPTIMIZERS[cfg.optimizer](ws, acc, cfg, dims_row, row0)
     # ctr_double accessor support: exact pass-delta counters ride along
     # (end_pass merges them into the host's f64 stats)
     if "show_acc" in ws:
-        touched = push_touched(ws, acc)
+        touched = push_touched(ws, acc, row0)
         out["show_acc"] = torch.where(
             touched, ws["show_acc"] + acc["g_show"], ws["show_acc"])
         out["click_acc"] = torch.where(

@@ -73,6 +73,7 @@ from paddlebox_tpu_torch import flags
 from paddlebox_tpu_torch.config import EmbeddingTableConfig
 from paddlebox_tpu_torch.device import DeviceLike, resolve_device
 from paddlebox_tpu_torch.metrics import quality
+from paddlebox_tpu_torch.parallel.topology import same_device
 from paddlebox_tpu_torch.ps import embedding, faults
 from paddlebox_tpu_torch.ps import heat
 from paddlebox_tpu_torch.ps.device_cache import CachePlan, DeviceRowCache
@@ -94,10 +95,13 @@ class BoxPSEngine:
     ``device="cpu"``).
 
     ``topology`` (parallel/topology.py): the mesh of shards the trainer's
-    ``mxu_sharded`` step splits the working set over.  The set stays one
-    set of tensors on the engine's device; shard d's row block is the
-    view ``topology.split(ws[f], topology.table_spec())[d]``.  Without a
-    ``device`` the engine takes the topology's."""
+    ``mxu_sharded`` step splits the working set over.  With every shard
+    on one device the set stays one set of tensors there, and shard d's
+    row block is the view ``topology.split(ws[f], topology.table_spec())
+    [d]``.  With shards on distinct devices each field is a ``Sharded``
+    whose block d lives on shard d's device (ps/embedding.py); the device
+    cache and the serving freeze refuse such a set.  Without a
+    ``device`` the engine takes the topology's first device."""
 
     def __init__(self, config: Optional[EmbeddingTableConfig] = None,
                  seed: int = 0, device: DeviceLike = None,
@@ -110,7 +114,8 @@ class BoxPSEngine:
         if topology is not None and device is None:
             device = topology.device
         self.device = resolve_device(device)
-        if topology is not None and topology.device != self.device:
+        if topology is not None and not same_device(topology.device,
+                                                    self.device):
             raise ValueError(f"topology's shards live on {topology.device}, "
                              f"the engine on {self.device}")
         self.topology = topology
@@ -158,6 +163,9 @@ class BoxPSEngine:
         self.cache: Optional[DeviceRowCache] = None
         if flags.get_flags("ps_device_cache"):
             cap = int(flags.get_flags("ps_device_cache_rows"))
+            if cap > 0 and topology is not None and topology.multi_device:
+                raise NotImplementedError(
+                    f"the device row cache {embedding.MULTI_DEVICE_TODO}")
             if cap > 0:
                 sgd = self.config.sgd
                 self.cache = DeviceRowCache(
@@ -304,11 +312,12 @@ class BoxPSEngine:
             self._pulled_stats = None
         with self.timers("build_device"):
             t0 = time.monotonic()
-            ws = embedding.build_working_set(host_rows, self.device)
+            ws = embedding.build_working_set(host_rows, self.device,
+                                             topology=self.topology)
             intervals.record("upload", t0, time.monotonic())
             if self._pulled_stats is not None:
-                ws["show_acc"] = torch.zeros_like(ws["show"])
-                ws["click_acc"] = torch.zeros_like(ws["click"])
+                ws["show_acc"] = embedding.zeros_like(ws["show"])
+                ws["click_acc"] = embedding.zeros_like(ws["click"])
             return ws
 
     def _adopt(self, mapper, host_rows,
@@ -501,12 +510,7 @@ class BoxPSEngine:
                 # replace the write-back base for these rows
                 self.table.patch_snapshot(self.mapper.sorted_keys, stale,
                                           fresh)
-            rows = torch.as_tensor(self.mapper(stale).astype(np.int64),
-                                   device=self.device)
-            for f, t in self.ws.items():
-                if f in fresh:
-                    t[rows] = torch.as_tensor(fresh[f], dtype=t.dtype,
-                                              device=self.device)
+            embedding.write_rows(self.ws, self.mapper(stale), fresh)
 
     def end_pass(self, need_save_delta: bool = False,
                  delta_path: str = "") -> None:
@@ -638,6 +642,9 @@ class BoxPSEngine:
         pulls read half the bytes, the set holds half the memory.  Runs
         on the working set's device.  Training on a frozen set raises —
         re-run the pass lifecycle to train."""
+        if self.topology is not None and self.topology.multi_device:
+            raise NotImplementedError(
+                f"freeze_for_serving {embedding.MULTI_DEVICE_TODO}")
         assert self.ws is not None, "no live working set to freeze"
         qb = self.config.quant_bits or 16
         self.ws = embedding.quantize_working_set(self.ws, qb, scale)

@@ -17,7 +17,9 @@ merge, heter_comm_inl.h:2027).
 Every function works on one topology's shards from one controller (see
 ``parallel/collective.py``): it takes and returns lists of per-shard
 tensors, indexed by flat shard number, and ``axis`` names the table axes
-(a tuple of topology axes).
+(a tuple of topology axes).  Each shard's tensors live on its device
+(``topology.devices``), where its plan is built and its kernels launch;
+values cross between devices only in the collectives.
 
 The mxu variants run each shard's random access through the sorted
 kernels (``ops/sorted_spmm.py``: a hand-written CUDA kernel on the card,

@@ -2,7 +2,12 @@
 
 Copy of ``paddlebox_tpu/runtime/fleet_executor.py`` with the import paths
 rewritten; host threads over ``utils/channel`` (no torch: a compute
-node's ``fn`` decides where its work runs).
+node's ``fn`` decides where its work runs).  One fault of the reference
+is repaired here: its source sends ``stop`` again on every late credit,
+and its compute and sink nodes count stops rather than the distinct
+upstreams that stopped, so a node with an upstream that never sends
+could complete on another upstream's repeated stops.  The port's source
+stops once, and a node completes when every distinct upstream stopped.
 
 ≙ distributed/fleet_executor/ (SURVEY §2.3): Carrier (carrier.{h,cc}) routes
 InterceptorMessages between interceptors — Source/Compute/Amplifier/Sink
@@ -72,6 +77,7 @@ class SourceInterceptor(Interceptor):
         self.generator = generator
         self.credits: Dict[int, int] = {d: 0 for d in node.downstream}
         self.emitted = 0
+        self._stop_sent = False
 
     def start(self):
         self._pump()
@@ -84,7 +90,8 @@ class SourceInterceptor(Interceptor):
                 self.credits[d] -= 1
                 self.send(d, "data", payload, scope=self.emitted)
             self.emitted += 1
-        if self.emitted >= self.node.max_runs:
+        if self.emitted >= self.node.max_runs and not self._stop_sent:
+            self._stop_sent = True
             for d in self.node.downstream:
                 self.send(d, "stop")
 
@@ -103,7 +110,7 @@ class ComputeInterceptor(Interceptor):
         self.inbox: Dict[int, Dict[int, Any]] = {}   # scope → src → payload
         self.credits: Dict[int, int] = {d: node.buffer_size
                                         for d in node.downstream}
-        self.stops = 0
+        self.stopped: set = set()     # the upstreams that sent stop
         self._stop_sent = False
 
     def start(self):
@@ -133,7 +140,8 @@ class ComputeInterceptor(Interceptor):
     def _maybe_forward_stop(self):
         # forward stop only once every pending scope has drained (a late
         # credit can still fire blocked scopes after upstream stop)
-        if (not self._stop_sent and self.stops == len(self.node.upstream)
+        if (not self._stop_sent
+                and self.stopped >= set(self.node.upstream)
                 and not self.inbox):
             self._stop_sent = True
             for d in self.node.downstream:
@@ -147,7 +155,7 @@ class ComputeInterceptor(Interceptor):
             self.credits[msg.src] = self.credits.get(msg.src, 0) + 1
             self._try_fire()
         elif msg.kind == "stop":
-            self.stops += 1
+            self.stopped.add(msg.src)
             self._try_fire()
         self._maybe_forward_stop()
 
@@ -156,7 +164,7 @@ class SinkInterceptor(Interceptor):
     def __init__(self, node, carrier):
         super().__init__(node, carrier)
         self.results: List[Any] = []
-        self.stops = 0
+        self.stopped: set = set()     # the upstreams that sent stop
 
     def start(self):
         for u in self.node.upstream:
@@ -168,8 +176,8 @@ class SinkInterceptor(Interceptor):
             self.results.append((msg.scope, msg.payload))
             self.send(msg.src, "credit")
         elif msg.kind == "stop":
-            self.stops += 1
-            if self.stops == len(self.node.upstream):
+            self.stopped.add(msg.src)
+            if self.stopped >= set(self.node.upstream):
                 self.carrier.signal_done()
 
 

@@ -38,6 +38,7 @@ import torch.nn.functional as F
 
 from paddlebox_tpu_torch.graph.graph_table import GraphTable
 from paddlebox_tpu_torch.ops import sorted_spmm as sp
+from paddlebox_tpu_torch.ps import embedding
 
 
 def walk_pairs(walks: torch.Tensor, window: int) -> torch.Tensor:
@@ -136,6 +137,10 @@ class GraphEmbeddingTrainer:
     def __init__(self, engine, graph: GraphTable, n_negatives: int = 5,
                  learning_rate: float = 0.05, window: int = 2,
                  seed: int = 0):
+        topo = getattr(engine, "topology", None)
+        if topo is not None and topo.multi_device:
+            raise NotImplementedError(
+                f"graph learning {embedding.MULTI_DEVICE_TODO}")
         if graph.device != engine.device:
             raise ValueError(f"the graph lives on {graph.device}, the "
                              f"engine's working set on {engine.device}")

@@ -21,6 +21,7 @@ import torch.nn.functional as F
 from paddlebox_tpu_torch.data.batch_pack import BatchPacker
 from paddlebox_tpu_torch.metrics import auc as auc_mod
 from paddlebox_tpu_torch.metrics.auc import AucCalculator, accumulate_auc
+from paddlebox_tpu_torch.ps import embedding
 from paddlebox_tpu_torch.trainer.trainer import SparseTrainer
 
 
@@ -42,12 +43,17 @@ class MultiTaskSparseTrainer(SparseTrainer):
                  label_slots: List[str], **kw):
         """``model`` has ``forward_multi`` (e.g. ``models.mmoe.MMoE``).
         The step is the reference lowering in f32: ``amp`` and any other
-        explicit ``sparse_path`` raise."""
+        explicit ``sparse_path`` raise, and so does a topology whose
+        shards sit on distinct devices."""
         if kw.get("amp"):
             raise ValueError("MultiTaskSparseTrainer trains in f32 (the "
                              "JAX package's multi-task step has no amp)")
         super().__init__(engine, model, feed_config, batch_size,
                          label_slot=label_slots[0], **kw)
+        if self._multi:
+            raise NotImplementedError(
+                f"MultiTaskSparseTrainer {embedding.MULTI_DEVICE_TODO}: its "
+                "step is the one-device reference lowering")
         if self.sparse_path not in ("auto", "reference"):
             raise ValueError("MultiTaskSparseTrainer trains on the "
                              "reference lowering only, not "

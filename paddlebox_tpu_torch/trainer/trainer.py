@@ -63,21 +63,32 @@ are updated in place on the device.
 
 Under a topology one controller drives every shard, as HeterPS drives a
 node's cards from one process and the JAX package one program over its
-mesh; every shard lives on the engine's device (distinct cards are
-ROADMAP Queue 1 item 4).  The dense half runs once over the global
-batch, the function GSPMD computes for a replicated net, and explicit
-``mxu``, ``fast`` and ``reference`` run their one-device lowering over
-the global batch; ``_resolve_path()`` names the lowering that runs.
+mesh.  With every shard on one device the dense half runs once over the
+global batch, the function GSPMD computes for a replicated net, and
+explicit ``mxu``, ``fast`` and ``reference`` run their one-device
+lowering over the global batch; ``_resolve_path()`` names the lowering
+that runs.  With shards on distinct devices (``HybridTopology(devices=
+[...])``) ``mxu_sharded`` places each shard's working-set block, plans
+and batch columns of the feed on the shard's device, runs both sorted
+kernels there, and moves values between devices only through the
+collectives; the dense half runs as one replica per device over its
+shards' columns, the replicas' grads summed in device order and the one
+optimizer step copied to every replica (:meth:`_replica_dense_half`);
+under dp × sharding each table block steps on its first node's device
+and the other nodes' replicas of it take a copy.  Explicit ``mxu``, ``fast`` and ``reference``, and models that read the
+page-view planes, raise ``NotImplementedError`` there (ROADMAP Queue 1
+item 4).
 """
 
 from __future__ import annotations
 
 import concurrent.futures
+import copy
 import logging
 import os
 import threading
 import time
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -94,7 +105,11 @@ from paddlebox_tpu_torch.metrics.auc import (AucCalculator, WuAucCalculator,
 from paddlebox_tpu_torch.ops import crossing as cx
 from paddlebox_tpu_torch.ops import sorted_spmm as sp
 from paddlebox_tpu_torch.ops.seqpool_cvm import fused_seqpool_cvm
-from paddlebox_tpu_torch.parallel.topology import HybridTopology, Spec
+from paddlebox_tpu_torch.parallel.topology import (HybridTopology, Sharded,
+                                                   Spec, device_key,
+                                                   on_device,
+                                                   physical_device,
+                                                   same_device)
 from paddlebox_tpu_torch.ps import embedding, fast_path, mxu_path, ragged_path
 from paddlebox_tpu_torch.ps import optimizer as sparse_opt
 from paddlebox_tpu_torch.ps import sharded_embedding as se
@@ -107,6 +122,16 @@ from paddlebox_tpu_torch.utils.timer import TimerRegistry
 
 # the step's own planes of a batch; every other plane is an extra input
 _STEP_PLANES = ("indices", "lengths", "dense", "labels", "valid")
+
+
+def _mask_padding(idx_slb: torch.Tensor, lengths: torch.Tensor
+                  ) -> torch.Tensor:
+    """[S, L, B] ids with every position past its record's length at row
+    0 (the packer parks padding there; the mask makes hand-built batches
+    safe too)."""
+    live = torch.arange(idx_slb.shape[1], device=idx_slb.device)[
+        None, :, None] < lengths[:, None, :]
+    return torch.where(live, idx_slb, torch.zeros_like(idx_slb))
 
 
 class SparseTrainer:
@@ -131,15 +156,21 @@ class SparseTrainer:
         ``reference`` lowering.  ``trainer_config``: the dense sync mode
         (``"async_table"`` with ``sync_weight_step`` and the table's Adam
         settings) and ``dump_path``.  ``topology``: the shards of the
-        ``mxu_sharded`` lowering, all on this trainer's device."""
+        ``mxu_sharded`` lowering, its first shard on this trainer's
+        device."""
         self.device = resolve_device(device)
-        if engine.device != self.device:
+        if not same_device(engine.device, self.device):
             raise ValueError(f"engine works on {engine.device}, trainer "
                              f"asked for {self.device}")
-        if topology is not None and topology.device != self.device:
+        if topology is not None and not same_device(topology.device,
+                                                    self.device):
             raise ValueError(f"topology's shards live on {topology.device}, "
                              f"the trainer on {self.device}")
         self.topology = topology
+        # shards on distinct devices: per-device blocks and dense replicas
+        self._multi = topology is not None and topology.multi_device
+        self._replicas: Optional[List[torch.nn.Module]] = None
+        self._consts: Dict = {}
         if self.device.type == "cuda":
             # the reference trains in full f32, and the parity tolerances
             # assume f32 products: TF32 would keep ~10 mantissa bits in
@@ -186,6 +217,11 @@ class SparseTrainer:
         have = ({"rank_offset", "ads_offset"}
                 | {s.name for s in feed_config.string_slots})
         unknown = need - have
+        if self._multi and need & {"rank_offset", "ads_offset"}:
+            raise NotImplementedError(
+                "models that read the page-view planes (rank_offset, "
+                f"ads_offset) {embedding.MULTI_DEVICE_TODO}: their rows "
+                "reach across the batch columns a device replica holds")
         if unknown:
             raise ValueError(
                 f"model.extra_inputs {sorted(unknown)} are not feed planes "
@@ -249,7 +285,17 @@ class SparseTrainer:
         JAX package does: reference under fast_path=False (its escape
         hatch to the exact step); mxu with no topology; mxu_sharded on a
         shardable one (:meth:`_mxu_shardable`); else fast for adagrad and
-        reference for the other rules (an expand table raises there)."""
+        reference for the other rules (an expand table raises there).
+        Under shards on distinct devices only mxu_sharded and ragged's
+        refusal are ported."""
+        path = self._pick_path()
+        if self._multi and path in ("mxu", "fast", "reference"):
+            raise NotImplementedError(
+                f"sparse_path={path!r} {embedding.MULTI_DEVICE_TODO} (the "
+                "JAX package runs it GSPMD-sharded); use mxu_sharded")
+        return path
+
+    def _pick_path(self) -> str:
         assert self.engine.ws is not None, \
             "engine pass lifecycle must run before building the step " \
             "(begin_feed_pass/add_keys/end_feed_pass/begin_pass)"
@@ -392,29 +438,37 @@ class SparseTrainer:
         return {k: extras[k] for k in getattr(self.model, "extra_inputs", ())}
 
     def _forward(self, x: torch.Tensor, dense: torch.Tensor,
-                 extras=None) -> torch.Tensor:
+                 extras=None, model=None) -> torch.Tensor:
         """The model's f32 logits.  Under amp the whole forward runs in
         bf16 over per-step bf16 copies of the parameters, whose grads flow
         back to the f32 masters (≙ the JAX package casting the params
         pytree and inputs; ``torch.autocast`` would keep reductions and
         many elementwise ops in f32, another function).  The extra feed
-        planes pass uncast."""
+        planes pass uncast.  ``model``: a dense replica (default: the
+        trainer's model)."""
+        model = self.model if model is None else model
         kw = self._model_extras(extras)
         if not self.amp:
-            return self.model(x, dense, **kw)
+            return model(x, dense, **kw)
         bf16 = torch.bfloat16
-        params = {n: p.to(bf16) for n, p in self.model.named_parameters()}
+        params = {n: p.to(bf16) for n, p in model.named_parameters()}
         logits = torch.func.functional_call(
-            self.model, params, (x.to(bf16), dense.to(bf16)), kw)
+            model, params, (x.to(bf16), dense.to(bf16)), kw)
         return logits.to(torch.float32)
 
-    def _loss_and_preds(self, x, dense, labels, valid, extras=None):
-        """Masked-mean BCE of the logits and the (detached) predictions."""
-        logits = self._forward(x, dense, extras)
+    def _loss_and_preds(self, x, dense, labels, valid, extras=None,
+                        model=None, den=None):
+        """Masked-mean BCE of the logits and the (detached) predictions.
+        ``model``: a dense replica (default: the trainer's model);
+        ``den``: the mean's denominator (default: the batch's count of
+        valid records, at least 1)."""
+        logits = self._forward(x, dense, extras, model)
         w = valid.to(torch.float32)
         per = F.binary_cross_entropy_with_logits(logits, labels,
                                                  reduction="none")
-        loss = torch.sum(per * w) / torch.clamp(torch.sum(w), min=1.0)
+        if den is None:
+            den = torch.clamp(torch.sum(w), min=1.0)
+        loss = torch.sum(per * w) / den
         return loss, torch.sigmoid(logits.detach())
 
     def _accumulate_metrics(self, preds, labels, valid) -> None:
@@ -451,6 +505,7 @@ class SparseTrainer:
         with torch.no_grad():
             for n, p in self.model.named_parameters():
                 p.copy_(torch.from_numpy(snap[n]))
+        self._sync_replicas()
 
     def _async_dense_step(self, n_done: int, log) -> None:
         """After batch ``n_done`` (1-based) under the async table: the
@@ -474,17 +529,22 @@ class SparseTrainer:
             self.async_dense.drain()
             self._load_async_params()
 
+    def _dense_input(self, pooled: torch.Tensor) -> torch.Tensor:
+        """The model's input [B, S*(3+D)] from pooled features
+        [B, S, 3+D]: the dynamic-dim mask applied, the two cvm columns
+        dropped under ``use_cvm=False``."""
+        x = pooled
+        if self._dym_mask is not None:
+            x = x * self._const(self._dym_mask, x.device)[None]
+        x = x if self.use_cvm else x[:, :, 2:]
+        return x.reshape(x.shape[0], -1)
+
     def _pooled_dense_half(self, pooled, dense, labels, valid, extras=None):
         """Dense half of the pooled-based steps (mxu/fast/ragged): returns
         (loss, preds, d_pooled) — the pooled grads feed the sparse push."""
-        b = pooled.shape[0]
         pooled = pooled.detach().requires_grad_(True)
-        x = pooled
-        if self._dym_mask is not None:
-            x = x * self._dym_mask[None]
-        x = x if self.use_cvm else x[:, :, 2:]
-        loss, preds = self._dense_step(x.reshape(b, -1), dense, labels,
-                                       valid, extras)
+        loss, preds = self._dense_step(self._dense_input(pooled), dense,
+                                       labels, valid, extras)
         return loss, preds, pooled.grad
 
     def _reference_step(self, idx_slb, lengths, dense, labels, valid,
@@ -541,12 +601,7 @@ class SparseTrainer:
                 # resize gets the right dims (and sentinel)
                 dims = mxu_path.make_dims(s * l * b, ws["show"].shape[0])
                 if plan is None:
-                    # the packer parks padding at row 0; the mask makes
-                    # in-step planning safe for hand-built batches too
-                    live = torch.arange(l, device=idx_slb.device)[
-                        None, :, None] < lengths[:, None, :]
-                    idx_slb = torch.where(live, idx_slb,
-                                          torch.zeros_like(idx_slb))
+                    idx_slb = _mask_padding(idx_slb, lengths)
                     plan = mxu_path.build_plan(idx_slb, dims)
                 pooled = mxu_path.pull_pool_cvm(ws, plan, dims, (s, l, b),
                                                 self.use_cvm, pull_cross)
@@ -583,52 +638,76 @@ class SparseTrainer:
         working-set rows of its ``table_spec`` block.  Pull: its ids
         gathered over the table axes, each shard's sorted gather over its
         block, the values reduce-scattered back to their requesters and
-        pooled over the global batch.  Dense half once, over the global
-        batch.  Push: the legacy payload (slot id in column D + 3) split
-        by batch block, gathered over the table axes and merged by each
-        owner (multi-node: merged within a node, then summed across
-        nodes), then one optimizer step over the joined deltas.
+        pooled.  Dense half: one replica per device over its shards'
+        columns (:meth:`_replica_dense_half`; on one device, once over the
+        global batch).  Push: the legacy payload (slot id in column
+        D + 3) split by batch block, gathered over the table axes and
+        merged by each owner (multi-node: merged within a node, then
+        summed across nodes), then the optimizer step: over the joined
+        deltas on one device, else once a table block on the device of
+        its first shard (:meth:`_apply_push_blocks`).
 
-        plan: the feed's per-shard plans of this batch (each array with a
-        leading shard dim), else planned here."""
+        The batch planes are global tensors on one device, or per-shard
+        lists (each shard's columns on its device) when the shards sit on
+        distinct devices.  plan: the feed's per-shard plans of this batch
+        (each array with a leading shard dim, or a list of per-shard
+        tuples), else planned here."""
         ws = self.engine.ws
         topo = self.topology
         batch_axes, tbl_axes, n_tbl, rows_loc, multinode = \
             self._sharded_layout()
-        s, l, b = idx_slb.shape
         d_main = ws["mf"].shape[1]
         d = d_main + mxu_path._ex_dim(ws)
         bspec = Spec(None, None, batch_axes)        # [S, L, B(, W)]
         tspec = Spec(None, tbl_axes)                # [W, rows]
         with torch.no_grad():
-            live = torch.arange(l, device=idx_slb.device)[
-                None, :, None] < lengths[:, None, :]
-            idx_slb = torch.where(live, idx_slb, torch.zeros_like(idx_slb))
-            idx_loc = [x.reshape(-1) for x in topo.split(idx_slb, bspec)]
+            if isinstance(idx_slb, list):
+                s, l, b_loc = idx_slb[0].shape
+                idx_loc = [_mask_padding(x, n).reshape(-1)
+                           for x, n in zip(idx_slb, lengths)]
+            else:
+                s, l, b = idx_slb.shape
+                b_loc = b // topo.axis_size(batch_axes)
+                idx_slb = _mask_padding(idx_slb, lengths)
+                idx_loc = [x.reshape(-1) for x in topo.split(idx_slb, bspec)]
             if plan is None:
                 _, plans = se.local_plan(idx_loc, rows_loc, topo, tbl_axes)
+            elif isinstance(plan, list):
+                plans = plan
             else:
                 plans = [tuple(a[k] for a in plan)
                          for k in range(topo.world_size)]
-            cols = [ws["show"], ws["click"], ws["embed_w"], *ws["mf"].T]
-            if "mf_ex" in ws:
-                cols += list(ws["mf_ex"].T)
-            cols.append(ws["mf_size"].to(torch.float32))
-            tab = torch.stack(cols)                 # [3 + D + 1, rows]
             vals = se.pull_rows_sharded_mxu(
-                topo.split(tab, tspec), idx_loc, topo, tbl_axes, plans,
-                self._exchange_bf16)
-            b_loc = b // topo.axis_size(batch_axes)
-            v = topo.join([x.T.reshape(s, l, b_loc, 4 + d) for x in vals],
-                          bspec)
-            pooled = mxu_path.pool_cvm_values(v, self.use_cvm)
-        loss, preds, d_pooled = self._pooled_dense_half(pooled, dense,
-                                                        labels, valid, extras)
+                self._shard_tables(ws, tspec), idx_loc, topo, tbl_axes,
+                plans, self._exchange_bf16)
+            # each device's shards' columns, in flat shard order
+            pooled = [mxu_path.pool_cvm_values(torch.cat(
+                [vals[k].T.reshape(s, l, b_loc, 4 + d) for k in ks], dim=2),
+                self.use_cvm) for _, ks in topo.groups]
+        labels_g = self._per_device(labels)
+        extras = self._model_extras(extras)
+        extras_g = [dict(zip(extras, v)) for v in zip(
+            *[self._per_device(x) for x in extras.values()])] \
+            if extras else [None] * len(topo.groups)
+        loss, preds, d_pooled = self._replica_dense_half(
+            pooled, self._per_device(dense), labels_g,
+            self._per_device(valid), extras_g)
+        if len(topo.groups) == 1:
+            preds = preds[0]
+        else:
+            preds = self._join_columns(preds, b_loc)
+            self._accumulate_metrics(preds, self._join_columns(labels),
+                                     self._join_columns(valid))
         with torch.no_grad():
-            payload = mxu_path.push_payload(d_pooled, self._ins_cvm(labels),
-                                            self._slot_ids_dev, (s, l, b))
-            pay_loc = [x.reshape(-1, d + 4).T
-                       for x in topo.split(payload, bspec)]
+            pay_loc = [None] * topo.world_size
+            for (dev, ks), dp, lab in zip(topo.groups, d_pooled, labels_g):
+                payload = mxu_path.push_payload(
+                    dp, self._ins_cvm(lab), self._const(self._slot_ids_dev,
+                                                        dev),
+                    (s, l, dp.shape[0]))
+                for i, k in enumerate(ks):
+                    pay_loc[k] = payload[:, :, i * b_loc:(i + 1) * b_loc
+                                         ].reshape(-1, d + 4).T
             if multinode:
                 delta = se.push_rows_sharded_mxu_multinode(
                     idx_loc, pay_loc, rows_loc, topo, tbl_axes, "dp",
@@ -639,17 +718,169 @@ class SparseTrainer:
                     idx_loc, pay_loc, rows_loc, topo, tbl_axes,
                     first_only_col=d + 3, plans=plans,
                     exchange_bf16=self._exchange_bf16)
-            acc = mxu_path.acc_from_delta(topo.join(delta, tspec),
-                                          ws["show"].shape[0], d_main=d_main)
-            sparse_opt.apply_push(ws, acc, self.engine.config.sgd)
+            sgd = self.engine.config.sgd
+            if isinstance(ws["show"], Sharded):
+                self._apply_push_blocks(ws, delta, rows_loc, d_main, sgd)
+            else:
+                acc = mxu_path.acc_from_delta(topo.join(delta, tspec),
+                                              ws["show"].shape[0],
+                                              d_main=d_main)
+                sparse_opt.apply_push(ws, acc, sgd)
         return loss, preds
+
+    def _apply_push_blocks(self, ws, delta, rows_loc: int, d_main: int,
+                           sgd) -> None:
+        """The rule over a ``Sharded`` working set.  It is elementwise
+        over rows, so each table block steps once, on the device of the
+        first shard that holds it, with that shard's slice of the merged
+        delta.  Under dp × sharding the other nodes' replicas of the
+        block take a copy of the result, so the replicas stay bit-equal
+        (a card and the host may round a rule differently), as the dense
+        replicas take the one dense step."""
+        stepped = {}
+        for k, _ in ws["show"].unique():
+            row0 = ws["show"].rows(k).start
+            blk = {f: t.parts[k] for f, t in ws.items()}
+            if row0 in stepped:
+                for f, t in blk.items():
+                    t.copy_(stepped[row0][f])
+                continue
+            acc = mxu_path.acc_from_delta(delta[k], rows_loc, d_main=d_main)
+            sparse_opt.apply_push(blk, acc, sgd, row0=row0)
+            stepped[row0] = blk
+
+    def _shard_tables(self, ws, tspec: Spec) -> List[torch.Tensor]:
+        """Each shard's feature-major pull table [3 + D (+ Dex) + 1,
+        rows_loc]: show, click, embed_w, mf (, mf_ex), mf_size.  From a
+        ``Sharded`` set each is stacked on the shard's device from its own
+        block; on one device, the views of one stacked table."""
+        def stack(f):
+            cols = [f["show"], f["click"], f["embed_w"], *f["mf"].T]
+            if "mf_ex" in f:
+                cols += list(f["mf_ex"].T)
+            cols.append(f["mf_size"].to(torch.float32))
+            return torch.stack(cols)
+        if not isinstance(ws["show"], Sharded):
+            return self.topology.split(stack(ws), tspec)
+        made = {}
+        for k, blk in enumerate(ws["show"].parts):
+            if id(blk) not in made:
+                made[id(blk)] = stack({f: t.parts[k] for f, t in ws.items()})
+        return [made[id(blk)] for blk in ws["show"].parts]
+
+    def _per_device(self, x) -> List[torch.Tensor]:
+        """A batch plane (dim 0 the batch) as one tensor per device of
+        ``topology.groups``: its shards' columns in flat shard order.  A
+        global tensor is the one device's."""
+        if not isinstance(x, list):
+            if len(self.topology.groups) != 1:
+                raise ValueError("a global batch plane under a topology "
+                                 "whose shards sit on distinct devices")
+            return [x]
+        return [x[ks[0]] if len(ks) == 1 else torch.cat([x[k] for k in ks])
+                for _, ks in self.topology.groups]
+
+    def _join_columns(self, x, b_loc: int = 0) -> torch.Tensor:
+        """Per-shard planes (or, with ``b_loc``, per-device ones in
+        ``topology.groups`` order) → the global batch on the trainer's
+        device, in shard order."""
+        if b_loc:
+            parts = [None] * self.topology.world_size
+            for (_, ks), t in zip(self.topology.groups, x):
+                for i, k in enumerate(ks):
+                    parts[k] = t[i * b_loc:(i + 1) * b_loc]
+            x = parts
+        return torch.cat([on_device(t, self.device) for t in x])
+
+    def _const(self, t: torch.Tensor, dev) -> torch.Tensor:
+        """A constant of the trainer (slot ids, the dynamic-dim mask) on
+        ``dev``'s memory, copied there once."""
+        if same_device(t.device, dev):
+            return t
+        key = (id(t), device_key(physical_device(dev)))
+        if key not in self._consts:
+            self._consts[key] = on_device(t, dev)
+        return self._consts[key]
+
+    def dense_replicas(self) -> List[torch.nn.Module]:
+        """The dense half's replicas, one per device of the topology in
+        ``topology.groups`` order; the first is ``self.model``."""
+        if not self._multi:
+            return [self.model]
+        if self._replicas is None:
+            self._replicas = [self.model] + [
+                copy.deepcopy(self.model).to(physical_device(dev))
+                for dev, _ in self.topology.groups[1:]]
+        return self._replicas
+
+    def _sync_replicas(self) -> None:
+        """Copy the model's parameters and buffers into every other
+        replica."""
+        reps = self.dense_replicas()
+        if len(reps) == 1:
+            return
+        src = self.model.state_dict()
+        with torch.no_grad():
+            for r in reps[1:]:
+                for k, v in r.state_dict().items():
+                    v.copy_(src[k])
+
+    def _replica_dense_half(self, pooled, dense, labels, valid, extras):
+        """The dense half over one replica per device, each on its
+        shards' batch columns (lists in ``topology.groups`` order).  The
+        loss is the global masked mean (each replica's
+        :meth:`_loss_and_preds` over the global count of valid records,
+        summed), the replicas' grads are summed in device order on the
+        trainer's device, and the one optimizer step
+        taken there is copied to every replica, so the replicas stay
+        bit-equal: the function GSPMD computes for a replicated net over
+        a batch-sharded input.  (A step taken on each device would round
+        differently where a card's elementwise kernel contracts a
+        multiply-add that the host does not.)  Returns (loss, each
+        replica's preds, each replica's d_pooled); one device is
+        :meth:`_pooled_dense_half`."""
+        if len(pooled) == 1:
+            loss, preds, d_pooled = self._pooled_dense_half(
+                pooled[0], dense[0], labels[0], valid[0], extras[0])
+            return loss, [preds], [d_pooled]
+        models = self.dense_replicas()
+        count = None
+        for v in valid:
+            c = on_device(torch.sum(v.to(torch.float32)), self.device)
+            count = c if count is None else count + c
+        den = torch.clamp(count, min=1.0)
+        total, preds, d_pooled = None, [], []
+        for (dev, _), model, x, dn, lb, v, ex in zip(
+                self.topology.groups, models, pooled, dense, labels, valid,
+                extras):
+            x = x.detach().requires_grad_(True)
+            loss, p = self._loss_and_preds(self._dense_input(x), dn, lb, v,
+                                           ex, model, on_device(den, dev))
+            for prm in model.parameters():
+                prm.grad = None
+            loss.backward()
+            loss = on_device(loss.detach(), self.device)
+            total = loss if total is None else total + loss
+            preds.append(p)
+            d_pooled.append(x.grad)
+        with torch.no_grad():
+            for ps in zip(*(m.parameters() for m in models)):
+                acc = None
+                for prm in ps:
+                    if prm.grad is not None:
+                        g = on_device(prm.grad, self.device)
+                        acc = g if acc is None else acc + g
+                ps[0].grad = acc
+        if self.async_dense is None:
+            self.dense_opt.step()
+            self._sync_replicas()
+        return total, preds, d_pooled
 
     def _put_batch(self, batch: PackedBatch):
         """Host batch → device tensors (pinned, asynchronous on a card):
-        the step's five planes and a dict of the extra planes."""
-        planes = tuple(pf.to_device(a, self.device)
-                       for a in (batch.indices, batch.lengths, batch.dense,
-                                 batch.labels, batch.valid))
+        the step's five planes and a dict of the extra planes.  With
+        shards on distinct devices each plane is a per-shard list, each
+        shard's batch columns uploaded to its device."""
         extras = {}
         if batch.rank_offset is not None:
             extras["rank_offset"] = batch.rank_offset
@@ -657,8 +888,32 @@ class SparseTrainer:
             extras.update(batch.aux)
         if batch.ads_offset is not None:
             extras["ads_offset"] = batch.ads_offset
+        if self._multi:
+            # indices [S, B, L] and lengths [S, B] carry the batch on dim 1
+            put = self._put_columns
+            return (put(batch.indices, 1), put(batch.lengths, 1),
+                    put(batch.dense, 0), put(batch.labels, 0),
+                    put(batch.valid, 0),
+                    {k: put(v, 0) for k, v in extras.items()})
+        planes = tuple(pf.to_device(a, self.device)
+                       for a in (batch.indices, batch.lengths, batch.dense,
+                                 batch.labels, batch.valid))
         return planes + ({k: pf.to_device(v, self.device)
                           for k, v in extras.items()},)
+
+    def _put_columns(self, a: np.ndarray, dim: int) -> List[torch.Tensor]:
+        """Each shard's block of host plane ``a`` along its batch dim
+        ``dim`` (``batch_spec``), uploaded to the shard's device."""
+        topo = self.topology
+        out = []
+        for k in range(topo.world_size):
+            idx, n = topo.block(topo.batch_spec(), k, 0)
+            step = a.shape[dim] // n
+            sl = [slice(None)] * a.ndim
+            sl[dim] = slice(idx * step, (idx + 1) * step)
+            out.append(pf.to_device(np.ascontiguousarray(a[tuple(sl)]),
+                                    topo.device_of(k)))
+        return out
 
     # ------------------------------------------------------------------
     def train_pass(self, dataset, prefetch: int = 4, pack_threads: int = 1,
@@ -679,6 +934,9 @@ class SparseTrainer:
         ``uid_slot``: ``uauc``, ``wuauc``, ``wuauc_users`` and
         ``wuauc_s`` (host seconds of the preds' copy and record append)."""
         t0 = time.perf_counter()
+        # the replicas start every pass from the model's weights (loaded,
+        # resumed or stepped since)
+        self._sync_replicas()
         with trace.span("trainer.train_pass", pass_id=self.engine.pass_id):
             if isinstance(dataset, pf.PackedPassFeed):
                 stats = self._train_packed(dataset, progress)
@@ -832,9 +1090,11 @@ class SparseTrainer:
                 dump = None
                 if log["dump_file"] is not None:
                     dump = (batch.ins_ids, batch.labels[:batch.num_real])
-                self._timed_step(path, log, indices.permute(0, 2, 1),
-                                 lengths, dense, labels, valid,
-                                 extras=extras, uid=uid, dump=dump)
+                idx = ([x.permute(0, 2, 1) for x in indices]
+                       if isinstance(indices, list)
+                       else indices.permute(0, 2, 1))
+                self._timed_step(path, log, idx, lengths, dense, labels,
+                                 valid, extras=extras, uid=uid, dump=dump)
                 if progress is not None:
                     progress(len(log["losses"]))
         finally:
@@ -901,8 +1161,11 @@ class SparseTrainer:
         path = self._resolve_path()
         self._validate_path(path)
         keep = keep_host or bool(self.trainer_config.dump_path)
+        placed = ({"topology": self.topology,
+                   "shardings": self.pass_shardings(arrays)}
+                  if self._multi else {})
         feed = pf.upload_pass(arrays, self.device, staged=staged,
-                              keep_host=keep)
+                              keep_host=keep, **placed)
         if path == "mxu":
             n, s, l, b = feed.data["indices"].shape
             dims = mxu_path.make_dims(s * l * b,
@@ -952,9 +1215,11 @@ class SparseTrainer:
                        ) -> Optional[Dict[str, Spec]]:
         """Per-shard batch layout of the resident pass's planes under a
         topology (the batch dim split over dp × sharding: shard k reads
-        batch columns [k*B_loc, (k+1)*B_loc)); None with no topology.
-        The planes stay one set of tensors: a shard's block is
-        ``topology.split(plane, spec)[k]``."""
+        batch columns [k*B_loc, (k+1)*B_loc); ``ads_offset``, a per-batch
+        plane, is replicated); None with no topology.  On one device the
+        planes stay one set of tensors and a shard's block is
+        ``topology.split(plane, spec)[k]``; on distinct devices each
+        shard's block is uploaded to its device (``pf.upload_pass``)."""
         if self.topology is None:
             return None
         dp = ("dp", "sharding")
@@ -968,6 +1233,8 @@ class SparseTrainer:
         }
         for k in arrays.extra_planes():
             specs[k] = Spec(None, dp, None)
+        if arrays.ads_offset is not None:
+            specs["ads_offset"] = Spec()
         return specs
 
     def _precompute_sharded_plans(self, feed: pf.PackedPassFeed,
@@ -976,28 +1243,39 @@ class SparseTrainer:
         sorted-spmm plan of every batch, built once at pass build, so the
         hot step sorts nothing (≙ the pass-scope shard index of
         split_input_to_shard, heter_comm_inl.h:1117).  Each plan array is
-        stacked [N, shards, ...].
+        stacked [N, shards, ...] on one device; on distinct devices it is
+        a list of each shard's [N, ...] stack, built on the shard's
+        device.
 
         The plans are untrimmed (a shard's non-owned ids sort to the
         back, so padding is no droppable prefix) and scale as
         n_batches × shards × gathered P; their bytes are logged."""
         _, tbl_axes, _, rows_loc, _ = self._sharded_layout()
         topo = self.topology
-        blocks = topo.split(feed.data["indices"], specs["indices"])
+        idx = feed.data["indices"]
+        blocks = (idx.parts if isinstance(idx, Sharded)
+                  else topo.split(idx, specs["indices"]))
         per_batch = []
         for i in range(feed.n_batches):
             _, plans = se.local_plan([x[i].reshape(-1) for x in blocks],
                                      rows_loc, topo, tbl_axes)
-            per_batch.append([torch.stack([pl[j] for pl in plans])
+            per_batch.append(plans if self._multi else
+                             [torch.stack([pl[j] for pl in plans])
                               for j in range(len(pf.PLAN_KEYS))])
-        feed.plans = {k: torch.stack([p[j] for p in per_batch])
-                      for j, k in enumerate(pf.PLAN_KEYS)}
+        if self._multi:
+            feed.plans = {key: [torch.stack([p[k][j] for p in per_batch])
+                                for k in range(topo.world_size)]
+                          for j, key in enumerate(pf.PLAN_KEYS)}
+        else:
+            feed.plans = {key: torch.stack([p[j] for p in per_batch])
+                          for j, key in enumerate(pf.PLAN_KEYS)}
         feed.plan_dims = self._sharded_plan_key(feed)
         logging.getLogger(__name__).info(
             "sharded pass plans resident: %.0f MB (n_batches x shards x "
             "gathered P, untrimmed)",
             sum(t.numel() * t.element_size()
-                for t in feed.plans.values()) / 1e6)
+                for v in feed.plans.values()
+                for t in (v if isinstance(v, list) else [v])) / 1e6)
 
     def _sharded_plan_key(self, feed: pf.PackedPassFeed):
         """Geometry sharded plans were built for (feed shape, table
@@ -1023,6 +1301,13 @@ class SparseTrainer:
         if feed.data["indices"].device.type != self.device.type:
             raise ValueError(f"feed lives on {feed.data['indices'].device}, "
                              f"trainer on {self.device}")
+        if (feed.topology is not None) != self._multi:
+            raise ValueError(
+                "the feed was placed for "
+                + ("shards on distinct devices" if feed.topology is not None
+                   else "one device")
+                + ", the trainer's topology is not — rebuild the feed "
+                "(build_pass_feed) with this trainer")
         n, s, l, b = feed.data["indices"].shape
         plans = None
         if path == "mxu" and feed.plans is not None:
@@ -1076,8 +1361,13 @@ class SparseTrainer:
         try:
             for i in range(feed.n_batches):
                 bt = pf.slice_batch(feed.data, i)
-                plan = (pf.plan_tuple(pf.slice_batch(plans, i))
-                        if plans is not None else None)
+                if plans is None:
+                    plan = None
+                elif feed.topology is not None:
+                    plan = [tuple(plans[key][k][i] for key in pf.PLAN_KEYS)
+                            for k in range(feed.topology.world_size)]
+                else:
+                    plan = pf.plan_tuple(pf.slice_batch(plans, i))
                 # rank_offset rows are batch-local: the slice needs no base
                 extras = {k: v for k, v in bt.items()
                           if k not in _STEP_PLANES}

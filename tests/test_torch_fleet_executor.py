@@ -90,3 +90,19 @@ def test_port_runtime_exports_and_timeout():
              runtime.TaskNode(2, "sink", upstream=[1])]
     with pytest.raises(TimeoutError):
         runtime.FleetExecutor(nodes, lambda i: i).run(timeout=0.5)
+
+
+def test_sink_waits_for_every_distinct_upstream():
+    """A sink with upstreams [source, 5], where node 5 never sends, times
+    out: the port's source sends one stop however many credits come back
+    late, and a node completes only once each distinct upstream stopped
+    (the reference counted the source's repeated stops instead)."""
+    from paddlebox_tpu_torch.runtime import fleet_executor as fe
+    nodes = [fe.TaskNode(0, "source", downstream=[1], max_runs=3),
+             fe.TaskNode(1, "sink", upstream=[0, 5])]
+    ex = fe.FleetExecutor(nodes, lambda i: i)
+    with pytest.raises(TimeoutError):
+        ex.run(timeout=0.5)
+    sink = ex.sinks[0]
+    assert sink.stopped == {0}
+    assert [p for _, p in sorted(sink.results)] == [0, 1, 2]

@@ -242,3 +242,20 @@ assert not leaked, leaked
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert proc.stdout.startswith(f"ok {len(mods)}")
+
+
+CARD_TESTS = sorted(f[:-3] for f in os.listdir(os.path.join(REPO, "tests"))
+                    if f.startswith("test_torch_") and f.endswith("_cuda.py"))
+
+
+@pytest.mark.parametrize("module", CARD_TESTS)
+def test_card_test_files_import_without_jax(module):
+    """The card test files run under ``--noconftest`` where the card is,
+    with no JAX: each loads in a JAX-blocked interpreter."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [REPO, os.path.join(REPO, "tests")]))
+    proc = subprocess.run([sys.executable, "-c", _PROBE, module], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.startswith("ok 1")

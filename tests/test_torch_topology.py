@@ -64,12 +64,27 @@ def test_bad_degrees_raises():
 
 
 def test_distinct_devices_raise():
-    """Shards on several devices are the multi-card placement, not
-    ported: refused, never spread silently."""
-    with pytest.raises(NotImplementedError, match="item 4"):
-        HybridTopology(TMesh(dp=2), devices=["cpu", "meta"])
+    """Shards on distinct devices are placed, each block on its shard's
+    device (``cpu:0`` and ``cpu:1`` are two devices in host memory: a
+    copy, never a view, crosses between them).  A device the machine does
+    not have raises; one device keeps views."""
+    topo = HybridTopology(TMesh(dp=2), devices=["cpu:0", "cpu:1"])
+    assert topo.multi_device and topo.device == torch.device("cpu", 0)
+    assert topo.groups == [(torch.device("cpu", 0), [0]),
+                           (torch.device("cpu", 1), [1])]
+    x = torch.arange(8.0).reshape(4, 2)
+    parts = topo.split(x, topo.batch_spec())
+    assert [topo.device_of(k) for k in range(2)] == topo.devices
+    assert all(p.data_ptr() != x.data_ptr() for p in parts)
+    np.testing.assert_array_equal(topo.join(parts, topo.batch_spec()), x)
+    placed = topo.place(x, topo.table_spec())
+    assert placed.shape == x.shape and placed.rows(1) == slice(2, 4)
+    np.testing.assert_array_equal(np.asarray(placed), x)
+    with pytest.raises(RuntimeError):
+        HybridTopology(TMesh(dp=2), devices=["cpu", "cuda:7"])
     topo = HybridTopology(TMesh(dp=2), devices=["cpu", "cpu"])
-    assert topo.device == torch.device("cpu")
+    assert topo.device == torch.device("cpu") and not topo.multi_device
+    assert topo.split(x, topo.batch_spec())[1].data_ptr() == x[2:].data_ptr()
 
 
 def _blocks_match(t, j, spec, shape):
@@ -130,7 +145,9 @@ def test_all_reduce_matches_jax(op):
     topo = single_host_topology(dp=8, device="cpu")
     got = tcol.all_reduce(topo.split(torch.as_tensor(x), Spec("dp")),
                           topo, "dp", op)
-    assert all(g is got[0] for g in got)      # one result for the group
+    # one value for the group, a tensor of its own for every member
+    assert len({g.data_ptr() for g in got}) == len(got)
+    assert all(torch.equal(g, got[0]) for g in got)
     want = jmap(jsingle(dp=8),
                 lambda xs: jcol.all_reduce(xs, "dp", op),
                 P("dp"), P())(jnp.asarray(x))
