@@ -71,8 +71,9 @@ result line is printed):
    sort, on the packed phase's data: losses and working set bit-equal;
    prints ``best_mode``'s measured choice and both timings for the pull
    and push crossings at this geometry;
-10. lifecycle — the multi-pass day loop: 2 days × 3 passes × 4 batches of
-   16384 (fresh keys per pass from the 2 M key space, so consecutive
+10. lifecycle — the multi-pass day loop: 4 passes × 4 batches of 16384,
+   day 1's 3 and day 2's first (fresh keys per pass from the 2 M key
+   space, so consecutive
    passes share most of their keys), a date change between the days, on
    the default lowering (auto → mxu) and on ragged; each first through
    the serial engine lifecycle, then through ``PassPrefetcher`` with
@@ -83,10 +84,9 @@ result line is printed):
    row cache (``LIFE_CACHE_RUNS``): mxu serial and prefetched with
    2,097,152 rows (the whole key space), mxu prefetched with the flag's
    default 262,144 rows (evicts every pass; key-space heat on), ragged
-   prefetched with 2,097,152, each over day 1's 3 passes and day 2's
-   first — each must leave the bits of its lowering's cache-off serial
-   run after those 4 passes, hit on every warm pass, and (262,144)
-   evict.  Every run's pass mapper must have resolved its keys through
+   prefetched with 2,097,152, over the same 4 passes — each must leave
+   the bits of its lowering's cache-off serial run, hit on every warm
+   pass, and (262,144) evict.  Every run's pass mapper must have resolved its keys through
    the native hash.  Before the runs, ``host_tier_ab`` times the host
    tier's choices at the day loop's sizes, each against its
    alternative, and checks that both give the same answer: the host
@@ -222,7 +222,7 @@ result line is printed):
    slots × capacity 3, mf_dim 8, 13 dense, MLP 400-400-400, batch 16384)
    through ``fleet.run_trainer_fleet`` (supervised ranks as threads of
    this process, every rank on the card) over a loopback ``PSFleet`` of
-   4 shards, V = 8 virtual slices, 2 days × 2 passes of 65,536 records
+   4 shards, V = 8 virtual slices, 2 days × 1 pass of 65,536 records
    (one phase-11 pass file a pass, keys from the 2 M key space; ~8,192
    records and one batch a slice):
    (a) N = 1 serial, (b) N = 4 serial, (c) N = 4 prefetched, (d) N = 4
@@ -332,12 +332,35 @@ result line is printed):
    step device ms, the device-busy share and the card's name and power
    limit; a run with a host shard is host-bound and says so.
 
-Depth cuts (the widths are the bench model's): phases 10-11, a day of
-3 passes of 4 batches; the cache runs of phase 10 stop after the first
-pass of day 2 (4 passes); phases 14 and 15, 2 days of 2 passes of 4
-batches (phase 15 one more pass for (f)); phase 16, 2 days of 2 passes
-of 4 batches' records (65,536, one half-full batch a virtual slice;
-131,072 took the phase 265 s).
+21. multicard_paths — explicit ``fast``, ``mxu`` and ``reference`` and
+   ``auto`` on a mesh ``mxu_sharded`` cannot take, with the shards on
+   distinct devices, on the packed phase's data and weights at the bench
+   widths: (d) fast on dp 2 over the card and the host; (e) auto on dp 2
+   × mp 2 (adagrad → fast), one dp row a device; (f) reference (under
+   adagrad, the step ``fast_path=False`` gives) on dp 2; (g) mxu on dp 2; with two or more cards, (d2) and (g2)
+   over ``cuda:0`` and ``cuda:1``.  Each run: every block, plane and plan
+   on its shard's device; each kernel exactly its predicted launches a
+   step for each row block of the working set on a card (fast:
+   ``gather_pool`` and the merge's ``scatter_add_sorted``; mxu: both
+   sorted kernels; reference: the merge's scatter), none for the host's
+   blocks; the losses within rtol 1e-4 and the working set within rtol
+   1e-5 / atol 1e-6 of the same mesh on one card; a rerun bit-identical;
+   then each kernel of the lowering on the first card row block's
+   whole-batch shape against its plain version, timed (on the
+   ``kernels`` line as ``at_multicard_paths_<run>``).  (h) a day of 3
+   passes × 2 batches on dp 2 over the card and the host (auto →
+   ``mxu_sharded``) with the device row cache off, on serially and on
+   prefetched: all three bit-equal, the warm passes hit, the hits and
+   fold-backs of the host's block cross as copies.  Prints
+   ``multicard_paths[<run>]:`` lines; a run with a host shard is
+   host-bound and says so.
+
+Depth cuts (the widths are the bench model's): phase 10, 4 passes of 4
+batches (day 1's 3 and day 2's first); phase 11, a day of 3 passes of 4
+batches; phases 14 and 15, 2 days of 2 passes of 4 batches (phase 15
+one more pass for (f)); phase 16, 2 days of 1 pass of 4 batches'
+records (65,536, one half-full batch a virtual slice; 131,072 took the
+phase 265 s); phase 21 (h), one day of 3 passes of 2 batches.
 
 Every phase sets the launch counters to 0 just before its main run and
 reads them just after; a kernel of the path that did not launch fails
@@ -1294,7 +1317,7 @@ def crossing_phase(block: SlotRecordBlock, params0):
 # ---------------------------------------------------------------------------
 
 LIFE_DATES = ("20261016", "20261017")      # 2 days
-LIFE_PASSES = 3                            # passes per day, N_BATCHES each
+LIFE_PASSES = 3                            # passes of day 1, N_BATCHES each
 REC_PASSES, REC_DATE = 3, "20261016"       # recovery: 3 passes, full size
 # the lowerings of the day loop: the default (auto → mxu on one card) and
 # ragged, whose host CSR build the prefetch exists to hide
@@ -1305,9 +1328,11 @@ LIFE_PATHS = (("mxu", "auto"), ("ragged", "ragged"))
 # default) evicts every pass and makes the prefetched adoption take the
 # fallback pull
 CACHE_ROWS = 2_097_152
-# the cache runs' depth: day 1's passes and day 2's first (the change of
-# date drops the cache, so the 4th pass is cold again), held against the
-# cache-off serial run's world after the same 4 passes
+# every run's depth: day 1's passes and day 2's first (the change of date
+# drops the cache, so the 4th pass is cold again); day 2 was 3 passes
+# until the script's whole run neared its time limit, and its passes 2-3
+# repeated what day 1's prove (serial = prefetched, the stale re-pull,
+# warm cache hits)
 LIFE_CACHE_DEPTH = LIFE_PASSES + 1
 LIFE_CACHE_RUNS = (("mxu", "auto", False, CACHE_ROWS, False),
                    ("mxu", "auto", True, CACHE_ROWS, False),
@@ -1413,8 +1438,7 @@ def heat_summary() -> dict:
             "sites": sorted(r["sites"])}
 
 
-def day_loop(blocks, device: str, path: str, prefetch: bool,
-             capture_at: int = 0):
+def day_loop(blocks, device: str, path: str, prefetch: bool):
     """The passes of ``blocks`` (one list of pass blocks per day of
     LIFE_DATES) through the engine lifecycle, serially or through
     PassPrefetcher.  Returns the world it left and a dict: the time each
@@ -1422,8 +1446,7 @@ def day_loop(blocks, device: str, path: str, prefetch: bool,
     {name: (seconds, count)}, the feed seconds hidden under step windows
     summed over the passes, and per pass the keys, the cache hit rate set
     at adoption and the deltas of PASS_COUNTERS; with the cache on, its
-    row and store bytes; with heat on, its summary; with ``capture_at``,
-    the world after that many passes (``world_at``)."""
+    row and store bytes; with heat on, its summary."""
     from paddlebox_tpu_torch.data.prefetch import PassPrefetcher
     from paddlebox_tpu_torch.utils.monitor import stat_get
     engine, trainer = day_trainer(device, path)
@@ -1431,14 +1454,8 @@ def day_loop(blocks, device: str, path: str, prefetch: bool,
     hidden = dict.fromkeys(("pull", "pack", "upload", "write"), 0.0)
     prev = {k: stat_get(k) for k in PASS_COUNTERS}
 
-    paused = [0.0]      # seconds spent capturing, kept out of the walls
-
     def pass_ended():
-        ends.append(time.perf_counter() - paused[0])
-        if len(ends) == capture_at:
-            c0 = time.perf_counter()
-            info["world_at"] = world_of(engine, trainer, list(losses))
-            paused[0] += time.perf_counter() - c0
+        ends.append(time.perf_counter())
         for k in hidden:
             hidden[k] += stat_get(f"feed.{k}_hidden_s")
         cur = {k: stat_get(k) for k in PASS_COUNTERS}
@@ -1448,7 +1465,6 @@ def day_loop(blocks, device: str, path: str, prefetch: bool,
                             for k in PASS_COUNTERS}})
         prev.update(cur)
 
-    info = {}
     t0 = time.perf_counter()
     if not prefetch:
         for date, day in zip(LIFE_DATES, blocks):
@@ -1477,7 +1493,7 @@ def day_loop(blocks, device: str, path: str, prefetch: bool,
                 pass_ended()
     if device == "cuda":
         torch.cuda.synchronize()
-    info.update(ends=ends, t0=t0, per_pass=per_pass, hidden=hidden,
+    info = dict(ends=ends, t0=t0, per_pass=per_pass, hidden=hidden,
                 timers={n: (secs, c) for n, secs, c in engine.timers.rows()})
     if engine.cache is not None:
         if engine.cache.device != engine.device:
@@ -1695,34 +1711,34 @@ def log_run(what: str, r: dict, info: dict) -> None:
 
 
 def lifecycle_phase(seed: int = 5, device: str = "cuda"):
-    """The day loop at the bench model's full width: 2 days × 3 passes ×
-    N_BATCHES batches, each lowering serial then prefetched from the same
-    data, weights and table seed; the two runs must leave the same bits,
-    and the prefetched one must have re-pulled stale rows.  Then the
+    """The day loop at the bench model's full width: LIFE_CACHE_DEPTH
+    passes of N_BATCHES batches over 2 days (day 1's LIFE_PASSES and day
+    2's first), each lowering serial then prefetched from the same data,
+    weights and table seed; the two runs must leave the same bits, and
+    the prefetched one must have re-pulled stale rows.  Then the
     LIFE_CACHE_RUNS with the device cache on, each of which must leave
-    the bits of its lowering's cache-off run."""
+    the bits of its lowering's cache-off serial run."""
     from paddlebox_tpu_torch.utils.monitor import stat_get, stat_snapshot
     rng = np.random.default_rng(seed)
     t_data = time.perf_counter()
     blocks = [[make_block(rng, N_BATCHES * BATCH)
-               for _ in range(LIFE_PASSES)] for _ in LIFE_DATES]
-    log(f"lifecycle: data for {len(LIFE_DATES)} days × {LIFE_PASSES} passes "
-        f"× {N_BATCHES} batches made in {time.perf_counter() - t_data:.2f} s")
-    n_batches = len(LIFE_DATES) * LIFE_PASSES * N_BATCHES
+               for _ in range(LIFE_PASSES)],
+              [make_block(rng, N_BATCHES * BATCH)
+               for _ in range(LIFE_CACHE_DEPTH - LIFE_PASSES)]]
+    log(f"lifecycle: data for {LIFE_CACHE_DEPTH} passes over "
+        f"{len(LIFE_DATES)} days × {N_BATCHES} batches made in "
+        f"{time.perf_counter() - t_data:.2f} s")
+    n_batches = LIFE_CACHE_DEPTH * N_BATCHES
     launches, out = {}, {"host_ab": host_tier_ab(device=device)}
-
-    cut = [blocks[0], blocks[1][:LIFE_CACHE_DEPTH - LIFE_PASSES]]
 
     def one_run(key, what, label, path, prefetch, cache=False):
         s0 = stat_snapshot("")
         reset_counts()
-        world, info = day_loop(
-            cut if cache else blocks, device, path, prefetch,
-            capture_at=LIFE_CACHE_DEPTH if not (cache or prefetch) else 0)
+        world, info = day_loop(blocks, device, path, prefetch)
         launches[key] = read_counts()
         s1 = stat_snapshot("")
         check_launches(what, launches[key], PACKED_KERNELS[label],
-                       LIFE_CACHE_DEPTH * N_BATCHES if cache else n_batches)
+                       n_batches)
         flat = [x for p in world["losses"] for x in p]
         if not all(math.isfinite(x) for x in flat):
             raise AssertionError(f"{what}: non-finite loss")
@@ -1763,16 +1779,14 @@ def lifecycle_phase(seed: int = 5, device: str = "cuda"):
                 r[k] = info[k]
         out[key] = r
         log_run(what, r, info)
-        return world, r, info.get("world_at")
+        return world, r
 
     for label, path in LIFE_PATHS:
         worlds = {}
         for mode in ("serial", "prefetch"):
             key, what = f"{label}_{mode}", f"lifecycle[{label},{mode}]"
-            worlds[mode], r, at = one_run(key, what, label, path,
-                                          mode == "prefetch")
-            if at is not None:
-                worlds["cut"] = at   # what the cache runs must leave
+            worlds[mode], r = one_run(key, what, label, path,
+                                      mode == "prefetch")
             if mode == "prefetch" and r["stale_refresh_rows"] <= 0:
                 raise AssertionError(f"{what}: the stale-row refresh "
                                      "re-pulled no row")
@@ -1788,12 +1802,11 @@ def lifecycle_phase(seed: int = 5, device: str = "cuda"):
             key = f"{label}_{mode}_cache{rows}"
             what = f"lifecycle[{label},{mode},cache={rows}]"
             with engine_flags(rows, heat_on):
-                world, r, _ = one_run(key, what, label, c_path, prefetch,
-                                      cache=True)
-            same_world(f"{what} vs cache off", worlds["cut"], world)
+                world, r = one_run(key, what, label, c_path, prefetch,
+                                   cache=True)
+            same_world(f"{what} vs cache off", worlds["serial"], world)
             check_cache_run(what, r, prefetch, rows)
-            base = float(np.median(
-                out[f"{label}_{mode}"]["pass_wall_s"][:LIFE_CACHE_DEPTH]))
+            base = float(np.median(out[f"{label}_{mode}"]["pass_wall_s"]))
             pp = r["per_pass"]
             log(f"{what}: = cache off bitwise; median pass wall "
                 f"{r['median_pass_wall_s']:.3f} s vs {base:.3f} s cache off "
@@ -3591,6 +3604,10 @@ FLEET_V = 8                        # virtual slices: one batch each
 # phase took 265 s on an H100 (PERF.md §6), over its ~180 s share
 FLEET_FILES_PER_PASS = 1
 FLEET_WIDE = 4                     # ranks of runs b-d
+# one pass a day of LIFE_DATES (runs a-e): two a day took 190-232 s of
+# phase on an H100 (PERF.md §6), and the day's second pass repeated what
+# the first proves; the kill still lands past a change of date
+FLEET_PASSES = 1
 FLEET_KILL_PASS = 2                # (d): rank 1 dies at this pass's fold
 # (label, ranks, prefetch, killed rank or None, launches_by_path name)
 FLEET_RUNS = (("a", 1, False, None, "fleet_n1"),
@@ -3828,7 +3845,7 @@ def fleet_main_phase(seed: int, work: str, ports: list,
     days = []
     for d, date in enumerate(LIFE_DATES):
         passes = []
-        for p in range(CLUSTER_PASSES):
+        for p in range(FLEET_PASSES):
             path = os.path.join(work, f"main-d{d}p{p}.txt")
             write_slot_file(path, make_block(rng, FLEET_MAIN_RECORDS,
                                              cap=2))
@@ -3860,16 +3877,16 @@ def fleet_main_phase(seed: int, work: str, ports: list,
 
 def trainer_fleet_phase(paths, seed: int = 21, device: str = "cuda"):
     """Phase 16 (see the module docstring).  ``paths``: the pass files,
-    FLEET_FILES_PER_PASS a pass, CLUSTER_PASSES passes a day."""
+    FLEET_FILES_PER_PASS a pass, FLEET_PASSES passes a day."""
     t_phase = time.perf_counter()
-    per_day = FLEET_FILES_PER_PASS * CLUSTER_PASSES
+    per_day = FLEET_FILES_PER_PASS * FLEET_PASSES
     days = [(date, [paths[d * per_day + p * FLEET_FILES_PER_PASS:
                           d * per_day + (p + 1) * FLEET_FILES_PER_PASS]
-                    for p in range(CLUSTER_PASSES)])
+                    for p in range(FLEET_PASSES)])
             for d, date in enumerate(LIFE_DATES)]
     ports = [27100]
-    kill_files = days[(FLEET_KILL_PASS - 1) // CLUSTER_PASSES][1][
-        (FLEET_KILL_PASS - 1) % CLUSTER_PASSES]
+    kill_files = days[(FLEET_KILL_PASS - 1) // FLEET_PASSES][1][
+        (FLEET_KILL_PASS - 1) % FLEET_PASSES]
     kill_pass_batches = fleet_slice_batches(kill_files)
     launches, out, base = {}, {}, None
     for label, world, prefetch, killed, name in FLEET_RUNS:
@@ -3881,7 +3898,7 @@ def trainer_fleet_phase(paths, seed: int = 21, device: str = "cuda"):
         world_state, results, r = fleet_run(days, world, prefetch, killed,
                                             device, ports)
         flat = [x[0] for x in world_state["losses"]]
-        if len(flat) != len(LIFE_DATES) * CLUSTER_PASSES or \
+        if len(flat) != len(LIFE_DATES) * FLEET_PASSES or \
                 not all(map(math.isfinite, flat)):
             raise AssertionError(f"{what}: history {r['history']}")
         if r["end_day_calls"] != [len(LIFE_DATES)] * CLUSTER_WIDE:
@@ -3986,25 +4003,25 @@ SHARDED_RUNS = (("a", {"dp": 4}, False, 1e-4),
 
 
 def sharded_kernels(what: str, block: dict, rows2d: torch.Tensor,
-                    first_occ: torch.Tensor, p: int, shard: int) -> dict:
-    """Both sorted kernels on one shard's plan of the pass's first batch
-    (the feed's resident plan ``rows2d``/``first_occ`` over a gathered
-    ``p``) against their plain versions, with device times by phase 2's
-    method: the gather over the shard's trained feature-major block
-    (``block``: its working-set fields; bit-exact, zeros on the sentinel
-    run), the scatter over a seeded payload (rtol 1e-5 plus 1e-5 of each
-    row's sum of |terms|), each twice bit-identical."""
+                    first_occ: torch.Tensor, p: int, shard: int,
+                    rows_loc: int = 0, w_push: int = W_PUSH,
+                    names=("gather_sorted", "scatter_add_sorted")) -> dict:
+    """The sorted kernels ``names`` on one shard's plan of the pass's
+    first batch (the feed's resident plan ``rows2d``/``first_occ`` over a
+    gathered ``p``) against their plain versions, with device times by
+    phase 2's method: the gather over the shard's trained feature-major
+    block (``block``: its working-set fields; bit-exact, zeros on the
+    sentinel run), the scatter over a seeded payload of ``w_push`` rows
+    (rtol 1e-5 plus 1e-5 of each row's sum of |terms|), each twice
+    bit-identical.  ``rows_loc``: the plan's table height (default the
+    block's)."""
     dev = rows2d.device
-    rows_loc = block["show"].shape[0]
+    rows_loc = rows_loc or block["show"].shape[0]
     dims = sp.spmm_dims(p, rows_loc)
     flat = rows2d.reshape(-1)
     outside = flat == dims.sentinel
-    cols = [block["show"], block["click"], block["embed_w"],
-            *block["mf"].T, block["mf_size"].to(torch.float32)]
-    table = torch.zeros((W_PULL, dims.n_kernel), device=dev)
-    table[:, :rows_loc] = torch.stack(cols)
     gen = torch.Generator(device=dev).manual_seed(shard)
-    payload = torch.randn((W_PUSH, dims.p_pad), generator=gen, device=dev)
+    payload = torch.randn((w_push, dims.p_pad), generator=gen, device=dev)
     payload[:, dims.p:] = 0.0
     n_unique = int(first_occ.sum().item())
     runs = torch.unique_consecutive(flat, return_counts=True)[1]
@@ -4013,26 +4030,34 @@ def sharded_kernels(what: str, block: dict, rows2d: torch.Tensor,
            "distinct_rows": n_unique, "longest_run": int(runs.max()),
            "sentinel_share": float(outside.float().mean())}
 
-    got = twice(f"{what} gather_sorted",
-                lambda: sp.gather_sorted(table, rows2d, dims))
-    want = sp.gather_sorted_plain(table, rows2d, dims)
-    torch.cuda.synchronize()
-    if not torch.equal(got, want):
-        raise AssertionError(f"{what}: gather_sorted != plain")
-    if got[:, outside].any():
-        raise AssertionError(f"{what}: gather_sorted read nonzero "
-                             "values on the sentinel run")
     rows_l = flat.long()
-    g = {"ms": time_ms(f"{what} gather_sorted",
-                       lambda: sp.gather_sorted(table, rows2d, dims)),
-         "plain_ms": time_ms(f"{what} gather_sorted_plain",
-                             lambda: sp.gather_sorted_plain(table, rows2d,
-                                                            dims)),
-         "library_ms": time_ms(f"{what} index_select",
-                               lambda: torch.index_select(table, 1, rows_l)),
-         "max_abs_err": float((got - want).abs().max())}
-    g["bound_ms"], g["bound_by"] = bound_ms(
-        4 * dims.p_pad + 4 * W_PULL * n_unique + 4 * W_PULL * dims.p_pad, 0)
+    if "gather_sorted" in names:
+        cols = [block["show"], block["click"], block["embed_w"],
+                *block["mf"].T, block["mf_size"].to(torch.float32)]
+        table = torch.zeros((W_PULL, dims.n_kernel), device=dev)
+        table[:, :rows_loc] = torch.stack(cols)
+        got = twice(f"{what} gather_sorted",
+                    lambda: sp.gather_sorted(table, rows2d, dims))
+        want = sp.gather_sorted_plain(table, rows2d, dims)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"{what}: gather_sorted != plain")
+        if got[:, outside].any():
+            raise AssertionError(f"{what}: gather_sorted read nonzero "
+                                 "values on the sentinel run")
+        g = {"ms": time_ms(f"{what} gather_sorted",
+                           lambda: sp.gather_sorted(table, rows2d, dims)),
+             "plain_ms": time_ms(f"{what} gather_sorted_plain",
+                                 lambda: sp.gather_sorted_plain(
+                                     table, rows2d, dims)),
+             "library_ms": time_ms(f"{what} index_select",
+                                   lambda: torch.index_select(table, 1,
+                                                              rows_l)),
+             "max_abs_err": float((got - want).abs().max())}
+        g["bound_ms"], g["bound_by"] = bound_ms(
+            4 * dims.p_pad + 4 * W_PULL * n_unique
+            + 4 * W_PULL * dims.p_pad, 0)
+        out["gather_sorted"] = g
 
     got = twice(f"{what} scatter_add_sorted",
                 lambda: sp.scatter_add_sorted(payload, rows2d, first_occ,
@@ -4056,13 +4081,13 @@ def sharded_kernels(what: str, block: dict, rows2d: torch.Tensor,
                              lambda: sp.scatter_add_sorted_plain(
                                  payload, rows2d, first_occ, dims)),
          "library_ms": time_ms(f"{what} index_add_", lambda: torch.zeros(
-             (W_PUSH, dims.n_kernel), device=dev).index_add_(
+             (w_push, dims.n_kernel), device=dev).index_add_(
                  1, rows_l, payload)),
          "max_abs_err": float(err.max())}
     s["bound_ms"], s["bound_by"] = bound_ms(
-        4 * W_PUSH * dims.p_pad + 4 * dims.p_pad
-        + 4 * W_PUSH * dims.n_kernel, W_PUSH * dims.p)
-    out["gather_sorted"], out["scatter_add_sorted"] = g, s
+        4 * w_push * dims.p_pad + 4 * dims.p_pad
+        + 4 * w_push * dims.n_kernel, w_push * dims.p)
+    out["scatter_add_sorted"] = s
     return out
 
 
@@ -4983,8 +5008,9 @@ def check_placement(trainer, engine, feed) -> None:
                 raise AssertionError(f"multicard: {name} block {k} on "
                                      f"{part.device}, its shard on "
                                      f"{topo.device_of(k)}")
-    for name, parts in feed.plans.items():
-        for k, part in enumerate(parts):
+    for name, parts in (feed.plans or {}).items():
+        for i, part in enumerate(parts):
+            k = i if feed.plan_shards is None else feed.plan_shards[i]
             if not same_device(part.device, topo.device_of(k)):
                 raise AssertionError(f"multicard: plan {name} of shard {k} "
                                      f"on {part.device}")
@@ -5114,6 +5140,380 @@ def multicard_phase(block: SlotRecordBlock, params0):
     return launches, out
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the one-device lowerings and the device cache on distinct devices
+# ---------------------------------------------------------------------------
+
+# (run, sparse_path, rule, mesh degrees, the shards' devices — "card"
+# for the card, "host" for the host — the lowering it resolves to, per
+# card row block a step: gather_sorted, scatter_add_sorted, gather_pool
+# launches).  (f) is the exact step under adagrad (what fast_path=False
+# gives): under Adam a first update is about lr·sign(g), so a gradient
+# near 0 that the card and the host round apart steps either way and no
+# tolerance holds the host's block against one card (phase 6 replays
+# each step for that reason); the CPU tests hold the block rules under
+# Adam against the JAX package
+
+PATHS_RUNS = (("d", "fast", "adagrad", {"dp": 2}, ("card", "host"),
+               "fast", (0, 1, 1)),
+              ("e", "auto", "adagrad", {"dp": 2, "mp": 2},
+               ("card", "card", "host", "host"), "fast", (0, 1, 1)),
+              ("f", "reference", "adagrad", {"dp": 2}, ("card", "host"),
+               "reference", (0, 1, 0)),
+              ("g", "mxu", "adagrad", {"dp": 2}, ("card", "host"),
+               "mxu", (1, 1, 0)))
+PATHS_TWO = (("d2", "fast", "adagrad", {"dp": 2}, ("cuda:0", "cuda:1"),
+              "fast", (0, 1, 1)),
+             ("g2", "mxu", "adagrad", {"dp": 2}, ("cuda:0", "cuda:1"),
+              "mxu", (1, 1, 0)))
+# (h): one day of PATHS_DAY_PASSES passes of PATHS_DAY_BATCHES batches on
+# dp 2 over the card and the host (auto → mxu_sharded): the cache off,
+# then on serially, then on prefetched (pass 3 is the prefetcher's first
+# warm pass: pass N + 1's snapshot predates pass N's fold-back)
+PATHS_DAY_PASSES, PATHS_DAY_BATCHES = 3, 2
+
+
+def paths_pass(block, params, mesh, devices, path, optimizer, device):
+    """One packed pass of ``path`` over ``mesh`` (``devices``: one a
+    shard, None: every shard on ``device``), end_pass included: (stats
+    with the bytes of the working set and the feed on each device, the
+    working set on the host before end_pass, the engine's working set,
+    the feed, the trainer)."""
+    engine, trainer, dataset, _ = make_trainer(
+        block, device, params, path, optimizer=optimizer, mesh=mesh,
+        devices=None if devices is None else list(devices))
+    feed = trainer.build_pass_feed(dataset)
+    if devices is not None:
+        check_placement(trainer, engine, feed)
+    stats = trainer.train_pass(feed)
+    stats["path"] = trainer._resolve_path()
+    stats["bytes"] = card_bytes(engine, feed)
+    ws = host_ws(engine.ws)
+    held = dict(engine.ws)
+    engine.end_pass()
+    if engine.table.size() != engine.num_keys:
+        raise AssertionError("multicard_paths: end_pass did not write "
+                             "every key")
+    return stats, ws, held, feed, trainer
+
+
+def batch_ids(feed, trainer, i: int) -> tuple:
+    """Batch ``i``'s whole ids [S, L, B] and lengths [S, B] on the host,
+    joined from the batch blocks' columns."""
+    owners, _ = trainer._batch_owners()
+    idx = torch.cat([feed.data["indices"].parts[k][i].cpu()
+                     for k in owners], dim=2)
+    lens = torch.cat([feed.data["lengths"].parts[k][i].cpu()
+                      for k in owners], dim=1)
+    return idx, lens
+
+
+def block_gather_pool(what: str, block: dict, row0: int, idx, lens,
+                      dev) -> dict:
+    """gather_pool at a card row block's shape: the block's pull table
+    (its rows and the zero row) over the whole batch's ids localized to
+    it, against the plain version (bit-equal), timed beside
+    ``embedding_bag``."""
+    from paddlebox_tpu_torch.ps import embedding as emb
+    from paddlebox_tpu_torch.ps import fast_path
+    n = block["show"].shape[0]
+    table = fast_path._pull_table(block, zero_row=True)
+    s, l, b = idx.shape
+    local, _ = emb.localize(idx.to(dev), row0, n)
+    rows = local.permute(0, 2, 1).reshape(s * b, l).to(torch.int32)
+    rows = rows.contiguous()
+    lengths = lens.to(dev).reshape(s * b).to(torch.int32).contiguous()
+    got = twice(f"{what} gather_pool",
+                lambda: pg.gather_pool(table, rows, lengths))
+    want = pg.gather_pool_plain(table, rows, lengths)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"{what}: gather_pool != plain")
+    live = (torch.arange(l, device=dev)[None, :]
+            < lengths[:, None].long())
+    mask = live.to(torch.float32)
+    dense = table.contiguous()
+    rows_l = rows.long()
+    live_rows = rows_l[live]
+    n_rows = int(torch.unique(live_rows).numel())
+    k = {"ms": time_ms(f"{what} gather_pool",
+                       lambda: pg.gather_pool(table, rows, lengths)),
+         "plain_ms": time_ms(f"{what} gather_pool_plain",
+                             lambda: pg.gather_pool_plain(table, rows,
+                                                          lengths)),
+         "library_ms": time_ms(
+             f"{what} embedding_bag",
+             lambda: torch.nn.functional.embedding_bag(
+                 rows_l, dense, mode="sum", per_sample_weights=mask)),
+         "max_abs_err": float((got - want).abs().max()),
+         "rows": n + 1, "pooled_rows": s * b, "distinct_rows": n_rows,
+         "zero_row_share": float((live_rows == n).float().mean())}
+    k["bound_ms"], k["bound_by"] = bound_ms(
+        4 * s * b * l + 4 * s * b + 4 * W_POOL * n_rows
+        + 4 * W_POOL * s * b, W_POOL * int(live.sum()))
+    return k
+
+
+def paths_kernels(what: str, path: str, held: dict, feed, trainer,
+                  dev) -> dict:
+    """Every kernel of the run's lowering on the first row block of the
+    trained working set on ``dev`` (the card), over batch 0, against its
+    plain version:
+    fast, gather_pool (:func:`block_gather_pool`) and the merge's
+    scatter; mxu, both sorted kernels on the block's resident plan;
+    reference, the merge's scatter (:func:`sharded_kernels`)."""
+    from paddlebox_tpu_torch.parallel.topology import device_key
+    from paddlebox_tpu_torch.ps import embedding as emb
+    topo = trainer.topology
+    k, sl = next((k, sl) for k, sl, _ in held["show"].row_blocks()
+                 if device_key(topo.device_of(k)) == device_key(dev))
+    block = {f: v.parts[k] for f, v in held.items()}
+    n = sl.stop - sl.start
+    idx, lens = batch_ids(feed, trainer, 0)
+    out = {"shard": k, "row0": sl.start, "rows": n}
+    if path == "mxu":
+        i = feed.plan_shards.index(k)
+        out.update(sharded_kernels(
+            what, block, feed.plans["rows2d"][i][0],
+            feed.plans["first_occ"][i][0],
+            feed.plans["inv_perm"][i].shape[1], k))
+        return out
+    # the merge's plan as the step builds it: fast parks the ids the
+    # block does not hold, and padding, at local row 0 (their values are
+    # zero); reference merges them into a spare row n, cut off
+    live = (torch.arange(idx.shape[1])[None, :, None] < lens[:, None, :])
+    flat = torch.where(live, idx, torch.zeros_like(idx))
+    if path == "reference":
+        flat = flat.permute(0, 2, 1)
+    local, own = emb.localize(flat.reshape(-1).to(dev), sl.start, n)
+    n_seg = n + 1
+    if path == "fast":
+        keep = own & live.reshape(-1).to(dev)
+        local, n_seg = torch.where(keep, local, torch.zeros_like(local)), n
+    dims = sp.spmm_dims(local.numel(), n_seg)
+    plan = sp.build_plan(local.to(torch.int32), dims)
+    out.update(sharded_kernels(what, block, plan[0], plan[7], dims.p, k,
+                               rows_loc=n_seg, w_push=3 + MF_DIM,
+                               names=("scatter_add_sorted",)))
+    if path == "fast":
+        out["gather_pool"] = block_gather_pool(what, block, sl.start, idx,
+                                               lens, dev)
+    return out
+
+
+def multicard_day(blocks, devices, prefetch: bool, device: str):
+    """One day of ``blocks`` (one a pass) on dp 2 over ``devices`` through
+    the engine lifecycle, serially or through PassPrefetcher: the world
+    it left and per pass the cache hits and the rows copied between the
+    cache's store and the blocks."""
+    from paddlebox_tpu_torch.config import MeshConfig
+    from paddlebox_tpu_torch.data.prefetch import PassPrefetcher
+    from paddlebox_tpu_torch.parallel.topology import HybridTopology
+    from paddlebox_tpu_torch.utils.monitor import stat_get
+    topo = HybridTopology(MeshConfig(dp=2), devices=list(devices))
+    engine = BoxPSEngine(EmbeddingTableConfig(
+        embedding_dim=MF_DIM, shard_num=8,
+        sgd=SparseSGDConfig(mf_create_thresholds=0.0)), seed=0,
+        device=device, topology=topo)
+    trainer = SparseTrainer(engine, make_model("deepfm"), feed_config(),
+                            batch_size=BATCH, seed=0, device=device,
+                            topology=topo)
+    keys = ("ps.cache.hits", "ps.cache.device_copy_rows")
+    prev = {k: stat_get(k) for k in keys}
+    losses, per_pass = [], []
+
+    def ended():
+        cur = {k: stat_get(k) for k in keys}
+        per_pass.append({k.split(".")[-1]: cur[k] - prev[k] for k in keys})
+        prev.update(cur)
+
+    date = LIFE_DATES[0]
+    if not prefetch:
+        engine.set_date(date)
+        for block in blocks:
+            engine.begin_feed_pass()
+            engine.add_keys(block.all_keys())
+            engine.end_feed_pass()
+            engine.begin_pass()
+            if trainer._resolve_path() != "mxu_sharded":
+                raise AssertionError("multicard_paths[h]: auto resolved to "
+                                     f"{trainer._resolve_path()}")
+            feed = trainer.build_pass_feed(one_pass_dataset(block))
+            losses.append(trainer.train_pass(feed)["losses"])
+            engine.end_pass()
+            ended()
+    else:
+        with PassPrefetcher(engine, trainer) as pre:
+            for block in blocks:
+                def load(block=block):
+                    engine.add_keys(block.all_keys())
+                    return one_pass_dataset(block)
+                pre.submit(load, tag=date, date=date)
+            for _ in blocks:
+                losses.append(trainer.train_pass(pre.next_pass())["losses"])
+                pre.end_pass()
+                ended()
+    return world_of(engine, trainer, losses), per_pass
+
+
+def paths_day(block: SlotRecordBlock, device: str, host: str) -> tuple:
+    """(h): the day with the cache off, then on serially, then on
+    prefetched; all three leave the same bits, the warm passes hit and
+    their hits on the host's block cross as copies."""
+    rng = np.random.default_rng(24)
+    blocks = [make_block(rng, PATHS_DAY_BATCHES * BATCH)
+              for _ in range(PATHS_DAY_PASSES)]
+    devices = (device, host)
+    launches, out, worlds = {}, {}, {}
+    for name, rows, prefetch in (("cache_off", 0, False),
+                                 ("cache_on", CACHE_ROWS, False),
+                                 ("cache_on_prefetch", CACHE_ROWS, True)):
+        t0 = time.perf_counter()
+        reset_counts()
+        with engine_flags(rows):
+            worlds[name], per_pass = multicard_day(blocks, devices, prefetch,
+                                                   device)
+        launches[name] = read_counts()
+        want = PATHS_DAY_PASSES * PATHS_DAY_BATCHES
+        if device.startswith("cuda") and launches[name] != {
+                "gather_sorted": want, "scatter_add_sorted": want,
+                "gather_pool": 0}:
+            raise AssertionError(f"multicard_paths[h,{name}]: launches "
+                                 f"{launches[name]} for {want} steps of "
+                                 "one card shard")
+        if rows:
+            warm = [2] if prefetch else [1, 2]
+            if any(per_pass[i]["hits"] <= 0 for i in warm) or \
+                    per_pass[0]["hits"]:
+                raise AssertionError(f"multicard_paths[h,{name}]: hits per "
+                                     f"pass {per_pass}")
+            if sum(p["device_copy_rows"] for p in per_pass) <= 0:
+                raise AssertionError(f"multicard_paths[h,{name}]: no row "
+                                     "crossed between the store and the "
+                                     "host's block")
+        out[name] = {"per_pass": per_pass, "wall_s": time.perf_counter() - t0,
+                     "losses": worlds[name]["losses"]}
+    same_world("multicard_paths[h] cache on vs off", worlds["cache_off"],
+               worlds["cache_on"])
+    same_world("multicard_paths[h] prefetched vs serial", worlds["cache_on"],
+               worlds["cache_on_prefetch"])
+    return launches, out
+
+
+def multicard_paths_phase(block: SlotRecordBlock, params0,
+                          device: str = "cuda", host: str = "cpu"):
+    """Explicit fast, mxu and reference, auto on dp 2 × mp 2 and the
+    day loop's device cache with the shards on distinct devices, on the
+    packed phase's data and weights at the bench widths (``PATHS_RUNS``
+    over the card and the host — a test topology for a one-card machine
+    — and with two or more cards ``PATHS_TWO``; then :func:`paths_day`).
+    Each run: every block, plane and plan on its shard's device; each
+    kernel exactly its predicted launches a step for each row block on a
+    card, none for the host's; the losses within rtol 1e-4 and the
+    working set within rtol 1e-5 / atol 1e-6 of the same mesh on one
+    card; a rerun bit-identical; each kernel of the lowering at the
+    first card row block's shape against its plain version
+    (:func:`paths_kernels`)."""
+    t_phase = time.perf_counter()
+    runs = PATHS_RUNS
+    if torch.cuda.device_count() >= 2:
+        runs += PATHS_TWO
+    launches, out = {}, {"cards": torch.cuda.device_count()}
+    for label, path, rule, mesh, devices, want, per_block in runs:
+        what = f"multicard_paths[{label}]"
+        card = device if ":" in device else f"{device}:0"
+        devices = tuple({"card": card, "host": host}.get(d, d)
+                        for d in devices)
+        t0 = time.perf_counter()
+        ref, ws_ref, _, _, _ = paths_pass(block, params0, mesh, None, path,
+                                          rule, device)
+        reset_counts()
+        stats, ws, held, feed, trainer = paths_pass(
+            block, params0, mesh, devices, path, rule, device)
+        launches[label] = read_counts()
+        if stats["path"] != want or ref["path"] != want:
+            raise AssertionError(f"{what}: {path} resolved to "
+                                 f"{stats['path']} / one card {ref['path']}")
+        blocks = sum(trainer.topology.device_of(k).type == "cuda"
+                     for k, _, _ in held["show"].row_blocks())
+        predicted = {name: N_BATCHES * blocks * n for name, n in
+                     zip(("gather_sorted", "scatter_add_sorted",
+                          "gather_pool"), per_block)}
+        if device.startswith("cuda"):
+            check_pass(what, stats, launches[label],
+                       {k: v // N_BATCHES for k, v in predicted.items()},
+                       exact=True)
+        close = multicard_close(what, stats, ws, ref, ws_ref)
+        again, ws2, _, _, _ = paths_pass(block, params0, mesh, devices, path,
+                                         rule, device)
+        if again["losses"] != stats["losses"] or any(
+                not torch.equal(ws[k], ws2[k]) for k in ws):
+            raise AssertionError(f"{what}: a rerun left other bits")
+        kern = (paths_kernels(what, stats["path"], held, feed, trainer,
+                              torch.device(device))
+                if device.startswith("cuda") else {})
+        del held, feed, trainer
+        steady = (float(np.median(stats["step_ms"][1:]))
+                  if "step_ms" in stats else None)
+        out[label] = {
+            "path": path, "rule": rule, "mesh": mesh,
+            "devices": list(devices), "resolved": stats["path"],
+            "card_row_blocks": blocks, "predicted_launches": predicted,
+            "launches": launches[label], "losses": stats["losses"],
+            "one_card_losses": ref["losses"], **close,
+            "step_ms": stats.get("step_ms"), "steady_step_ms": steady,
+            "one_card_steady_step_ms": (float(np.median(
+                ref["step_ms"][1:])) if "step_ms" in ref else None),
+            "bytes": stats["bytes"], "one_card_bytes": ref["bytes"],
+            "kernels": kern, "run_s": time.perf_counter() - t0}
+        host_bound = host in devices
+        log(f"{what}: {path} ({rule}) on {mesh} over {list(devices)} → "
+            f"{stats['path']}; losses {stats['losses']} vs one card "
+            f"{ref['losses']}, ws max |diff| {close['ws_max_abs_diff']}; "
+            f"launches {launches[label]} (predicted {predicted}: "
+            f"{blocks} card row blocks × {N_BATCHES} steps); on {card}: "
+            f"working set "
+            f"{stats['bytes']['ws'].get(card, 0) / 2**20:.1f} MiB + feed "
+            f"{stats['bytes']['feed'].get(card, 0) / 2**20:.1f} MiB vs "
+            f"one card {ref['bytes']['ws'].get(card, 0) / 2**20:.1f} + "
+            f"{ref['bytes']['feed'].get(card, 0) / 2**20:.1f} MiB; step "
+            f"device ms {stats.get('step_ms')} (steady median {steady}, one "
+            f"card {out[label]['one_card_steady_step_ms']}); rerun "
+            f"bit-identical; {time.perf_counter() - t0:.1f} s; {card_line()}"
+            + ("; a host shard bounds this step: it is no multi-card speed"
+               if host_bound else ""))
+        for name in ("gather_sorted", "scatter_add_sorted", "gather_pool"):
+            if name in kern:
+                x = kern[name]
+                log(f"{what}[kernels, row block at {kern['row0']} on "
+                    f"{devices[kern['shard']]}]: {name} {x['ms']:.4f} ms "
+                    f"(plain {x['plain_ms']:.4f}, library "
+                    f"{x['library_ms']:.4f}, bound {x['bound_ms']:.4f} "
+                    f"{x['bound_by']}); max |err| {x['max_abs_err']:.3g}; "
+                    f"{card_line()}")
+    if len(runs) == len(PATHS_RUNS):
+        log("multicard_paths: runs d2 and g2 need two cards; this machine "
+            "has 1")
+    day_launches, out["h"] = paths_day(block, device, host)
+    for name, n in day_launches.items():
+        launches[f"h_{name}"] = n
+    h = out["h"]
+    log(f"multicard_paths[h]: a day of {PATHS_DAY_PASSES} passes × "
+        f"{PATHS_DAY_BATCHES} batches on dp 2 over [{device}, {host}] "
+        f"(auto → mxu_sharded): cache on = off bitwise, prefetched = "
+        f"serial bitwise; hits per pass "
+        f"{[p['hits'] for p in h['cache_on']['per_pass']]} serial, "
+        f"{[p['hits'] for p in h['cache_on_prefetch']['per_pass']]} "
+        f"prefetched; rows copied between the store and the host's block "
+        f"{[p['device_copy_rows'] for p in h['cache_on']['per_pass']]}; "
+        f"walls {[round(h[k]['wall_s'], 2) for k in h]} s; launches "
+        f"{day_launches}; {card_line()}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"multicard_paths: runs {[r[0] for r in runs] + ['h']} passed; "
+        f"phase {out['phase_s']:.1f} s")
+    return launches, out
+
+
 def profile_phase(seed: int = 1, symbols=SYMBOLS) -> dict:
     """Short traced passes (2 batches) of the lowerings that phases 3-4
     run once untraced: device time by kernel, per step, and the
@@ -5200,6 +5600,8 @@ def main() -> int:
     par_launches, par_out = timed("parallel", parallel_phase)
     mc_launches, mc_out = timed("multicard", multicard_phase, packed_block,
                                 packed_params)
+    mp_launches, mp_out = timed("multicard_paths", multicard_paths_phase,
+                                packed_block, packed_params)
     profile_out = timed("profile", profile_phase)
 
     by_path = {"slice_mxu": slice_launches,
@@ -5218,7 +5620,9 @@ def main() -> int:
                **fleet_launches,
                **{f"sharded_{p}": n for p, n in sharded_launches.items()},
                **graph_launches, **par_launches,
-               **{f"multicard_{p}": n for p, n in mc_launches.items()}}
+               **{f"multicard_{p}": n for p, n in mc_launches.items()},
+               **{f"multicard_paths_{p}": n
+                  for p, n in mp_launches.items()}}
     line = {"kernels": []}
     for name in KERNELS:
         k = kern["uniform"][name]
@@ -5243,6 +5647,13 @@ def main() -> int:
             if name in mc_out[run]["kernels"]:
                 at["at_multicard" + ("" if run == "a" else "_b")] = {
                     f: mc_out[run]["kernels"][name][f]
+                    for f in ("ms", "plain_ms", "bound_ms", "bound_by",
+                              "library_ms", "max_abs_err")}
+        for run, r in mp_out.items():
+            # a card row block of phase 21's run: its whole-batch plan
+            if isinstance(r, dict) and name in r.get("kernels", {}):
+                at[f"at_multicard_paths_{run}"] = {
+                    f: r["kernels"][name][f]
                     for f in ("ms", "plain_ms", "bound_ms", "bound_by",
                               "library_ms", "max_abs_err")}
         if name in graph_out["kernels"]:
@@ -5277,6 +5688,7 @@ def main() -> int:
                                  "graph": graph_out,
                                  "parallel": par_out,
                                  "multicard": mc_out,
+                                 "multicard_paths": mp_out,
                                  "profile": profile_out,
                                  "phase_s": phase_s}))
     print(json.dumps(line), flush=True)

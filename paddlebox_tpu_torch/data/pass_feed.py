@@ -41,7 +41,7 @@ from paddlebox_tpu_torch.data.rank_offset import (build_ads_offset_batched,
                                                   build_rank_offset_batched)
 from paddlebox_tpu_torch.data.slot_record import SlotRecordBlock
 from paddlebox_tpu_torch.ops import sorted_spmm as sp
-from paddlebox_tpu_torch.parallel.topology import Sharded
+from paddlebox_tpu_torch.parallel.topology import Sharded, device_key
 from paddlebox_tpu_torch.utils import intervals, workpool
 from paddlebox_tpu_torch.utils.monitor import stat_observe
 
@@ -346,8 +346,10 @@ class PackedPassFeed:
     ``host`` is the pass's HostPassArrays when the feed was built to keep
     them (``keep_host``, for the instance dump).  Under a topology whose
     shards sit on distinct devices (``topology``) every plane is a
-    ``Sharded`` and every plan a list of per-shard [N, ...] stacks, each
-    on its shard's device.
+    ``Sharded`` (a shard's batch columns, padded to ceil(B / blocks) with
+    empty records) and every plan a list of [N, ...] stacks, each on its
+    shard's device: one a shard (mxu_sharded), or one a row block of the
+    working set, its shard in ``plan_shards`` (explicit mxu).
     """
 
     data: Dict[str, torch.Tensor]
@@ -360,6 +362,7 @@ class PackedPassFeed:
     host_valid: Optional[np.ndarray] = None   # [N*B] bool
     host: Optional[HostPassArrays] = None     # kept for the dump
     topology: object = None                   # shards on distinct devices
+    plan_shards: Optional[List[int]] = None   # shard of each plan list entry
 
     def bytes_by_device(self) -> Dict[str, int]:
         """Bytes the feed keeps on each device: the stacked planes and the
@@ -374,7 +377,9 @@ class PackedPassFeed:
                     add(d, n)
             elif isinstance(v, list):        # per-shard plans
                 for k, t in enumerate(v):
-                    add(self.topology.device_of(k),
+                    add(self.topology.device_of(
+                        k if self.plan_shards is None
+                        else self.plan_shards[k]),
                         t.numel() * t.element_size())
             else:
                 add(v.device, v.numel() * v.element_size())
@@ -442,10 +447,16 @@ def upload_pass(host_arrays: HostPassArrays, device: torch.device,
             raise NotImplementedError(
                 "a PlaneStager uploads whole planes to one device; staging "
                 "a pass under a topology whose shards sit on distinct "
-                "devices is ROADMAP Queue 1 item 4, not ported yet")
-        parts = [_relayout(_shard_put(h, topology, shardings, k), h, N,
-                           B // topology.block(shardings["valid"], k, 1)[1])
-                 for k in range(topology.world_size)]
+                "devices is ROADMAP Queue 1 item 4.1, not ported yet")
+        made, parts = {}, []
+        for k in range(topology.world_size):
+            # shards with the same batch columns on one device share them
+            idx, n = topology.block(shardings["valid"], k, 1)
+            key = (idx, device_key(topology.device_of(k)))
+            if key not in made:
+                made[key] = _relayout(_shard_put(h, topology, shardings, k),
+                                      h, N, -(-B // n))
+            parts.append(made[key])
         data = {name: Sharded([p[name] for p in parts], topology,
                               shardings[name]) for name in parts[0]}
     else:
@@ -465,24 +476,42 @@ def upload_pass(host_arrays: HostPassArrays, device: torch.device,
                           topology=topology if multi else None)
 
 
+def batch_columns(a: np.ndarray, dim: int, idx: int, n: int
+                  ) -> np.ndarray:
+    """Block ``idx`` of ``n`` along the batch dim ``dim`` of host plane
+    ``a``: ceil(B / n) columns, the last block padded with zero columns
+    when n does not divide B (no ids, zero lengths, invalid records:
+    they pool nothing, weigh nothing in the loss and push nothing)."""
+    b = a.shape[dim]
+    bl = -(-b // n)
+    sl = [slice(None)] * a.ndim
+    sl[dim] = slice(min(idx * bl, b), min((idx + 1) * bl, b))
+    cut = a[tuple(sl)]
+    if cut.shape[dim] < bl:
+        pad = [(0, 0)] * a.ndim
+        pad[dim] = (0, bl - cut.shape[dim])
+        cut = np.pad(cut, pad)
+    return np.ascontiguousarray(cut)
+
+
 def _shard_put(h: HostPassArrays, topo, shardings: Dict, k: int):
     """``put`` for shard ``k``: each plane cut to the shard's batch
-    columns of every batch on the host, then uploaded to its device."""
+    columns of every batch on the host (:func:`batch_columns`), then
+    uploaded to its device."""
     idx, n = topo.block(shardings["valid"], k, 1)
     N, B = h.n_batches, h.batch_size
-    bl = B // n
-    cols = slice(idx * bl, (idx + 1) * bl)
     dev = topo.device_of(k)
 
     def put(name: str, a: np.ndarray) -> torch.Tensor:
         if name == "ads_offset":         # replicated on every shard
             return to_device(a.copy(), dev)
         if name in ("indices", "lengths"):   # [S, N*B(, L)]
-            cut = a.reshape((a.shape[0], N, B) + a.shape[2:])[:, :, cols]
-            cut = cut.reshape((a.shape[0], N * bl) + a.shape[2:])
+            cut = batch_columns(a.reshape((a.shape[0], N, B) + a.shape[2:]),
+                                2, idx, n)
+            cut = cut.reshape((a.shape[0], -1) + a.shape[2:])
         else:                                # [N*B, ...]
-            cut = a.reshape((N, B) + a.shape[1:])[:, cols]
-            cut = cut.reshape((N * bl,) + a.shape[1:])
+            cut = batch_columns(a.reshape((N, B) + a.shape[1:]), 1, idx, n)
+            cut = cut.reshape((-1,) + a.shape[1:])
         return to_device(np.ascontiguousarray(cut), dev)
     return put
 

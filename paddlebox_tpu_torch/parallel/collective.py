@@ -307,6 +307,46 @@ def reduce_scatter(xs: Shards, topo: "HybridTopology", axis: Axis, *,
     return out
 
 
+def gather_onto(xs: Shards, srcs: Sequence, dsts: Sequence,
+                dim: int = 0) -> Shards:
+    """≙ an all-gather between explicit placements: ``xs[i]`` lives on
+    ``srcs[i]``, and each of ``dsts`` receives the ``xs`` concatenated
+    in order along ``dim`` on its device (the parts it does not hold
+    copied there).  Destinations on one device share the result."""
+    import torch
+    from paddlebox_tpu_torch.parallel.topology import device_key, transfer
+    made, out = {}, []
+    for dst in dsts:
+        key = device_key(dst)
+        if key not in made:
+            made[key] = torch.cat([transfer(x, s, dst)
+                                   for x, s in zip(xs, srcs)], dim=dim)
+        out.append(made[key])
+    return out
+
+
+def reduce_scatter_onto(xs: Shards, srcs: Sequence, dsts: Sequence,
+                        dim: int = 0) -> Shards:
+    """≙ psum_scatter between explicit placements: ``xs[i]`` (on
+    ``srcs[i]``) splits into ``len(dsts)`` equal blocks along ``dim``,
+    and destination j receives block j of every ``xs[i]`` summed in the
+    order of i, on its own device: a fixed order, no atomics."""
+    from paddlebox_tpu_torch.parallel.topology import transfer
+    size = xs[0].shape[dim]
+    if size % len(dsts):
+        raise ValueError(f"reduce_scatter_onto: dim {dim} of size {size} "
+                         f"does not split over {len(dsts)} destinations")
+    chunks = [x.chunk(len(dsts), dim=dim) for x in xs]
+    out = []
+    for j, dst in enumerate(dsts):
+        acc = None
+        for c, src in zip(chunks, srcs):
+            part = transfer(c[j], src, dst)
+            acc = part.clone() if acc is None else acc + part
+        out.append(acc)
+    return out
+
+
 def ppermute(xs: Shards, topo: "HybridTopology", axis: Axis,
              perm: Sequence[Tuple[int, int]]) -> Shards:
     """≙ lax.ppermute: (src, dst) pairs of axis positions; a member that

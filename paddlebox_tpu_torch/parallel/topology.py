@@ -25,8 +25,14 @@ lives there, a copy otherwise (a peer copy between cards).  ``place``
 keeps the blocks together as a :class:`Sharded` tensor, ≙ a ``jax.Array``
 under a ``NamedSharding``.  Devices are told apart by type and ordinal, so
 ``cpu:0`` and ``cpu:1`` are two devices whose tensors both live in host
-memory: the CPU rehearsal of a multi-card placement.  A process group
-for a cross-node dp axis is not here (ROADMAP Queue 1 item 4).
+memory: the CPU rehearsal of a multi-card placement.  A ``Sharded`` field
+of the working set also carries the per-block operations the lowerings
+and the device cache use: its row blocks (``row_blocks``, ``locate``),
+rows read from and written to the blocks that hold them with an explicit
+copy between devices (``gather_rows``, ``scatter_rows``), and an
+elementwise op run on each block where it lives (``map_blocks``).  A
+process group for a cross-node dp axis is not here (ROADMAP Queue 1
+item 4.2).
 """
 
 from __future__ import annotations
@@ -85,6 +91,16 @@ def on_device(t: torch.Tensor, device: DeviceLike, copy: bool = False
     if same_device(t.device, device):
         return t.clone() if copy else t
     return move(t, device)
+
+
+def transfer(t: torch.Tensor, src: DeviceLike, dst: DeviceLike
+             ) -> torch.Tensor:
+    """``t``, placed on ``src``, as seen from ``dst``: itself where the
+    two are one placement, else a copy on ``dst`` (:func:`move`; also
+    between ``cpu:0`` and ``cpu:1``, which share one memory)."""
+    if device_key(src) == device_key(dst):
+        return t
+    return move(t, dst)
 
 
 class Spec(tuple):
@@ -344,7 +360,77 @@ class Sharded:
         return self.topo.join(self.parts, self.spec, device)
 
     def zeros_like(self) -> "Sharded":
-        made = {id(p): torch.zeros_like(p) for _, p in self.unique()}
+        return self.map_blocks(torch.zeros_like)
+
+    # -- per-block operations ------------------------------------------------
+    def row_blocks(self) -> List[Tuple[int, slice, torch.Tensor]]:
+        """(first shard, global rows, block) of each distinct range of
+        dim 0, in row order: the block a row is read from and an update
+        steps once; any other shard holding the range holds a replica."""
+        seen, out = set(), []
+        for k, p in enumerate(self.parts):
+            sl = self.rows(k)
+            if sl.start not in seen:
+                seen.add(sl.start)
+                out.append((k, sl, p))
+        return sorted(out, key=lambda x: x[1].start)
+
+    def locate(self, rows: torch.Tensor) -> Tuple[torch.Tensor,
+                                                  torch.Tensor]:
+        """(index into :meth:`row_blocks`, local row) of each global row
+        (the blocks are equal contiguous ranges)."""
+        n = self.rows(self.row_blocks()[0][0]).stop
+        return torch.div(rows, n, rounding_mode="floor"), rows % n
+
+    def gather_rows(self, rows, device: DeviceLike
+                    ) -> Tuple[torch.Tensor, int]:
+        """The global rows ``rows`` (host ints) as one tensor on
+        ``device``: each block's rows selected where the block lives and
+        copied over.  Returns (values, rows copied between devices)."""
+        rows = torch.as_tensor(np.asarray(rows, np.int64))
+        out = torch.empty((len(rows),) + tuple(self.shape[1:]),
+                          dtype=self.dtype, device=physical_device(device))
+        blocks = self.row_blocks()
+        which, local = self.locate(rows)
+        moved = 0
+        for i, (k, _, blk) in enumerate(blocks):
+            pos = torch.nonzero(which == i).reshape(-1)
+            if not len(pos):
+                continue
+            src = self.topo.devices[k]
+            v = blk.index_select(0, local[pos].to(blk.device))
+            if device_key(src) != device_key(device):
+                moved += len(pos)
+            out[pos.to(out.device)] = transfer(v, src, device)
+        return out, moved
+
+    def scatter_rows(self, rows, values: torch.Tensor,
+                     device: DeviceLike) -> int:
+        """Write ``values`` (on ``device``, one per global row of the
+        unique host ints ``rows``) into every block that holds each row,
+        replicas included, in place.  Returns the rows copied between
+        devices."""
+        rows = torch.as_tensor(np.asarray(rows, np.int64))
+        moved = 0
+        for k, blk in self.unique():
+            sl = self.rows(k)
+            pos = torch.nonzero((rows >= sl.start)
+                                & (rows < sl.stop)).reshape(-1)
+            if not len(pos):
+                continue
+            dst = self.topo.devices[k]
+            v = values[pos.to(values.device)]
+            if device_key(dst) != device_key(device):
+                moved += len(pos)
+            blk.index_copy_(0, (rows[pos] - sl.start).to(blk.device),
+                            transfer(v, device, dst))
+        return moved
+
+    def map_blocks(self, fn) -> "Sharded":
+        """``fn(block)`` of every distinct block, run where the block
+        lives (an elementwise op keeps it there); shards that share a
+        block share the result."""
+        made = {id(p): fn(p) for _, p in self.unique()}
         return Sharded([made[id(p)] for p in self.parts], self.topo,
                        self.spec)
 

@@ -58,6 +58,7 @@ import numpy as np
 import torch
 
 from paddlebox_tpu_torch.device import DeviceLike, resolve_device
+from paddlebox_tpu_torch.parallel.topology import Sharded
 from paddlebox_tpu_torch.ps import embedding
 from paddlebox_tpu_torch.ps import heat
 from paddlebox_tpu_torch.utils import flight, lockdep
@@ -124,7 +125,11 @@ class DeviceRowCache:
     Step-path agnostic: the cache operates on whole working-set rows
     (gather at adoption, fold-back at end_pass), never on a step's
     intermediate layout, so the fast, mxu and ragged steps compose with
-    it unchanged.
+    it unchanged.  Over a working set split across devices (a
+    ``Sharded`` set) the store stays on ``device`` (the topology's first
+    device): a hit is copied into the blocks that hold its row and the
+    fold-back reads each row from its block, and every row that crosses
+    between devices counts in ``ps.cache.device_copy_rows``.
     """
 
     def __init__(self, capacity: int, nonclk_coeff: float = 0.1,
@@ -291,14 +296,20 @@ class DeviceRowCache:
                      slots: np.ndarray) -> Dict[str, torch.Tensor]:
         """Cached-plane gather: copy resident rows into the pass working
         set on the device (no host staging, no table bytes for hits).
-        Pure read of the store; writes ``ws`` in place and returns it."""
+        Pure read of the store; writes ``ws`` in place and returns it.
+        Over a working set split across devices each hit row goes to the
+        blocks that hold its pass row, copied where a block lives on
+        another device than the store (``ps.cache.device_copy_rows``)."""
         assert self._store is not None
         slots_d = torch.as_tensor(np.asarray(slots, np.int64),
                                   device=self.device)
-        return embedding.scatter_device_rows(
+        moved = embedding.scatter_device_rows(
             ws, np.asarray(rows, np.int64),
             {f: buf.index_select(0, slots_d)
-             for f, buf in self._store.items()})
+             for f, buf in self._store.items()}, self.device)
+        if moved:
+            stat_add("ps.cache.device_copy_rows", float(moved))
+        return ws
 
     def _ensure_planes(self, soa: Dict[str, np.ndarray],
                        ws: Dict[str, torch.Tensor]) -> None:
@@ -420,15 +431,24 @@ class DeviceRowCache:
                     mirror[upd_slots] = soa[f][upd_idx]
             rows_d = torch.as_tensor(upd_idx + 1, device=self.device)
             slots_d = torch.as_tensor(upd_slots, device=self.device)
+            moved = 0
             for f, buf in self._store.items():
                 if host_casts is not None and f in host_casts:
                     src = torch.as_tensor(
                         np.ascontiguousarray(host_casts[f][upd_idx]),
                         dtype=buf.dtype).to(self.device)
+                elif isinstance(ws[f], Sharded):
+                    # each row read from the block that holds it, where
+                    # the block lives, and copied to the store's device
+                    src, crossed = ws[f].gather_rows(upd_idx + 1,
+                                                     self.device)
+                    moved = max(moved, crossed)
                 else:
                     src = ws[f].index_select(0, rows_d)
                 # slots are unique: one write per slot, deterministic
                 buf.index_copy_(0, slots_d, src)
+            if moved:
+                stat_add("ps.cache.device_copy_rows", float(moved))
             self._slot_key[upd_slots] = keys[upd_idx]
             self._slot_score[upd_slots] = scores[upd_idx]
             self._slot_pass[upd_slots] = pass_id

@@ -31,11 +31,19 @@ import numpy as np
 import torch
 
 from paddlebox_tpu_torch.ops import sorted_spmm as sp
-from paddlebox_tpu_torch.parallel.topology import Sharded
+from paddlebox_tpu_torch.parallel.topology import Sharded, Spec, transfer
 from paddlebox_tpu_torch.utils.monitor import stat_add
 
 MULTI_DEVICE_TODO = ("under a topology whose shards sit on distinct devices "
-                     "is ROADMAP Queue 1 item 4, not ported yet")
+                     "is ROADMAP Queue 1 item 4.1, not ported yet")
+
+
+def localize(idx: torch.Tensor, row0: int, n: int):
+    """Global rows → (rows local to the block [row0, row0 + n), which of
+    them the block holds); the others become row ``n``."""
+    local = idx - row0
+    own = (local >= 0) & (local < n)
+    return torch.where(own, local, torch.full_like(local, n)), own
 
 
 def size_bucket(n: int, align: int = 8) -> int:
@@ -160,21 +168,31 @@ def write_rows(ws: Dict[str, torch.Tensor], rows: np.ndarray,
 
 
 def scatter_device_rows(ws: Dict[str, torch.Tensor], rows,
-                        values: Dict[str, torch.Tensor]
-                        ) -> Dict[str, torch.Tensor]:
+                        values: Dict[str, torch.Tensor],
+                        device=None) -> int:
     """Cached-plane working-set fill: write already-device-resident row
-    values (a DeviceRowCache gather) into the pass working set in place —
-    no host staging and no H2D for these rows.  ``rows`` are unique, so
-    ``index_copy_`` writes each row once and the result is deterministic.
-    Dtypes must already match the working set's (the cache stores
-    build_working_set's exact casts), so ``pull_sparse`` /
-    ``push_sparse_grads`` see bits identical to a wire pull."""
-    dev = next(iter(ws.values())).device
-    rows_d = torch.as_tensor(rows, dtype=torch.int64, device=dev)
+    values (a DeviceRowCache gather, on ``device``) into the pass working
+    set in place — no host staging and no H2D for these rows.  ``rows``
+    are unique, so ``index_copy_`` writes each row once and the result is
+    deterministic.  Dtypes must already match the working set's (the
+    cache stores build_working_set's exact casts), so ``pull_sparse`` /
+    ``push_sparse_grads`` see bits identical to a wire pull.  A
+    ``Sharded`` field takes each row into the blocks that hold it, a copy
+    where a block lives on another device.  Returns the rows copied
+    between devices (counted once, not per field)."""
+    rows_d, moved = None, 0
     for f, v in values.items():
-        if f in ws:
-            ws[f].index_copy_(0, rows_d, v)
-    return ws
+        if f not in ws:
+            continue
+        if isinstance(ws[f], Sharded):
+            n = ws[f].scatter_rows(rows, v, device)
+            moved = max(moved, n)
+            continue
+        if rows_d is None:
+            rows_d = torch.as_tensor(rows, dtype=torch.int64,
+                                     device=ws[f].device)
+        ws[f].index_copy_(0, rows_d, v)
+    return moved
 
 
 def dump_working_set(ws: Dict[str, torch.Tensor], n: int
@@ -200,19 +218,31 @@ def quantize_working_set(ws: Dict[str, torch.Tensor], quant_bits: int = 16,
     tensor on the working set's device; the division is by that tensor,
     so it is an IEEE f32 division on either device (a Python float would
     let a card kernel multiply by its reciprocal instead), and
-    ``torch.round`` rounds half to even as ``jnp.round`` does.
+    ``torch.round`` rounds half to even as ``jnp.round`` does.  A
+    ``Sharded`` mf is quantized block by block where each block lives,
+    and ``mf_scale`` is then a ``Sharded`` of one 0-d scale per shard on
+    its device.
 
     The quantized working set is PULL-ONLY: pushes need the f32 store
     (the reference likewise quantizes only dumped/serving tables)."""
     if quant_bits != 16:
         raise ValueError("only quant_bits=16 (int16 grid) is supported")
-    if isinstance(ws["mf"], Sharded):
-        raise NotImplementedError(f"quantize_working_set {MULTI_DEVICE_TODO}")
     out = dict(ws)
     mf = ws["mf"]
-    s = torch.tensor(scale, dtype=torch.float32, device=mf.device)
-    q = torch.clamp(torch.round(mf / s), -32767, 32767)
-    out["mf"] = q.to(torch.int16)
+
+    def scale_on(device):
+        return torch.tensor(scale, dtype=torch.float32, device=device)
+
+    def quantize(m, s):
+        return torch.clamp(torch.round(m / s), -32767, 32767).to(torch.int16)
+
+    if isinstance(mf, Sharded):
+        out["mf"] = mf.map_blocks(lambda m: quantize(m, scale_on(m.device)))
+        out["mf_scale"] = Sharded([scale_on(p.device) for p in mf.parts],
+                                  mf.topo, Spec())
+        return out
+    s = scale_on(mf.device)
+    out["mf"] = quantize(mf, s)
     out["mf_scale"] = s
     return out
 
@@ -247,18 +277,50 @@ def is_quantized(ws: Dict[str, torch.Tensor]) -> bool:
     return "mf_scale" in ws
 
 
-def pull_sparse(ws: Dict[str, torch.Tensor], indices: torch.Tensor
-                ) -> torch.Tensor:
+def pull_sparse(ws: Dict[str, torch.Tensor], indices: torch.Tensor,
+                row0: Optional[int] = None, device=None) -> torch.Tensor:
     """Gather pull values [*, 3+D]: (show, click, embed_w, embedx×D).
 
     ≙ PullSparseCaseGPU + CopyForPull (box_wrapper_impl.h:25,
     box_wrapper.cu:945).  mf is masked until created (mf_size > 0,
-    CommonPullValue semantics, feature_value.h:161)."""
+    CommonPullValue semantics, feature_value.h:161).  ``row0``: ``ws``
+    is the block of rows from global row ``row0``, and ids it does not
+    hold pull zeros.  Over a ``Sharded`` set each block pulls the ids it
+    holds where it lives, and the values are selected into one tensor on
+    ``device`` (the placement of ``indices``; default the topology's
+    first device)."""
+    if isinstance(ws["show"], Sharded):
+        return _pull_blocks(ws, indices, device)
+    own = None
+    if row0 is not None:
+        indices, own = localize(indices, row0, ws["show"].shape[0])
+        indices = torch.where(own, indices, torch.zeros_like(indices))
     idx = indices.long()
     created = (ws["mf_size"][idx] > 0).to(torch.float32)
     mf = mf_values(ws, ws["mf"][idx]) * created[..., None]
-    return torch.cat([ws["show"][idx][..., None], ws["click"][idx][..., None],
-                      ws["embed_w"][idx][..., None], mf], dim=-1)
+    out = torch.cat([ws["show"][idx][..., None], ws["click"][idx][..., None],
+                     ws["embed_w"][idx][..., None], mf], dim=-1)
+    if own is not None:
+        out = torch.where(own[..., None], out, torch.zeros_like(out))
+    return out
+
+
+def _pull_blocks(ws: Dict, indices: torch.Tensor, device) -> torch.Tensor:
+    """:func:`pull_sparse` over a ``Sharded`` set: each row block's
+    values of the ids it holds, copied to ``device`` and selected there
+    (a select, not a sum, so the bits equal one device's pull)."""
+    show = ws["show"]
+    topo = show.topo
+    device = topo.device if device is None else device
+    out = None
+    for k, sl, _ in show.row_blocks():
+        dev = topo.devices[k]
+        blk = {f: t.parts[k] for f, t in ws.items()}
+        v = transfer(pull_sparse(blk, transfer(indices, device, dev),
+                                 row0=sl.start), dev, device)
+        own = ((indices >= sl.start) & (indices < sl.stop))[..., None]
+        out = v if out is None else torch.where(own, v, out)
+    return out
 
 
 def pull_sparse_extended(ws: Dict[str, torch.Tensor], indices: torch.Tensor
@@ -273,7 +335,8 @@ def pull_sparse_extended(ws: Dict[str, torch.Tensor], indices: torch.Tensor
 
 
 def push_sparse_grads(ws: Dict[str, torch.Tensor], indices: torch.Tensor,
-                      grads: torch.Tensor, slot_ids: torch.Tensor
+                      grads: torch.Tensor, slot_ids: torch.Tensor,
+                      row0: Optional[int] = None
                       ) -> Dict[str, torch.Tensor]:
     """Merge per-occurrence push values into per-row accumulators
     (merge-by-key, ≙ PushMergeCopyAtomic box_wrapper.cu:476).
@@ -281,22 +344,29 @@ def push_sparse_grads(ws: Dict[str, torch.Tensor], indices: torch.Tensor,
     indices [S, B, L] pass rows; grads [S, B, L, 3+D], columns (g_show,
     g_click, g_embed, g_embedx...); slot_ids [S] int32.  Returns g_show /
     g_click / g_embed [N], g_embedx [N, D] and the per-row slot id.  Row 0
-    (padding) accumulates too; the optimizer's mask ignores it."""
+    (padding) accumulates too; the optimizer's mask ignores it.
+    ``row0``: ``ws`` is the block of rows from global row ``row0``; the
+    occurrences of rows it does not hold merge into a spare row N, cut
+    off, so each block merges exactly the rows it owns."""
     n = ws["show"].shape[0]
     s, b, l = indices.shape
     flat_idx = indices.reshape(-1)
+    n_seg = n
+    if row0 is not None:
+        flat_idx, _ = localize(flat_idx, row0, n)
+        n_seg = n + 1
     flat_g = grads.reshape(-1, grads.shape[-1])
-    merged = sp.segment_sum(flat_g, flat_idx, n)            # [N, 3+D]
+    merged = sp.segment_sum(flat_g, flat_idx, n_seg)[:n]    # [N, 3+D]
     # only valid occurrences vote for the row's slot (the show grad column
     # carries the seqpool key mask: ins_show > 0 exactly where the key is
     # real); an integer max is exact in any order
     flat_slot = slot_ids.to(torch.int32)[:, None, None].expand(
         s, b, l).reshape(-1)
-    slot = torch.zeros((n,), dtype=torch.int32,
+    slot = torch.zeros((n_seg,), dtype=torch.int32,
                        device=flat_idx.device).scatter_reduce_(
         0, flat_idx.long(), torch.where(flat_g[:, 0] > 0, flat_slot,
                                         torch.zeros_like(flat_slot)),
-        "amax", include_self=True)
+        "amax", include_self=True)[:n]
     return {"g_show": merged[:, 0], "g_click": merged[:, 1],
             "g_embed": merged[:, 2], "g_embedx": merged[:, 3:],
             "slot": slot}

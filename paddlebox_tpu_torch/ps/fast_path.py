@@ -21,70 +21,88 @@ integer slot column merges with ``scatter_reduce_(amax)``; duplicate
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
 from paddlebox_tpu_torch.config import SparseSGDConfig
 from paddlebox_tpu_torch.ops import pallas_gather
 from paddlebox_tpu_torch.ops import sorted_spmm as sp
-from paddlebox_tpu_torch.ps.embedding import cvm_pooled, mf_values
+from paddlebox_tpu_torch.ps.embedding import (cvm_pooled, localize,
+                                             mf_values)
 from paddlebox_tpu_torch.ps.optimizer import _dym_dims, push_touched
 
 Tensors = Dict[str, torch.Tensor]
 
 
-def step_prelude(idx: torch.Tensor, lengths: torch.Tensor):
+def step_prelude(idx: torch.Tensor, lengths: torch.Tensor,
+                 own: Optional[torch.Tensor] = None):
     """The push's per-step mask/flatten prelude: (m, safe_idx, flat, occ).
 
-    idx [S, L, B]; lengths [S, B].  m [S, L, B] f32 is 1 where l <
-    lengths; safe_idx parks masked positions on row 0."""
+    idx [S, L, B]; lengths [S, B]; own [S, L, B] bool, the occurrences a
+    block holds (None: all).  m [S, L, B] f32 is 1 where l < lengths
+    (and own); safe_idx parks masked positions on row 0."""
     s, l, b = idx.shape
-    m = (torch.arange(l, device=idx.device)[None, :, None]
-         < lengths[:, None, :]).to(torch.float32)
+    live = (torch.arange(l, device=idx.device)[None, :, None]
+            < lengths[:, None, :])
+    m = (live if own is None else live & own).to(torch.float32)
     safe_idx = torch.where(m > 0, idx, torch.zeros_like(idx))
     return m, safe_idx, safe_idx.reshape(-1), m.reshape(-1)
 
 
-def _pull_table(ws: Tensors) -> torch.Tensor:
+def _pull_table(ws: Tensors, zero_row: bool = False) -> torch.Tensor:
     """Row-major pull table [N, 3 + D]: show, click, embed_w, and the mf
     columns zeroed for rows whose mf is not created yet.  It is the
     [N, 3 + D] view of a buffer whose rows are padded to a multiple of 4
     floats (16 bytes), so ``gather_pool`` reads rows as float4; the
     fields are written straight into the view (one masked multiply, one
     stack), and the pad, which the kernel loads but never writes out, is
-    left unset."""
+    left unset.  ``zero_row``: one more row, N, of zeros (where a
+    block's pull parks the ids it does not hold)."""
     n, d = ws["mf"].shape
     e = 3 + d
-    table = torch.empty((n, (e + 3) // 4 * 4), dtype=torch.float32,
-                        device=ws["mf"].device)[:, :e]
+    table = torch.empty((n + zero_row, (e + 3) // 4 * 4),
+                        dtype=torch.float32, device=ws["mf"].device)[:, :e]
     created = (ws["mf_size"] > 0).to(torch.float32)
-    torch.mul(mf_values(ws, ws["mf"]), created[:, None], out=table[:, 3:])
+    torch.mul(mf_values(ws, ws["mf"]), created[:, None],
+              out=table[:n, 3:])
     torch.stack([ws["show"], ws["click"], ws["embed_w"]], dim=1,
-                out=table[:, :3])
+                out=table[:n, :3])
+    if zero_row:
+        table[n] = 0.0
     return table
 
 
-def pull_pool_cvm(ws: Tensors, idx: torch.Tensor, lengths: torch.Tensor,
-                  use_cvm: bool = True) -> torch.Tensor:
-    """Fused pull + seqpool + CVM.
-
-    idx [S, L, B] pass rows (0 = padding); lengths [S, B].
-    → pooled [B, S, E], E = 3 + D (cvm'show, cvm'click, w, mf...).  The
+def pull_pool(ws: Tensors, idx: torch.Tensor, lengths: torch.Tensor,
+              row0: Optional[int] = None) -> torch.Tensor:
+    """Fused pull + seqpool: idx [S, L, B] pass rows (0 = padding),
+    lengths [S, B] → the raw pooled sums [S, B, E], E = 3 + D.  The
     kernel reads only the first ``lengths`` ids of each row, so no mask
-    is needed here."""
+    is needed here.  ``row0``: ``ws`` is the block of rows from global
+    row ``row0``, and ids it does not hold pool its zero row, so the
+    sums are the block's part of the pooled value."""
     s, l, b = idx.shape
-    table = _pull_table(ws)
+    table = _pull_table(ws, zero_row=row0 is not None)
+    if row0 is not None:
+        idx, _ = localize(idx, row0, ws["mf"].shape[0])
     rows = idx.permute(0, 2, 1).reshape(s * b, l).to(torch.int32)
     pooled = pallas_gather.gather_pool(
         table, rows.contiguous(),
         lengths.reshape(s * b).to(torch.int32).contiguous())
-    return cvm_pooled(pooled.reshape(s, b, -1), use_cvm)     # [B, S, E]
+    return pooled.reshape(s, b, -1)
+
+
+def pull_pool_cvm(ws: Tensors, idx: torch.Tensor, lengths: torch.Tensor,
+                  use_cvm: bool = True) -> torch.Tensor:
+    """Fused pull + seqpool + CVM → pooled [B, S, E] (cvm'show,
+    cvm'click, w, mf...)."""
+    return cvm_pooled(pull_pool(ws, idx, lengths), use_cvm)
 
 
 def push_and_update(ws: Tensors, idx: torch.Tensor, lengths: torch.Tensor,
                     d_pooled: torch.Tensor, ins_cvm: torch.Tensor,
-                    slot_ids: torch.Tensor, cfg: SparseSGDConfig) -> Tensors:
+                    slot_ids: torch.Tensor, cfg: SparseSGDConfig,
+                    row0: Optional[int] = None) -> Tensors:
     """Merged push + sparse adagrad, updating ``ws`` in place.
 
     idx [S, L, B]; d_pooled [B, S, E] (cols 0,1 ignored, replaced by
@@ -92,11 +110,18 @@ def push_and_update(ws: Tensors, idx: torch.Tensor, lengths: torch.Tensor,
     [S].  Padding occurrences land on reserved row 0 and are masked.
     An expand table's ``mf_ex`` / ``mf_ex_g2sum`` are carried through
     untouched: this lowering pulls and trains the 3 + D base columns
-    only, as the JAX package's fast rule does."""
+    only, as the JAX package's fast rule does.  ``row0``: ``ws`` is the
+    block of rows from global row ``row0``, and the occurrences of rows
+    it does not hold are masked (the owner of each row merges and
+    steps it)."""
     s, l, b = idx.shape
     n = ws["show"].shape[0]
     d = ws["mf"].shape[1]
-    m, safe_idx, flat, occ = step_prelude(idx, lengths)
+    own = None
+    if row0 is not None:
+        idx, own = localize(idx, row0, n)
+    m, safe_idx, flat, occ = step_prelude(idx, lengths, own)
+    row0 = row0 or 0
 
     # -- merged per-row accumulators ([N] scalars; [N, D] once for mf) ----
     g_show_o = ins_cvm[None, None, :, 0].expand(s, l, b).reshape(-1) * occ
@@ -119,7 +144,7 @@ def push_and_update(ws: Tensors, idx: torch.Tensor, lengths: torch.Tensor,
         "amax", include_self=True)
 
     # -- scalar state: full-table [N] ops ----------------------------------
-    touched = push_touched(ws, {"g_show": g_show})
+    touched = push_touched(ws, {"g_show": g_show}, row0)
     show = torch.where(touched, ws["show"] + g_show, ws["show"])
     click = torch.where(touched, ws["click"] + g_click, ws["click"])
     delta = torch.where(
@@ -161,7 +186,8 @@ def push_and_update(ws: Tensors, idx: torch.Tensor, lengths: torch.Tensor,
     fl = flat.long()
     r_gshow = g_show[fl]                                    # [P]
     r_g2 = ws["mf_g2sum"][fl]
-    r_trainable = (ws["mf_size"][fl] > 0) & (r_gshow > 0) & (fl != 0)
+    r_trainable = ((ws["mf_size"][fl] > 0) & (r_gshow > 0)
+                   & (fl != -row0) & (occ > 0))
     r_scale = torch.where(r_gshow > 0, r_gshow, torch.ones_like(r_gshow))
     r_ratio = cfg.mf_learning_rate * torch.sqrt(
         cfg.mf_initial_g2sum / (cfg.mf_initial_g2sum + r_g2))
@@ -175,14 +201,14 @@ def push_and_update(ws: Tensors, idx: torch.Tensor, lengths: torch.Tensor,
             / dims_row[fl].to(torch.float32)
     else:
         new_g2 = r_g2 + torch.sum(r_g * r_g, dim=1) / d
-    write_idx = torch.where(r_trainable, fl, torch.zeros_like(fl))
-    mf_row0, g2_row0 = ws["mf"][0].clone(), ws["mf_g2sum"][0].clone()
-    mf = ws["mf"].index_copy(0, write_idx, torch.where(
-        r_trainable[:, None], new_mf, mf_row0[None, :]))
-    mf[0] = 0.0   # keep the reserved row zero
-    mf_g2sum = ws["mf_g2sum"].index_copy(0, write_idx, torch.where(
-        r_trainable, new_g2, g2_row0))
-    mf_g2sum[0] = g2_row0
+    # the other occurrences write a spare row n, cut off after
+    write_idx = torch.where(r_trainable, fl, torch.full_like(fl, n))
+    mf = torch.cat([ws["mf"], ws["mf"][:1]]).index_copy_(
+        0, write_idx, new_mf)[:n]
+    if row0 == 0:
+        mf[0] = 0.0   # keep the reserved row zero
+    mf_g2sum = torch.cat([ws["mf_g2sum"], ws["mf_g2sum"][:1]]).index_copy_(
+        0, write_idx, new_g2)[:n]
 
     out = {"show": show, "click": click, "delta_score": delta, "slot": slot,
            "embed_w": embed_w, "embed_g2sum": embed_g2sum,

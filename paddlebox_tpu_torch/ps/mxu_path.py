@@ -288,3 +288,54 @@ def push_and_update(ws: Tensors, plan, dims: sp.SpmmDims,
     delta = sp.scatter_add_sorted(srt_cm, rows2d, first_occ, kd)
     acc = acc_from_delta(delta, n, d_main=ws["mf"].shape[1])
     return sparse_opt.apply_push(ws, acc, cfg)
+
+
+# ---------------------------------------------------------------------------
+# one row block of a working set split over devices
+# ---------------------------------------------------------------------------
+
+def block_plan(idx_slb: torch.Tensor, row0: int, n: int):
+    """(dims, plan) of a block of ``n`` rows from global row ``row0``
+    over the canonical ids ``idx_slb`` [S, L, B] of the whole batch:
+    the ids the block does not hold park at the plan's sentinel, so the
+    gather reads zeros there and the scatter sums them into the tile
+    that is cut off.  The stable sort keeps canonical order among equal
+    rows, so a row's first occurrence is the one-device plan's."""
+    flat = idx_slb.reshape(-1)
+    dims = make_dims(flat.shape[0], n)
+    local = flat - row0
+    own = (local >= 0) & (local < n)
+    return dims, sp.build_plan(
+        torch.where(own, local, torch.full_like(local, dims.sentinel)),
+        dims)
+
+
+def pull_values_block(ws: Tensors, plan, dims: sp.SpmmDims
+                      ) -> torch.Tensor:
+    """The block's pull values of every occurrence, canonical [P, W]
+    (W = 3 + D (+ Dex) + 1, the last column mf_size): its rows' values,
+    zeros at the ids it does not hold.  Summed over the blocks they are
+    the one-device values (one block holds each id)."""
+    tab = _pull_table(ws, dims)
+    g = sp.gather_sorted(tab, plan[0], dims)               # [W, p_pad]
+    return g.T[:dims.p][plan[2].long()]
+
+
+def push_block(ws: Tensors, plan, dims: sp.SpmmDims, payload: torch.Tensor,
+               cfg: SparseSGDConfig, row0: int) -> Tensors:
+    """Merged push + sparse optimizer of one block, in place: payload
+    [P, D (+ Dex) + 4] the canonical per-occurrence push values of the
+    whole batch (:func:`push_payload`, slot id last); the block merges
+    the occurrences of its own rows (the rest sum into the cut sentinel
+    tile), keeping each row's first occurrence's slot, then steps its
+    rows with ``apply_push(row0=)``."""
+    w = payload.shape[1]
+    rows2d, perm, first_occ = plan[0], plan[1], plan[7]
+    srt = torch.zeros((w, dims.p_pad), dtype=torch.float32,
+                      device=payload.device)
+    srt[:, :dims.p] = payload[perm.long()].T
+    srt[w - 1] *= first_occ
+    delta = sp.scatter_add_sorted(srt, rows2d, first_occ, dims)
+    acc = acc_from_delta(delta, ws["show"].shape[0],
+                         d_main=ws["mf"].shape[1])
+    return sparse_opt.apply_push(ws, acc, cfg, row0=row0)

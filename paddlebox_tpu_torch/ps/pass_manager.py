@@ -100,8 +100,10 @@ class BoxPSEngine:
     row block is the view ``topology.split(ws[f], topology.table_spec())
     [d]``.  With shards on distinct devices each field is a ``Sharded``
     whose block d lives on shard d's device (ps/embedding.py); the device
-    cache and the serving freeze refuse such a set.  Without a
-    ``device`` the engine takes the topology's first device."""
+    cache keeps its store on the engine's device and moves hit and
+    fold-back rows to and from the blocks, and the serving freeze
+    quantizes each block where it lives.  Without a ``device`` the
+    engine takes the topology's first device."""
 
     def __init__(self, config: Optional[EmbeddingTableConfig] = None,
                  seed: int = 0, device: DeviceLike = None,
@@ -163,9 +165,6 @@ class BoxPSEngine:
         self.cache: Optional[DeviceRowCache] = None
         if flags.get_flags("ps_device_cache"):
             cap = int(flags.get_flags("ps_device_cache_rows"))
-            if cap > 0 and topology is not None and topology.multi_device:
-                raise NotImplementedError(
-                    f"the device row cache {embedding.MULTI_DEVICE_TODO}")
             if cap > 0:
                 sgd = self.config.sgd
                 self.cache = DeviceRowCache(
@@ -640,11 +639,9 @@ class BoxPSEngine:
         serving (≙ loading a quant-feature table + EmbedxQuantOp dequant,
         box_wrapper.cu:37 / pull_embedx_scale box_wrapper.h:655): embedx
         pulls read half the bytes, the set holds half the memory.  Runs
-        on the working set's device.  Training on a frozen set raises —
-        re-run the pass lifecycle to train."""
-        if self.topology is not None and self.topology.multi_device:
-            raise NotImplementedError(
-                f"freeze_for_serving {embedding.MULTI_DEVICE_TODO}")
+        on the working set's device (each block on its own, under a
+        topology whose shards sit on distinct devices).  Training on a
+        frozen set raises — re-run the pass lifecycle to train."""
         assert self.ws is not None, "no live working set to freeze"
         qb = self.config.quant_bits or 16
         self.ws = embedding.quantize_working_set(self.ws, qb, scale)

@@ -53,7 +53,7 @@ class MultiTaskSparseTrainer(SparseTrainer):
         if self._multi:
             raise NotImplementedError(
                 f"MultiTaskSparseTrainer {embedding.MULTI_DEVICE_TODO}: its "
-                "step is the one-device reference lowering")
+                "task heads' step has no per-device placement")
         if self.sparse_path not in ("auto", "reference"):
             raise ValueError("MultiTaskSparseTrainer trains on the "
                              "reference lowering only, not "

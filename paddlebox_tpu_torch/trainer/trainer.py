@@ -67,17 +67,23 @@ mesh.  With every shard on one device the dense half runs once over the
 global batch, the function GSPMD computes for a replicated net, and
 explicit ``mxu``, ``fast`` and ``reference`` run their one-device
 lowering over the global batch; ``_resolve_path()`` names the lowering
-that runs.  With shards on distinct devices (``HybridTopology(devices=
-[...])``) ``mxu_sharded`` places each shard's working-set block, plans
-and batch columns of the feed on the shard's device, runs both sorted
-kernels there, and moves values between devices only through the
-collectives; the dense half runs as one replica per device over its
-shards' columns, the replicas' grads summed in device order and the one
-optimizer step copied to every replica (:meth:`_replica_dense_half`);
-under dp × sharding each table block steps on its first node's device
-and the other nodes' replicas of it take a copy.  Explicit ``mxu``, ``fast`` and ``reference``, and models that read the
-page-view planes, raise ``NotImplementedError`` there (ROADMAP Queue 1
-item 4).
+that runs, the same on every placement of the mesh.  With shards on
+distinct devices (``HybridTopology(devices=[...])``) each shard's
+working-set block and batch columns of the feed sit on the shard's
+device, values move between devices only through the collectives, and
+the dense half runs as one replica per device over its batch blocks, the
+replicas' grads summed in device order and the one optimizer step copied
+to every replica (:meth:`_replica_dense_half`).  ``mxu_sharded`` runs its
+exchange with per-shard plans (:meth:`_sharded_step`); explicit ``mxu``,
+``fast`` and ``reference`` — and ``auto`` where it resolves to them, on a
+mesh ``mxu_sharded`` cannot take — run the one-device function with
+each row block of the working set pulling, merging and stepping its own
+rows on its device (:meth:`_blocks_step`); under dp × sharding each
+table block steps on its first node's device and the other nodes'
+replicas of it take a copy.  A batch the dp × sharding blocks do not
+divide is padded with empty records on distinct devices.  Models that
+read the page-view planes raise ``NotImplementedError`` there (ROADMAP
+Queue 1 item 4.1).
 """
 
 from __future__ import annotations
@@ -105,6 +111,7 @@ from paddlebox_tpu_torch.metrics.auc import (AucCalculator, WuAucCalculator,
 from paddlebox_tpu_torch.ops import crossing as cx
 from paddlebox_tpu_torch.ops import sorted_spmm as sp
 from paddlebox_tpu_torch.ops.seqpool_cvm import fused_seqpool_cvm
+from paddlebox_tpu_torch.parallel import collective as col
 from paddlebox_tpu_torch.parallel.topology import (HybridTopology, Sharded,
                                                    Spec, device_key,
                                                    on_device,
@@ -155,9 +162,9 @@ class SparseTrainer:
         weights.  ``fast_path=False`` makes ``auto`` resolve to the
         ``reference`` lowering.  ``trainer_config``: the dense sync mode
         (``"async_table"`` with ``sync_weight_step`` and the table's Adam
-        settings) and ``dump_path``.  ``topology``: the shards of the
-        ``mxu_sharded`` lowering, its first shard on this trainer's
-        device."""
+        settings) and ``dump_path``.  ``topology``: the mesh of shards
+        the working set and the batch are split over, its first shard on
+        this trainer's device."""
         self.device = resolve_device(device)
         if not same_device(engine.device, self.device):
             raise ValueError(f"engine works on {engine.device}, trainer "
@@ -170,6 +177,7 @@ class SparseTrainer:
         # shards on distinct devices: per-device blocks and dense replicas
         self._multi = topology is not None and topology.multi_device
         self._replicas: Optional[List[torch.nn.Module]] = None
+        self._owners = None
         self._consts: Dict = {}
         if self.device.type == "cuda":
             # the reference trains in full f32, and the parity tolerances
@@ -286,16 +294,8 @@ class SparseTrainer:
         hatch to the exact step); mxu with no topology; mxu_sharded on a
         shardable one (:meth:`_mxu_shardable`); else fast for adagrad and
         reference for the other rules (an expand table raises there).
-        Under shards on distinct devices only mxu_sharded and ragged's
-        refusal are ported."""
-        path = self._pick_path()
-        if self._multi and path in ("mxu", "fast", "reference"):
-            raise NotImplementedError(
-                f"sparse_path={path!r} {embedding.MULTI_DEVICE_TODO} (the "
-                "JAX package runs it GSPMD-sharded); use mxu_sharded")
-        return path
-
-    def _pick_path(self) -> str:
+        The answer is the same whether the shards share a device or
+        not."""
         assert self.engine.ws is not None, \
             "engine pass lifecycle must run before building the step " \
             "(begin_feed_pass/add_keys/end_feed_pass/begin_pass)"
@@ -584,6 +584,9 @@ class SparseTrainer:
         [S, L, B]; plan is the feed's plan of this batch (None → the mxu
         lowering plans in-step; ragged needs one); extras the batch's
         extra feed planes by name."""
+        if self._multi and path in ("mxu", "fast", "reference"):
+            return self._blocks_step(path, idx_slb, lengths, dense, labels,
+                                     valid, plan, extras)
         if path == "reference":
             return self._reference_step(idx_slb, lengths, dense, labels,
                                         valid, extras)
@@ -728,26 +731,179 @@ class SparseTrainer:
                 sparse_opt.apply_push(ws, acc, sgd)
         return loss, preds
 
+    def _blocks_step(self, path, idx_slb, lengths, dense, labels, valid,
+                     plan=None, extras=None):
+        """Explicit ``mxu``, ``fast`` or ``reference`` with the shards on
+        distinct devices: the function the one-device lowering computes
+        (GSPMD's answer for the sharded table and batch), in the
+        owner-computes pattern of HeterComm (heter_comm_inl.h:1296,1730).
+
+        The batch planes are per-shard lists; batch block b is read from
+        its first shard (:meth:`_batch_owners`), so shards that share
+        batch columns (mp > 1) count them once.  Each row block of the
+        working set (``Sharded.row_blocks``) works on the device of its
+        first shard, over the whole batch's ids gathered there in batch
+        order (ids it does not hold localized away):
+
+        * pull — ``fast``: ``gather_pool`` over the block gives its part
+          of every pooled sum; ``mxu``: ``gather_sorted`` over the
+          block's plan gives the values of the occurrences it holds
+          (zeros elsewhere); ``reference``: the plain gather, likewise.
+          The parts are reduce-scattered to the batch blocks' devices,
+          summed in row-block order, then pooled and CVM'd there.
+        * dense half — one replica per device over its batch blocks
+          (:meth:`_replica_dense_half`).
+        * push — the pooled grads (``reference``: the per-occurrence
+          grads) gathered to every row block, which merges the
+          occurrences it holds with ``scatter_add_sorted`` in their
+          canonical order and steps its rows (``fast``: the fused adagrad,
+          else ``apply_push``, both with ``row0=``); the block's replicas
+          (dp × sharding) take a copy (:meth:`_step_row_blocks`).
+
+        ``plan``: the feed's per-row-block plans of this batch (mxu),
+        else planned here.  Partial pooled sums in row-block order differ
+        from the one-device sum in the last ulp (fast); the values of
+        mxu and reference have one contributor each."""
+        ws = self.engine.ws
+        topo = self.topology
+        owners, _ = self._batch_owners()
+        bdev = [topo.devices[k] for k in owners]
+        homes = ws["show"].row_blocks()
+        hdev = [topo.devices[k] for k, _, _ in homes]
+        sgd = self.engine.config.sgd
+        s, l, b_loc = idx_slb[owners[0]].shape
+        d = ws["mf"].shape[1] + mxu_path._ex_dim(ws)
+        n_b = len(owners)
+        with torch.no_grad():
+            len_b = [lengths[k] for k in owners]
+            idx_b = [_mask_padding(idx_slb[k], n)
+                     for k, n in zip(owners, len_b)]
+            idx_h = col.gather_onto(idx_b, bdev, hdev, dim=2)   # [S, L, B]
+            if path == "fast":
+                len_h = col.gather_onto(len_b, bdev, hdev, dim=1)
+                parts = [fast_path.pull_pool(
+                    {f: t.parts[k] for f, t in ws.items()}, x, n,
+                    row0=sl.start)
+                    for (k, sl, _), x, n in zip(homes, idx_h, len_h)]
+                raw = col.reduce_scatter_onto(parts, hdev, bdev, dim=1)
+                pooled_b = [embedding.cvm_pooled(r, self.use_cvm)
+                            for r in raw]
+            elif path == "mxu":
+                if plan is None:
+                    plan = [mxu_path.block_plan(x, sl.start,
+                                                sl.stop - sl.start)[1]
+                            for (_, sl, _), x in zip(homes, idx_h)]
+                parts = []
+                for (k, sl, _), pl in zip(homes, plan):
+                    dims = mxu_path.make_dims(s * l * b_loc * n_b,
+                                              sl.stop - sl.start)
+                    parts.append(mxu_path.pull_values_block(
+                        {f: t.parts[k] for f, t in ws.items()}, pl,
+                        dims).reshape(s, l, b_loc * n_b, -1))
+                vals = col.reduce_scatter_onto(parts, hdev, bdev, dim=2)
+                pooled_b = [mxu_path.pool_cvm_values(v, self.use_cvm)
+                            for v in vals]
+            else:
+                parts = [embedding.pull_sparse(
+                    {f: t.parts[k] for f, t in ws.items()},
+                    x.permute(0, 2, 1), row0=sl.start)
+                    for (k, sl, _), x in zip(homes, idx_h)]
+                emb_b = col.reduce_scatter_onto(parts, hdev, bdev, dim=1)
+        labels_b = [labels[k] for k in owners]
+        ins_b = [self._ins_cvm(x) for x in labels_b]
+        extras = self._model_extras(extras)
+        extras_g = [dict(zip(extras, v)) for v in zip(
+            *[self._per_device(x) for x in extras.values()])] \
+            if extras else [None] * len(topo.groups)
+        if path == "reference":
+            leaves = self._per_device_blocks(emb_b, dim=1)
+            lens_g = self._per_device_blocks(len_b, dim=1)
+            ins_g = self._per_device_blocks(ins_b, dim=0)
+
+            def make_input(g):
+                def to_input(emb):
+                    x = fused_seqpool_cvm(emb, lens_g[g], ins_g[g],
+                                          self.use_cvm)
+                    if self._dym_mask is not None:
+                        m = self._const(self._dym_mask, emb.device)
+                        m = m if self.use_cvm else m[:, 2:]
+                        x = x * m.reshape(-1)[None]
+                    return x
+                return to_input
+            inputs = [make_input(g) for g in range(len(topo.groups))]
+        else:
+            leaves = self._per_device_blocks(pooled_b, dim=0)
+            inputs = None
+        loss, preds, grads = self._replica_dense_half(
+            leaves, self._per_device(dense), self._per_device(labels),
+            self._per_device(valid), extras_g, inputs)
+        preds = self._join_columns(preds, b_loc)
+        self._accumulate_metrics(preds, self._join_columns(labels),
+                                 self._join_columns(valid))
+        with torch.no_grad():
+            grads = self._split_columns(grads, b_loc,
+                                        1 if path == "reference" else 0)
+            if path == "reference":
+                g_h = col.gather_onto(grads, bdev, hdev, dim=1)
+            else:
+                dp_h = col.gather_onto(grads, bdev, hdev, dim=0)
+                ins_h = col.gather_onto(ins_b, bdev, hdev, dim=0)
+            home_of = {sl.start: i for i, (_, sl, _) in enumerate(homes)}
+
+            def step(k, blk, row0):
+                i = home_of[row0]
+                slot_ids = self._const(self._slot_ids_dev, hdev[i])
+                if path == "fast":
+                    fast_path.push_and_update(
+                        blk, idx_h[i], len_h[i], dp_h[i], ins_h[i],
+                        slot_ids, sgd, row0=row0)
+                elif path == "mxu":
+                    dims = mxu_path.make_dims(s * l * b_loc * n_b,
+                                              blk["show"].shape[0])
+                    payload = mxu_path.push_payload(
+                        dp_h[i], ins_h[i], slot_ids, (s, l, b_loc * n_b))
+                    mxu_path.push_block(blk, plan[i], dims,
+                                        payload.reshape(-1, d + 4), sgd,
+                                        row0)
+                else:
+                    acc = embedding.push_sparse_grads(
+                        blk, idx_h[i].permute(0, 2, 1), g_h[i], slot_ids,
+                        row0=row0)
+                    sparse_opt.apply_push(blk, acc, sgd, row0=row0)
+            self._step_row_blocks(ws, step)
+        return loss, preds[:self.batch_size]
+
     def _apply_push_blocks(self, ws, delta, rows_loc: int, d_main: int,
                            sgd) -> None:
-        """The rule over a ``Sharded`` working set.  It is elementwise
-        over rows, so each table block steps once, on the device of the
-        first shard that holds it, with that shard's slice of the merged
-        delta.  Under dp × sharding the other nodes' replicas of the
-        block take a copy of the result, so the replicas stay bit-equal
+        """The rule over a ``Sharded`` working set, each table block with
+        its first shard's slice of the merged delta
+        (:meth:`_step_row_blocks`)."""
+        def step(k, blk, row0):
+            acc = mxu_path.acc_from_delta(delta[k], rows_loc, d_main=d_main)
+            sparse_opt.apply_push(blk, acc, sgd, row0=row0)
+        self._step_row_blocks(ws, step)
+
+    @staticmethod
+    def _step_row_blocks(ws, step) -> None:
+        """``step(shard, block, row0)`` once for each row block of a
+        ``Sharded`` working set (``Sharded.row_blocks``: a dict of the
+        fields' blocks, updated in place on the device of its first
+        shard).  The rules are elementwise over rows, so that is the
+        whole update; under dp × sharding the other nodes' replicas of
+        the block then take a copy of it, so the replicas stay bit-equal
         (a card and the host may round a rule differently), as the dense
         replicas take the one dense step."""
         stepped = {}
-        for k, _ in ws["show"].unique():
-            row0 = ws["show"].rows(k).start
+        for k, sl, _ in ws["show"].row_blocks():
             blk = {f: t.parts[k] for f, t in ws.items()}
-            if row0 in stepped:
-                for f, t in blk.items():
-                    t.copy_(stepped[row0][f])
+            step(k, blk, sl.start)
+            stepped[sl.start] = blk
+        for k, blk in ws["show"].unique():
+            home = stepped[ws["show"].rows(k).start]
+            if blk is home["show"]:
                 continue
-            acc = mxu_path.acc_from_delta(delta[k], rows_loc, d_main=d_main)
-            sparse_opt.apply_push(blk, acc, sgd, row0=row0)
-            stepped[row0] = blk
+            for f, t in ws.items():
+                t.parts[k].copy_(home[f])
 
     def _shard_tables(self, ws, tspec: Spec) -> List[torch.Tensor]:
         """Each shard's feature-major pull table [3 + D (+ Dex) + 1,
@@ -768,28 +924,65 @@ class SparseTrainer:
                 made[id(blk)] = stack({f: t.parts[k] for f, t in ws.items()})
         return [made[id(blk)] for blk in ws["show"].parts]
 
-    def _per_device(self, x) -> List[torch.Tensor]:
+    def _batch_owners(self):
+        """(owners, by_device): the first shard (flat order) that holds
+        each batch block of ``batch_spec`` — shards that differ only
+        along mp / sp / ep / pp hold the same columns, and the owner's
+        copy is the one read — and, for each device of
+        ``topology.groups``, the batch blocks whose owner sits there, in
+        order (possibly none)."""
+        if self._owners is None:
+            t = self.topology
+            axes = ("dp", "sharding")
+            owners = [None] * t.axis_size(axes)
+            for k in range(t.world_size):
+                b = t.axis_index(k, axes)
+                if owners[b] is None:
+                    owners[b] = k
+            self._owners = (owners, [[b for b, k in enumerate(owners)
+                                      if k in ks] for _, ks in t.groups])
+        return self._owners
+
+    def _per_device(self, x) -> List[Optional[torch.Tensor]]:
         """A batch plane (dim 0 the batch) as one tensor per device of
-        ``topology.groups``: its shards' columns in flat shard order.  A
-        global tensor is the one device's."""
+        ``topology.groups``: its batch blocks' columns in order (None on
+        a device that owns none).  A global tensor is the one device's."""
         if not isinstance(x, list):
             if len(self.topology.groups) != 1:
                 raise ValueError("a global batch plane under a topology "
                                  "whose shards sit on distinct devices")
             return [x]
-        return [x[ks[0]] if len(ks) == 1 else torch.cat([x[k] for k in ks])
-                for _, ks in self.topology.groups]
+        owners, _ = self._batch_owners()
+        return self._per_device_blocks([x[k] for k in owners])
+
+    def _per_device_blocks(self, blocks, dim: int = 0
+                           ) -> List[Optional[torch.Tensor]]:
+        """Per-batch-block tensors (each on its owner's device) → one per
+        device of ``topology.groups``, concatenated along ``dim``."""
+        _, by_dev = self._batch_owners()
+        return [None if not bs else blocks[bs[0]] if len(bs) == 1
+                else torch.cat([blocks[b] for b in bs], dim=dim)
+                for bs in by_dev]
+
+    def _split_columns(self, x, b_loc: int, dim: int = 0) -> List:
+        """Per-device tensors (:meth:`_per_device_blocks`) → the batch
+        blocks' tensors of ``b_loc`` columns along ``dim``, in order."""
+        _, by_dev = self._batch_owners()
+        out = [None] * sum(len(bs) for bs in by_dev)
+        for bs, t in zip(by_dev, x):
+            for i, b in enumerate(bs):
+                out[b] = t.narrow(dim, i * b_loc, b_loc)
+        return out
 
     def _join_columns(self, x, b_loc: int = 0) -> torch.Tensor:
         """Per-shard planes (or, with ``b_loc``, per-device ones in
         ``topology.groups`` order) → the global batch on the trainer's
-        device, in shard order."""
+        device, in batch order."""
         if b_loc:
-            parts = [None] * self.topology.world_size
-            for (_, ks), t in zip(self.topology.groups, x):
-                for i, k in enumerate(ks):
-                    parts[k] = t[i * b_loc:(i + 1) * b_loc]
-            x = parts
+            x = self._split_columns(x, b_loc)
+        else:
+            owners, _ = self._batch_owners()
+            x = [x[k] for k in owners]
         return torch.cat([on_device(t, self.device) for t in x])
 
     def _const(self, t: torch.Tensor, dev) -> torch.Tensor:
@@ -825,10 +1018,12 @@ class SparseTrainer:
                 for k, v in r.state_dict().items():
                     v.copy_(src[k])
 
-    def _replica_dense_half(self, pooled, dense, labels, valid, extras):
+    def _replica_dense_half(self, pooled, dense, labels, valid, extras,
+                            inputs=None):
         """The dense half over one replica per device, each on its
-        shards' batch columns (lists in ``topology.groups`` order).  The
-        loss is the global masked mean (each replica's
+        batch blocks' columns (lists in ``topology.groups`` order; None
+        on a device that owns no batch block, whose replica sits the step
+        out).  The loss is the global masked mean (each replica's
         :meth:`_loss_and_preds` over the global count of valid records,
         summed), the replicas' grads are summed in device order on the
         trainer's device, and the one optimizer step
@@ -836,28 +1031,37 @@ class SparseTrainer:
         bit-equal: the function GSPMD computes for a replicated net over
         a batch-sharded input.  (A step taken on each device would round
         differently where a card's elementwise kernel contracts a
-        multiply-add that the host does not.)  Returns (loss, each
-        replica's preds, each replica's d_pooled); one device is
+        multiply-add that the host does not.)  ``pooled``: the leaves the
+        grads are taken for; ``inputs[g](leaf)`` makes device g's model
+        input of its leaf (default :meth:`_dense_input`).  Returns
+        (loss, each replica's preds, each leaf's grad); one device is
         :meth:`_pooled_dense_half`."""
         if len(pooled) == 1:
             loss, preds, d_pooled = self._pooled_dense_half(
                 pooled[0], dense[0], labels[0], valid[0], extras[0])
             return loss, [preds], [d_pooled]
         models = self.dense_replicas()
+        inputs = inputs or [self._dense_input] * len(pooled)
         count = None
         for v in valid:
+            if v is None:
+                continue
             c = on_device(torch.sum(v.to(torch.float32)), self.device)
             count = c if count is None else count + c
         den = torch.clamp(count, min=1.0)
         total, preds, d_pooled = None, [], []
-        for (dev, _), model, x, dn, lb, v, ex in zip(
+        for (dev, _), model, x, dn, lb, v, ex, make in zip(
                 self.topology.groups, models, pooled, dense, labels, valid,
-                extras):
-            x = x.detach().requires_grad_(True)
-            loss, p = self._loss_and_preds(self._dense_input(x), dn, lb, v,
-                                           ex, model, on_device(den, dev))
+                extras, inputs):
             for prm in model.parameters():
                 prm.grad = None
+            if x is None:
+                preds.append(None)
+                d_pooled.append(None)
+                continue
+            x = x.detach().requires_grad_(True)
+            loss, p = self._loss_and_preds(make(x), dn, lb, v, ex, model,
+                                           on_device(den, dev))
             loss.backward()
             loss = on_device(loss.detach(), self.device)
             total = loss if total is None else total + loss
@@ -903,16 +1107,18 @@ class SparseTrainer:
 
     def _put_columns(self, a: np.ndarray, dim: int) -> List[torch.Tensor]:
         """Each shard's block of host plane ``a`` along its batch dim
-        ``dim`` (``batch_spec``), uploaded to the shard's device."""
+        ``dim`` (``batch_spec``; :func:`pf.batch_columns`), uploaded to
+        the shard's device once (shards with the same columns on one
+        device share it)."""
         topo = self.topology
-        out = []
+        made, out = {}, []
         for k in range(topo.world_size):
             idx, n = topo.block(topo.batch_spec(), k, 0)
-            step = a.shape[dim] // n
-            sl = [slice(None)] * a.ndim
-            sl[dim] = slice(idx * step, (idx + 1) * step)
-            out.append(pf.to_device(np.ascontiguousarray(a[tuple(sl)]),
-                                    topo.device_of(k)))
+            key = (idx, device_key(topo.device_of(k)))
+            if key not in made:
+                made[key] = pf.to_device(pf.batch_columns(a, dim, idx, n),
+                                         topo.device_of(k))
+            out.append(made[key])
         return out
 
     # ------------------------------------------------------------------
@@ -1046,7 +1252,7 @@ class SparseTrainer:
                 "(build_pass_feed / train_pass(feed)) — the streaming "
                 "per-batch path has no host CSR plan build")
         self._mxu_crossing = ("take", "take")
-        if path == "mxu":
+        if path == "mxu" and not self._multi:
             self._mxu_crossing = self._crossing_modes(
                 len(self.packer.sparse_slots), self.packer.capacity,
                 self.batch_size)
@@ -1166,7 +1372,9 @@ class SparseTrainer:
                   if self._multi else {})
         feed = pf.upload_pass(arrays, self.device, staged=staged,
                               keep_host=keep, **placed)
-        if path == "mxu":
+        if path == "mxu" and self._multi:
+            self._precompute_block_plans(feed)
+        elif path == "mxu":
             n, s, l, b = feed.data["indices"].shape
             dims = mxu_path.make_dims(s * l * b,
                                       self.engine.ws["show"].shape[0])
@@ -1277,6 +1485,43 @@ class SparseTrainer:
                 for v in feed.plans.values()
                 for t in (v if isinstance(v, list) else [v])) / 1e6)
 
+    def _precompute_block_plans(self, feed: pf.PackedPassFeed) -> None:
+        """Pass-resident plans of explicit mxu on distinct devices: for
+        each row block of the working set, the plan of every batch's
+        whole ids (gathered in batch order onto the block's device,
+        padding masked) against the block's rows
+        (``mxu_path.block_plan``), stacked [N, ...] on that device.
+        ``feed.plan_shards`` names each list entry's shard."""
+        topo = self.topology
+        owners, _ = self._batch_owners()
+        bdev = [topo.devices[k] for k in owners]
+        homes = self.engine.ws["show"].row_blocks()
+        idx = col.gather_onto([feed.data["indices"].parts[k]
+                               for k in owners], bdev,
+                              [topo.devices[k] for k, _, _ in homes], dim=3)
+        lens = col.gather_onto([feed.data["lengths"].parts[k]
+                                for k in owners], bdev,
+                               [topo.devices[k] for k, _, _ in homes], dim=2)
+        per_home = []
+        for (_, sl, _), x, n in zip(homes, idx, lens):
+            plans = [mxu_path.block_plan(_mask_padding(x[i], n[i]),
+                                         sl.start, sl.stop - sl.start)[1]
+                     for i in range(feed.n_batches)]
+            per_home.append([torch.stack([p[j] for p in plans])
+                             for j in range(len(pf.PLAN_KEYS))])
+        feed.plans = {key: [h[j] for h in per_home]
+                      for j, key in enumerate(pf.PLAN_KEYS)}
+        feed.plan_shards = [k for k, _, _ in homes]
+        feed.plan_dims = self._block_plan_key(feed)
+
+    def _block_plan_key(self, feed: pf.PackedPassFeed):
+        """Geometry a feed's per-row-block mxu plans were built for (feed
+        shape, table height, row blocks): a change makes them
+        corrupting."""
+        return ("mxu_blocks", tuple(feed.data["indices"].shape),
+                self.engine.ws["show"].shape[0],
+                len(self.engine.ws["show"].row_blocks()))
+
     def _sharded_plan_key(self, feed: pf.PackedPassFeed):
         """Geometry sharded plans were built for (feed shape, table
         height, table axes): any change makes resident plans corrupting,
@@ -1313,8 +1558,9 @@ class SparseTrainer:
         if path == "mxu" and feed.plans is not None:
             # plans encode the table geometry (sentinel tile); a cross-pass
             # resize makes them corrupting, not just stale
-            cur = mxu_path.make_dims(s * l * b,
-                                     self.engine.ws["show"].shape[0])
+            cur = (self._block_plan_key(feed) if self._multi else
+                   mxu_path.make_dims(s * l * b,
+                                      self.engine.ws["show"].shape[0]))
             if cur != feed.plan_dims:
                 raise ValueError(
                     "PackedPassFeed plans were built for table dims "
@@ -1340,7 +1586,7 @@ class SparseTrainer:
                     "rebuild the feed (build_pass_feed)")
             plans = feed.plans
         self._mxu_crossing = ("take", "take")
-        if path == "mxu":
+        if path == "mxu" and not self._multi:
             eff_p_pad = None
             if plans is not None:
                 r = plans["rows2d"].shape           # [N, n_chunks, 1, c]
@@ -1365,7 +1611,7 @@ class SparseTrainer:
                     plan = None
                 elif feed.topology is not None:
                     plan = [tuple(plans[key][k][i] for key in pf.PLAN_KEYS)
-                            for k in range(feed.topology.world_size)]
+                            for k in range(len(plans["rows2d"]))]
                 else:
                     plan = pf.plan_tuple(pf.slice_batch(plans, i))
                 # rank_offset rows are batch-local: the slice needs no base

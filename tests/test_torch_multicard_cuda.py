@@ -1,4 +1,5 @@
-"""The mxu_sharded lowering with its shards on distinct devices, on a card.
+"""The lowerings and the device row cache with the shards on distinct
+devices, on a card.
 
 JAX-free on purpose, so it runs where the card is:
 
@@ -12,7 +13,11 @@ two or more cards the same runs also go over ``cuda:0`` and ``cuda:1``.
 Each is held against the same mesh on one card within the tolerances of
 ``tests/test_torch_multicard.py``: losses rtol 1e-4, the working set
 rtol 1e-5 / atol 1e-6, mf_size equal and the slot column's touched rows
-equal.
+equal.  The lowerings are ``mxu_sharded`` and explicit ``mxu``, ``fast``
+and ``reference`` (and ``auto`` on dp 2 × mp 2, which resolves to
+``fast``), each kernel launched its predicted number of times a step on
+the card and never for the host's blocks; the day loop with the device
+row cache on equals it off bit for bit.
 """
 
 import numpy as np
@@ -66,15 +71,19 @@ def _block():
     return blk
 
 
-def _pass(topo, packed, on_step=None):
-    """One pass of 3 batches on mxu_sharded (auto) from seeded data and
-    the seeded dense init; returns (stats, the working set on the host,
-    the trainer)."""
-    cfg = DataFeedConfig(slots=tuple(
+def _feed_config():
+    return DataFeedConfig(slots=tuple(
         [SlotConfig("label", dtype="float", is_dense=True, dim=1),
          SlotConfig("dense0", dtype="float", is_dense=True, dim=DENSE)]
         + [SlotConfig(f"s{i}", slot_id=100 + i, capacity=CAP)
            for i in range(N_SLOTS)]))
+
+
+def _pass(topo, packed, on_step=None, path="auto", want="mxu_sharded"):
+    """One pass of 3 batches on ``path`` (resolving to ``want``) from
+    seeded data and the seeded dense init; returns (stats, the working
+    set on the host, the trainer)."""
+    cfg = _feed_config()
     blk = _block()
     ds = SlotDataset(cfg)
     ds._blocks = [blk]
@@ -86,8 +95,9 @@ def _pass(topo, packed, on_step=None):
     eng.end_feed_pass()
     eng.begin_pass()
     tr = SparseTrainer(eng, DeepFM(N_SLOTS, 3 + MF, DENSE, (16,)), cfg,
-                       batch_size=B, seed=0, device="cuda", topology=topo)
-    assert tr._resolve_path() == "mxu_sharded"
+                       batch_size=B, seed=0, device="cuda", topology=topo,
+                       sparse_path=path)
+    assert tr._resolve_path() == want
     stats = tr.train_pass(tr.build_pass_feed(ds) if packed else ds,
                           progress=on_step and (lambda i: on_step(tr)))
     ws = {k: torch.as_tensor(np.asarray(v)) if isinstance(v, Sharded)
@@ -190,3 +200,116 @@ def test_sorted_kernels_launch_on_their_tensors_card(cuda_device):
     assert torch.equal(got, sp.gather_sorted_plain(tab, plan[0], dims))
     want = sp.scatter_add_sorted_plain(pay, plan[0], plan[7], dims)
     torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-5)
+
+
+# (path, mesh, the lowering it resolves to, per row block on a card a
+# step: gather_sorted, scatter_add_sorted, gather_pool launches)
+PATH_RUNS = {"mxu": ("mxu", dict(dp=2), "mxu", (1, 1, 0)),
+             "fast": ("fast", dict(dp=2), "fast", (0, 1, 1)),
+             "reference": ("reference", dict(dp=2, sharding=2), "reference",
+                           (0, 1, 0)),
+             "auto_dp2xmp2": ("auto", dict(dp=2, mp=2), "fast", (0, 1, 1))}
+
+
+def _card_blocks(topo, engine) -> int:
+    """Row blocks of the working set whose first shard sits on a card."""
+    return sum(topo.device_of(k).type == "cuda"
+               for k, _, _ in engine.ws["show"].row_blocks())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packed", [False, True], ids=["streaming", "packed"])
+@pytest.mark.parametrize("run", list(PATH_RUNS))
+def test_one_device_lowerings_match_one_card(cuda_device, run, packed):
+    """Explicit mxu / fast / reference and auto on dp 2 × mp 2 with the
+    shards on distinct devices: each kernel launched once a step for each
+    row block on a card (the host's blocks run the plain versions), the
+    pass within the tolerances of the same mesh on one card, a rerun
+    bit-identical."""
+    path, degrees, want, per_block = PATH_RUNS[run]
+    n = MeshConfig(**degrees).world_size
+    ref, ws_ref, _ = _pass(HybridTopology(MeshConfig(**degrees),
+                                          device="cuda"), packed, path=path,
+                           want=want)
+    for name, layout in _layouts():
+        topo = HybridTopology(MeshConfig(**degrees), devices=layout(n))
+        before = [f.launches for f in (sp.gather_sorted,
+                                       sp.scatter_add_sorted,
+                                       pg.gather_pool)]
+        got, ws, tr = _pass(topo, packed, path=path, want=want)
+        blocks = _card_blocks(topo, tr.engine)
+        assert blocks >= 1
+        after = [f.launches for f in (sp.gather_sorted,
+                                      sp.scatter_add_sorted,
+                                      pg.gather_pool)]
+        assert [a - b for a, b in zip(after, before)] == [
+            N_BATCHES * blocks * k for k in per_block], name
+        _close(got, ws, ref, ws_ref)
+        again, ws2, _ = _pass(topo, packed, path=path, want=want)
+        assert again["losses"] == got["losses"], name
+        for k in ws:
+            assert torch.equal(ws[k], ws2[k]), (name, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prefetch", [False, True],
+                         ids=["serial", "prefetch"])
+def test_day_loop_cache_on_card_and_host(cuda_device, tmp_path, prefetch):
+    """Three passes of a day over dp 2 on the card and the host with the
+    device row cache on equal the cache off bit for bit (the host table,
+    the losses, the dense params), the warm passes hit, and the hits
+    that live on the host's block crossed as copies."""
+    from paddlebox_tpu_torch import fleet, flags
+    from paddlebox_tpu_torch.utils.monitor import stat_get
+    rng = np.random.default_rng(5)
+    files = []
+    for p in range(3):
+        path = str(tmp_path / f"p{p}.txt")
+        with open(path, "w") as f:
+            for _ in range(2 * B):
+                parts = [f"1 {rng.integers(0, 2)}", f"{DENSE} " + " ".join(
+                    f"{rng.normal():.4f}" for _ in range(DENSE))]
+                for _s in range(N_SLOTS):
+                    k = rng.integers(1, CAP + 1)
+                    parts.append(f"{k} " + " ".join(
+                        str(rng.integers(1, 2000)) for _ in range(k)))
+                f.write(" ".join(parts) + "\n")
+        files.append([path])
+    topo = HybridTopology(MeshConfig(dp=2), devices=_layouts()[0][1](2))
+    old = (flags.get_flags("ps_device_cache"),
+           flags.get_flags("ps_device_cache_rows"))
+    out = []
+    try:
+        for cache in (False, True):
+            flags.set_flags({"ps_device_cache": cache,
+                             "ps_device_cache_rows": 1 << 14})
+            eng = BoxPSEngine(EmbeddingTableConfig(
+                embedding_dim=MF, sgd=SparseSGDConfig(
+                    mf_create_thresholds=0.0)), device="cuda",
+                topology=topo)
+            ds = fleet.BoxPSDataset(_feed_config(), engine=eng,
+                                    read_threads=1)
+            tr = SparseTrainer(eng, DeepFM(N_SLOTS, 3 + MF, DENSE, (16,)),
+                               _feed_config(), batch_size=B, seed=0,
+                               device="cuda", topology=topo)
+            hits0 = stat_get("ps.cache.hits")
+            copies0 = stat_get("ps.cache.device_copy_rows")
+            stats = fleet.train_passes(tr, ds, files, date="20260801",
+                                       prefetch=prefetch)
+            if cache:
+                assert stat_get("ps.cache.hits") > hits0
+                assert stat_get("ps.cache.device_copy_rows") > copies0
+            keys = np.sort(eng.table.export_keys())
+            out.append(([m["losses"] for m in stats], keys,
+                        eng.table.bulk_pull(keys),
+                        [p.detach().cpu() for p in tr.model.parameters()]))
+    finally:
+        flags.set_flags({"ps_device_cache": old[0],
+                         "ps_device_cache_rows": old[1]})
+    (l0, k0, t0, p0), (l1, k1, t1, p1) = out
+    assert l0 == l1
+    np.testing.assert_array_equal(k0, k1)
+    for f in t0:
+        np.testing.assert_array_equal(t0[f], t1[f], err_msg=f)
+    for a, b in zip(p0, p1):
+        assert torch.equal(a, b)
