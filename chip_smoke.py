@@ -348,11 +348,34 @@ result line is printed):
    then each kernel of the lowering on the first card row block's
    whole-batch shape against its plain version, timed (on the
    ``kernels`` line as ``at_multicard_paths_<run>``).  (h) a day of 3
-   passes × 2 batches on dp 2 over the card and the host (auto →
+   passes × 1 batch on dp 2 over the card and the host (auto →
    ``mxu_sharded``) with the device row cache off, on serially and on
    prefetched: all three bit-equal, the warm passes hit, the hits and
    fold-backs of the host's block cross as copies.  Prints
    ``multicard_paths[<run>]:`` lines; a run with a host shard is
+   host-bound and says so.
+22. multicard_models — what phases 20-21 left out, with the shards on
+   distinct devices at the bench widths, dp 2 over the card and the
+   host: (i) ``RankAttentionCTR`` (att_out 32, max_rank 3, MLP 128-64)
+   on a page-view pass made as phase 12's (2 pv-aligned batches,
+   ``rank_offset`` and ``ads_offset`` on), packed, on ``auto`` (→
+   ``mxu_sharded``) and explicit ``fast``; (j) ``MMoE`` (4 experts, 2
+   tasks) through ``MultiTaskSparseTrainer`` on 2 batches; (k)
+   ``GraphEmbeddingTrainer`` over phase 18's 2,097,152-node graph, 4
+   steps of 16,384 pairs (K 5), the working set on dp 2; with two or
+   more cards (i2) and (k2) over
+   ``cuda:0`` and ``cuda:1``.  Each: every block, plane and plan on its
+   shard's device; each kernel exactly its predicted launches a step for
+   each card shard (mxu_sharded) or card row block, none for the host's;
+   the losses within rtol 1e-4, the working set (the graph: mf and
+   mf_g2sum) within rtol 1e-5 / atol 1e-6 and (j)'s task AUCs within
+   1e-6 of the same mesh on one card; a rerun bit-identical; (k)'s card
+   row block times both sorted kernels on its plan of the first step
+   (on the ``kernels`` line as ``at_multicard_graph``).  (l) phase 4's
+   pass packed through ``pack_pass(on_plane=PlaneStager(topology, ...))``
+   on dp 2: every plane of the staged feed bit-equal to the unstaged
+   upload on its shard's device, no staged plane whole on one device.
+   Prints ``multicard_models[<run>]:`` lines; a run with a host block is
    host-bound and says so.
 
 Depth cuts (the widths are the bench model's): phase 10, 4 passes of 4
@@ -360,7 +383,9 @@ batches (day 1's 3 and day 2's first); phase 11, a day of 3 passes of 4
 batches; phases 14 and 15, 2 days of 2 passes of 4 batches (phase 15
 one more pass for (f)); phase 16, 2 days of 1 pass of 4 batches'
 records (65,536, one half-full batch a virtual slice; 131,072 took the
-phase 265 s); phase 21 (h), one day of 3 passes of 2 batches.
+phase 265 s); phase 21 (h), one day of 3 passes of 1 batch (2 until
+the whole script passed 80 % of its limit); phase 22 (i), 2 of phase
+12's 4 batches, and (k), 4 steps of phase 18's epoch (4 and 8 before).
 
 Every phase sets the launch counters to 0 just before its main run and
 reads them just after; a kernel of the path that did not launch fails
@@ -796,7 +821,7 @@ def make_trainer(block: SlotRecordBlock, device: str, params=None,
             MultiTaskSparseTrainer
         trainer = MultiTaskSparseTrainer(
             engine, make_model(model), cfg, batch_size=batch or BATCH,
-            label_slots=list(LABELS), seed=0, device=device)
+            label_slots=list(LABELS), seed=0, device=device, **topo)
     else:
         # amp and trainer_config only when asked, so an older checkout's
         # trainer (kernel_ab) takes the same call
@@ -2081,14 +2106,14 @@ def pv_sizes(rng, total: int) -> np.ndarray:
     return np.concatenate([[4], draws[:k], [total - csum[k - 1]]])
 
 
-def rank_block(rng) -> SlotRecordBlock:
-    """N_BATCHES groups of page views, group k holding BATCH - k records
+def rank_block(rng, n_batches: int = N_BATCHES) -> SlotRecordBlock:
+    """``n_batches`` groups of page views, group k holding BATCH - k records
     (so batches 2-4 are short and padded), each group's search ids above
     the last group's, every group opening with a 4-record pv: after
     preprocess_instance the pv-aligned cuts are exactly the groups.
     cmatch from {222, 223, 224}, rank 0..3, and slot s0's first feasign
     one of N_USERS user ids."""
-    groups = [pv_sizes(rng, BATCH - k) for k in range(N_BATCHES)]
+    groups = [pv_sizes(rng, BATCH - k) for k in range(n_batches)]
     n = sum(int(g.sum()) for g in groups)
     blk = make_block(rng, n)
     vals, offs = blk.uint64_slots["s0"]
@@ -2101,17 +2126,23 @@ def rank_block(rng) -> SlotRecordBlock:
     return blk
 
 
-def rank_trainer(block: SlotRecordBlock, device: str, params=None):
+def rank_trainer(block: SlotRecordBlock, device: str, params=None,
+                 path: str = "auto", mesh: dict = None, devices=None):
     """Engine lifecycle over ``block``'s keys and a RankAttentionCTR
-    trainer (auto → mxu) on a pv-grouped dataset of it."""
+    trainer (auto → mxu) on a pv-grouped dataset of it; ``mesh`` /
+    ``devices`` as :func:`make_trainer`'s."""
     from paddlebox_tpu_torch.models.rank_ctr import RankAttentionCTR
     cfg = rank_feed_config()
     dataset = SlotDataset(cfg)
     dataset._blocks = [block]
     dataset.preprocess_instance()
+    topo = {}
+    if mesh is not None:
+        topo["topology"] = models_topology(mesh, device, devices)
     engine = BoxPSEngine(EmbeddingTableConfig(
         embedding_dim=MF_DIM, shard_num=8,
-        sgd=SparseSGDConfig(mf_create_thresholds=0.0)), seed=0, device=device)
+        sgd=SparseSGDConfig(mf_create_thresholds=0.0)), seed=0,
+        device=device, **topo)
     engine.begin_feed_pass()
     engine.add_keys(block.all_keys())
     engine.end_feed_pass()
@@ -2119,7 +2150,8 @@ def rank_trainer(block: SlotRecordBlock, device: str, params=None):
     trainer = SparseTrainer(
         engine, RankAttentionCTR(N_SLOTS, 3 + MF_DIM, DENSE_DIM,
                                  **RANK_WIDTHS),
-        cfg, batch_size=BATCH, seed=0, device=device)
+        cfg, batch_size=BATCH, seed=0, device=device, sparse_path=path,
+        **topo)
     if params is not None:
         trainer.model.load_jax_params(params)
     return engine, trainer, dataset, trainer.model.jax_params()
@@ -4306,17 +4338,26 @@ def graph_kernels(table_fm: torch.Tensor, rows: np.ndarray,
                   negs: torch.Tensor, seed: int) -> dict:
     """Both sorted kernels on a graph step's plan (the first batch's
     centers, contexts and negatives, B·(2+K) rows) against their plain
-    versions by phase 2's method: the gather over the trained
-    feature-major table bit-exact, the scatter over a seeded payload
-    within rtol 1e-5 plus 1e-5 of each row's sum of |terms|, each twice
-    bit-identical; device times beside index_select / index_add_ and the
-    byte bound."""
+    versions (:func:`graph_plan_kernels`)."""
     dev = table_fm.device
-    w = table_fm.shape[0]
     batch = torch.as_tensor(rows[:GRAPH_BATCH], device=dev)
     ids = torch.cat([batch[:, 0], batch[:, 1], negs.reshape(-1)])
     dims = sp.spmm_dims(ids.numel(), table_fm.shape[1] - sp.TILE)
-    plan = sp.build_plan(ids, dims)
+    return graph_plan_kernels("graph", table_fm, sp.build_plan(ids, dims),
+                              dims, seed)
+
+
+def graph_plan_kernels(what: str, table_fm: torch.Tensor, plan,
+                       dims: sp.SpmmDims, seed: int) -> dict:
+    """Both sorted kernels on a graph step's ``plan`` over the
+    feature-major table ``table_fm`` against their plain versions by
+    phase 2's method: the gather over the trained table bit-exact, the
+    scatter over a seeded payload within rtol 1e-5 plus 1e-5 of each
+    row's sum of |terms|, each twice bit-identical; device times beside
+    index_select / index_add_ and the byte bound (the distinct rows this
+    plan reads, the sentinel's among them)."""
+    dev = table_fm.device
+    w = table_fm.shape[0]
     rows2d, first_occ = plan[0], plan[7]
     flat = rows2d.reshape(-1)
     runs = torch.unique_consecutive(flat[:dims.p], return_counts=True)[1]
@@ -4328,26 +4369,26 @@ def graph_kernels(table_fm: torch.Tensor, rows: np.ndarray,
            "distinct_rows": n_unique, "longest_run": int(runs.max()),
            "hub_share": float(runs.max()) / dims.p}
 
-    got = twice("graph gather_sorted",
+    got = twice(f"{what} gather_sorted",
                 lambda: sp.gather_sorted(table_fm, rows2d, dims))
     want = sp.gather_sorted_plain(table_fm, rows2d, dims)
     torch.cuda.synchronize()
     if not torch.equal(got, want):
-        raise AssertionError("graph: gather_sorted != plain")
+        raise AssertionError(f"{what}: gather_sorted != plain")
     rows_l = flat.long()
-    g = {"ms": time_ms("graph gather_sorted",
+    g = {"ms": time_ms(f"{what} gather_sorted",
                        lambda: sp.gather_sorted(table_fm, rows2d, dims)),
-         "plain_ms": time_ms("graph gather_sorted_plain",
+         "plain_ms": time_ms(f"{what} gather_sorted_plain",
                              lambda: sp.gather_sorted_plain(table_fm, rows2d,
                                                             dims)),
-         "library_ms": time_ms("graph index_select",
+         "library_ms": time_ms(f"{what} index_select",
                                lambda: torch.index_select(table_fm, 1,
                                                           rows_l)),
          "max_abs_err": float((got - want).abs().max())}
     g["bound_ms"], g["bound_by"] = bound_ms(
         4 * dims.p_pad + 4 * w * n_unique + 4 * w * dims.p_pad, 0)
 
-    got = twice("graph scatter_add_sorted",
+    got = twice(f"{what} scatter_add_sorted",
                 lambda: sp.scatter_add_sorted(payload, rows2d, first_occ,
                                               dims))
     want = sp.scatter_add_sorted_plain(payload, rows2d, first_occ, dims)
@@ -4356,22 +4397,22 @@ def graph_kernels(table_fm: torch.Tensor, rows: np.ndarray,
     torch.cuda.synchronize()
     err = (got - want).abs()
     if not bool((err <= 1e-5 * want.abs() + 1e-5 * abs_sum + 1e-6).all()):
-        raise AssertionError(f"graph: scatter_add_sorted != plain: max err "
-                             f"{float(err.max())}")
-    s = {"ms": time_ms("graph scatter_add_sorted",
+        raise AssertionError(f"{what}: scatter_add_sorted != plain: max "
+                             f"err {float(err.max())}")
+    s = {"ms": time_ms(f"{what} scatter_add_sorted",
                        lambda: sp.scatter_add_sorted(payload, rows2d,
                                                      first_occ, dims)),
-         "plain_ms": time_ms("graph scatter_add_sorted_plain",
+         "plain_ms": time_ms(f"{what} scatter_add_sorted_plain",
                              lambda: sp.scatter_add_sorted_plain(
                                  payload, rows2d, first_occ, dims)),
-         "library_ms": time_ms("graph index_add_", lambda: torch.zeros(
+         "library_ms": time_ms(f"{what} index_add_", lambda: torch.zeros(
              (w, dims.n_kernel), device=dev).index_add_(1, rows_l, payload)),
          "max_abs_err": float(err.max())}
     s["bound_ms"], s["bound_by"] = bound_ms(
         4 * w * dims.p_pad + 4 * dims.p_pad + 4 * w * dims.n_kernel,
         w * dims.p)
     out["gather_sorted"], out["scatter_add_sorted"] = g, s
-    log(f"graph[kernels, W={w}]: p {dims.p}, distinct rows {n_unique}, "
+    log(f"{what}[kernels, W={w}]: p {dims.p}, distinct rows {n_unique}, "
         f"longest run {out['longest_run']} (hub share "
         f"{out['hub_share']:.4f}); gather {g['ms']:.4f} ms (plain "
         f"{g['plain_ms']:.4f}, index_select {g['library_ms']:.4f}, bound "
@@ -4414,12 +4455,13 @@ def graph_communities(device, seed: int = 0) -> dict:
     return {"losses": losses, "intra": intra, "inter": inter}
 
 
-def graph_phase(seed: int = 22, device: str = "cuda"):
+def graph_phase(seed: int = 22, device: str = "cuda", keep: dict = None):
     """Phase 18: the graph-learning mode at the system's widths — a
     2,097,152-node power-law graph (the 2 M key space), node embeddings
     of mf_dim 8 as PS rows, one epoch of skip-gram pairs from 65,536
     walks inside one pass lifecycle, pull and push on the sorted
-    kernels."""
+    kernels.  ``keep``: receives the graph and the first
+    MODELS_GRAPH_STEPS batches of pair rows, phase 22's (k) input."""
     from paddlebox_tpu_torch.graph.graph_table import GraphTable
     from paddlebox_tpu_torch.trainer import graph_trainer as gt
     from paddlebox_tpu_torch.utils.profiler import Profiler
@@ -4459,6 +4501,9 @@ def graph_phase(seed: int = 22, device: str = "cuda"):
     rows = tr.pair_rows(gt.walk_pairs(walks, GRAPH_WINDOW))
     out["pair_rows_s"] = time.perf_counter() - t0
     out["pairs"] = len(rows)
+    if keep is not None:
+        keep.update(graph=graph,
+                    rows=rows[:MODELS_GRAPH_STEPS * GRAPH_BATCH])
     log(f"graph: {GRAPH_NODES} nodes, {out['edges']} edges "
         f"({out['nodes_with_out_edges']} nodes with an out-edge, max "
         f"out-degree {out['max_out_degree']}); generate "
@@ -4924,17 +4969,23 @@ def host_ws(ws: dict) -> dict:
             else v.cpu() for k, v in ws.items()}
 
 
-def card_bytes(engine, feed) -> dict:
-    """Bytes of the working set and of the feed (planes and plans) on
-    each device, from the tensors' own sizes."""
+def ws_by_device(ws: dict) -> dict:
+    """Bytes of a working set on each device, from the tensors' own
+    sizes."""
     from paddlebox_tpu_torch.parallel.topology import Sharded
-    ws = {}
-    for v in engine.ws.values():
+    out = {}
+    for v in ws.values():
         per = (v.bytes_by_device() if isinstance(v, Sharded)
                else {str(v.device): v.numel() * v.element_size()})
         for d, n in per.items():
-            ws[d] = ws.get(d, 0) + n
-    return {"ws": ws, "feed": feed.bytes_by_device()}
+            out[d] = out.get(d, 0) + n
+    return out
+
+
+def card_bytes(engine, feed) -> dict:
+    """Bytes of the working set and of the feed (planes and plans) on
+    each device, from the tensors' own sizes."""
+    return {"ws": ws_by_device(engine.ws), "feed": feed.bytes_by_device()}
 
 
 def check_table_replicas(engine) -> None:
@@ -5170,7 +5221,7 @@ PATHS_TWO = (("d2", "fast", "adagrad", {"dp": 2}, ("cuda:0", "cuda:1"),
 # dp 2 over the card and the host (auto → mxu_sharded): the cache off,
 # then on serially, then on prefetched (pass 3 is the prefetcher's first
 # warm pass: pass N + 1's snapshot predates pass N's fold-back)
-PATHS_DAY_PASSES, PATHS_DAY_BATCHES = 3, 2
+PATHS_DAY_PASSES, PATHS_DAY_BATCHES = 3, 1
 
 
 def paths_pass(block, params, mesh, devices, path, optimizer, device):
@@ -5514,6 +5565,409 @@ def multicard_paths_phase(block: SlotRecordBlock, params0,
     return launches, out
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the page-view model, the multi-task trainer, graph learning and
+# the plane stager on distinct devices
+# ---------------------------------------------------------------------------
+
+# (run, what trains, sparse_path, the lowering it resolves to, per card
+# shard (mxu_sharded) or card row block a step: gather_sorted,
+# scatter_add_sorted, gather_pool launches), each on dp 2 over the card
+# and the host; with two or more cards the runs of MODELS_TWO go over
+# cuda:0 and cuda:1
+MODELS_MESH = {"dp": 2}
+MODELS_RUNS = (("i_auto", "rank", "auto", "mxu_sharded", (1, 1, 0)),
+               ("i_fast", "rank", "fast", "fast", (0, 1, 1)),
+               ("j", "mmoe", "auto", "reference", (0, 1, 0)),
+               ("k", "graph", None, None, (1, 1, 0)))
+MODELS_TWO = {"i_auto": "i2_auto", "k": "k2"}
+MODELS_RANK_BATCHES = 2            # of phase 12's 4: a depth cut
+MODELS_GRAPH_STEPS = 4             # of phase 18's epoch: a depth cut
+
+
+def models_topology(mesh: dict, device: str, devices=None):
+    """The mesh's topology: every shard on ``device``, or one a shard on
+    ``devices``."""
+    from paddlebox_tpu_torch.config import MeshConfig
+    from paddlebox_tpu_torch.parallel.topology import HybridTopology
+    if devices is None:
+        return HybridTopology(MeshConfig(**mesh), device=device)
+    return HybridTopology(MeshConfig(**mesh), devices=list(devices))
+
+
+def models_pass(kind: str, block, params, path: str, devices,
+                device: str = "cuda"):
+    """One packed pass of the rank model or of MMoE through the
+    multi-task trainer on dp 2 over ``devices`` (None: every shard on
+    ``device``), end_pass included: (stats with the resolved lowering
+    and the bytes of the working set and the feed on each device, the
+    working set on the host, the initial params)."""
+    if kind == "rank":
+        engine, trainer, dataset, p0 = rank_trainer(
+            block, device, params, path, MODELS_MESH, devices)
+    else:
+        engine, trainer, dataset, p0 = make_trainer(
+            block, device, params, path, model="mmoe", mesh=MODELS_MESH,
+            devices=devices)
+    feed = trainer.build_pass_feed(dataset)
+    if devices is not None:
+        check_placement(trainer, engine, feed)
+    stats = trainer.train_pass(feed)
+    if device.startswith("cuda"):
+        torch.cuda.synchronize()
+    stats["path"] = trainer._resolve_path()
+    stats["bytes"] = card_bytes(engine, feed)
+    ws = host_ws(engine.ws)
+    engine.end_pass()
+    if engine.table.size() != engine.num_keys:
+        raise AssertionError("multicard_models: end_pass did not write "
+                             "every key")
+    return stats, ws, p0
+
+
+def models_graph_data(device: str, seed: int = 22):
+    """Phase 18's graph (the same seed: the 2,097,152-node power-law
+    graph, its walk starts) and the pairs of its walks' first
+    MODELS_GRAPH_STEPS batches, as pass rows of the node keys."""
+    from paddlebox_tpu_torch.graph.graph_table import GraphTable
+    from paddlebox_tpu_torch.trainer import graph_trainer as gt
+    rng = np.random.default_rng(seed)
+    edges, weights = power_law_graph(rng, GRAPH_NODES, GRAPH_MEAN_DEGREE)
+    graph = GraphTable(edges, weights=weights, num_nodes=GRAPH_NODES + 1,
+                       device=torch.device(device))
+    del edges, weights
+    deg = np.diff(graph.indptr.cpu().numpy())
+    starts = rng.choice(np.nonzero(deg > 0)[0], GRAPH_WALKS)
+    wgen = torch.Generator(device=device).manual_seed(seed)
+    walks = graph.random_walk(torch.as_tensor(starts, device=device),
+                              GRAPH_WALK_LEN, wgen)
+    pairs = gt.walk_pairs(walks, GRAPH_WINDOW)
+    # nodes 1..N are the pass's keys 1..N: row r is key r (rows from 1)
+    flat = pairs.reshape(-1)
+    ok = (flat >= 1) & (flat <= GRAPH_NODES)
+    rows = torch.where(ok, flat, torch.zeros_like(flat)).reshape(pairs.shape)
+    rows = rows[(rows > 0).all(1) & (rows[:, 0] != rows[:, 1])]
+    return graph, rows[:MODELS_GRAPH_STEPS * GRAPH_BATCH].cpu().numpy()
+
+
+def models_graph_pass(graph, rows: np.ndarray, devices, device: str = "cuda",
+                      seed: int = 22, hold: dict = None):
+    """One epoch of ``rows`` through ``GraphEmbeddingTrainer`` over a
+    working set of the graph's nodes on dp 2 over ``devices`` (None:
+    every shard on ``device``), end_pass included: (stats with the
+    losses, the step ms and the working set's bytes on each device, mf
+    and mf_g2sum on the host).  ``hold``: receives the trained working
+    set."""
+    from paddlebox_tpu_torch.parallel.topology import Sharded, same_device
+    from paddlebox_tpu_torch.trainer import graph_trainer as gt
+    topo = models_topology(MODELS_MESH, device, devices)
+    eng = BoxPSEngine(EmbeddingTableConfig(
+        embedding_dim=MF_DIM, sgd=SparseSGDConfig(
+            mf_create_thresholds=0.0, mf_initial_range=0.1)),
+        seed=seed, device=device, topology=topo)
+    eng.begin_feed_pass()
+    eng.add_keys(np.arange(1, GRAPH_NODES + 1, dtype=np.uint64))
+    eng.end_feed_pass()
+    eng.begin_pass()
+    size = eng.ws["mf_size"]
+    for _, blk in (size.unique() if isinstance(size, Sharded)
+                   else [(0, size)]):
+        blk.fill_(MF_DIM)
+    if not np.array_equal(eng.mapper(np.array([1, GRAPH_NODES], np.uint64)),
+                          [1, GRAPH_NODES]):
+        raise AssertionError("multicard_models[k]: node keys are not their "
+                             "own pass rows")
+    if devices is not None:
+        for f, v in eng.ws.items():
+            for k, part in enumerate(v.parts):
+                if not same_device(part.device, topo.device_of(k)):
+                    raise AssertionError(f"multicard_models[k]: {f} block "
+                                         f"{k} on {part.device}")
+    tr = gt.GraphEmbeddingTrainer(eng, graph, n_negatives=GRAPH_NEGATIVES,
+                                  learning_rate=GRAPH_LR,
+                                  window=GRAPH_WINDOW, seed=seed)
+    loss = tr.train_pairs(rows, batch_size=GRAPH_BATCH)
+    torch.cuda.synchronize()
+    stats = dict(tr.stats, loss=loss, batches=len(tr.stats["losses"]))
+    ws = host_ws({f: eng.ws[f] for f in ("mf", "mf_g2sum")})
+    stats["bytes"] = {"ws": ws_by_device(eng.ws), "feed": {}}
+    if hold is not None:
+        hold["ws"] = dict(eng.ws)
+        hold["num_keys"] = eng.num_keys
+    eng.end_pass()
+    if eng.table.size() != GRAPH_NODES:
+        raise AssertionError("multicard_models[k]: end_pass did not write "
+                             "every node")
+    return stats, ws
+
+
+def models_graph_kernels(what: str, held: dict, num_keys: int,
+                         rows: np.ndarray, devices, seed: int = 22) -> dict:
+    """Both sorted kernels on the first card row block of (k)'s trained
+    working set over its plan of the epoch's first step (that batch's
+    centers and contexts and the trainer's first negatives, drawn again
+    from its seed), against their plain versions."""
+    from paddlebox_tpu_torch.ps import mxu_path
+    from paddlebox_tpu_torch.trainer import graph_trainer as gt
+    mf = held["ws"]["mf"]
+    k, sl = next((k, sl) for k, sl, _ in mf.row_blocks()
+                 if mf.topo.device_of(k).type == "cuda")
+    dev = mf.topo.device_of(k)
+    table, _ = gt.to_feature_major(mf.parts[k],
+                                   held["ws"]["mf_g2sum"].parts[k])
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    negs = torch.randint(1, num_keys + 1, (GRAPH_BATCH, GRAPH_NEGATIVES),
+                         generator=gen, device=dev, dtype=torch.int32)
+    batch = torch.as_tensor(rows[:GRAPH_BATCH], device=dev)
+    ids = gt.step_rows(batch[:, 0], batch[:, 1], negs)
+    dims, plan = mxu_path.block_plan(ids, sl.start, sl.stop - sl.start)
+    out = graph_plan_kernels(what, table, plan, dims, seed + 2)
+    out.update(shard=k, device=str(devices[k]), row0=sl.start,
+               rows=sl.stop - sl.start,
+               sentinel_share=float((plan[0].reshape(-1)[:dims.p]
+                                     == dims.sentinel).float().mean()))
+    return out
+
+
+def models_stager(block, params, devices, device: str = "cuda") -> dict:
+    """(l): phase 4's pass packed twice on dp 2 over ``devices``: through
+    ``pack_pass(on_plane=PlaneStager(topology, BATCH))``, each
+    plane's shard columns uploaded to the shard's device as the plane
+    becomes final, and plainly, then uploaded.  Every plane of the two
+    feeds bit-equal on its shard's device; no staged plane whole on one
+    device."""
+    from paddlebox_tpu_torch.data import pass_feed as pf
+    from paddlebox_tpu_torch.parallel.topology import same_device
+    _, trainer, dataset, _ = make_trainer(block, device, params, "auto",
+                                          mesh=MODELS_MESH,
+                                          devices=devices)
+    topo = trainer.topology
+    t0 = time.perf_counter()
+    arrays = trainer.pack_pass_host(dataset)
+    shardings = trainer.pass_shardings(arrays)
+    plain = pf.upload_pass(arrays, trainer.device, topology=topo,
+                           shardings=shardings)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    stager = pf.PlaneStager(topo, BATCH)
+    staged_arrays = trainer.pack_pass_host(dataset, on_plane=stager)
+    staged = pf.upload_pass(staged_arrays, trainer.device, staged=stager,
+                            topology=topo, shardings=shardings)
+    torch.cuda.synchronize()
+    staged_s = time.perf_counter() - t0
+    n_dp = topo.axis_size(("dp", "sharding"))
+    for name, parts in stager.staged.items():
+        for k, part in enumerate(parts):
+            if not same_device(part.device, topo.device_of(k)):
+                raise AssertionError(f"multicard_models[l]: staged {name} "
+                                     f"of shard {k} on {part.device}")
+            whole = getattr(arrays, name)
+            dim = 1 if name in ("indices", "lengths") else 0
+            if part.shape[dim] * n_dp != whole.shape[dim]:
+                raise AssertionError(f"multicard_models[l]: staged {name} "
+                                     f"of shard {k} is not its columns")
+    if set(staged.data) != set(plain.data):
+        raise AssertionError("multicard_models[l]: the staged feed's planes "
+                             f"{sorted(staged.data)} != {sorted(plain.data)}")
+    for name in plain.data:
+        for k in range(topo.world_size):
+            a, b = staged.data[name].parts[k], plain.data[name].parts[k]
+            if not same_device(a.device, topo.device_of(k)) or \
+                    not torch.equal(a, b):
+                raise AssertionError(f"multicard_models[l]: staged {name} "
+                                     f"of shard {k} != the unstaged upload")
+    return {"devices": [str(d) for d in devices],
+            "staged_planes": sorted(stager.staged),
+            "pack_upload_s": plain_s, "staged_pack_upload_s": staged_s,
+            "bytes": staged.bytes_by_device()}
+
+
+def multicard_models_phase(block: SlotRecordBlock, params0,
+                           device: str = "cuda", host: str = "cpu",
+                           graph_data: dict = None):
+    """The page-view model, the multi-task trainer and graph learning on
+    dp 2 with the shards on distinct devices at the bench widths
+    (``MODELS_RUNS`` over the card and the host — a test topology for a
+    one-card machine — and with two or more cards ``MODELS_TWO`` over
+    cuda:0 and cuda:1), then the plane stager (:func:`models_stager`).
+    (i) RankAttentionCTR on MODELS_RANK_BATCHES batches of a page-view
+    pass made as phase 12's, auto (→ mxu_sharded) and fast; (j) MMoE
+    through MultiTaskSparseTrainer on
+    2 batches (phase 8's); (k) GraphEmbeddingTrainer over phase 18's
+    graph, MODELS_GRAPH_STEPS steps.  Each run: every block, plane and
+    plan on its shard's device; each kernel exactly its predicted
+    launches a step for each card shard or card row block, none for the
+    host's; the losses within rtol 1e-4, the working set (the graph's mf
+    and mf_g2sum) within rtol 1e-5 / atol 1e-6 and (j)'s task AUCs
+    within 1e-6 of the same mesh on one card; a rerun bit-identical.
+    (k)'s card row block times both sorted kernels
+    (:func:`models_graph_kernels`).  ``graph_data``: phase 18's graph and
+    pair rows (``graph_phase(keep=)``); None builds them again
+    (:func:`models_graph_data`)."""
+    t_phase = time.perf_counter()
+    card = device if ":" in device else f"{device}:0"
+    runs = [((card, host), r[0], r) for r in MODELS_RUNS]
+    if torch.cuda.device_count() >= 2:
+        runs += [(("cuda:0", "cuda:1"), MODELS_TWO[r[0]], r)
+                 for r in MODELS_RUNS if r[0] in MODELS_TWO]
+    rng = np.random.default_rng(13)
+    rank_data = rank_block(rng, MODELS_RANK_BATCHES)
+    mmoe_data = make_block(np.random.default_rng(4), 2 * BATCH, n_labels=2)
+    if graph_data is None:
+        graph_data = dict(zip(("graph", "rows"), models_graph_data(device)))
+    graph, graph_rows = graph_data["graph"], graph_data["rows"]
+    launches, out = {}, {"cards": torch.cuda.device_count()}
+    refs, params = {}, {}
+    for devices, label, (run, kind, path, want, per_block) in runs:
+        what = f"multicard_models[{label}]"
+        t0 = time.perf_counter()
+        # dp 2: each of the two devices holds one shard, its batch block
+        # and its table row block
+        cards = sum(d.startswith("cuda") for d in devices)
+        hold = {}
+        if kind == "graph":
+            if kind not in refs:
+                refs[kind] = models_graph_pass(graph, graph_rows, None,
+                                               device)
+            ref, ws_ref = refs[kind]
+            hold = {}
+            reset_counts()
+            stats, ws = models_graph_pass(graph, graph_rows, devices, device,
+                                          hold=hold)
+            launches[label] = read_counts()
+            again, ws2 = models_graph_pass(graph, graph_rows, devices, device)
+        else:
+            data = rank_data if kind == "rank" else mmoe_data
+            key = (kind, path)
+            if key not in refs:
+                refs[key] = models_pass(kind, data, params.get(kind), path,
+                                        None, device)
+                params.setdefault(kind, refs[key][2])
+            ref, ws_ref, _ = refs[key]
+            reset_counts()
+            stats, ws, _ = models_pass(kind, data, params[kind], path,
+                                       devices, device)
+            launches[label] = read_counts()
+            if stats["path"] != want or ref["path"] != want:
+                raise AssertionError(f"{what}: {path} resolved to "
+                                     f"{stats['path']} / one card "
+                                     f"{ref['path']}")
+            again, ws2, _ = models_pass(kind, data, params[kind], path,
+                                        devices, device)
+        n_steps = stats["batches"]
+        predicted = {name: n_steps * cards * n for name, n in
+                     zip(("gather_sorted", "scatter_add_sorted",
+                          "gather_pool"), per_block)}
+        if launches[label] != predicted:
+            raise AssertionError(f"{what}: launches {launches[label]}, "
+                                 f"predicted {predicted} ({cards} card "
+                                 f"blocks × {n_steps} steps)")
+        if kind == "graph":
+            if not all(math.isfinite(x) for x in stats["losses"]):
+                raise AssertionError(f"{what}: non-finite losses "
+                                     f"{stats['losses']}")
+            if not np.allclose(stats["losses"], ref["losses"], rtol=1e-4,
+                               atol=0):
+                raise AssertionError(f"{what}: losses {stats['losses']} vs "
+                                     f"one card {ref['losses']}")
+            close = {"ws_max_abs_diff": {}}
+            for f in ws_ref:
+                a, b = ws[f].numpy(), ws_ref[f].numpy()
+                close["ws_max_abs_diff"][f] = float(np.abs(a - b).max())
+                if not np.allclose(a, b, rtol=1e-5, atol=1e-6):
+                    raise AssertionError(f"{what}: {f} differs from the same "
+                                         "mesh on one card: max |diff| "
+                                         f"{close['ws_max_abs_diff'][f]}")
+        else:
+            check_pass(what, stats, launches[label],
+                       {k: v // n_steps for k, v in predicted.items()},
+                       n_batches=n_steps, exact=True)
+            close = multicard_close(what, stats, ws, ref, ws_ref)
+        if kind == "mmoe":
+            for t in range(2):
+                if abs(stats[f"task{t}_auc"] - ref[f"task{t}_auc"]) > 1e-6:
+                    raise AssertionError(
+                        f"{what}: task {t} AUC {stats[f'task{t}_auc']} vs "
+                        f"one card {ref[f'task{t}_auc']}")
+        if again["losses"] != stats["losses"] or any(
+                not torch.equal(ws[f], ws2[f]) for f in ws):
+            raise AssertionError(f"{what}: a rerun left other bits")
+        kern = {}
+        if kind == "graph" and devices[1] == host and \
+                device.startswith("cuda"):
+            kern = models_graph_kernels(what, hold, hold["num_keys"],
+                                        graph_rows, devices)
+        hold.clear()
+        steady = float(np.median(stats["step_ms"][1:] if kind != "graph"
+                                 else stats["step_ms"]))
+        one_card = float(np.median(ref["step_ms"][1:] if kind != "graph"
+                                   else ref["step_ms"]))
+        out[label] = {
+            "kind": kind, "path": path, "resolved": want,
+            "mesh": MODELS_MESH, "devices": list(devices),
+            "card_blocks": cards, "predicted_launches": predicted,
+            "launches": launches[label], "losses": stats["losses"],
+            "one_card_losses": ref["losses"], **close,
+            "step_ms": stats["step_ms"], "steady_step_ms": steady,
+            "one_card_steady_step_ms": one_card,
+            "bytes": stats["bytes"], "one_card_bytes": ref["bytes"],
+            "kernels": kern, "run_s": time.perf_counter() - t0}
+        if kind == "mmoe":
+            out[label]["task_aucs"] = [stats["task0_auc"],
+                                       stats["task1_auc"]]
+            out[label]["one_card_task_aucs"] = [ref["task0_auc"],
+                                                ref["task1_auc"]]
+        b = stats["bytes"]
+        log(f"{what}: {kind} ({path or 'sorted kernels'}) on "
+            f"{MODELS_MESH} over {list(devices)}"
+            + (f" → {want}" if want else "")
+            + f"; losses {stats['losses']} vs one card {ref['losses']}, ws "
+            f"max |diff| {close['ws_max_abs_diff']}"
+            + (f", task AUCs {out[label]['task_aucs']} vs one card "
+               f"{out[label]['one_card_task_aucs']}" if kind == "mmoe"
+               else "")
+            + f"; launches {launches[label]} (predicted, {cards} card "
+            f"blocks × {n_steps} steps); on {card}: working set "
+            f"{b['ws'].get(card, 0) / 2**20:.1f} MiB + feed "
+            f"{b['feed'].get(card, 0) / 2**20:.1f} MiB vs one card "
+            f"{ref['bytes']['ws'].get(card, 0) / 2**20:.1f} + "
+            f"{ref['bytes']['feed'].get(card, 0) / 2**20:.1f} MiB; "
+            + ("median step" if kind == "graph" else "steady step")
+            + f" {steady:.3f} ms (one card {one_card:.3f}); rerun "
+            f"bit-identical; {time.perf_counter() - t0:.1f} s; "
+            f"{card_line()}"
+            + ("; a host block bounds this step: it is no multi-card speed"
+               if host in devices else ""))
+        for name in ("gather_sorted", "scatter_add_sorted"):
+            if name in kern:
+                x = kern[name]
+                log(f"{what}[kernels, row block at {kern['row0']} on "
+                    f"{kern['device']}]: {name} {x['ms']:.4f} ms (plain "
+                    f"{x['plain_ms']:.4f}, library {x['library_ms']:.4f}, "
+                    f"bound {x['bound_ms']:.4f} {x['bound_by']}); p "
+                    f"{kern['p']}, sentinel share "
+                    f"{kern['sentinel_share']:.4f}; max |err| "
+                    f"{x['max_abs_err']:.3g}; {card_line()}")
+    del graph, graph_data
+    t0 = time.perf_counter()
+    out["l"] = models_stager(block, params0, (card, host), device)
+    out["l"]["run_s"] = time.perf_counter() - t0
+    log(f"multicard_models[l]: phase 4's pass staged on dp 2 over "
+        f"[{card}, {host}]: planes {out['l']['staged_planes']} each on its "
+        f"shards' devices, the feed bit-equal to the unstaged upload; pack + "
+        f"upload {out['l']['staged_pack_upload_s']:.2f} s staged vs "
+        f"{out['l']['pack_upload_s']:.2f} s after the pack (host seconds); "
+        f"{card_line()}")
+    if torch.cuda.device_count() < 2:
+        log(f"multicard_models: runs {list(MODELS_TWO.values())} need two "
+            "cards; this machine has 1")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"multicard_models: runs {[r[1] for r in runs] + ['l']} passed; "
+        f"phase {out['phase_s']:.1f} s")
+    return launches, out
+
+
 def profile_phase(seed: int = 1, symbols=SYMBOLS) -> dict:
     """Short traced passes (2 batches) of the lowerings that phases 3-4
     run once untraced: device time by kernel, per step, and the
@@ -5596,12 +6050,17 @@ def main() -> int:
     sharded_launches, sharded_out = timed(
         "sharded", sharded_phase, packed_block, packed_params,
         packed_out["mxu"]["losses"][0], kern["uniform"])
-    graph_launches, graph_out = timed("graph", graph_phase)
+    graph_data = {}        # phase 18's graph and pairs, phase 22's (k)
+    graph_launches, graph_out = timed("graph", graph_phase, keep=graph_data)
     par_launches, par_out = timed("parallel", parallel_phase)
     mc_launches, mc_out = timed("multicard", multicard_phase, packed_block,
                                 packed_params)
     mp_launches, mp_out = timed("multicard_paths", multicard_paths_phase,
                                 packed_block, packed_params)
+    mm_launches, mm_out = timed("multicard_models", multicard_models_phase,
+                                packed_block, packed_params,
+                                graph_data=graph_data)
+    graph_data.clear()
     profile_out = timed("profile", profile_phase)
 
     by_path = {"slice_mxu": slice_launches,
@@ -5622,7 +6081,9 @@ def main() -> int:
                **graph_launches, **par_launches,
                **{f"multicard_{p}": n for p, n in mc_launches.items()},
                **{f"multicard_paths_{p}": n
-                  for p, n in mp_launches.items()}}
+                  for p, n in mp_launches.items()},
+               **{f"multicard_models_{p}": n
+                  for p, n in mm_launches.items()}}
     line = {"kernels": []}
     for name in KERNELS:
         k = kern["uniform"][name]
@@ -5656,6 +6117,13 @@ def main() -> int:
                     f: r["kernels"][name][f]
                     for f in ("ms", "plain_ms", "bound_ms", "bound_by",
                               "library_ms", "max_abs_err")}
+        if name in mm_out["k"]["kernels"]:
+            # the card row block of phase 22's graph run (k): its plan of
+            # the epoch's first step, the other block's ids at the sentinel
+            at["at_multicard_graph"] = {
+                f: mm_out["k"]["kernels"][name][f]
+                for f in ("ms", "plain_ms", "bound_ms", "bound_by",
+                          "library_ms", "max_abs_err")}
         if name in graph_out["kernels"]:
             # a graph step's plan (phase 18): hub rows and K negatives
             at["at_graph"] = {
@@ -5689,6 +6157,7 @@ def main() -> int:
                                  "parallel": par_out,
                                  "multicard": mc_out,
                                  "multicard_paths": mp_out,
+                                 "multicard_models": mm_out,
                                  "profile": profile_out,
                                  "phase_s": phase_s}))
     print(json.dumps(line), flush=True)

@@ -21,7 +21,8 @@ Besides the step's five planes the pass carries the page-view planes
 stay on the host, where the per-user AUC reads them.  ``route_keys`` is
 the trainer fleet's per-record shuffle key.  Under a topology whose shards
 sit on distinct devices each shard's batch columns are uploaded to its own
-device (``upload_pass(topology=, shardings=)``).
+device (``upload_pass(topology=, shardings=)``), by a ``PlaneStager``
+made for the topology as well.
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ import dataclasses
 import functools
 import threading
 import time
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -402,16 +403,33 @@ def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
 class PlaneStager:
     """Overlap the upload with the pack: ``pack_pass(on_plane=stager)``
     calls it as each plane becomes final, and it starts that plane's
-    copy to ``device`` at once (pinned, ``non_blocking`` on a card);
+    copy at once (pinned, ``non_blocking`` on a card);
     ``upload_pass(..., staged=stager)`` then skips the staged planes.
+
+    ``where`` is the device the pass goes to, or a topology whose shards
+    sit on distinct devices (≙ the JAX stager's sharding): each shard's
+    batch columns of the plane (:func:`batch_columns` of every batch of
+    ``batch_size`` records, split as ``topology.batch_spec()``) go to
+    the shard's device, one copy for the shards that hold the same
+    columns on one device, and ``ads_offset`` whole to every device; no
+    plane is ever whole on one device.  ``upload_pass`` takes the
+    stager only for the topology and the batch size it was made for.
 
     The copies are CUDA calls, and no CUDA call runs on a worker thread
     of the port (the pass prefetcher's worker and the async pass build
     only pack): a call off the main thread raises."""
 
-    def __init__(self, device: torch.device):
-        self.device = torch.device(device)
-        self.staged: Dict[str, torch.Tensor] = {}
+    def __init__(self, where, batch_size: Optional[int] = None):
+        self.topology = (where if getattr(where, "multi_device", False)
+                         else None)
+        self.device = (None if self.topology is not None
+                       else torch.device(where))
+        if self.topology is not None and not batch_size:
+            raise ValueError("a PlaneStager over distinct devices cuts "
+                             "each batch's columns: give its batch_size")
+        self.batch_size = batch_size
+        # name -> tensor; over distinct devices, name -> per-shard list
+        self.staged: Dict[str, object] = {}
 
     def __call__(self, name: str, a: np.ndarray) -> None:
         if threading.current_thread() is not threading.main_thread():
@@ -420,7 +438,19 @@ class PlaneStager:
                 f"{threading.current_thread().name!r}: it uploads, so it "
                 "may only be handed to a pack that runs on the main thread")
         t0 = time.monotonic()
-        self.staged[name] = to_device(a, self.device)
+        if self.topology is None:
+            self.staged[name] = to_device(a, self.device)
+        else:
+            topo, made, parts = self.topology, {}, []
+            for k in range(topo.world_size):
+                idx, n = _batch_block(topo, k)
+                key = (idx, device_key(topo.device_of(k)))
+                if key not in made:
+                    made[key] = to_device(
+                        _shard_cut(name, a, self.batch_size, idx, n),
+                        topo.device_of(k))
+                parts.append(made[key])
+            self.staged[name] = parts
         intervals.record("upload", t0, time.monotonic())
 
 
@@ -433,42 +463,50 @@ def upload_pass(host_arrays: HostPassArrays, device: torch.device,
     are already on their way (those skip the upload here).
     ``keep_host``: the feed keeps ``host_arrays`` (the dump's ids,
     labels and real ranges).  Under a ``topology`` whose shards sit on
-    distinct devices, ``shardings`` (the trainer's ``pass_shardings``)
-    splits the batch dim over the shards: each shard's batch columns of
-    every plane are cut on the host, uploaded to the shard's device and
-    relaid there, so the whole pass never lands on one device
-    (≙ ``_h2d_sharding``); each plane is then a ``Sharded``."""
+    distinct devices the batch dim is split over the shards
+    (``topology.batch_spec()``): each shard's batch columns of every
+    plane are cut on the host, uploaded to the shard's device and relaid
+    there, so the whole pass never lands on one device
+    (≙ ``_h2d_sharding``); each plane is then a ``Sharded`` under its
+    spec in ``shardings`` (the trainer's ``pass_shardings``), and a
+    stager must have been made for that topology and batch size."""
     t_up = time.perf_counter()
     m_up = time.monotonic()
     h = host_arrays
     N, B = h.n_batches, h.batch_size
-    if topology is not None and topology.multi_device:
-        if staged is not None:
-            raise NotImplementedError(
-                "a PlaneStager uploads whole planes to one device; staging "
-                "a pass under a topology whose shards sit on distinct "
-                "devices is ROADMAP Queue 1 item 4.1, not ported yet")
+    pre = dict(staged.staged) if staged is not None else {}
+    multi = topology is not None and topology.multi_device
+    if staged is not None and (
+            (staged.topology is not None) != multi
+            or multi and (staged.topology is not topology
+                          or staged.batch_size != B)):
+        raise ValueError(
+            "the PlaneStager was made for "
+            + (f"another topology or batch size ({staged.batch_size}, "
+               f"the pass's is {B})" if multi
+               else "distinct devices" if staged.topology is not None
+               else "one device")
+            + " — make it with the pass's placement")
+    if multi:
         made, parts = {}, []
         for k in range(topology.world_size):
             # shards with the same batch columns on one device share them
-            idx, n = topology.block(shardings["valid"], k, 1)
+            idx, n = _batch_block(topology, k)
             key = (idx, device_key(topology.device_of(k)))
             if key not in made:
-                made[key] = _relayout(_shard_put(h, topology, shardings, k),
-                                      h, N, -(-B // n))
+                made[key] = _relayout(
+                    _shard_put(h, topology, k, pre), h, N,
+                    -(-B // n))
             parts.append(made[key])
         data = {name: Sharded([p[name] for p in parts], topology,
                               shardings[name]) for name in parts[0]}
     else:
-        pre = dict(staged.staged) if staged is not None else {}
-
         def put(name: str, a: np.ndarray) -> torch.Tensor:
             return pre[name] if name in pre else to_device(a, device)
         data = _relayout(put, h, N, B)
     intervals.record("upload", m_up, time.monotonic())
     stat_observe("data.pass_feed.upload_s", time.perf_counter() - t_up)
     uid = h.uid is not None
-    multi = topology is not None and topology.multi_device
     return PackedPassFeed(data=data, n_batches=N, batch_size=B,
                           uid=h.uid, host_labels=h.labels if uid else None,
                           host_valid=h.valid if uid else None,
@@ -494,25 +532,37 @@ def batch_columns(a: np.ndarray, dim: int, idx: int, n: int
     return np.ascontiguousarray(cut)
 
 
-def _shard_put(h: HostPassArrays, topo, shardings: Dict, k: int):
+def _shard_cut(name: str, a: np.ndarray, B: int, idx: int, n: int
+               ) -> np.ndarray:
+    """Host plane ``a`` of a pass of ``B``-record batches cut to batch
+    block ``idx`` of ``n`` of every batch (:func:`batch_columns`);
+    ``ads_offset``, a per-batch plane, whole."""
+    if name == "ads_offset":             # replicated on every shard
+        return a.copy()
+    if name in ("indices", "lengths"):   # [S, N*B(, L)]
+        cut = batch_columns(a.reshape((a.shape[0], -1, B) + a.shape[2:]),
+                            2, idx, n)
+        return cut.reshape((a.shape[0], -1) + a.shape[2:])
+    cut = batch_columns(a.reshape((-1, B) + a.shape[1:]), 1, idx, n)
+    return np.ascontiguousarray(cut.reshape((-1,) + a.shape[1:]))
+
+
+def _batch_block(topo, k: int) -> Tuple[int, int]:
+    """(block index, block count) of shard ``k``'s batch columns."""
+    return topo.block(topo.batch_spec(), k, 0)
+
+
+def _shard_put(h: HostPassArrays, topo, k: int, staged: Dict):
     """``put`` for shard ``k``: each plane cut to the shard's batch
-    columns of every batch on the host (:func:`batch_columns`), then
-    uploaded to its device."""
-    idx, n = topo.block(shardings["valid"], k, 1)
-    N, B = h.n_batches, h.batch_size
+    columns of every batch on the host (:func:`_shard_cut`), then
+    uploaded to its device, or the shard's copy a stager made."""
+    idx, n = _batch_block(topo, k)
     dev = topo.device_of(k)
 
     def put(name: str, a: np.ndarray) -> torch.Tensor:
-        if name == "ads_offset":         # replicated on every shard
-            return to_device(a.copy(), dev)
-        if name in ("indices", "lengths"):   # [S, N*B(, L)]
-            cut = batch_columns(a.reshape((a.shape[0], N, B) + a.shape[2:]),
-                                2, idx, n)
-            cut = cut.reshape((a.shape[0], -1) + a.shape[2:])
-        else:                                # [N*B, ...]
-            cut = batch_columns(a.reshape((N, B) + a.shape[1:]), 1, idx, n)
-            cut = cut.reshape((-1,) + a.shape[1:])
-        return to_device(np.ascontiguousarray(cut), dev)
+        if name in staged:
+            return staged[name][k]
+        return to_device(_shard_cut(name, a, h.batch_size, idx, n), dev)
     return put
 
 

@@ -62,6 +62,7 @@ def all_flags() -> Dict[str, Any]:
 
 define_flag("check_nan_inf", False,
             "per-batch NaN/Inf check of the loss (boxps_worker.cc:1326)")
+# pboxlint: disable-next=PB205 -- paper-fidelity registry entry (PaddleBox parity), not yet wired
 define_flag("auc_runner_mode", False,
             "enable AucRunner slot-replacement eval (flags.cc:972; "
             "metrics/auc_runner.py)")

@@ -9,12 +9,15 @@ rank) pair, and the attention output joins the MLP input.
 
 Declares ``extra_inputs = ("rank_offset",)``: the trainer hands the
 batch's rank_offset plane to ``forward`` as a keyword argument, on the
-streaming and the pass-resident entry points.
+streaming and the pass-resident entry points; with the dense half split
+over replicas on distinct devices it adds the whole batch's input as
+``peers`` (a model that reads a page-view plane takes ``peers`` and
+``peer_rows``).
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -68,10 +71,16 @@ class RankAttentionCTR(nn.Module):
                 "rank_param": snapshot(self.rank_param)}
 
     def forward(self, pooled: torch.Tensor, dense: torch.Tensor,
-                rank_offset: torch.Tensor) -> torch.Tensor:
+                rank_offset: torch.Tensor,
+                peers: Optional[torch.Tensor] = None,
+                peer_rows: Optional[torch.Tensor] = None) -> torch.Tensor:
         """pooled [B, num_slots·emb_width], dense [B, dense_dim],
-        rank_offset [B, 1+2·max_rank] → logits [B]."""
+        rank_offset [B, 1+2·max_rank] → logits [B].  ``peers`` /
+        ``peer_rows``: the whole batch's input that ``rank_offset``
+        indexes and the row of it that each of ``pooled``'s rows is,
+        when ``pooled`` holds a dense replica's rows only
+        (``rank_attention``)."""
         att, ins_rank = rank_attention(pooled, rank_offset, self.rank_param,
-                                       self.max_rank)
+                                       self.max_rank, peers, peer_rows)
         x = torch.cat([pooled, att, dense, ins_rank[:, None]], dim=-1)
         return self.mlp(x)[:, 0]

@@ -81,8 +81,9 @@ def ensure_built(quiet: bool = True) -> bool:
     usable, False (after printing g++'s errors unless ``quiet``) when it
     cannot be built."""
     global _FAILED
+    # the path hashes the sources: read them before the build lock
+    out = Path(lib_path())
     with _LOCK:
-        out = Path(lib_path())
         if out.exists():
             return True
         if _FAILED:

@@ -27,13 +27,18 @@ _lib_lock = threading.Lock()
 
 def _load():
     global _lib
+    if _lib is not None:
+        return _lib
+    # the build (under its own lock) and the library's path, which hashes
+    # the sources, come before the loader's lock
+    if not build.ensure_built():
+        return None
+    path = build.lib_path()
     with _lib_lock:
         if _lib is not None:
             return _lib
-        if not build.ensure_built():
-            return None
         try:
-            lib = ctypes.CDLL(build.lib_path())
+            lib = ctypes.CDLL(path)
             lib.pbox_dump_xbox.restype = ctypes.c_longlong
             lib.pbox_dump_xbox.argtypes = [
                 ctypes.c_char_p, ctypes.c_int,

@@ -30,12 +30,17 @@ _lib_lock = threading.Lock()
 
 def _load():
     global _lib
+    if _lib is not None:
+        return _lib
+    # the build (under its own lock) and the library's path, which hashes
+    # the sources, come before the loader's lock
+    if not build.ensure_built():
+        return None
+    path = build.lib_path()
     with _lib_lock:
         if _lib is not None:
             return _lib
-        if not build.ensure_built():
-            return None
-        lib = ctypes.CDLL(build.lib_path())
+        lib = ctypes.CDLL(path)
         lib.pbox_hash_new.restype = ctypes.c_void_p
         lib.pbox_hash_new.argtypes = [ctypes.c_int64]
         lib.pbox_hash_free.restype = None

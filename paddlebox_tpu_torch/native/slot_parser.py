@@ -31,12 +31,17 @@ _lib_lock = threading.Lock()
 
 def _load():
     global _lib
+    if _lib is not None:
+        return _lib
+    # the build (under its own lock) and the library's path, which hashes
+    # the sources, come before the loader's lock
+    if not build.ensure_built():
+        return None
+    path = build.lib_path()
     with _lib_lock:
         if _lib is not None:
             return _lib
-        if not build.ensure_built():
-            return None
-        lib = ctypes.CDLL(build.lib_path())
+        lib = ctypes.CDLL(path)
         lib.pbox_parse_block.restype = ctypes.c_void_p
         lib.pbox_parse_block.argtypes = [
             ctypes.c_char_p, ctypes.c_int64, ctypes.c_int32,

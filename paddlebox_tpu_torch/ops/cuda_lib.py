@@ -61,12 +61,14 @@ def build_all(names: List[str] = None) -> Dict[str, float]:
     library yet, in parallel.  Returns {name: seconds} for the sources
     compiled by this call; raises RuntimeError if any compile fails."""
     names = list(SOURCES) if names is None else names
+    # the libraries' paths hash the sources: read them before the lock
+    outs = {name: _lib_path(name) for name in names}
     with _LOCK:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         procs = {}
         t0 = time.perf_counter()
         for name in names:
-            out = _lib_path(name)
+            out = outs[name]
             if out.exists():
                 continue
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
@@ -94,10 +96,11 @@ def library(name: str) -> ctypes.CDLL:
     lib = _LIBS.get(name)
     if lib is None:
         build_all([name])
+        path = str(_lib_path(name))
         with _LOCK:
             lib = _LIBS.get(name)
             if lib is None:
-                lib = ctypes.CDLL(str(_lib_path(name)))
+                lib = ctypes.CDLL(path)
                 _LIBS[name] = lib
     return lib
 

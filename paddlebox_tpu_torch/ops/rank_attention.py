@@ -24,19 +24,35 @@ PyTorch forms by sorting the indices (no float atomics).  The clip
 semantics are the JAX package's: indices clip to [0, B-1], ranks to
 [0, max_rank-1], and a pair with an absent own or peer rank weighs 0
 (it gathers its own row, whose term the one-hot drops).
+
+With the batch split over dense replicas, a replica holds some of the
+batch's rows but their peers may sit in any row: ``peers`` is then the
+whole batch's input, which ``rank_offset``'s indices address, and
+``rows`` the row of ``peers`` that each of ``x``'s rows is.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 
 def rank_attention(x: torch.Tensor, rank_offset: torch.Tensor,
-                   rank_param: torch.Tensor, max_rank: int = 3):
+                   rank_param: torch.Tensor, max_rank: int = 3,
+                   peers: Optional[torch.Tensor] = None,
+                   rows: Optional[torch.Tensor] = None):
     """x [B, in_col]; rank_offset [B, 1+2*max_rank] integer;
-    rank_param [max_rank*max_rank*in_col, out_col].
+    rank_param [max_rank*max_rank*in_col, out_col]; ``peers``
+    [B_all, in_col] the rows ``rank_offset`` indexes (default ``x``),
+    ``rows`` [B] the row of ``peers`` each row of ``x`` is (default
+    0..B-1).
     → (out [B, out_col], ins_rank [B] in x's dtype)."""
     b, in_col = x.shape
+    if peers is None:
+        peers = x
+    if rows is None:
+        rows = torch.arange(b, device=x.device)
     ro = rank_offset.long()
     own = ro[:, 0] - 1                                 # [B]
     peer = ro[:, 1::2] - 1                             # [B, K]
@@ -49,9 +65,9 @@ def rank_attention(x: torch.Tensor, rank_offset: torch.Tensor,
     # sorted sum no longer runs every absent pair of the batch into row 0
     # as one serial run.  x[index] (not index_select): its backward sums
     # by sorted index, with no float atomics
-    rows = torch.where(valid, index.clamp(0, b - 1),
-                       torch.arange(b, device=x.device)[:, None])
-    xin = x[rows]                                      # [B, K, in_col]
+    src = torch.where(valid, index.clamp(0, peers.shape[0] - 1),
+                      rows.to(index.dtype)[:, None])
+    xin = peers[src]                                   # [B, K, in_col]
     blocks = torch.arange(max_rank * max_rank, device=x.device)
     onehot = ((block[:, None, :] == blocks[None, :, None])
               & valid[:, None, :]).to(x.dtype)         # [B, mr², K]

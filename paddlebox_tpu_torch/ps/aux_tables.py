@@ -115,6 +115,7 @@ class InputTable:
         # write-tmp + os.replace so a crash mid-dump never leaves a torn
         # file at the committed name
         tmp = path + ".tmp"
+        # pboxlint: disable-next=PB104 -- save is a rare cold verb
         with self._lock, open(tmp, "w") as f:
             for k, v in self._map.items():
                 f.write(f"{k}\t{v}\n")
@@ -122,6 +123,7 @@ class InputTable:
 
     def load(self, path: str) -> None:
         # load swaps the whole map; readers must not see a half-built one
+        # pboxlint: disable-next=PB104 -- the map swap is the locked op
         with self._lock, open(path) as f:
             self._map = {}
             for line in f:

@@ -326,6 +326,7 @@ class DeviceRowCache:
                   for f, v in soa.items()}
         with self._lock:
             self._mirror = mirror
+        # pboxlint: disable-next=PB102 -- value planes are main-thread-only; _lock guards only the COW index
         self._store = store
         self.row_bytes = int(sum(
             v.element_size() * int(np.prod(v.shape[1:], dtype=np.int64))
@@ -417,6 +418,7 @@ class DeviceRowCache:
                     if heat.ACTIVE is not None:
                         # churn tracking: which keys fall out of HBM
                         heat.ACTIVE.observe("cache_evict", ev_keys)
+                    # pboxlint: disable-next=PB102 -- value planes are main-thread-only; _lock guards only the COW index
                     self._slot_key[ev] = 0
                     adm_idx.append(rest[:n_evict])
                     adm_slots.append(ev)
@@ -450,7 +452,9 @@ class DeviceRowCache:
             if moved:
                 stat_add("ps.cache.device_copy_rows", float(moved))
             self._slot_key[upd_slots] = keys[upd_idx]
+            # pboxlint: disable-next=PB102 -- value planes are main-thread-only; _lock guards only the COW index
             self._slot_score[upd_slots] = scores[upd_idx]
+            # pboxlint: disable-next=PB102 -- value planes are main-thread-only; _lock guards only the COW index
             self._slot_pass[upd_slots] = pass_id
 
         # the new index: the old one without the evicted keys, the

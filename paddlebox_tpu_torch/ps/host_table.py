@@ -64,9 +64,10 @@ class _Shard:
         self._refresh_views()
 
     def _refresh_views(self) -> None:
-        n = self._len
-        self.keys = self._keys_buf[:n]
-        self.soa = {f: buf[:n] for f, buf in self._soa_buf.items()}
+        with self.lock:      # reentrant: the callers that swap hold it
+            n = self._len
+            self.keys = self._keys_buf[:n]
+            self.soa = {f: buf[:n] for f, buf in self._soa_buf.items()}
 
     @property
     def size(self) -> int:

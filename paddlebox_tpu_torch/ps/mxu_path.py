@@ -84,14 +84,18 @@ def _pull_table(ws: Tensors, dims: sp.SpmmDims) -> torch.Tensor:
     n = ws["show"].shape[0]
     d = ws["mf"].shape[1]
     dx = _ex_dim(ws)
+    # pboxlint: disable-next=PB301 -- documented pull-table build cost (one relayout per step, not per-row math)
     tab = torch.zeros((3 + d + dx + 1, dims.n_kernel), dtype=torch.float32,
                       device=ws["show"].device)
     tab[0, :n] = ws["show"]
     tab[1, :n] = ws["click"]
     tab[2, :n] = ws["embed_w"]
+    # pboxlint: disable-next=PB301 -- documented pull-table build cost (one relayout per step, not per-row math)
     tab[3:3 + d, :n] = mf_values(ws, ws["mf"]).T
     if dx:
+        # pboxlint: disable-next=PB301 -- documented pull-table build cost (one relayout per step, not per-row math)
         tab[3 + d:3 + d + dx, :n] = ws["mf_ex"].T
+    # pboxlint: disable-next=PB301 -- documented pull-table build cost (one relayout per step, not per-row math)
     tab[3 + d + dx, :n] = ws["mf_size"].to(torch.float32)
     return tab
 

@@ -110,5 +110,6 @@ def push_and_update(ws: Tensors, plan: Tuple[torch.Tensor, ...],
     # of them were untouched, so every duplicate write carries row 0's
     # original values
     for f in fields:
+        # pboxlint: disable-next=PB301 -- the [U]-row scatter back (the JAX package's .at[u_rows].set), not an [N] sweep
         ws[f].index_copy_(0, ur, new[f])
     return ws

@@ -267,15 +267,17 @@ class _DedupWindow:
         """Full-replace the window from an ``export`` snapshot (restore
         order follows the checkpoint chain, so the HEAD generation's
         snapshot — restored last — wins).  Entries come back marked done;
-        eviction bookkeeping restarts fresh."""
+        eviction bookkeeping restarts fresh.  The frames are decoded
+        before the window's lock is taken."""
+        decoded = [(rid, wire.decode(raw)) for rid, raw in state]
         with self._cv:
             self._by_token.clear()
-            for rid, raw in state:
+            for rid, msg in decoded:
                 tok = self._token(rid)
                 entries = self._by_token.get(tok)
                 if entries is None:
                     entries = self._by_token[tok] = OrderedDict()
-                entries[rid] = [True, wire.decode(raw)]
+                entries[rid] = [True, msg]
             self._cv.notify_all()
             return sum(len(e) for e in self._by_token.values())
 
@@ -1300,12 +1302,15 @@ class _Stream:
     lives on exactly one server, so cross-shard failover of a chunk
     would be meaningless."""
 
-    __slots__ = ("idx", "shard", "sock", "gen")
+    __slots__ = ("idx", "shard", "sock", "gen", "closing")
 
     def __init__(self, idx: int, shard: int = 0, gen: int = 0):
         self.idx = idx
         self.shard = shard
         self.sock: Optional[socket.socket] = None
+        # the client was closed while a verb held the stream: its socket
+        # closes when the verb checks it back in
+        self.closing = False
         # pool generation: a membership refresh swaps the whole pool; a
         # stream from a previous generation checking back in is closed
         # and discarded instead of polluting the new pool
@@ -1579,6 +1584,9 @@ class PSClient:
     def _checkin(self, *streams: _Stream) -> None:
         with self._pool_cv:
             for st in streams:
+                if st.closing:
+                    st.closing = False
+                    self._close_stream(st)
                 if st.gen != self._pool_gen:
                     # stream from a pre-refresh pool: retire it
                     self._close_stream(st)
@@ -1613,11 +1621,18 @@ class PSClient:
             stream.sock = None
 
     def close(self) -> None:
-        """Close every pooled connection (idle clients only — in-flight
-        verbs own their streams)."""
+        """Close every pooled connection.  A stream an in-flight verb
+        holds keeps its socket until the verb checks it back in: the
+        serving router closes a client it replaced while calls on it may
+        still run, and a socket taken from under a call would fail it
+        with no retry."""
         with self._pool_cv:
-            for s in self._pool:
-                self._close_stream(s)
+            idle = {id(st) for free in self._free for st in free}
+            for st in self._pool:
+                if id(st) in idle:
+                    self._close_stream(st)
+                else:
+                    st.closing = True
 
     # -- elastic membership (epoch-fenced routing) --------------------------
     def on_map_change(self, cb) -> None:

@@ -26,6 +26,22 @@ back into the engine's working set at its end, so ``end_pass`` writes
 the trained rows to the table.  Adagrad runs over every row, as the JAX
 step does: an untouched row's gradient is exactly 0, so its state keeps
 its bits.
+
+Under a topology whose shards sit on distinct devices the working set is
+split into row blocks (``Sharded.row_blocks``), and each keeps its own
+feature-major table on its device for the epoch, in the owner-computes
+pattern of the CTR trainer's ``_blocks_step``: a step's rows are planned
+over each block's rows (the ids it does not hold parked at the plan's
+sentinel), each block's ``gather_sorted`` pulls the values it holds
+(zeros elsewhere) and the parts are summed onto the trainer's device in
+row-block order — one contributor a value, so the sum is exact.  The
+loss and its gradient run once there, on the trainer's own negatives;
+the per-occurrence gradient goes to every block, which merges its rows'
+occurrences with ``scatter_add_sorted`` (in the one-device order: the
+stable sort keeps each row's occurrences in canonical order) and steps
+them by adagrad.  At the epoch's end each block writes back into its own
+fields, and into the replicas of it under dp × sharding.  The graph's
+CSR and the walks stay on the trainer's device.
 """
 
 from __future__ import annotations
@@ -38,7 +54,10 @@ import torch.nn.functional as F
 
 from paddlebox_tpu_torch.graph.graph_table import GraphTable
 from paddlebox_tpu_torch.ops import sorted_spmm as sp
-from paddlebox_tpu_torch.ps import embedding
+from paddlebox_tpu_torch.parallel import collective as col
+from paddlebox_tpu_torch.parallel.topology import (Sharded, physical_device,
+                                                   same_device, transfer)
+from paddlebox_tpu_torch.ps import mxu_path
 
 
 def walk_pairs(walks: torch.Tensor, window: int) -> torch.Tensor:
@@ -69,28 +88,24 @@ def to_feature_major(mf: torch.Tensor, g2sum: torch.Tensor
     return mf_fm, g2
 
 
-def skipgram_grad(mf_fm: torch.Tensor, centers: torch.Tensor,
-                  contexts: torch.Tensor, negs: torch.Tensor):
-    """The loss and gradient of one skip-gram-with-negatives step on a
-    feature-major table (the table is not changed).
-
-    centers / contexts [B] and negs [B, K] are pass rows (row 0 is the
-    padding row: a pair with a 0 side is masked).  The loss is
-    −Σ (log σ(u·v) + Σ_k log σ(−u·v_k)) · valid / max(Σ valid, 1).
-    Returns (loss, payload [D, p_pad] — each occurrence's gradient in
-    sorted order, pad columns 0 — and the plan (rows2d, first_occ,
-    dims) that ``scatter_add_sorted`` merges it by)."""
-    b, k = negs.shape
-    d = mf_fm.shape[0]
-    rows = torch.cat([centers.reshape(-1), contexts.reshape(-1),
+def step_rows(centers: torch.Tensor, contexts: torch.Tensor,
+              negs: torch.Tensor) -> torch.Tensor:
+    """A step's [B·(2+K)] occurrence rows: centers, contexts, then the
+    negatives."""
+    return torch.cat([centers.reshape(-1), contexts.reshape(-1),
                       negs.reshape(-1)]).to(torch.int32)
-    dims = sp.spmm_dims(rows.numel(), mf_fm.shape[1] - sp.TILE)
-    plan = sp.build_plan(rows, dims)
-    rows2d, perm, inv_perm, first_occ = plan[0], plan[1], plan[2], plan[7]
-    gathered = sp.gather_sorted(mf_fm, rows2d, dims)          # [D, p_pad]
-    block = gathered.index_select(1, inv_perm.long()).T.contiguous()
-    block.requires_grad_(True)                                # [P, D] leaf
-    valid = ((centers > 0) & (contexts > 0)).to(mf_fm.dtype)
+
+
+def skipgram_loss_grad(block: torch.Tensor, centers: torch.Tensor,
+                       contexts: torch.Tensor, negs: torch.Tensor):
+    """The loss −Σ (log σ(u·v) + Σ_k log σ(−u·v_k)) · valid /
+    max(Σ valid, 1) of the pulled rows ``block`` [B·(2+K), D] (in
+    :func:`step_rows` order) and its gradient in each row, [B·(2+K), D].
+    A pair with a row-0 (padding) side is masked."""
+    b, k = negs.shape
+    d = block.shape[1]
+    block = block.detach().contiguous().requires_grad_(True)  # a leaf
+    valid = ((centers > 0) & (contexts > 0)).to(block.dtype)
     with torch.enable_grad():
         u, v = block[:b], block[b:2 * b]
         vn = block[2 * b:].reshape(b, k, d)
@@ -99,18 +114,56 @@ def skipgram_grad(mf_fm: torch.Tensor, centers: torch.Tensor,
         denom = valid.sum().clamp(min=1.0)
         loss = -((pos + neg) * valid).sum() / denom
         (grad,) = torch.autograd.grad(loss, block)
-    payload = mf_fm.new_zeros((d, dims.p_pad))
+    return loss.detach(), grad
+
+
+def sorted_payload(grad: torch.Tensor, perm: torch.Tensor,
+                   dims: sp.SpmmDims) -> torch.Tensor:
+    """Per-occurrence grads [P, D] → the plan's sorted payload
+    [D, p_pad] (pad columns 0)."""
+    payload = grad.new_zeros((grad.shape[1], dims.p_pad))
     payload[:, :dims.p] = grad.index_select(0, perm.long()).T
-    return loss.detach(), payload, (rows2d, first_occ, dims)
+    return payload
+
+
+def skipgram_grad(mf_fm: torch.Tensor, centers: torch.Tensor,
+                  contexts: torch.Tensor, negs: torch.Tensor):
+    """The loss and gradient of one skip-gram-with-negatives step on a
+    feature-major table (the table is not changed).
+
+    centers / contexts [B] and negs [B, K] are pass rows (row 0 is the
+    padding row: a pair with a 0 side is masked).  The loss is
+    :func:`skipgram_loss_grad`'s.  Returns (loss, payload [D, p_pad] —
+    each occurrence's gradient in sorted order, pad columns 0 — and the
+    plan (rows2d, first_occ, dims) that ``scatter_add_sorted`` merges it
+    by)."""
+    rows = step_rows(centers, contexts, negs)
+    dims = sp.spmm_dims(rows.numel(), mf_fm.shape[1] - sp.TILE)
+    plan = sp.build_plan(rows, dims)
+    rows2d, perm, inv_perm, first_occ = plan[0], plan[1], plan[2], plan[7]
+    gathered = sp.gather_sorted(mf_fm, rows2d, dims)          # [D, p_pad]
+    block = gathered.index_select(1, inv_perm.long()).T       # [P, D]
+    loss, grad = skipgram_loss_grad(block, centers, contexts, negs)
+    return loss, sorted_payload(grad, perm, dims), (rows2d, first_occ, dims)
 
 
 def adagrad_update(mf_fm: torch.Tensor, g2: torch.Tensor,
-                   delta: torch.Tensor, lr: float) -> None:
+                   delta: torch.Tensor, lr: float, row0: int = 0,
+                   n: Optional[int] = None) -> None:
     """Adagrad on the embedding field (the mf / mf_g2sum rule of
     optimizer.cuh.h:31) from the merged gradient ``delta`` [D, n_kernel],
-    in place.  Row 0 is reserved; an untouched row's gradient is exactly
-    0, so its state keeps its bits."""
-    delta[:, 0] = 0.0
+    in place.  Global row 0 is reserved: it is the table's local row 0
+    where the table's rows start at ``row0`` = 0.  ``n``: step only the
+    first n rows (a block's own: past them the merged gradient of the
+    rows other blocks own, parked at the sentinel, is zeroed, so the
+    sentinel tile stays zero).  An untouched row's gradient is exactly
+    0, so its state keeps its bits.  The mean square is one reduction
+    over the table's whole width, a whole number of tiles, so a block's
+    rows are reduced as the whole table's are."""
+    if row0 == 0:
+        delta[:, 0] = 0.0
+    if n is not None:
+        delta[:, n:] = 0.0
     g2.add_((delta * delta).sum(0) / delta.shape[0])
     scale = lr / (g2.sqrt() + 1e-8)
     mf_fm.sub_(delta * scale)
@@ -119,10 +172,10 @@ def adagrad_update(mf_fm: torch.Tensor, g2: torch.Tensor,
 def skipgram_step(mf_fm: torch.Tensor, g2: torch.Tensor,
                   centers: torch.Tensor, contexts: torch.Tensor,
                   negs: torch.Tensor, lr: float) -> torch.Tensor:
-    """One step: :func:`skipgram_grad`, the push (``scatter_add_sorted``
-    merges each row's gradient), :func:`adagrad_update`.  Updates
-    ``mf_fm`` [D, n_kernel] and ``g2`` [n_kernel] in place; returns the
-    loss."""
+    """One step over the whole table: :func:`skipgram_grad`, the push
+    (``scatter_add_sorted`` merges each row's gradient),
+    :func:`adagrad_update`.  Updates ``mf_fm`` [D, n_kernel] and ``g2``
+    [n_kernel] in place; returns the loss."""
     loss, payload, (rows2d, first_occ, dims) = skipgram_grad(
         mf_fm, centers, contexts, negs)
     delta = sp.scatter_add_sorted(payload, rows2d, first_occ, dims)
@@ -130,26 +183,57 @@ def skipgram_step(mf_fm: torch.Tensor, g2: torch.Tensor,
     return loss
 
 
+def skipgram_step_blocks(tables, blocks, device, centers: torch.Tensor,
+                         contexts: torch.Tensor, negs: torch.Tensor,
+                         lr: float) -> torch.Tensor:
+    """:func:`skipgram_step` over row blocks: ``tables`` each block's
+    feature-major (mf_fm, g2) on its device, updated in place,
+    ``blocks`` each block's (device, first global row, rows); the step's
+    rows and the loss live on ``device``.  Each block pulls the rows it
+    holds (``gather_sorted`` over its ``mxu_path.block_plan``: the other
+    rows parked at the sentinel), the parts are summed on ``device`` in
+    block order, the loss and gradient run there
+    (:func:`skipgram_loss_grad`), and every block merges its rows'
+    occurrences (``scatter_add_sorted``) and steps them.  Returns the
+    loss."""
+    rows = step_rows(centers, contexts, negs)
+    plans, parts = [], []
+    for (fm, _), (dev, row0, n) in zip(tables, blocks):
+        dims, plan = mxu_path.block_plan(transfer(rows, device, dev), row0,
+                                         n)
+        g = sp.gather_sorted(fm, plan[0], dims)               # [D, p_pad]
+        parts.append(g.index_select(1, plan[2].long()).T)     # [P, D]
+        plans.append((dims, plan))
+    devs = [dev for dev, _, _ in blocks]
+    block = col.reduce_scatter_onto(parts, devs, [device])[0]
+    loss, grad = skipgram_loss_grad(block, centers, contexts, negs)
+    for (fm, g2), (dev, row0, n), (dims, plan) in zip(tables, blocks,
+                                                      plans):
+        payload = sorted_payload(transfer(grad, device, dev), plan[1],
+                                 dims)
+        delta = sp.scatter_add_sorted(payload, plan[0], plan[7], dims)
+        adagrad_update(fm, g2, delta, lr, row0=row0, n=n)
+    return loss
+
+
 class GraphEmbeddingTrainer:
     """Skip-gram-with-negatives over PS-resident node embeddings, on the
-    engine's device."""
+    engine's device (under a topology, its first shard's: the graph,
+    the walks, the negatives and the loss live there; the working set's
+    row blocks step on their own devices)."""
 
     def __init__(self, engine, graph: GraphTable, n_negatives: int = 5,
                  learning_rate: float = 0.05, window: int = 2,
                  seed: int = 0):
-        topo = getattr(engine, "topology", None)
-        if topo is not None and topo.multi_device:
-            raise NotImplementedError(
-                f"graph learning {embedding.MULTI_DEVICE_TODO}")
-        if graph.device != engine.device:
+        if not same_device(graph.device, engine.device):
             raise ValueError(f"the graph lives on {graph.device}, the "
-                             f"engine's working set on {engine.device}")
+                             f"engine's device is {engine.device}")
         self.engine = engine
         self.graph = graph
         self.k = n_negatives
         self.lr = learning_rate
         self.window = window
-        self.device = engine.device
+        self.device = physical_device(engine.device)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
         self.stats: dict = {}
@@ -195,7 +279,14 @@ class GraphEmbeddingTrainer:
         if p == 0:
             self.stats = {"losses": [], "step_ms": []}
             return float("nan")
-        mf_fm, g2 = to_feature_major(ws["mf"], ws["mf_g2sum"])
+        held = self._held_blocks(ws)
+        homes = {}                       # each row range's first block
+        for dev, row0, mf, g2sum in held:
+            homes.setdefault(row0, (dev, mf, g2sum))
+        homes = sorted(homes.items())
+        blocks = [(dev, row0, mf.shape[0]) for row0, (dev, mf, _) in homes]
+        tables = [to_feature_major(mf, g2sum)
+                  for _, (_, mf, g2sum) in homes]
         timed = self.device.type == "cuda"
         losses, events = [], []
         for lo in range(0, p, batch_size):
@@ -208,18 +299,35 @@ class GraphEmbeddingTrainer:
                 ev = (torch.cuda.Event(enable_timing=True),
                       torch.cuda.Event(enable_timing=True))
                 ev[0].record()
-            losses.append(skipgram_step(mf_fm, g2, chunk[:, 0],
-                                        chunk[:, 1], negs, self.lr))
+            if len(tables) == 1:   # the whole table: no row to park
+                losses.append(skipgram_step(*tables[0], chunk[:, 0],
+                                            chunk[:, 1], negs, self.lr))
+            else:
+                losses.append(skipgram_step_blocks(
+                    tables, blocks, self.device, chunk[:, 0], chunk[:, 1],
+                    negs, self.lr))
             if timed:
                 ev[1].record()
                 events.append(ev)
-        n = ws["mf"].shape[0]
-        ws["mf"].copy_(mf_fm[:, :n].T)
-        ws["mf_g2sum"].copy_(g2[:n])
+        at = {row0: i for i, (_, row0, _) in enumerate(blocks)}
+        for dev, row0, mf, g2sum in held:  # replicas included
+            (fm, g2), (src, _, n) = tables[at[row0]], blocks[at[row0]]
+            mf.copy_(transfer(fm[:, :n].T, src, dev))
+            g2sum.copy_(transfer(g2[:n], src, dev))
         stacked = torch.stack(losses)
         self.stats = {"losses": stacked.tolist(),
                       "step_ms": [a.elapsed_time(b) for a, b in events]}
         return float(stacked.mean())
+
+    def _held_blocks(self, ws) -> list:
+        """(device, first global row, mf block, mf_g2sum block) of every
+        block tensor of the working set, replicas included; a working set
+        on one device is one block."""
+        mf, g2sum = ws["mf"], ws["mf_g2sum"]
+        if not isinstance(mf, Sharded):
+            return [(self.device, 0, mf, g2sum)]
+        return [(mf.topo.devices[k], mf.rows(k).start, blk, g2sum.parts[k])
+                for k, blk in mf.unique()]
 
     def train_walks(self, starts: np.ndarray, length: int = 8,
                     batch_size: int = 4096,

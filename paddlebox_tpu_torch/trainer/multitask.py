@@ -9,6 +9,14 @@ per-task masked BCE, the push's show/click come from task 0 (the CTR
 head), and the AUC buckets accumulate per task into stacked tables.
 Extra feed planes reach ``forward_multi`` as keyword arguments; the
 per-user AUC (``uid_slot``) scores task 0.
+
+Under a topology whose shards sit on distinct devices the step is
+``SparseTrainer``'s reference lowering over row blocks
+(``_blocks_step``): each dense replica's loss divides by the global
+batch's valid count times the task count, the push's show/click come
+from each batch block's task-0 labels, and the [B, T] preds are joined
+in batch order on the trainer's device, where the per-task AUC
+accumulates once over the whole batch.
 """
 
 from __future__ import annotations
@@ -21,7 +29,6 @@ import torch.nn.functional as F
 from paddlebox_tpu_torch.data.batch_pack import BatchPacker
 from paddlebox_tpu_torch.metrics import auc as auc_mod
 from paddlebox_tpu_torch.metrics.auc import AucCalculator, accumulate_auc
-from paddlebox_tpu_torch.ps import embedding
 from paddlebox_tpu_torch.trainer.trainer import SparseTrainer
 
 
@@ -42,18 +49,14 @@ class MultiTaskSparseTrainer(SparseTrainer):
     def __init__(self, engine, model, feed_config, batch_size: int,
                  label_slots: List[str], **kw):
         """``model`` has ``forward_multi`` (e.g. ``models.mmoe.MMoE``).
-        The step is the reference lowering in f32: ``amp`` and any other
-        explicit ``sparse_path`` raise, and so does a topology whose
-        shards sit on distinct devices."""
+        The step is the reference lowering in f32 (on one device or over
+        the row blocks of shards on distinct devices): ``amp`` and any
+        other explicit ``sparse_path`` raise."""
         if kw.get("amp"):
             raise ValueError("MultiTaskSparseTrainer trains in f32 (the "
                              "JAX package's multi-task step has no amp)")
         super().__init__(engine, model, feed_config, batch_size,
                          label_slot=label_slots[0], **kw)
-        if self._multi:
-            raise NotImplementedError(
-                f"MultiTaskSparseTrainer {embedding.MULTI_DEVICE_TODO}: its "
-                "task heads' step has no per-device placement")
         if self.sparse_path not in ("auto", "reference"):
             raise ValueError("MultiTaskSparseTrainer trains on the "
                              "reference lowering only, not "
@@ -78,14 +81,21 @@ class MultiTaskSparseTrainer(SparseTrainer):
         return torch.stack([torch.ones_like(labels[:, 0]), labels[:, 0]],
                            dim=1)
 
-    def _loss_and_preds(self, x, dense, labels, valid, extras=None):
-        logits = self.model.forward_multi(
+    def _loss_and_preds(self, x, dense, labels, valid, extras=None,
+                        model=None, count=None):
+        """The mean of the per-task masked BCE: Σ per · w over
+        max(count · T, 1), ``count`` the valid records (default: this
+        batch's; a dense replica gets the global batch's)."""
+        model = self.model if model is None else model
+        logits = model.forward_multi(
             x, dense, **self._model_extras(extras))          # [B, T]
         w = valid.to(torch.float32)[:, None]
         per = F.binary_cross_entropy_with_logits(logits, labels,
                                                  reduction="none")
-        loss = torch.sum(per * w) / torch.clamp(
-            torch.sum(w) * self.n_tasks, min=1.0)
+        if count is None:
+            count = torch.sum(w)
+        loss = torch.sum(per * w) / torch.clamp(count * self.n_tasks,
+                                                min=1.0)
         return loss, torch.sigmoid(logits.detach())
 
     def _accumulate_metrics(self, preds, labels, valid) -> None:

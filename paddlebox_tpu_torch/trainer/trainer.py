@@ -81,9 +81,11 @@ each row block of the working set pulling, merging and stepping its own
 rows on its device (:meth:`_blocks_step`); under dp × sharding each
 table block steps on its first node's device and the other nodes'
 replicas of it take a copy.  A batch the dp × sharding blocks do not
-divide is padded with empty records on distinct devices.  Models that
-read the page-view planes raise ``NotImplementedError`` there (ROADMAP
-Queue 1 item 4.1).
+divide is padded with empty records on distinct devices, at the end of
+its last block, so the page-view planes' batch-local rows stay valid.  A
+model that reads them (``RankAttentionCTR``) gets each replica's rows'
+``rank_offset``, the whole ``ads_offset`` and the whole batch's input
+for its peer rows (:meth:`_replica_dense_half`).
 """
 
 from __future__ import annotations
@@ -129,6 +131,11 @@ from paddlebox_tpu_torch.utils.timer import TimerRegistry
 
 # the step's own planes of a batch; every other plane is an extra input
 _STEP_PLANES = ("indices", "lengths", "dense", "labels", "valid")
+# the page-view planes: their entries address rows of the whole batch
+_PV_PLANES = {"rank_offset", "ads_offset"}
+# what a dense replica of a page-view model gets besides its own rows:
+# the whole batch's input and the row of it each of its rows is
+_PEER_KEYS = ("peers", "peer_rows")
 
 
 def _mask_padding(idx_slb: torch.Tensor, lengths: torch.Tensor
@@ -225,11 +232,10 @@ class SparseTrainer:
         have = ({"rank_offset", "ads_offset"}
                 | {s.name for s in feed_config.string_slots})
         unknown = need - have
-        if self._multi and need & {"rank_offset", "ads_offset"}:
-            raise NotImplementedError(
-                "models that read the page-view planes (rank_offset, "
-                f"ads_offset) {embedding.MULTI_DEVICE_TODO}: their rows "
-                "reach across the batch columns a device replica holds")
+        # rank_offset / ads_offset address rows anywhere in the batch: on
+        # distinct devices each dense replica also gets the whole batch's
+        # input (_replica_dense_half)
+        self._reads_pv = bool(need & _PV_PLANES)
         if unknown:
             raise ValueError(
                 f"model.extra_inputs {sorted(unknown)} are not feed planes "
@@ -432,10 +438,13 @@ class SparseTrainer:
         return torch.stack([torch.ones_like(labels), labels], dim=1)
 
     def _model_extras(self, extras) -> Dict[str, torch.Tensor]:
-        """The feed planes the model declares in ``extra_inputs``."""
+        """The feed planes the model declares in ``extra_inputs``, and a
+        dense replica's peer rows (:meth:`_replica_dense_half`)."""
         if not extras:
             return {}
-        return {k: extras[k] for k in getattr(self.model, "extra_inputs", ())}
+        out = {k: extras[k] for k in getattr(self.model, "extra_inputs", ())}
+        out.update((k, extras[k]) for k in _PEER_KEYS if k in extras)
+        return out
 
     def _forward(self, x: torch.Tensor, dense: torch.Tensor,
                  extras=None, model=None) -> torch.Tensor:
@@ -444,31 +453,34 @@ class SparseTrainer:
         back to the f32 masters (≙ the JAX package casting the params
         pytree and inputs; ``torch.autocast`` would keep reductions and
         many elementwise ops in f32, another function).  The extra feed
-        planes pass uncast.  ``model``: a dense replica (default: the
-        trainer's model)."""
+        planes pass uncast, a replica's ``peers`` cast with ``x``.
+        ``model``: a dense replica (default: the trainer's model)."""
         model = self.model if model is None else model
         kw = self._model_extras(extras)
         if not self.amp:
             return model(x, dense, **kw)
         bf16 = torch.bfloat16
+        if "peers" in kw:
+            kw["peers"] = kw["peers"].to(bf16)
         params = {n: p.to(bf16) for n, p in model.named_parameters()}
         logits = torch.func.functional_call(
             model, params, (x.to(bf16), dense.to(bf16)), kw)
         return logits.to(torch.float32)
 
     def _loss_and_preds(self, x, dense, labels, valid, extras=None,
-                        model=None, den=None):
+                        model=None, count=None):
         """Masked-mean BCE of the logits and the (detached) predictions.
         ``model``: a dense replica (default: the trainer's model);
-        ``den``: the mean's denominator (default: the batch's count of
-        valid records, at least 1)."""
+        ``count``: the count of valid records the mean divides by, at
+        least 1 (default: this batch's; a replica gets the global
+        batch's)."""
         logits = self._forward(x, dense, extras, model)
         w = valid.to(torch.float32)
         per = F.binary_cross_entropy_with_logits(logits, labels,
                                                  reduction="none")
-        if den is None:
-            den = torch.clamp(torch.sum(w), min=1.0)
-        loss = torch.sum(per * w) / den
+        if count is None:
+            count = torch.sum(w)
+        loss = torch.sum(per * w) / torch.clamp(count, min=1.0)
         return loss, torch.sigmoid(logits.detach())
 
     def _accumulate_metrics(self, preds, labels, valid) -> None:
@@ -688,10 +700,7 @@ class SparseTrainer:
                 [vals[k].T.reshape(s, l, b_loc, 4 + d) for k in ks], dim=2),
                 self.use_cvm) for _, ks in topo.groups]
         labels_g = self._per_device(labels)
-        extras = self._model_extras(extras)
-        extras_g = [dict(zip(extras, v)) for v in zip(
-            *[self._per_device(x) for x in extras.values()])] \
-            if extras else [None] * len(topo.groups)
+        extras_g = self._extras_per_device(extras)
         loss, preds, d_pooled = self._replica_dense_half(
             pooled, self._per_device(dense), labels_g,
             self._per_device(valid), extras_g)
@@ -811,10 +820,7 @@ class SparseTrainer:
                 emb_b = col.reduce_scatter_onto(parts, hdev, bdev, dim=1)
         labels_b = [labels[k] for k in owners]
         ins_b = [self._ins_cvm(x) for x in labels_b]
-        extras = self._model_extras(extras)
-        extras_g = [dict(zip(extras, v)) for v in zip(
-            *[self._per_device(x) for x in extras.values()])] \
-            if extras else [None] * len(topo.groups)
+        extras_g = self._extras_per_device(extras)
         if path == "reference":
             leaves = self._per_device_blocks(emb_b, dim=1)
             lens_g = self._per_device_blocks(len_b, dim=1)
@@ -918,11 +924,9 @@ class SparseTrainer:
             return torch.stack(cols)
         if not isinstance(ws["show"], Sharded):
             return self.topology.split(stack(ws), tspec)
-        made = {}
-        for k, blk in enumerate(ws["show"].parts):
-            if id(blk) not in made:
-                made[id(blk)] = stack({f: t.parts[k] for f, t in ws.items()})
-        return [made[id(blk)] for blk in ws["show"].parts]
+        shard_of = {id(blk): k for k, blk in ws["show"].unique()}
+        return ws["show"].map_blocks(lambda blk: stack(
+            {f: t.parts[shard_of[id(blk)]] for f, t in ws.items()})).parts
 
     def _batch_owners(self):
         """(owners, by_device): the first shard (flat order) that holds
@@ -954,6 +958,21 @@ class SparseTrainer:
             return [x]
         owners, _ = self._batch_owners()
         return self._per_device_blocks([x[k] for k in owners])
+
+    def _extras_per_device(self, extras) -> List[Optional[Dict]]:
+        """The model's extra planes (:meth:`_model_extras`) as one dict
+        per device of ``topology.groups``: a per-record plane's batch
+        blocks (:meth:`_per_device`); ``ads_offset``, a per-batch plane
+        replicated on every shard, the device's own copy."""
+        extras = self._model_extras(extras)
+        groups = self.topology.groups
+        if not extras:
+            return [None] * len(groups)
+        per = {k: ([v[ks[0]] for _, ks in groups]
+                   if k == "ads_offset" and isinstance(v, list)
+                   else self._per_device(v)) for k, v in extras.items()}
+        return [{k: v[g] for k, v in per.items()}
+                for g in range(len(groups))]
 
     def _per_device_blocks(self, blocks, dim: int = 0
                            ) -> List[Optional[torch.Tensor]]:
@@ -1033,9 +1052,16 @@ class SparseTrainer:
         differently where a card's elementwise kernel contracts a
         multiply-add that the host does not.)  ``pooled``: the leaves the
         grads are taken for; ``inputs[g](leaf)`` makes device g's model
-        input of its leaf (default :meth:`_dense_input`).  Returns
-        (loss, each replica's preds, each leaf's grad); one device is
-        :meth:`_pooled_dense_half`."""
+        input of its leaf (default :meth:`_dense_input`).
+
+        A model that reads a page-view plane reaches rows anywhere in the
+        batch (``rank_attention``'s peer rows): every replica also gets
+        the whole batch's input, gathered in batch order onto its device
+        (``peers``, with ``peer_rows`` the rows it owns), and the grads
+        of that copy are summed onto the rows' owners in device order
+        (``reduce_scatter_onto``), then added to each replica's own.
+        Returns (loss, each replica's preds, each leaf's grad); one
+        device is :meth:`_pooled_dense_half`."""
         if len(pooled) == 1:
             loss, preds, d_pooled = self._pooled_dense_half(
                 pooled[0], dense[0], labels[0], valid[0], extras[0])
@@ -1048,25 +1074,37 @@ class SparseTrainer:
                 continue
             c = on_device(torch.sum(v.to(torch.float32)), self.device)
             count = c if count is None else count + c
-        den = torch.clamp(count, min=1.0)
-        total, preds, d_pooled = None, [], []
-        for (dev, _), model, x, dn, lb, v, ex, make in zip(
-                self.topology.groups, models, pooled, dense, labels, valid,
-                extras, inputs):
+        leaves = [None if x is None else x.detach().requires_grad_(True)
+                  for x in pooled]
+        xs = [None if x is None else make(x)
+              for x, make in zip(leaves, inputs)]
+        peers = self._peer_inputs(xs) if self._reads_pv else None
+        total, preds, own = None, [], []
+        for g, ((dev, _), model, x, dn, lb, v, ex) in enumerate(zip(
+                self.topology.groups, models, xs, dense, labels, valid,
+                extras)):
             for prm in model.parameters():
                 prm.grad = None
             if x is None:
                 preds.append(None)
-                d_pooled.append(None)
+                own.append(None)
                 continue
-            x = x.detach().requires_grad_(True)
-            loss, p = self._loss_and_preds(make(x), dn, lb, v, ex, model,
-                                           on_device(den, dev))
+            if peers is not None:
+                x = x.detach().requires_grad_(True)
+                ex = dict(ex or {}, peers=peers[g][0],
+                          peer_rows=peers[g][1])
+            loss, p = self._loss_and_preds(x, dn, lb, v, ex, model,
+                                           on_device(count, dev))
             loss.backward()
             loss = on_device(loss.detach(), self.device)
             total = loss if total is None else total + loss
             preds.append(p)
-            d_pooled.append(x.grad)
+            own.append(x)
+        if peers is not None:
+            back = self._peer_grads(peers)
+            for x, xi, pg in zip(xs, own, back):
+                if x is not None:
+                    x.backward(xi.grad + pg)
         with torch.no_grad():
             for ps in zip(*(m.parameters() for m in models)):
                 acc = None
@@ -1078,13 +1116,50 @@ class SparseTrainer:
         if self.async_dense is None:
             self.dense_opt.step()
             self._sync_replicas()
-        return total, preds, d_pooled
+        return total, preds, [None if x is None else x.grad for x in leaves]
+
+    def _peer_inputs(self, xs) -> List[Optional[tuple]]:
+        """For each device of ``topology.groups`` that holds batch
+        blocks (its model input ``xs[g]``, else None): (the whole batch's
+        model input gathered there in batch order, a leaf of its own;
+        the rows of it that the device's blocks are)."""
+        owners, by_dev = self._batch_owners()
+        b_loc = next(x.shape[0] // len(bs) for x, bs in zip(xs, by_dev)
+                     if x is not None)
+        devs = [dev for dev, _ in self.topology.groups]
+        bdev = [self.topology.devices[k] for k in owners]
+        blocks = self._split_columns([None if x is None else x.detach()
+                                      for x in xs], b_loc)
+        live = [g for g, x in enumerate(xs) if x is not None]
+        whole = col.gather_onto(blocks, bdev, [devs[g] for g in live], dim=0)
+        out = [None] * len(xs)
+        for g, w in zip(live, whole):
+            rows = torch.cat([torch.arange(b * b_loc, (b + 1) * b_loc,
+                                           device=w.device)
+                              for b in by_dev[g]])
+            out[g] = (w.requires_grad_(True), rows)
+        return out
+
+    def _peer_grads(self, peers) -> List[Optional[torch.Tensor]]:
+        """The grads of every replica's copy of the whole batch's input
+        (:meth:`_peer_inputs`) summed in device order onto each batch
+        block's owner, as one tensor per device (its blocks' rows)."""
+        owners, _ = self._batch_owners()
+        bdev = [self.topology.devices[k] for k in owners]
+        devs = [dev for dev, _ in self.topology.groups]
+        live = [g for g, p in enumerate(peers) if p is not None]
+        blocks = col.reduce_scatter_onto([peers[g][0].grad for g in live],
+                                         [devs[g] for g in live], bdev,
+                                         dim=0)
+        return self._per_device_blocks(blocks, dim=0)
 
     def _put_batch(self, batch: PackedBatch):
         """Host batch → device tensors (pinned, asynchronous on a card):
         the step's five planes and a dict of the extra planes.  With
         shards on distinct devices each plane is a per-shard list, each
-        shard's batch columns uploaded to its device."""
+        shard's batch columns uploaded to its device; ``ads_offset``, a
+        per-batch plane, is replicated: every shard holds the whole plane
+        (one copy a device), as the JAX package replicates it."""
         extras = {}
         if batch.rank_offset is not None:
             extras["rank_offset"] = batch.rank_offset
@@ -1098,26 +1173,30 @@ class SparseTrainer:
             return (put(batch.indices, 1), put(batch.lengths, 1),
                     put(batch.dense, 0), put(batch.labels, 0),
                     put(batch.valid, 0),
-                    {k: put(v, 0) for k, v in extras.items()})
+                    {k: put(v, None if k == "ads_offset" else 0)
+                     for k, v in extras.items()})
         planes = tuple(pf.to_device(a, self.device)
                        for a in (batch.indices, batch.lengths, batch.dense,
                                  batch.labels, batch.valid))
         return planes + ({k: pf.to_device(v, self.device)
                           for k, v in extras.items()},)
 
-    def _put_columns(self, a: np.ndarray, dim: int) -> List[torch.Tensor]:
+    def _put_columns(self, a: np.ndarray, dim: Optional[int]
+                     ) -> List[torch.Tensor]:
         """Each shard's block of host plane ``a`` along its batch dim
-        ``dim`` (``batch_spec``; :func:`pf.batch_columns`), uploaded to
-        the shard's device once (shards with the same columns on one
-        device share it)."""
+        ``dim`` (``batch_spec``; :func:`pf.batch_columns`; ``dim`` None:
+        the whole plane), uploaded to the shard's device once (shards
+        with the same columns on one device share it)."""
         topo = self.topology
         made, out = {}, []
         for k in range(topo.world_size):
-            idx, n = topo.block(topo.batch_spec(), k, 0)
+            idx, n = ((0, 1) if dim is None
+                      else topo.block(topo.batch_spec(), k, 0))
             key = (idx, device_key(topo.device_of(k)))
             if key not in made:
-                made[key] = pf.to_device(pf.batch_columns(a, dim, idx, n),
-                                         topo.device_of(k))
+                made[key] = pf.to_device(
+                    a if dim is None else pf.batch_columns(a, dim, idx, n),
+                    topo.device_of(k))
             out.append(made[key])
         return out
 
@@ -1163,9 +1242,15 @@ class SparseTrainer:
         """Run one step, append its loss (and CUDA events) to ``log``.
         ``uid``: (uids, labels, valid) of the batch on the host, when the
         per-user AUC is on; ``dump``: (ins_ids, labels) of the batch's
-        real records on the host, when the instance dump is on."""
+        real records on the host, when the instance dump is on.
+
+        Each step's host dispatch seconds (before ``_core`` to after it,
+        before the loss is read back) are observed as
+        ``trainer.step_dispatch_s``, as in the JAX package; with no jit
+        there is no ``trainer.step_compile_s``."""
         cuda = self.device.type == "cuda"
         m_step = time.monotonic()
+        t_step = time.perf_counter()
         if cuda:
             ev = (torch.cuda.Event(enable_timing=True),
                   torch.cuda.Event(enable_timing=True))
@@ -1175,6 +1260,7 @@ class SparseTrainer:
         if cuda:
             ev[1].record()
             log["events"].append(ev)
+        stat_observe("trainer.step_dispatch_s", time.perf_counter() - t_step)
         # host enqueue window (the device may run past it)
         intervals.record("device", m_step, time.monotonic())
         if self.async_dense is not None:

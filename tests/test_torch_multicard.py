@@ -467,56 +467,3 @@ def test_instance_dump_on_two_devices(tmp_path, packed):
     np.testing.assert_allclose([float(r[2]) for r in got],
                                [float(r[2]) for r in ref], rtol=1e-4,
                                atol=2e-6)
-
-
-# -- what has no placement on distinct devices yet raises ---------------------------
-
-def _refusal(what):
-    return pytest.raises(NotImplementedError, match=r"item 4\.1")
-
-
-def test_page_view_models_refused():
-    from paddlebox_tpu_torch.models.rank_ctr import RankAttentionCTR
-    topo = two_devices(dp=2)
-    _, eng, _ = torch_setup(0, topo)
-    cfg = tcfg.DataFeedConfig(slots=base._feed_config(tcfg).slots,
-                              rank_offset=True, max_rank=3)
-    model = RankAttentionCTR(base.N_SLOTS, 3 + base.MF, base.DENSE_DIM,
-                             max_rank=3)
-    with _refusal("rank_offset"):
-        TTrainer(eng, model, cfg, batch_size=base.B, device="cpu",
-                 topology=topo)
-
-
-def test_plane_stager_refused():
-    topo = two_devices(dp=2)
-    ds, _, tr = torch_setup(0, topo)
-    arrays = tr.pack_pass_host(ds)
-    with _refusal("stager"):
-        pf.upload_pass(arrays, tr.device, staged=pf.PlaneStager("cpu"),
-                       topology=topo, shardings=tr.pass_shardings(arrays))
-
-
-def test_multitask_trainer_refused():
-    """The multi-task trainer's step is the one-device reference
-    lowering: it refuses distinct devices when it is built."""
-    from paddlebox_tpu_torch.models.mmoe import MMoE
-    from paddlebox_tpu_torch.trainer.multitask import MultiTaskSparseTrainer
-    topo = two_devices(dp=2)
-    _, eng, _ = torch_setup(0, topo)
-    model = MMoE(base.N_SLOTS, 3 + base.MF, base.DENSE_DIM, num_tasks=1)
-    with _refusal("multitask"):
-        MultiTaskSparseTrainer(eng, model, base._feed_config(tcfg),
-                               base.B, ["label"], device="cpu",
-                               topology=topo)
-
-
-def test_graph_trainer_refused():
-    from paddlebox_tpu_torch.graph.graph_table import GraphTable
-    from paddlebox_tpu_torch.trainer.graph_trainer import \
-        GraphEmbeddingTrainer
-    _, eng, _ = torch_setup(0, two_devices(dp=2))
-    graph = GraphTable(np.array([[1, 2], [2, 3]], np.int64), num_nodes=4,
-                       device="cpu")
-    with _refusal("graph"):
-        GraphEmbeddingTrainer(eng, graph)

@@ -17,7 +17,10 @@ equal.  The lowerings are ``mxu_sharded`` and explicit ``mxu``, ``fast``
 and ``reference`` (and ``auto`` on dp 2 × mp 2, which resolves to
 ``fast``), each kernel launched its predicted number of times a step on
 the card and never for the host's blocks; the day loop with the device
-row cache on equals it off bit for bit.
+row cache on equals it off bit for bit.  The page-view model
+(``RankAttentionCTR`` on ``auto`` → mxu_sharded and ``fast``), the
+multi-task trainer (MMoE, two tasks) and graph learning run there too,
+held against one card the same way (the graph: ``mf`` and ``mf_g2sum``).
 """
 
 import numpy as np
@@ -313,3 +316,182 @@ def test_day_loop_cache_on_card_and_host(cuda_device, tmp_path, prefetch):
         np.testing.assert_array_equal(t0[f], t1[f], err_msg=f)
     for a, b in zip(p0, p1):
         assert torch.equal(a, b)
+
+
+# -- the page-view model, the multi-task trainer and graph learning -----------------
+
+def _pv_dataset(cfg, label_slots=("label",)):
+    """Seeded page views of 1-4 records (ranked ads among them) over
+    N_BATCHES pv-aligned batches, grouped by ``preprocess_instance``."""
+    rng = np.random.default_rng(9)
+    sizes = rng.integers(1, 5, N_BATCHES * B // 3)
+    n = int(sizes.sum())
+    blk = SlotRecordBlock(n=n)
+    for i in range(N_SLOTS):
+        lens = rng.integers(1, CAP + 1, n)
+        off = np.zeros(n + 1, np.int64)
+        np.cumsum(lens, out=off[1:])
+        blk.uint64_slots[f"s{i}"] = (rng.integers(
+            1, 5000, int(off[-1])).astype(np.uint64), off)
+    for name in label_slots:
+        blk.float_slots[name] = (rng.integers(0, 2, n).astype(np.float32),
+                                 np.arange(n + 1, dtype=np.int64))
+    blk.float_slots["dense0"] = (rng.normal(0, 1, n * DENSE).astype(
+        np.float32), np.arange(n + 1, dtype=np.int64) * DENSE)
+    blk.search_ids = np.repeat(np.arange(1, len(sizes) + 1, dtype=np.uint64),
+                               sizes)
+    blk.cmatch = rng.choice([222, 223, 224], n).astype(np.int32)
+    blk.rank = rng.integers(0, 5, n).astype(np.int32)
+    ds = SlotDataset(cfg)
+    ds._blocks = [blk]
+    ds.preprocess_instance()
+    return ds
+
+
+def _model_pass(topo, kind, path="auto", packed=True):
+    """One pass of the rank model (``kind`` "rank") or of MMoE through
+    the multi-task trainer ("multitask") on ``topo``; returns (stats, the
+    working set on the host, the trainer)."""
+    from paddlebox_tpu_torch.models.mmoe import MMoE
+    from paddlebox_tpu_torch.models.rank_ctr import RankAttentionCTR
+    from paddlebox_tpu_torch.trainer.multitask import MultiTaskSparseTrainer
+    labels = ("label", "label1") if kind == "multitask" else ("label",)
+    cfg = DataFeedConfig(
+        slots=tuple([SlotConfig(n, dtype="float", is_dense=True, dim=1)
+                     for n in labels]
+                    + [SlotConfig("dense0", dtype="float", is_dense=True,
+                                  dim=DENSE)]
+                    + [SlotConfig(f"s{i}", slot_id=100 + i, capacity=CAP)
+                       for i in range(N_SLOTS)]),
+        rank_offset=kind == "rank", ads_offset=kind == "rank", max_rank=3)
+    ds = _pv_dataset(cfg, labels)
+    eng = BoxPSEngine(EmbeddingTableConfig(
+        embedding_dim=MF, sgd=SparseSGDConfig(mf_create_thresholds=0.0)),
+        device="cuda", topology=topo)
+    eng.begin_feed_pass()
+    for blk in ds.get_blocks():
+        eng.add_keys(blk.all_keys())
+    eng.end_feed_pass()
+    eng.begin_pass()
+    if kind == "rank":
+        tr = SparseTrainer(eng, RankAttentionCTR(N_SLOTS, 3 + MF, DENSE,
+                                                 att_out=8, max_rank=3,
+                                                 hidden=(16,)),
+                           cfg, batch_size=B, seed=0, device="cuda",
+                           topology=topo, sparse_path=path)
+    else:
+        tr = MultiTaskSparseTrainer(
+            eng, MMoE(N_SLOTS, 3 + MF, DENSE, num_experts=2, num_tasks=2,
+                      expert_hidden=(16,), tower_hidden=(8,)),
+            cfg, batch_size=B, label_slots=list(labels), seed=0,
+            device="cuda", topology=topo)
+    stats = tr.train_pass(tr.build_pass_feed(ds) if packed else ds)
+    ws = {k: torch.as_tensor(np.asarray(v)) if isinstance(v, Sharded)
+          else v.cpu() for k, v in eng.ws.items()}
+    return stats, ws, tr
+
+
+# (kind, path, mesh, the lowering, per card row block or shard a step:
+# gather_sorted, scatter_add_sorted, gather_pool launches)
+MODEL_RUNS = {"rank_auto": ("rank", "auto", dict(dp=2), "mxu_sharded",
+                            (1, 1, 0)),
+              "rank_fast": ("rank", "fast", dict(dp=2), "fast", (0, 1, 1)),
+              "multitask": ("multitask", "auto", dict(dp=2), "reference",
+                            (0, 1, 0))}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packed", [False, True], ids=["streaming", "packed"])
+@pytest.mark.parametrize("run", list(MODEL_RUNS))
+def test_models_match_one_card(cuda_device, run, packed):
+    """The rank model and the multi-task trainer with the shards on
+    distinct devices: each kernel launched its predicted number of times
+    a step for each card block, the pass within the tolerances of the
+    same mesh on one card (the task AUCs within 1e-6), a rerun
+    bit-identical."""
+    kind, path, degrees, want, per_block = MODEL_RUNS[run]
+    n = MeshConfig(**degrees).world_size
+    ref, ws_ref, tr_ref = _model_pass(HybridTopology(MeshConfig(**degrees),
+                                                     device="cuda"),
+                                      kind, path, packed)
+    assert tr_ref._resolve_path() == want
+    for name, layout in _layouts():
+        topo = HybridTopology(MeshConfig(**degrees), devices=layout(n))
+        before = [f.launches for f in (sp.gather_sorted,
+                                       sp.scatter_add_sorted,
+                                       pg.gather_pool)]
+        got, ws, tr = _model_pass(topo, kind, path, packed)
+        cards = (sum(d.type == "cuda" for d in topo.devices)
+                 if want == "mxu_sharded" else _card_blocks(topo, tr.engine))
+        after = [f.launches for f in (sp.gather_sorted,
+                                      sp.scatter_add_sorted,
+                                      pg.gather_pool)]
+        assert [a - b for a, b in zip(after, before)] == [
+            got["batches"] * cards * k for k in per_block], name
+        _close(got, ws, ref, ws_ref)
+        if kind == "multitask":
+            for t in range(2):
+                np.testing.assert_allclose(got[f"task{t}_auc"],
+                                           ref[f"task{t}_auc"], rtol=0,
+                                           atol=1e-6)
+        again, ws2, _ = _model_pass(topo, kind, path, packed)
+        assert again["losses"] == got["losses"], name
+        for k in ws:
+            assert torch.equal(ws[k], ws2[k]), (name, k)
+
+
+def _graph_epoch(topo, n_nodes=4000, steps=3, batch=2048):
+    """An engine over nodes 1..n on ``topo`` and one ``train_pairs``
+    epoch of seeded pairs; returns (losses, mf, mf_g2sum, engine)."""
+    from paddlebox_tpu_torch.graph.graph_table import GraphTable
+    from paddlebox_tpu_torch.trainer.graph_trainer import \
+        GraphEmbeddingTrainer
+    rng = np.random.default_rng(4)
+    src = rng.integers(1, n_nodes + 1, 8 * n_nodes)
+    dst = rng.integers(1, n_nodes + 1, 8 * n_nodes)
+    edges = np.stack([src, dst], 1).astype(np.int64)
+    eng = BoxPSEngine(EmbeddingTableConfig(
+        embedding_dim=8, sgd=SparseSGDConfig(mf_create_thresholds=0.0,
+                                             mf_initial_range=0.1)),
+        device="cuda", topology=topo)
+    eng.begin_feed_pass()
+    eng.add_keys(np.arange(1, n_nodes + 1, dtype=np.uint64))
+    eng.end_feed_pass()
+    eng.begin_pass()
+    size = eng.ws["mf_size"]
+    for _, blk in (size.unique() if isinstance(size, Sharded)
+                   else [(0, size)]):
+        blk.fill_(8)
+    tr = GraphEmbeddingTrainer(eng, GraphTable(edges, num_nodes=n_nodes + 1,
+                                               device="cuda"),
+                               n_negatives=5, learning_rate=0.05, seed=2)
+    pairs = rng.integers(1, n_nodes + 1, (steps * batch, 2)).astype(np.int32)
+    tr.train_pairs(pairs, batch_size=batch)
+    ws = {f: np.asarray(v) if isinstance(v, Sharded) else v.cpu().numpy()
+          for f, v in eng.ws.items() if f in ("mf", "mf_g2sum")}
+    return tr.stats["losses"], ws["mf"], ws["mf_g2sum"], eng
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mesh", list(MESHES))
+def test_graph_epoch_matches_one_card(cuda_device, mesh):
+    """A graph epoch over the working set's row blocks on distinct
+    devices: both sorted kernels once a step for each row block on a
+    card, the losses, mf and mf_g2sum within the file's tolerances of
+    the same mesh on one card, a rerun bit-identical."""
+    degrees = MESHES[mesh]
+    n = MeshConfig(**degrees).world_size
+    ref = _graph_epoch(HybridTopology(MeshConfig(**degrees), device="cuda"))
+    for name, layout in _layouts():
+        topo = HybridTopology(MeshConfig(**degrees), devices=layout(n))
+        g0, s0 = sp.gather_sorted.launches, sp.scatter_add_sorted.launches
+        got = _graph_epoch(topo)
+        blocks = _card_blocks(topo, got[3])
+        assert sp.gather_sorted.launches - g0 == 3 * blocks, name
+        assert sp.scatter_add_sorted.launches - s0 == 3 * blocks, name
+        np.testing.assert_allclose(got[0], ref[0], rtol=1e-4)
+        for a, b in ((got[1], ref[1]), (got[2], ref[2])):
+            np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-6)
+        again = _graph_epoch(topo)
+        assert again[0] == got[0], name
+        np.testing.assert_array_equal(again[1], got[1])

@@ -8,6 +8,7 @@ the ``dump_xbox`` verb (a server-side xbox dump; an unknown table is
 refused by name)."""
 
 import os
+import socket
 import threading
 
 import numpy as np
@@ -37,6 +38,24 @@ def test_sparse_roundtrip(server):
     assert client.size() == 3
     back = client.pull_sparse(np.array([3, 1], np.uint64))
     np.testing.assert_allclose(back["show"], [7, 5])
+
+
+def test_close_keeps_an_in_flight_stream_until_checkin(server):
+    """close() while a verb holds a stream (the serving router closes a
+    client it replaced under load): the held stream keeps its socket
+    until it is checked back in, then closes; the idle ones close at
+    once, and the client dials again on its next call."""
+    client = PSClient(server.addr, streams=2)
+    held = client._checkout(0)
+    idle = client._free[0][0]
+    for st in (held, idle):
+        st.sock = socket.create_connection(server.addr, timeout=5.0)
+    client.close()
+    assert held.sock is not None and idle.sock is None
+    held.sock.settimeout(5.0)          # what the verb does next
+    client._checkin(held)
+    assert held.sock is None
+    assert client.size() == 0
 
 
 def test_dense_and_lifecycle(server, tmp_path):

@@ -5,8 +5,10 @@ rate derivation vs hand-computed deltas (counter reset included), breach
 serving rule set, the /timelinez + /clusterz endpoints and ?prefix=
 scrape filters, quality monitor gauges and postmortem timeline tails,
 and the launcher's ClusterScraper behind /clusterz (its merged fold and
-a worker killed mid-scrape).  The pboxlint rule is not part of the
-port."""
+a worker killed mid-scrape), and one ``trainer.step_dispatch_s``
+sample for every trained batch (the stall rule's metric).
+``tests/test_torch_lint.py`` runs the JAX package's pboxlint (PB207
+among its rules) over the port."""
 
 import json
 import time
@@ -201,6 +203,45 @@ def test_default_rules_reference_only_emitted_metrics():
         "auc_drop": "quality.auc",
         "heat_shard_imbalance": "heat.shard_imbalance",
     }
+
+
+@pytest.mark.parametrize("trainer", ["single", "multitask"])
+def test_every_trained_batch_observes_its_dispatch(trainer):
+    """A streaming and a packed pass each add exactly one
+    ``trainer.step_dispatch_s`` sample a batch (the metric the default
+    ``throughput_stall`` rule watches), for the single-task and the
+    multi-task trainer.  The port has no jit, so no
+    ``trainer.step_compile_s``."""
+    import torch_parity_helpers as h
+    from paddlebox_tpu_torch.models.deepfm import DeepFM
+    from paddlebox_tpu_torch.models.mmoe import MMoE
+    from paddlebox_tpu_torch.trainer.multitask import MultiTaskSparseTrainer
+    n_labels = 2 if trainer == "multitask" else 1
+    cfg, data = h.datasets(h.TORCH, n_labels=n_labels)
+    eng = h.engine(h.TORCH, data)
+    e = 3 + h.MF
+    if trainer == "multitask":
+        tr = MultiTaskSparseTrainer(
+            eng, MMoE(h.S, e, h.DENSE, num_experts=2, num_tasks=2,
+                      expert_hidden=(8,), tower_hidden=(4,)),
+            cfg, batch_size=h.B // 2, label_slots=h.label_names(2),
+            device="cpu")
+    else:
+        tr = h.TORCH.Trainer(eng, DeepFM(h.S, e, h.DENSE, hidden=(8,)),
+                             cfg, batch_size=h.B // 2, device="cpu")
+    def dispatches():
+        return stat_snapshot("trainer.step_dispatch_s").get(
+            "trainer.step_dispatch_s.count", 0.0)
+    assert dispatches() == 0
+    done = 0
+    for packed in (False, True):
+        stats = tr.train_pass(tr.build_pass_feed(data[0]) if packed
+                              else data[0])
+        assert stats["batches"] == 2
+        done += stats["batches"]
+        assert dispatches() == done
+    assert stat_snapshot()["trainer.step_dispatch_s.max"] > 0.0
+    assert "trainer.step_compile_s.count" not in stat_snapshot()
 
 
 def test_sampler_thread_samples_and_stops():
