@@ -377,6 +377,31 @@ result line is printed):
    upload on its shard's device, no staged plane whole on one device.
    Prints ``multicard_models[<run>]:`` lines; a run with a host block is
    host-bound and says so.
+23. multiprocess — the dp axis across processes: phase 4's pass at the
+   bench widths on dp 2 × sharding 2, one dp coordinate a process.  The
+   dense weights and the data seed go to a temporary directory, and two
+   ranks start through the port's launcher (``python -m
+   paddlebox_tpu_torch.launch --nproc_per_node 2 chip_smoke.py
+   --multiprocess-rank <dir>``), each ``launch.init_distributed()`` →
+   ``HybridTopology(..., process_group=launch.process_group())`` with
+   its 2 shards on ``cuda:0`` → the engine lifecycle → 2 batches through
+   ``build_pass_feed`` and 2 streaming (half of each batch's columns a
+   rank) → ``end_pass``; the group is gloo over loopback, the exchanged
+   tensors staged through host memory.  Checks: the ranks' losses, AUC,
+   working set, host table and dense params bit-equal; each rank's
+   ``gather_sorted`` and ``scatter_add_sorted`` exactly once a local
+   shard a step (2) and ``gather_pool`` never; the losses within rtol
+   1e-4 and the working set within rtol 1e-5 / atol 1e-6 of the same mesh
+   in this process on the card (one replica over the global batch, so
+   the dense fold differs); the first step within rtol 1e-4 of the CPU;
+   each rank's two kernels on its first shard's plan of the first step
+   against their plain versions (rank 0's times on the ``kernels`` line
+   as ``at_multiprocess``).  A rank that exits non-zero, or a run past
+   ``MP_TIMEOUT_S``, fails the phase.  Prints ``multiprocess[...]:``
+   lines: each rank's steady step, the bytes it sends over the group a
+   step (the delta, the slot column, the dense grads), its seconds a
+   step in the cross-process tier, and the phase's wall: host- and
+   loopback-bound with two ranks on one card, no multi-node speed.
 
 Depth cuts (the widths are the bench model's): phase 10, 4 passes of 4
 batches (day 1's 3 and day 2's first); phase 11, a day of 3 passes of 4
@@ -782,7 +807,7 @@ def make_trainer(block: SlotRecordBlock, device: str, params=None,
                  path: str = "mxu", model: str = "deepfm", amp: bool = False,
                  optimizer: str = "adagrad", batch: int = 0,
                  trainer_config=None, mesh: dict = None,
-                 devices=None):
+                 devices=None, group=None):
     """Engine lifecycle up to begin_pass over ``block``'s keys, and a
     trainer on ``device`` (from ``params`` when given).  model "mmoe"
     trains through MultiTaskSparseTrainer on two label slots (the
@@ -791,7 +816,9 @@ def make_trainer(block: SlotRecordBlock, device: str, params=None,
     over a table with an EX_DIM-wide expand embedding;
     ``trainer_config``: the trainer's TrainerConfig.  ``mesh``: the
     degrees of a topology (every shard on ``device``, or on ``devices``,
-    one a shard) for the engine and the trainer.  Returns (engine, trainer, a dataset of ``block``, the
+    one a shard) for the engine and the trainer; ``group``: the process
+    group its dp axis spans (``devices`` then names this rank's shards'
+    devices).  Returns (engine, trainer, a dataset of ``block``, the
     model's initial params)."""
     n_labels = 2 if model == "mmoe" else 1
     cfg = feed_config(n_labels)
@@ -803,10 +830,12 @@ def make_trainer(block: SlotRecordBlock, device: str, params=None,
     if mesh is not None:
         from paddlebox_tpu_torch.config import MeshConfig
         from paddlebox_tpu_torch.parallel.topology import HybridTopology
+        across = {} if group is None else {"process_group": group}
         topo["topology"] = (
             HybridTopology(MeshConfig(**mesh), device=device)
             if devices is None
-            else HybridTopology(MeshConfig(**mesh), devices=devices))
+            else HybridTopology(MeshConfig(**mesh), devices=devices,
+                                **across))
     engine = BoxPSEngine(EmbeddingTableConfig(
         embedding_dim=MF_DIM, shard_num=8,
         expand_dim=EX_DIM if model == "ctr_dnn_ex" else 0,
@@ -5967,6 +5996,238 @@ def multicard_models_phase(block: SlotRecordBlock, params0,
         f"phase {out['phase_s']:.1f} s")
     return launches, out
 
+# ---------------------------------------------------------------------------
+# phase 23: the dp axis across processes
+# ---------------------------------------------------------------------------
+
+MP_MESH = {"dp": 2, "sharding": 2}
+MP_PACKED = 2                      # batches of the pass through the feed
+MP_STEPS = N_BATCHES               # MP_PACKED packed, the rest streaming
+MP_TIMEOUT_S = 300
+MP_TAGS = {"delta": "all_reduce_sum", "slot_column": "all_reduce_max",
+           "dense_grads": "dense_grads", "count": "count",
+           "auc_state": "auc_state"}
+MP_ARG = "--multiprocess-rank"
+
+
+def save_params(path: str, params) -> None:
+    """A DeepFM ``jax_params`` pytree as one npz."""
+    flat = {"dense_w": params["dense_w"], "bias": params["bias"]}
+    for i, layer in enumerate(params["mlp"]):
+        flat[f"mlp.{i}.w"], flat[f"mlp.{i}.b"] = layer["w"], layer["b"]
+    np.savez(path, **{k: np.asarray(v) for k, v in flat.items()})
+
+
+def load_params(path: str):
+    with np.load(path) as z:
+        n = sum(k.startswith("mlp.") and k.endswith(".w") for k in z.files)
+        return {"mlp": [{"w": z[f"mlp.{i}.w"], "b": z[f"mlp.{i}.b"]}
+                        for i in range(n)],
+                "dense_w": z["dense_w"], "bias": z["bias"]}
+
+
+def mp_pass(block: SlotRecordBlock, params, group=None, devices=None):
+    """The phase's pass on ``MP_MESH``: the first ``MP_PACKED`` batches of
+    ``block`` through build_pass_feed, the rest streaming, in one pass
+    over every batch's keys (end_pass not yet run).  ``group``: the dp
+    axis over the launcher's group (``devices``: this rank's shards');
+    else every shard on the card.  Returns (engine, trainer, feed, the
+    two passes' stats)."""
+    engine, trainer, _, _ = make_trainer(block, "cuda", params, "auto",
+                                         mesh=MP_MESH, devices=devices,
+                                         group=group)
+    cut = MP_PACKED * BATCH
+    packed, stream = (SlotDataset(feed_config()) for _ in range(2))
+    packed._blocks = [block.slice(0, cut)]
+    stream._blocks = [block.slice(cut, MP_STEPS * BATCH)]
+    feed = trainer.build_pass_feed(packed)
+    stats = [trainer.train_pass(feed),
+             trainer.train_pass(stream, pack_threads=4)]
+    torch.cuda.synchronize()
+    if trainer._resolve_path() != "mxu_sharded":
+        raise AssertionError(f"multiprocess: auto resolved to "
+                             f"{trainer._resolve_path()}")
+    return engine, trainer, feed, stats
+
+
+def multiprocess_rank(work: str) -> int:
+    """One rank of phase 23 (``python -m paddlebox_tpu_torch.launch
+    --nproc_per_node 2 chip_smoke.py --multiprocess-rank <work>``): joins
+    the launcher's group, trains :func:`mp_pass` on its dp coordinate's
+    shards (both on ``cuda:0``), holds both sorted kernels on its first
+    shard's plan of the first step against their plain versions (the
+    ranks one after the other), runs end_pass and writes
+    ``<work>/rank<r>.json`` (and, rank 0, its working set)."""
+    from paddlebox_tpu_torch import launch
+    from paddlebox_tpu_torch.utils.monitor import stat_get
+    import torch.distributed as dist
+    rank = launch.init_distributed()
+    group = launch.process_group()
+    with open(os.path.join(work, "spec.json")) as f:
+        spec = json.load(f)
+    block = make_block(np.random.default_rng(spec["seed"]),
+                       MP_STEPS * BATCH)
+    params = load_params(os.path.join(work, "params.npz"))
+    shards = MP_MESH["sharding"]
+    reset_counts()
+    t0 = time.perf_counter()
+    engine, trainer, feed, stats = mp_pass(block, params, group,
+                                           ["cuda:0"] * shards)
+    train_s = time.perf_counter() - t0
+    launches = read_counts()
+    topo = trainer.topology
+    ws = host_ws(engine.ws)
+    if rank == 0:
+        np.savez(os.path.join(work, "ws0.npz"),
+                 **{k: v.numpy() for k, v in ws.items()})
+    k = topo.local_shards[0]
+    kern = {}
+    for turn in range(topo.nranks):
+        dist.barrier(group)
+        if turn == rank:
+            kern = sharded_kernels(
+                f"multiprocess[rank {rank}, shard {k}]",
+                {f: v.parts[k] for f, v in engine.ws.items()},
+                feed.plans["rows2d"][k][0], feed.plans["first_occ"][k][0],
+                feed.plans["inv_perm"][k].shape[1], k)
+            torch.cuda.synchronize()
+    dist.barrier(group)
+    engine.end_pass()
+    keys = np.sort(engine.table.export_keys())
+    rows = engine.table.bulk_pull(keys)
+    out = {
+        "rank": rank, "local_shards": topo.local_shards,
+        "losses": [x for st in stats for x in st["losses"]],
+        "auc": [st["auc"] for st in stats],
+        "step_ms": [x for st in stats for x in st["step_ms"]],
+        "train_s": train_s, "launches": launches,
+        "ws_digest": digest({f: v.numpy() for f, v in ws.items()}),
+        "table_keys": int(len(keys)),
+        "table_digest": digest(dict(rows, keys=keys)),
+        "params_digest": digest({n: p.detach().cpu().numpy() for n, p in
+                                 trainer.model.named_parameters()}),
+        "tx_bytes": {name: stat_get(f"parallel.xproc.{tag}.tx_bytes")
+                     for name, tag in MP_TAGS.items()},
+        "exchange_s": stat_get("parallel.xproc.exchange_s"),
+        "kernels": kern}
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def mp_launch(work: str) -> float:
+    """The two ranks through the port's launcher, in a process group of
+    their own (killed whole at the time limit); raises unless both exit
+    0.  Returns the wall seconds."""
+    import signal
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    here = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "paddlebox_tpu_torch.launch",
+           "--nproc_per_node", "2", "--coordinator", f"127.0.0.1:{port}",
+           os.path.join(here, "chip_smoke.py"), MP_ARG, work]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=here, start_new_session=True)
+    try:
+        rc = proc.wait(timeout=MP_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+        raise AssertionError(f"multiprocess: the ranks ran past "
+                             f"{MP_TIMEOUT_S} s")
+    if rc != 0:
+        raise AssertionError(f"multiprocess: the launcher exited {rc}")
+    return time.perf_counter() - t0
+
+
+def multiprocess_phase(block: SlotRecordBlock, params0, seed: int = 2):
+    """Phase 23: two ranks, one dp coordinate each, train ``mxu_sharded``
+    on dp 2 × sharding 2 over the launcher's gloo group, both on the card
+    (``block`` is phase 4's, made from ``seed``; ``params0`` its dense
+    weights).  Checks: the ranks' losses, AUC, working set, host table
+    and dense params bit-equal; each rank's sorted kernels exactly once a
+    local shard a step and gather_pool never; the losses within rtol 1e-4
+    and the working set within rtol 1e-5 / atol 1e-6 of the same mesh in
+    one process on the card; the first step within rtol 1e-4 of the CPU;
+    each rank's kernels on its first shard's plan against their plain
+    versions (in the worker)."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    work = tempfile.mkdtemp(prefix="chip_smoke_mp_")
+    try:
+        save_params(os.path.join(work, "params.npz"), params0)
+        with open(os.path.join(work, "spec.json"), "w") as f:
+            json.dump({"seed": seed}, f)
+        ranks_wall = mp_launch(work)
+        got = []
+        for r in range(2):
+            with open(os.path.join(work, f"rank{r}.json")) as f:
+                got.append(json.load(f))
+        with np.load(os.path.join(work, "ws0.npz")) as z:
+            ws0 = {k: torch.as_tensor(z[k]) for k in z.files}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    a, b = got
+    for key in ("losses", "auc", "ws_digest", "table_digest",
+                "params_digest", "table_keys"):
+        if a[key] != b[key]:
+            raise AssertionError(f"multiprocess: the ranks' {key} differ: "
+                                 f"{a[key]} vs {b[key]}")
+    shards = MP_MESH["sharding"]
+    launches = {}
+    for r in got:
+        want = {"gather_sorted": shards * MP_STEPS,
+                "scatter_add_sorted": shards * MP_STEPS, "gather_pool": 0}
+        if r["launches"] != want:
+            raise AssertionError(f"multiprocess: rank {r['rank']} launched "
+                                 f"{r['launches']}, want {want}")
+        launches[f"rank{r['rank']}"] = r["launches"]
+    engine, _, _, stats = mp_pass(block, params0)
+    ref = {"losses": [x for st in stats for x in st["losses"]]}
+    close = multicard_close("multiprocess", a, ws0, ref,
+                            host_ws(engine.ws))
+    engine.end_pass()
+    del engine
+    cpu_loss = cpu_first_loss("multiprocess", block, a["losses"][0],
+                              params0, path="auto", packed=True,
+                              mesh=MP_MESH)
+    steps = len(a["losses"])
+    per_step = {r["rank"]: {k: v / steps for k, v in r["tx_bytes"].items()}
+                for r in got}
+    for r in got:
+        steady = float(np.median(r["step_ms"][1:]))
+        log(f"multiprocess[rank {r['rank']}]: shards {r['local_shards']} "
+            f"on cuda:0, losses {r['losses']}, auc {r['auc']}, launches "
+            f"{r['launches']}, step device ms {r['step_ms']} (steady median "
+            f"{steady:.3f}), bytes sent over the group a step "
+            f"{per_step[r['rank']]}, cross-process tier "
+            f"{r['exchange_s'] / steps:.4f} s a step (host clock, the "
+            f"device wait before each copy to the host included), train "
+            f"{r['train_s']:.2f} s; host- and loopback-bound with two ranks "
+            f"on one card (gloo over loopback, staged through host "
+            f"memory): no multi-node speed; {card_line()}")
+    out = {"mesh": MP_MESH, "ranks": got, "ranks_wall_s": ranks_wall,
+           "tx_bytes_per_step": per_step, "one_process": close,
+           "cpu_first_loss": cpu_loss, "kernels": {
+               name: a["kernels"][name] | {"max_abs_err": max(
+                   r["kernels"][name]["max_abs_err"] for r in got)}
+               for name in ("gather_sorted", "scatter_add_sorted")}}
+    for name, x in out["kernels"].items():
+        log(f"multiprocess[kernels, rank 0 shard {a['kernels']['shard']}]: "
+            f"{name} {x['ms']:.4f} ms (plain {x['plain_ms']:.4f}, library "
+            f"{x['library_ms']:.4f}, bound {x['bound_ms']:.4f}) at p "
+            f"{a['kernels']['p']}, rows_loc {a['kernels']['rows_loc']}, "
+            f"sentinel share {a['kernels']['sentinel_share']:.4f}; max abs "
+            f"err over both ranks {x['max_abs_err']:.3g}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"multiprocess: ranks bit-equal, within rtol 1e-4 / 1e-5 of one "
+        f"process on the card (first losses {close['first_loss']}), first "
+        f"step = the CPU's; ranks {ranks_wall:.1f} s of a phase "
+        f"{out['phase_s']:.1f} s")
+    return launches, out
+
+
 
 def profile_phase(seed: int = 1, symbols=SYMBOLS) -> dict:
     """Short traced passes (2 batches) of the lowerings that phases 3-4
@@ -5987,6 +6248,8 @@ def profile_phase(seed: int = 1, symbols=SYMBOLS) -> dict:
 
 
 def main() -> int:
+    if sys.argv[1:2] == [MP_ARG]:
+        return multiprocess_rank(sys.argv[2])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card visible", file=sys.stderr)
         return 2
@@ -6061,6 +6324,8 @@ def main() -> int:
                                 packed_block, packed_params,
                                 graph_data=graph_data)
     graph_data.clear()
+    mpr_launches, mpr_out = timed("multiprocess", multiprocess_phase,
+                                  packed_block, packed_params)
     profile_out = timed("profile", profile_phase)
 
     by_path = {"slice_mxu": slice_launches,
@@ -6083,7 +6348,8 @@ def main() -> int:
                **{f"multicard_paths_{p}": n
                   for p, n in mp_launches.items()},
                **{f"multicard_models_{p}": n
-                  for p, n in mm_launches.items()}}
+                  for p, n in mm_launches.items()},
+               **{f"multiprocess_{p}": n for p, n in mpr_launches.items()}}
     line = {"kernels": []}
     for name in KERNELS:
         k = kern["uniform"][name]
@@ -6124,6 +6390,13 @@ def main() -> int:
                 f: mm_out["k"]["kernels"][name][f]
                 for f in ("ms", "plain_ms", "bound_ms", "bound_by",
                           "library_ms", "max_abs_err")}
+        if name in mpr_out["kernels"]:
+            # a rank's first shard of phase 23, on its plan of the first
+            # step (rank 0's times; the error the worse of the two ranks)
+            at["at_multiprocess"] = {
+                f: mpr_out["kernels"][name][f]
+                for f in ("ms", "plain_ms", "bound_ms", "bound_by",
+                          "library_ms", "max_abs_err")}
         if name in graph_out["kernels"]:
             # a graph step's plan (phase 18): hub rows and K negatives
             at["at_graph"] = {
@@ -6158,6 +6431,7 @@ def main() -> int:
                                  "multicard": mc_out,
                                  "multicard_paths": mp_out,
                                  "multicard_models": mm_out,
+                                 "multiprocess": mpr_out,
                                  "profile": profile_out,
                                  "phase_s": phase_s}))
     print(json.dumps(line), flush=True)

@@ -22,7 +22,9 @@ stay on the host, where the per-user AUC reads them.  ``route_keys`` is
 the trainer fleet's per-record shuffle key.  Under a topology whose shards
 sit on distinct devices each shard's batch columns are uploaded to its own
 device (``upload_pass(topology=, shardings=)``), by a ``PlaneStager``
-made for the topology as well.
+made for the topology as well; under a dp axis that spans processes each
+process uploads its own shards' columns only (the others' entries are
+None).
 """
 
 from __future__ import annotations
@@ -378,6 +380,8 @@ class PackedPassFeed:
                     add(d, n)
             elif isinstance(v, list):        # per-shard plans
                 for k, t in enumerate(v):
+                    if t is None:            # another process's shard
+                        continue
                     add(self.topology.device_of(
                         k if self.plan_shards is None
                         else self.plan_shards[k]),
@@ -441,15 +445,16 @@ class PlaneStager:
         if self.topology is None:
             self.staged[name] = to_device(a, self.device)
         else:
-            topo, made, parts = self.topology, {}, []
-            for k in range(topo.world_size):
+            topo, made = self.topology, {}
+            parts = [None] * topo.world_size
+            for k in topo.local_shards:
                 idx, n = _batch_block(topo, k)
                 key = (idx, device_key(topo.device_of(k)))
                 if key not in made:
                     made[key] = to_device(
                         _shard_cut(name, a, self.batch_size, idx, n),
                         topo.device_of(k))
-                parts.append(made[key])
+                parts[k] = made[key]
             self.staged[name] = parts
         intervals.record("upload", t0, time.monotonic())
 
@@ -488,8 +493,8 @@ def upload_pass(host_arrays: HostPassArrays, device: torch.device,
                else "one device")
             + " — make it with the pass's placement")
     if multi:
-        made, parts = {}, []
-        for k in range(topology.world_size):
+        made, parts = {}, [None] * topology.world_size
+        for k in topology.local_shards:
             # shards with the same batch columns on one device share them
             idx, n = _batch_block(topology, k)
             key = (idx, device_key(topology.device_of(k)))
@@ -497,9 +502,10 @@ def upload_pass(host_arrays: HostPassArrays, device: torch.device,
                 made[key] = _relayout(
                     _shard_put(h, topology, k, pre), h, N,
                     -(-B // n))
-            parts.append(made[key])
-        data = {name: Sharded([p[name] for p in parts], topology,
-                              shardings[name]) for name in parts[0]}
+            parts[k] = made[key]
+        data = {name: Sharded([None if p is None else p[name]
+                               for p in parts], topology, shardings[name])
+                for name in parts[topology.local_shards[0]]}
     else:
         def put(name: str, a: np.ndarray) -> torch.Tensor:
             return pre[name] if name in pre else to_device(a, device)
@@ -714,8 +720,10 @@ def slice_batch(tree: Dict[str, torch.Tensor], i: int
                 ) -> Dict[str, torch.Tensor]:
     """Batch i of a dict of stacked tensors (views, no copy); of a
     ``Sharded`` or a per-shard list, the list of the shards' batch i."""
-    return {k: ([p[i] for p in v.parts] if isinstance(v, Sharded)
-                else [p[i] for p in v] if isinstance(v, list) else v[i])
+    def batch(parts):
+        return [None if p is None else p[i] for p in parts]
+    return {k: (batch(v.parts) if isinstance(v, Sharded)
+                else batch(v) if isinstance(v, list) else v[i])
             for k, v in tree.items()}
 
 

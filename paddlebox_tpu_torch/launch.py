@@ -50,9 +50,13 @@ def init_distributed(coordinator: Optional[str] = None,
     a ``torch.distributed`` gloo group over ``tcp://<coordinator>``.
     Reads the PBOX_* env set by the launcher when args are omitted
     (``PBOX_COORDINATOR``, ``PBOX_WORLD_SIZE``, ``PBOX_RANK``).  Returns
-    this process's rank.  No-op for single-process jobs.  Gloo, not
-    NCCL: NCCL refuses two ranks on one card, and the fleet's ranks
-    share a card."""
+    this process's rank; :func:`process_group` is then the group a
+    topology's cross-process dp axis takes.  No-op for single-process
+    jobs.  Gloo, not NCCL: NCCL refuses two ranks on one card, and the
+    fleet's ranks share a card.  The rendezvous and every later
+    operation of the group give up after ``FLAGS_fleet_deadline_s``, so
+    a peer that never joins, or is lost, fails the job instead of
+    hanging it."""
     from paddlebox_tpu_torch.utils import doctor, obs_server
     # worker-side observability entry: FLAGS_obs_port (assigned base+rank
     # by the launcher) starts the /metrics exporter; FLAGS_obs_trace the
@@ -69,10 +73,25 @@ def init_distributed(coordinator: Optional[str] = None,
         int(os.environ.get("PBOX_RANK", "0"))
     coord = coordinator or os.environ.get("PBOX_COORDINATOR",
                                           "127.0.0.1:12355")
+    import datetime
+
     import torch.distributed as dist
+
+    from paddlebox_tpu_torch import flags
+    from paddlebox_tpu_torch.parallel import collective  # noqa: F401 (flag)
+    deadline = float(flags.get_flags("fleet_deadline_s"))
     dist.init_process_group("gloo", init_method=f"tcp://{coord}",
-                            world_size=num, rank=rank)
+                            world_size=num, rank=rank,
+                            timeout=datetime.timedelta(seconds=deadline))
     return rank
+
+
+def process_group():
+    """The group :func:`init_distributed` formed (the default group), or
+    None in a single-process job: what a cross-process topology is given
+    (``HybridTopology(..., process_group=process_group())``)."""
+    import torch.distributed as dist
+    return dist.group.WORLD if dist.is_initialized() else None
 
 
 class ClusterScraper:

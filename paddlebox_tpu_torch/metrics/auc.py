@@ -8,8 +8,10 @@ final ``AucCalculator.compute()`` is the host-side numpy reduction over
 the bucket tables, copied from the JAX package.  The per-user AUC family
 (``WuAucCalculator``) and the metric registry (``MetricGroup``) are host
 numpy, copied too; ``MetricGroup.merge_device_state`` takes the port's
-torch bucket state.  Not ported: ``allreduce_auc_state`` (it needs the PS
-service's client).
+torch bucket state.  A bucket state is summed across processes through
+the PS service's keyed allreduce (``allreduce_auc_state``) or, under a
+dp axis that spans a ``torch.distributed`` group, in rank order over the
+group (``sum_auc_state``).
 """
 
 from __future__ import annotations
@@ -191,6 +193,23 @@ def allreduce_auc_state(state, client, world: int, key: str):
     arrs = {k: (v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
                 else np.asarray(v)) for k, v in state.items()}
     return client.allreduce(arrs, world, key=key)
+
+
+def sum_auc_state(state: Dict[str, torch.Tensor], group
+                  ) -> Dict[str, torch.Tensor]:
+    """The bucket state summed over the ranks of the ``torch.distributed``
+    group ``group`` in rank order, on the state's device (each rank's
+    copy exchanged through host memory, ``collective.fold_ranks``), so
+    every rank finalizes the same global AUC; with ``group`` None, the
+    state itself.  The buckets are counts of 0/1 weights, so their sum
+    equals one process accumulating every record."""
+    if group is None:
+        return state
+    from paddlebox_tpu_torch.parallel import collective as col
+    keys = sorted(state)
+    summed = col.fold_ranks([[state[k] for k in keys]],
+                            state[keys[0]].device, group, "auc_state")
+    return dict(zip(keys, summed))
 
 
 class AucCalculator:

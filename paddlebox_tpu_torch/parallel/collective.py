@@ -15,7 +15,13 @@ other in shard order — no atomics, the same bits on every run.  Every
 member's result is a tensor of its own on the member's device: no two
 members share one, so an in-place write through one never reaches
 another.  Between devices a value moves by ``topology.move`` (a peer
-copy between cards; a blocking copy into host memory).  The reference's P2P walk paths (heter_comm.h:303) map to
+copy between cards; a blocking copy into host memory).  Where a group
+spans processes (a topology whose dp axis is a ``torch.distributed``
+group), ``all_reduce`` and ``all_gather`` copy the local members to
+host memory, exchange them with ``torch.distributed.all_gather``
+(:func:`exchange`) and fold or concatenate every member in shard order
+on the local member's device, so every rank gets the bits one process
+holding the whole group would; the other collectives raise there.  The reference's P2P walk paths (heter_comm.h:303) map to
 :func:`ppermute`; its MoE global_scatter/global_gather to
 :func:`all_to_all`.  torch is imported inside these functions only, so
 the host half stays torch-free.
@@ -191,11 +197,109 @@ Axis = Union[str, Tuple[str, ...]]
 Shards = List["torch.Tensor"]
 
 
-def _groups(xs: Sequence, topo: "HybridTopology", axis: Axis):
+def _groups(xs: Sequence, topo: "HybridTopology", axis: Axis,
+            what: Optional[str] = None) -> List[List[int]]:
+    """The groups of ``axis`` that hold a local shard.  ``what``: the
+    collective's name when it is not carried across processes — a group
+    that spans processes then raises."""
     if len(xs) != topo.world_size:
         raise ValueError(f"{len(xs)} per-shard values for a topology of "
                          f"{topo.world_size} shards")
-    return topo.axis_groups(axis)
+    out = []
+    for g in topo.axis_groups(axis):
+        if what is not None and len({_rank_of(topo, k) for k in g}) > 1:
+            topo.refuse_cross_process(f"{what} across {axis!r}")
+        if any(topo.is_local(k) for k in g):
+            out.append(g)
+    return out
+
+
+def _rank_of(topo: "HybridTopology", shard: int) -> int:
+    """The process (group rank) that holds ``shard``: its dp
+    coordinate, when the dp axis spans processes."""
+    return topo.axis_index(shard, "dp") if topo.spans_processes else 0
+
+
+def exchange(xs: Sequence["torch.Tensor"], group, kind: str
+             ) -> List[List["torch.Tensor"]]:
+    """Every rank's ``xs``, in rank order, as host tensors: each tensor
+    copied to host memory, all of them packed into one byte buffer
+    (every part padded to 8 bytes) and exchanged with
+    ``torch.distributed.all_gather`` over ``group``.  Every rank passes
+    the same count, shapes and dtypes.  Nothing is summed here: the
+    callers fold the parts in a fixed order, so every rank computes the
+    same bits (a ring all-reduce would add in an order that depends on
+    the rank).  Counts ``parallel.xproc.<kind>.tx_bytes`` (this rank's
+    buffer) and ``parallel.xproc.exchange_s``."""
+    import torch
+    import torch.distributed as dist
+    t0 = time.perf_counter()
+    xs = [x.detach() for x in xs]
+    sizes = [x.numel() * x.element_size() for x in xs]
+    padded = [-(-n // 8) * 8 for n in sizes]
+    flat = torch.zeros((sum(padded),), dtype=torch.uint8)
+    off = 0
+    for x, n, m in zip(xs, sizes, padded):
+        # one copy into host memory, straight into the buffer (blocking)
+        flat[off:off + n].view(x.dtype).copy_(x.reshape(-1))
+        off += m
+    bufs = [torch.empty_like(flat)
+            for _ in range(dist.get_world_size(group))]
+    dist.all_gather(bufs, flat, group=group)
+    out = []
+    for buf in bufs:
+        parts, off = [], 0
+        for x, n, m in zip(xs, sizes, padded):
+            parts.append(buf[off:off + n].view(x.dtype).reshape(x.shape))
+            off += m
+        out.append(parts)
+    stat_add(f"parallel.xproc.{kind}.tx_bytes", float(flat.numel()))
+    stat_add("parallel.xproc.exchange_s", time.perf_counter() - t0)
+    return out
+
+
+def fold_ranks(parts: Sequence[Sequence["torch.Tensor"]], device, group,
+               kind: str) -> List["torch.Tensor"]:
+    """Field i of every member's list ``parts[j]`` (this process's
+    members in order; a None member, or field, sits out; a field no
+    member has is None), summed on ``device`` in the order of the members
+    of rank 0, then rank 1, ...: the device order of one process holding
+    them all.  ``group`` None: this process's members only."""
+    live = [p for p in parts if p is not None]
+    n = len(live[0])
+    if group is not None:
+        flat = [x for p in live for x in p]
+        if any(x is None for x in flat):
+            raise ValueError(f"fold_ranks({kind!r}): a member without a "
+                             "value cannot cross processes")
+        got = exchange(flat, group, kind)
+        live = [r[i:i + n] for r in got for i in range(0, len(r), n)]
+    out = []
+    for i in range(n):
+        xs = [p[i] for p in live if p[i] is not None]
+        out.append(_fold(xs, "sum", device) if xs else None)
+    return out
+
+
+def _held_elsewhere(xs: Sequence, topo: "HybridTopology",
+                    groups: List[List[int]], kind: str) -> Dict:
+    """The members of ``groups`` that other processes hold, by shard, as
+    host tensors: every rank's members of the groups that span
+    processes, exchanged once."""
+    cross = [g for g in groups
+             if len({_rank_of(topo, k) for k in g}) > 1]
+    if not cross:
+        return {}
+
+    def members(r):
+        return [k for g in cross for k in g if _rank_of(topo, k) == r]
+    got = exchange([xs[k] for k in members(topo.rank)],
+                   topo.process_group, kind)
+    out = {}
+    for r, tensors in enumerate(got):
+        if r != topo.rank:
+            out.update(zip(members(r), tensors))
+    return out
 
 
 def _on(x: "torch.Tensor", device, copy: bool = False) -> "torch.Tensor":
@@ -227,16 +331,24 @@ def _fold(parts: Sequence["torch.Tensor"], op: str, device
 def all_reduce(xs: Shards, topo: "HybridTopology", axis: Axis,
                op: str = "sum") -> Shards:
     """≙ lax.psum / pmax / pmin / pmean over ``axis``: the group's fold
-    in shard order on its first member's device, copied to the others."""
+    in shard order on its first local member's device, copied to the
+    other local members.  A group that spans processes folds the other
+    processes' members too, exchanged through host memory
+    (:func:`exchange`), so every rank computes the same bits as one
+    process holding the whole group."""
     if op not in ("sum", "max", "min", "mean"):
         raise ValueError(f"unsupported all_reduce op: {op}")
     out = [None] * len(xs)
-    for g in _groups(xs, topo, axis):
-        acc = _fold([xs[k] for k in g], op, topo.devices[g[0]])
+    groups = _groups(xs, topo, axis)
+    other = _held_elsewhere(xs, topo, groups, f"all_reduce_{op}")
+    for g in groups:
+        local = [k for k in g if topo.is_local(k)]
+        acc = _fold([other.get(k, xs[k]) for k in g], op,
+                    topo.devices[local[0]])
         if op == "mean":
             acc = acc / len(g)
-        out[g[0]] = acc
-        for k in g[1:]:
+        out[local[0]] = acc
+        for k in local[1:]:
             out[k] = _on(acc, topo.devices[k], copy=True)
     return out
 
@@ -245,20 +357,25 @@ def all_gather(xs: Shards, topo: "HybridTopology", axis: Axis, *,
                concat_dim: int = 0, tiled: bool = True) -> Shards:
     """≙ lax.all_gather: the group's tensors in axis order, concatenated
     along ``concat_dim`` (tiled) or stacked on a new dim there, built on
-    each member's device."""
+    each local member's device (the other processes' members exchanged
+    through host memory, as in :func:`all_reduce`)."""
     import torch
     from paddlebox_tpu_torch.parallel.topology import (device_key,
                                                        physical_device)
     out = [None] * len(xs)
-    for g in _groups(xs, topo, axis):
+    groups = _groups(xs, topo, axis)
+    other = _held_elsewhere(xs, topo, groups, "all_gather")
+    for g in groups:
         made = {}
         for k in g:
+            if not topo.is_local(k):
+                continue
             dev = topo.devices[k]
             key = device_key(physical_device(dev))
             if key in made:
                 out[k] = made[key].clone()
                 continue
-            parts = [_on(xs[j], dev) for j in g]
+            parts = [_on(other.get(j, xs[j]), dev) for j in g]
             made[key] = out[k] = (torch.cat(parts, dim=concat_dim) if tiled
                                   else torch.stack(parts, dim=concat_dim))
     return out
@@ -274,7 +391,7 @@ def all_to_all(xs: Shards, topo: "HybridTopology", axis: Axis, *,
     if not tiled:
         raise ValueError("all_to_all: only the tiled form is ported")
     out = [None] * len(xs)
-    for g in _groups(xs, topo, axis):
+    for g in _groups(xs, topo, axis, "all_to_all"):
         n = len(g)
         chunks = [xs[k].chunk(n, dim=split_dim) for k in g]
         for i, k in enumerate(g):
@@ -290,7 +407,7 @@ def reduce_scatter(xs: Shards, topo: "HybridTopology", axis: Axis, *,
     view of one sum (the members' blocks do not overlap); across devices
     member i folds block i of every member on its own device."""
     out = [None] * len(xs)
-    for g in _groups(xs, topo, axis):
+    for g in _groups(xs, topo, axis, "reduce_scatter"):
         size = xs[g[0]].shape[scatter_dim]
         if size % len(g):
             raise ValueError(
@@ -307,6 +424,15 @@ def reduce_scatter(xs: Shards, topo: "HybridTopology", axis: Axis, *,
     return out
 
 
+def _refuse_remote(what: str, placements: Sequence) -> None:
+    """A placement of None is another process's: not carried."""
+    from paddlebox_tpu_torch.parallel.topology import CROSS_PROCESS_ITEM
+    if any(p is None for p in placements):
+        raise NotImplementedError(
+            f"{what} with a placement in another process is "
+            f"{CROSS_PROCESS_ITEM}")
+
+
 def gather_onto(xs: Shards, srcs: Sequence, dsts: Sequence,
                 dim: int = 0) -> Shards:
     """≙ an all-gather between explicit placements: ``xs[i]`` lives on
@@ -315,6 +441,7 @@ def gather_onto(xs: Shards, srcs: Sequence, dsts: Sequence,
     copied there).  Destinations on one device share the result."""
     import torch
     from paddlebox_tpu_torch.parallel.topology import device_key, transfer
+    _refuse_remote("gather_onto", list(srcs) + list(dsts))
     made, out = {}, []
     for dst in dsts:
         key = device_key(dst)
@@ -332,6 +459,7 @@ def reduce_scatter_onto(xs: Shards, srcs: Sequence, dsts: Sequence,
     and destination j receives block j of every ``xs[i]`` summed in the
     order of i, on its own device: a fixed order, no atomics."""
     from paddlebox_tpu_torch.parallel.topology import transfer
+    _refuse_remote("reduce_scatter_onto", list(srcs) + list(dsts))
     size = xs[0].shape[dim]
     if size % len(dsts):
         raise ValueError(f"reduce_scatter_onto: dim {dim} of size {size} "
@@ -354,7 +482,7 @@ def ppermute(xs: Shards, topo: "HybridTopology", axis: Axis,
     stage with no microbatch at a tick): None is moved like a value.
     What a member receives is a copy on its own device."""
     out = [None] * len(xs)
-    for g in _groups(xs, topo, axis):
+    for g in _groups(xs, topo, axis, "ppermute"):
         sent = set()
         for src, dst in perm:
             x = xs[g[src]]

@@ -30,9 +30,22 @@ of the working set also carries the per-block operations the lowerings
 and the device cache use: its row blocks (``row_blocks``, ``locate``),
 rows read from and written to the blocks that hold them with an explicit
 copy between devices (``gather_rows``, ``scatter_rows``), and an
-elementwise op run on each block where it lives (``map_blocks``).  A
-process group for a cross-node dp axis is not here (ROADMAP Queue 1
-item 4.2).
+elementwise op run on each block where it lives (``map_blocks``).
+
+The dp axis may cross processes, one process a node as in HeterPS and in
+the JAX package's multi-host mesh (``jax.distributed.initialize``):
+``HybridTopology(config, devices, process_group=group)`` over a
+``torch.distributed`` group of dp ranks, where rank r holds the shards
+whose dp coordinate is r (``local_shards``, on ``devices``).  Only the
+reference's multi-node layout is carried across processes: the table
+split over ``sharding`` within a process and replicated over dp, so
+every rank holds a whole replica and nothing but the push's second tier
+and the dense gradient sum crosses the group (``parallel/collective.py``).
+Remote shards have no device here: ``devices`` and every per-shard list
+hold None in their places, ``groups`` names the local devices only, and
+``split`` / ``place`` / ``join`` / ``Sharded`` work on the local blocks.
+A mesh that would split the table across processes raises (ROADMAP
+Queue 1 item 4.5).
 """
 
 from __future__ import annotations
@@ -119,26 +132,49 @@ def _axes(axis: AxisLike) -> Tuple[str, ...]:
     return (axis,) if isinstance(axis, str) else tuple(axis)
 
 
+CROSS_PROCESS_ITEM = "ROADMAP Queue 1 item 4.5"
+
+
 class HybridTopology:
     """≙ HybridCommunicateGroup (topology.py:134) over logical shards.
 
-    ``devices``: one device per shard (flat shard order, ``dp`` major);
-    without it every shard takes ``resolve_device(device)`` — ``cuda``
-    unless the caller names the CPU."""
+    ``devices``: one device per local shard (flat shard order, ``dp``
+    major); without it every shard takes ``resolve_device(device)`` —
+    ``cuda`` unless the caller names the CPU.  ``process_group``: a
+    ``torch.distributed`` group whose ranks are the dp coordinates (its
+    size must be dp); this process then holds the shards of dp
+    coordinate ``rank`` only.  Without it every shard is local."""
 
     def __init__(self, config: Optional[MeshConfig] = None,
                  devices: Optional[Sequence[DeviceLike]] = None,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, process_group=None):
         self.config = config or MeshConfig()
         degrees = [self.config.degrees()[a] for a in AXES]
         world = int(np.prod(degrees))
+        self._shape: Dict[str, int] = dict(zip(AXES, degrees))
+        # flat shard index at each mesh coordinate (≙ Mesh.devices)
+        self.grid = np.arange(world).reshape(degrees)
+        self.process_group = process_group
+        self.rank, self.nranks = 0, 1
+        if process_group is not None:
+            import torch.distributed as dist
+            self.rank = dist.get_rank(process_group)
+            self.nranks = dist.get_world_size(process_group)
+            self._check_cross_process()
+        # the shards this process holds: dp coordinate == rank
+        self.local_shards: List[int] = (
+            list(range(world)) if self.nranks == 1
+            else [int(k) for k in self.grid[self.rank].reshape(-1)])
         if devices is None:
-            devices = [resolve_device(device)] * world
+            devices = [resolve_device(device)] * len(self.local_shards)
         devices = [torch.device(d) for d in devices]
-        if world != len(devices):
+        if len(self.local_shards) != len(devices):
             raise ValueError(
-                f"mesh degrees {dict(zip(AXES, degrees))} require {world} "
-                f"devices, got {len(devices)}")
+                f"mesh degrees {dict(zip(AXES, degrees))} require "
+                f"{len(self.local_shards)} devices"
+                + (f" in each of {self.nranks} processes"
+                   if self.nranks > 1 else "")
+                + f", got {len(devices)}")
         for d in set(devices):
             resolve_device(d)
             if d.type == "cuda" and d.index is not None \
@@ -146,28 +182,60 @@ class HybridTopology:
                 raise RuntimeError(
                     f"{d} is not on this machine: it has "
                     f"{torch.cuda.device_count()} CUDA device(s)")
-        self.devices: List[torch.device] = devices
+        # one entry a shard, None where another process holds it
+        self.devices: List[Optional[torch.device]] = [None] * world
+        for k, d in zip(self.local_shards, devices):
+            self.devices[k] = d
         self.device: torch.device = devices[0]
-        # the distinct devices in the order they first appear in flat
-        # shard order, and the shards each one holds
+        # the distinct local devices in the order they first appear in
+        # flat shard order, and the shards each one holds
         self.groups: List[Tuple[torch.device, List[int]]] = []
-        for k, d in enumerate(devices):
+        for k, d in zip(self.local_shards, devices):
             for dev, ks in self.groups:
                 if device_key(dev) == device_key(d):
                     ks.append(k)
                     break
             else:
                 self.groups.append((d, [k]))
-        self._shape: Dict[str, int] = dict(zip(AXES, degrees))
-        # flat shard index at each mesh coordinate (≙ Mesh.devices)
-        self.grid = np.arange(world).reshape(degrees)
+
+    def _check_cross_process(self) -> None:
+        """A dp axis over the group carries the multi-node layout only:
+        the table split within a process and replicated across them."""
+        deg = {a: self.axis_size(a) for a in AXES}
+        if deg["dp"] != self.nranks:
+            raise ValueError(
+                f"a dp axis over a process group of {self.nranks} ranks "
+                f"needs dp = {self.nranks}, got dp = {deg['dp']}")
+        if self.nranks > 1 and not self.multinode_table():
+            raise ValueError(
+                f"mesh {deg} over {self.nranks} processes would split the "
+                "table across processes: the cross-process dp axis carries "
+                "the multi-node layout only (sharding > 1, pp = mp = sp = "
+                f"ep = 1); a cross-process table split is {CROSS_PROCESS_ITEM}")
 
     @property
     def multi_device(self) -> bool:
-        """Whether the shards sit on more than one device."""
-        return len(self.groups) > 1
+        """Whether the shards sit on more than one device (another
+        process's count as others)."""
+        return len(self.groups) > 1 or self.spans_processes
 
-    def device_of(self, shard: int) -> torch.device:
+    @property
+    def spans_processes(self) -> bool:
+        """Whether some shards are held by another process."""
+        return self.nranks > 1
+
+    def is_local(self, shard: int) -> bool:
+        """Whether this process holds ``shard``."""
+        return self.devices[shard] is not None
+
+    def refuse_cross_process(self, what: str) -> None:
+        """Raise for ``what``, which is not carried across processes."""
+        if self.spans_processes:
+            raise NotImplementedError(
+                f"{what} over a dp axis that spans processes is "
+                f"{CROSS_PROCESS_ITEM}")
+
+    def device_of(self, shard: int) -> Optional[torch.device]:
         return self.devices[shard]
 
     # -- ≙ CommunicateTopology.get_dim / get_rank_from_stage ----------------
@@ -262,14 +330,15 @@ class HybridTopology:
         return tuple(out)
 
     def split(self, x: torch.Tensor, spec: Spec, copy: bool = False
-              ) -> List[torch.Tensor]:
-        """Each shard's block of ``x`` under ``spec``, on the shard's
-        device: a view of ``x`` where ``x`` lives on that device (with
-        ``copy``, a copy there too), else a copy moved there.  Shards that
-        hold the same block on one device get the same tensor."""
+              ) -> List[Optional[torch.Tensor]]:
+        """Each local shard's block of ``x`` under ``spec``, on the
+        shard's device: a view of ``x`` where ``x`` lives on that device
+        (with ``copy``, a copy there too), else a copy moved there; None
+        for another process's shard.  Shards that hold the same block on
+        one device get the same tensor."""
         src = device_key(x.device)
-        out, made = [], {}
-        for k in range(self.world_size):
+        out, made = [None] * self.world_size, {}
+        for k in self.local_shards:
             sl = self._slices(spec, x.shape, k)
             key = (tuple((s.start, s.stop) for s in sl),
                    device_key(self.devices[k]))
@@ -278,7 +347,7 @@ class HybridTopology:
                     made[key] = x[sl].clone() if copy else x[sl]
                 else:
                     made[key] = move(x[sl], self.devices[k])
-            out.append(made[key])
+            out[k] = made[key]
         return out
 
     def place(self, x: torch.Tensor, spec: Spec) -> "Sharded":
@@ -286,26 +355,32 @@ class HybridTopology:
         ``x``'s storage alive."""
         return Sharded(self.split(x, spec, copy=True), self, spec)
 
-    def join(self, parts: Sequence[torch.Tensor], spec: Spec,
+    def join(self, parts: Sequence[Optional[torch.Tensor]], spec: Spec,
              device: DeviceLike = None) -> torch.Tensor:
-        """Assemble per-shard blocks laid out by ``spec`` into the global
-        tensor on ``device`` (default: the first block's).  Shards that
-        hold the same block (replicated axes) must agree; the first in
-        flat order is taken, as an out_spec that leaves an axis out takes
-        any one replica."""
-        blk = parts[0].shape
+        """Assemble the local shards' blocks laid out by ``spec`` into the
+        global tensor on ``device`` (default: the first block's).  Shards
+        that hold the same block (replicated axes) must agree; the first
+        in flat order is taken, as an out_spec that leaves an axis out
+        takes any one replica.  A block that only another process holds
+        raises: a join never crosses processes."""
+        first = parts[self.local_shards[0]]
         full = [size * self.block(spec, 0, dim)[1]
-                for dim, size in enumerate(blk)]
-        out = torch.empty(full, dtype=parts[0].dtype,
-                          device=(parts[0].device if device is None
+                for dim, size in enumerate(first.shape)]
+        out = torch.empty(full, dtype=first.dtype,
+                          device=(first.device if device is None
                                   else physical_device(device)))
-        seen = set()
+        seen, need = set(), set()
         for k, p in enumerate(parts):
             sl = self._slices(spec, full, k)
             key = tuple((s.start, s.stop) for s in sl)
-            if key not in seen:
+            need.add(key)
+            if p is not None and key not in seen:
                 seen.add(key)
                 out[sl] = p
+        if seen != need:
+            raise ValueError(
+                f"join under {spec}: {len(need - seen)} of {len(need)} "
+                "blocks are held by other processes only")
         return out
 
 
@@ -324,13 +399,13 @@ class Sharded:
         self.parts = list(parts)
         self.topo = topo
         self.spec = spec
-        blk = self.parts[0].shape
+        blk = self.parts[topo.local_shards[0]].shape
         self.shape = torch.Size(size * topo.block(spec, 0, dim)[1]
                                 for dim, size in enumerate(blk))
 
     @property
     def dtype(self) -> torch.dtype:
-        return self.parts[0].dtype
+        return self.parts[self.topo.local_shards[0]].dtype
 
     @property
     def device(self) -> torch.device:
@@ -344,9 +419,10 @@ class Sharded:
         return len(self.shape)
 
     def unique(self) -> List[Tuple[int, torch.Tensor]]:
-        """(first shard, block) of every distinct block tensor."""
+        """(first shard, block) of every distinct local block tensor."""
         seen, out = set(), []
-        for k, p in enumerate(self.parts):
+        for k in self.topo.local_shards:
+            p = self.parts[k]
             if id(p) not in seen:
                 seen.add(id(p))
                 out.append((k, p))
@@ -364,12 +440,13 @@ class Sharded:
 
     # -- per-block operations ------------------------------------------------
     def row_blocks(self) -> List[Tuple[int, slice, torch.Tensor]]:
-        """(first shard, global rows, block) of each distinct range of
-        dim 0, in row order: the block a row is read from and an update
-        steps once; any other shard holding the range holds a replica."""
+        """(first local shard, global rows, block) of each distinct range
+        of dim 0 held here, in row order: the block a row is read from and
+        an update steps once; any other shard holding the range holds a
+        replica."""
         seen, out = set(), []
-        for k, p in enumerate(self.parts):
-            sl = self.rows(k)
+        for k in self.topo.local_shards:
+            p, sl = self.parts[k], self.rows(k)
             if sl.start not in seen:
                 seen.add(sl.start)
                 out.append((k, sl, p))
@@ -431,8 +508,8 @@ class Sharded:
         lives (an elementwise op keeps it there); shards that share a
         block share the result."""
         made = {id(p): fn(p) for _, p in self.unique()}
-        return Sharded([made[id(p)] for p in self.parts], self.topo,
-                       self.spec)
+        return Sharded([None if p is None else made[id(p)]
+                        for p in self.parts], self.topo, self.spec)
 
     def bytes_by_device(self) -> Dict[str, int]:
         out: Dict[str, int] = {}

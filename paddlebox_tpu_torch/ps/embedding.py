@@ -9,7 +9,10 @@ Under a topology whose shards sit on distinct devices, each field is a
 ``parallel.topology.Sharded``: shard d's block of rows under
 ``topology.table_spec()`` on shard d's device (≙ the JAX package's
 ``sharding=``), so no device holds the whole set; the write-back joins
-the blocks on the host in row order.
+the blocks on the host in row order.  Under a dp axis that spans
+processes (the multi-node layout) each process builds its own shards'
+blocks only, which hold one whole replica of the set: every process
+reads the whole pass, so every process builds the same rows.
 
 Row 0 is the reserved zero row: padding positions and unknown keys point
 at it, pull zeros and push nothing (≙ FLAGS_enable_pull_box_padding_zero).
@@ -104,7 +107,8 @@ def build_working_set(host_soa: Dict[str, np.ndarray], device: torch.device,
     host→device copy per field (≙ BuildGPUTask's HBM pool fill,
     ps_gpu_wrapper.cc:684-760).  Under a ``topology`` whose shards sit on
     distinct devices each field is a ``Sharded`` of its
-    ``table_spec()`` row blocks, each copied to its shard's device.
+    ``table_spec()`` row blocks, each copied to its local shard's
+    device.
 
     The reserved all-zero row 0 is load-bearing: the mxu path points
     padding occurrences at it so they pool as exact 0.0.
@@ -227,7 +231,8 @@ def quantize_working_set(ws: Dict[str, torch.Tensor], quant_bits: int = 16,
 
     if isinstance(mf, Sharded):
         out["mf"] = mf.map_blocks(lambda m: quantize(m, scale_on(m.device)))
-        out["mf_scale"] = Sharded([scale_on(p.device) for p in mf.parts],
+        out["mf_scale"] = Sharded([None if p is None else scale_on(p.device)
+                                   for p in mf.parts],
                                   mf.topo, Spec())
         return out
     s = scale_on(mf.device)

@@ -19,7 +19,10 @@ Every function works on one topology's shards from one controller (see
 tensors, indexed by flat shard number, and ``axis`` names the table axes
 (a tuple of topology axes).  Each shard's tensors live on its device
 (``topology.devices``), where its plan is built and its kernels launch;
-values cross between devices only in the collectives.
+values cross between devices only in the collectives.  Under a topology
+whose dp axis spans processes the lists hold None for the shards of the
+other processes, each process plans and runs its own shards, and only the
+multi-node push's second tier crosses the group.
 
 The mxu variants run each shard's random access through the sorted
 kernels (``ops/sorted_spmm.py``: a hand-written CUDA kernel on the card,
@@ -49,6 +52,11 @@ def _exchange_bf16(exchange_bf16: Optional[bool]) -> bool:
     if exchange_bf16 is None:
         return bool(flags.get_flags("sharded_exchange_bf16"))
     return exchange_bf16
+
+
+def _map(fn, xs: Sequence) -> list:
+    """``fn`` of each local shard's entry; None stays None."""
+    return [None if x is None else fn(x) for x in xs]
 
 
 def _localize(idx_all: torch.Tensor, me: int, rows_loc: int,
@@ -113,10 +121,12 @@ def local_plan(idx_local: Shards, rows_loc: int, topo: HybridTopology,
     sort keeps that order among equal rows, so each row's first
     occurrence (the slot carry) is its first in the gathered order."""
     idx_all = col.all_gather(idx_local, topo, axis)              # [P]
-    dims = sp.spmm_dims(idx_all[0].shape[0], rows_loc)
-    plans = [sp.build_plan(_localize(idx_all[k], topo.axis_index(k, axis),
-                                     rows_loc, dims.sentinel), dims)
-             for k in range(topo.world_size)]
+    dims = sp.spmm_dims(idx_all[topo.local_shards[0]].shape[0], rows_loc)
+    plans = [None] * topo.world_size
+    for k in topo.local_shards:
+        plans[k] = sp.build_plan(_localize(
+            idx_all[k], topo.axis_index(k, axis), rows_loc, dims.sentinel),
+            dims)
     return dims, plans
 
 
@@ -138,7 +148,7 @@ def _plans(idx_local: Shards, rows_loc: int, topo: HybridTopology, axis,
            plans: Optional[Sequence]):
     if plans is None:
         return local_plan(idx_local, rows_loc, topo, axis)
-    return _plan_dims(plans[0], rows_loc), plans
+    return _plan_dims(plans[topo.local_shards[0]], rows_loc), plans
 
 
 def pull_rows_sharded_mxu(table_fm_local: Shards, idx_local: Shards,
@@ -154,21 +164,22 @@ def pull_rows_sharded_mxu(table_fm_local: Shards, idx_local: Shards,
     these ids (skips the in-step gather + sort; pull and push share
     them).  Every value has exactly one nonzero contributor (its owner),
     so the bf16 exchange only rounds that value."""
-    rows_loc = table_fm_local[0].shape[1]
+    rows_loc = table_fm_local[topo.local_shards[0]].shape[1]
     dims, plans = _plans(idx_local, rows_loc, topo, axis, plans)
-    vals = []
-    for k, block in enumerate(table_fm_local):
+    vals = [None] * topo.world_size
+    for k in topo.local_shards:
+        block = table_fm_local[k]
         rows2d, inv_perm = plans[k][0], plans[k][2]
         # the block padded to the kernel geometry (sentinel tile = zeros)
         tab = torch.zeros((block.shape[0], dims.n_kernel),
                           dtype=torch.float32, device=block.device)
         tab[:, :rows_loc] = block
         g = sp.gather_sorted(tab, rows2d, dims)                  # [W, p_pad]
-        vals.append(g[:, :dims.p][:, inv_perm.long()])           # [W, P]
+        vals[k] = g[:, :dims.p][:, inv_perm.long()]              # [W, P]
     if _exchange_bf16(exchange_bf16):
-        vals = [v.to(torch.bfloat16) for v in vals]
-        return [v.to(torch.float32) for v in
-                col.reduce_scatter(vals, topo, axis, scatter_dim=1)]
+        vals = _map(lambda v: v.to(torch.bfloat16), vals)
+        return _map(lambda v: v.to(torch.float32),
+                    col.reduce_scatter(vals, topo, axis, scatter_dim=1))
     return col.reduce_scatter(vals, topo, axis, scatter_dim=1)
 
 
@@ -191,21 +202,24 @@ def push_rows_sharded_mxu(idx_local: Shards, payload_local: Shards,
     c = first_only_col
     if _exchange_bf16(exchange_bf16):
         if c >= 0:
-            body = [torch.cat([p[:c], p[c + 1:]]).to(torch.bfloat16)
-                    for p in payload_local]
+            body = _map(lambda p: torch.cat([p[:c], p[c + 1:]]).to(
+                torch.bfloat16), payload_local)
             body_all = col.all_gather(body, topo, axis, concat_dim=1)
-            slot_all = col.all_gather([p[c:c + 1] for p in payload_local],
+            slot_all = col.all_gather(_map(lambda p: p[c:c + 1],
+                                           payload_local),
                                       topo, axis, concat_dim=1)
-            pay_all = [torch.cat([b[:c].float(), s, b[c:].float()])
+            pay_all = [None if b is None
+                       else torch.cat([b[:c].float(), s, b[c:].float()])
                        for b, s in zip(body_all, slot_all)]
         else:
-            pay_all = [p.float() for p in col.all_gather(
-                [p.to(torch.bfloat16) for p in payload_local], topo, axis,
-                concat_dim=1)]
+            pay_all = _map(lambda p: p.float(), col.all_gather(
+                _map(lambda p: p.to(torch.bfloat16), payload_local), topo,
+                axis, concat_dim=1))
     else:
         pay_all = col.all_gather(payload_local, topo, axis, concat_dim=1)
-    out = []
-    for k, pay in enumerate(pay_all):
+    out = [None] * topo.world_size
+    for k in topo.local_shards:
+        pay = pay_all[k]
         rows2d, perm, first_occ = plans[k][0], plans[k][1], plans[k][7]
         srt = torch.zeros((pay.shape[0], dims.p_pad), dtype=torch.float32,
                           device=pay.device)
@@ -213,7 +227,7 @@ def push_rows_sharded_mxu(idx_local: Shards, payload_local: Shards,
         if c >= 0:
             srt[c] *= first_occ
         delta = sp.scatter_add_sorted(srt, rows2d, first_occ, dims)
-        out.append(delta[:, :rows_loc])
+        out[k] = delta[:, :rows_loc]
     return out
 
 
@@ -234,16 +248,20 @@ def push_rows_sharded_mxu_multinode(idx_local: Shards, payload_local: Shards,
     nodes, so the cross-node bytes are one dense block instead of every
     node's raw payload.  The first-only column (slot carry) takes the max
     over nodes instead of the sum (each node's merge elects a first
-    occurrence; the sum would add them)."""
+    occurrence; the sum would add them).  Where ``dcn_axis`` spans
+    processes, stage 2 is the collectives' cross-process ``all_reduce``:
+    every node's delta exchanged through host memory and folded in node
+    order on each."""
     node = push_rows_sharded_mxu(idx_local, payload_local, rows_loc, topo,
                                  ici_axis, first_only_col, plans,
                                  exchange_bf16)
     c = first_only_col
     if c < 0:
         return col.all_reduce(node, topo, dcn_axis)
-    slots = col.all_reduce([d[c] for d in node], topo, dcn_axis, "max")
-    rest = col.all_reduce(
-        [torch.cat([d[:c], torch.zeros_like(d[c:c + 1]), d[c + 1:]])
-         for d in node], topo, dcn_axis)
-    return [torch.cat([r[:c], s[None], r[c + 1:]])
+    slots = col.all_reduce(_map(lambda d: d[c], node), topo, dcn_axis,
+                           "max")
+    rest = col.all_reduce(_map(lambda d: torch.cat(
+        [d[:c], torch.zeros_like(d[c:c + 1]), d[c + 1:]]), node), topo,
+        dcn_axis)
+    return [None if r is None else torch.cat([r[:c], s[None], r[c + 1:]])
             for r, s in zip(rest, slots)]

@@ -220,11 +220,15 @@ class GraphEmbeddingTrainer:
     """Skip-gram-with-negatives over PS-resident node embeddings, on the
     engine's device (under a topology, its first shard's: the graph,
     the walks, the negatives and the loss live there; the working set's
-    row blocks step on their own devices)."""
+    row blocks step on their own devices).  A topology whose dp axis
+    spans processes raises (ROADMAP item 4.5)."""
 
     def __init__(self, engine, graph: GraphTable, n_negatives: int = 5,
                  learning_rate: float = 0.05, window: int = 2,
                  seed: int = 0):
+        topology = getattr(engine, "topology", None)
+        if topology is not None:
+            topology.refuse_cross_process("the graph trainer")
         if not same_device(graph.device, engine.device):
             raise ValueError(f"the graph lives on {graph.device}, the "
                              f"engine's device is {engine.device}")

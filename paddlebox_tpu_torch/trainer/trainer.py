@@ -86,6 +86,18 @@ its last block, so the page-view planes' batch-local rows stay valid.  A
 model that reads them (``RankAttentionCTR``) gets each replica's rows'
 ``rank_offset``, the whole ``ads_offset`` and the whole batch's input
 for its peer rows (:meth:`_replica_dense_half`).
+
+A topology whose dp axis spans processes (one process a node, over a
+``torch.distributed`` group: ``HybridTopology(process_group=)``) trains
+``mxu_sharded`` on the multi-node layout.  Every process reads the whole
+pass and holds one replica of the working set; it runs the exchange for
+its own shards' batch columns, and only the push's second tier (the
+node-merged deltas, summed in node order) and the dense half's count,
+losses and grads (summed in global device order) cross the group, so
+every rank takes the same steps and equals one process holding every
+shard.  The AUC buckets are summed over the group at the end of a pass.
+The other lowerings, the async dense table, the page-view models, the
+instance dump and the per-user AUC raise there (ROADMAP item 4.5).
 """
 
 from __future__ import annotations
@@ -109,7 +121,8 @@ from paddlebox_tpu_torch.data import pass_feed as pf
 from paddlebox_tpu_torch.data.dataset import SlotDataset
 from paddlebox_tpu_torch.device import DeviceLike, resolve_device
 from paddlebox_tpu_torch.metrics.auc import (AucCalculator, WuAucCalculator,
-                                             accumulate_auc, make_auc_state)
+                                             accumulate_auc, make_auc_state,
+                                             sum_auc_state)
 from paddlebox_tpu_torch.ops import crossing as cx
 from paddlebox_tpu_torch.ops import sorted_spmm as sp
 from paddlebox_tpu_torch.ops.seqpool_cvm import fused_seqpool_cvm
@@ -369,6 +382,8 @@ class SparseTrainer:
         ``reference`` take an expand table and leave its mf_ex as it
         is."""
         has_ex = "mf_ex" in self.engine.ws
+        if self.topology is not None:
+            self._refuse_cross_process(path)
         if path == "mxu":
             if has_ex and self._dym_mask is not None:
                 raise ValueError(
@@ -409,6 +424,23 @@ class SparseTrainer:
                     "mxu_sharded, fast or ragged sparse path")
         else:
             raise ValueError(f"unknown sparse_path {path!r}")
+
+    def _refuse_cross_process(self, path: str) -> None:
+        """What a dp axis across processes does not carry (ROADMAP item
+        4.5) raises through the topology: every lowering but
+        ``mxu_sharded``, the async dense table, the page-view models, the
+        instance dump and the per-user AUC (the last two read the whole
+        batch's preds, which no process holds)."""
+        refuse = self.topology.refuse_cross_process
+        if path != "mxu_sharded":
+            refuse(f"sparse_path={path!r}")
+        for what, on in (
+                ("dense_sync_mode='async_table'", self.async_dense is not None),
+                ("a model that reads the page-view planes", self._reads_pv),
+                ("dump_path", bool(self.trainer_config.dump_path)),
+                ("uid_slot (the per-user AUC)", self.wuauc is not None)):
+            if on:
+                refuse(what)
 
     def _crossing_modes(self, s: int, l: int, b: int,
                         eff_p_pad: Optional[int] = None,
@@ -677,8 +709,9 @@ class SparseTrainer:
         tspec = Spec(None, tbl_axes)                # [W, rows]
         with torch.no_grad():
             if isinstance(idx_slb, list):
-                s, l, b_loc = idx_slb[0].shape
-                idx_loc = [_mask_padding(x, n).reshape(-1)
+                s, l, b_loc = idx_slb[topo.local_shards[0]].shape
+                idx_loc = [None if x is None else
+                           _mask_padding(x, n).reshape(-1)
                            for x, n in zip(idx_slb, lengths)]
             else:
                 s, l, b = idx_slb.shape
@@ -704,7 +737,7 @@ class SparseTrainer:
         loss, preds, d_pooled = self._replica_dense_half(
             pooled, self._per_device(dense), labels_g,
             self._per_device(valid), extras_g)
-        if len(topo.groups) == 1:
+        if not self._multi:
             preds = preds[0]
         else:
             preds = self._join_columns(preds, b_loc)
@@ -986,8 +1019,8 @@ class SparseTrainer:
     def _split_columns(self, x, b_loc: int, dim: int = 0) -> List:
         """Per-device tensors (:meth:`_per_device_blocks`) → the batch
         blocks' tensors of ``b_loc`` columns along ``dim``, in order."""
-        _, by_dev = self._batch_owners()
-        out = [None] * sum(len(bs) for bs in by_dev)
+        owners, by_dev = self._batch_owners()
+        out = [None] * len(owners)
         for bs, t in zip(by_dev, x):
             for i, b in enumerate(bs):
                 out[b] = t.narrow(dim, i * b_loc, b_loc)
@@ -995,14 +1028,17 @@ class SparseTrainer:
 
     def _join_columns(self, x, b_loc: int = 0) -> torch.Tensor:
         """Per-shard planes (or, with ``b_loc``, per-device ones in
-        ``topology.groups`` order) → the global batch on the trainer's
-        device, in batch order."""
+        ``topology.groups`` order) → the batch on the trainer's device,
+        in batch order (under a dp axis across processes, the columns
+        this process holds)."""
         if b_loc:
             x = self._split_columns(x, b_loc)
         else:
             owners, _ = self._batch_owners()
             x = [x[k] for k in owners]
-        return torch.cat([on_device(t, self.device) for t in x])
+        # another process's columns are None here
+        return torch.cat([on_device(t, self.device) for t in x
+                          if t is not None])
 
     def _const(self, t: torch.Tensor, dev) -> torch.Tensor:
         """A constant of the trainer (slot ids, the dynamic-dim mask) on
@@ -1050,9 +1086,15 @@ class SparseTrainer:
         bit-equal: the function GSPMD computes for a replicated net over
         a batch-sharded input.  (A step taken on each device would round
         differently where a card's elementwise kernel contracts a
-        multiply-add that the host does not.)  ``pooled``: the leaves the
-        grads are taken for; ``inputs[g](leaf)`` makes device g's model
-        input of its leaf (default :meth:`_dense_input`).
+        multiply-add that the host does not.)  Under a dp axis that spans
+        processes the count, the losses and the grads of every process's
+        replicas are gathered over the group and summed in global device
+        order (``collective.fold_ranks``: rank 0's devices, then rank
+        1's), and every process takes the same optimizer step, so the
+        ranks' dense params stay bit-equal and equal one process holding
+        every replica.  ``pooled``: the leaves the grads are taken for;
+        ``inputs[g](leaf)`` makes device g's model input of its leaf
+        (default :meth:`_dense_input`).
 
         A model that reads a page-view plane reaches rows anywhere in the
         batch (``rank_attention``'s peer rows): every replica also gets
@@ -1062,30 +1104,29 @@ class SparseTrainer:
         (``reduce_scatter_onto``), then added to each replica's own.
         Returns (loss, each replica's preds, each leaf's grad); one
         device is :meth:`_pooled_dense_half`."""
-        if len(pooled) == 1:
+        if not self._multi:
             loss, preds, d_pooled = self._pooled_dense_half(
                 pooled[0], dense[0], labels[0], valid[0], extras[0])
             return loss, [preds], [d_pooled]
         models = self.dense_replicas()
+        group = self.topology.process_group
         inputs = inputs or [self._dense_input] * len(pooled)
-        count = None
-        for v in valid:
-            if v is None:
-                continue
-            c = on_device(torch.sum(v.to(torch.float32)), self.device)
-            count = c if count is None else count + c
+        count = col.fold_ranks(
+            [None if v is None else [torch.sum(v.to(torch.float32))]
+             for v in valid], self.device, group, "count")[0]
         leaves = [None if x is None else x.detach().requires_grad_(True)
                   for x in pooled]
         xs = [None if x is None else make(x)
               for x, make in zip(leaves, inputs)]
         peers = self._peer_inputs(xs) if self._reads_pv else None
-        total, preds, own = None, [], []
+        losses, preds, own = [], [], []
         for g, ((dev, _), model, x, dn, lb, v, ex) in enumerate(zip(
                 self.topology.groups, models, xs, dense, labels, valid,
                 extras)):
             for prm in model.parameters():
                 prm.grad = None
             if x is None:
+                losses.append(None)
                 preds.append(None)
                 own.append(None)
                 continue
@@ -1096,8 +1137,7 @@ class SparseTrainer:
             loss, p = self._loss_and_preds(x, dn, lb, v, ex, model,
                                            on_device(count, dev))
             loss.backward()
-            loss = on_device(loss.detach(), self.device)
-            total = loss if total is None else total + loss
+            losses.append(loss.detach())
             preds.append(p)
             own.append(x)
         if peers is not None:
@@ -1106,13 +1146,13 @@ class SparseTrainer:
                 if x is not None:
                     x.backward(xi.grad + pg)
         with torch.no_grad():
-            for ps in zip(*(m.parameters() for m in models)):
-                acc = None
-                for prm in ps:
-                    if prm.grad is not None:
-                        g = on_device(prm.grad, self.device)
-                        acc = g if acc is None else acc + g
-                ps[0].grad = acc
+            total, *grads = col.fold_ranks(
+                [None if ls is None else [ls] + [prm.grad for prm in
+                                                 m.parameters()]
+                 for ls, m in zip(losses, models)],
+                self.device, group, "dense_grads")
+            for prm, acc in zip(self.model.parameters(), grads):
+                prm.grad = acc
         if self.async_dense is None:
             self.dense_opt.step()
             self._sync_replicas()
@@ -1188,8 +1228,8 @@ class SparseTrainer:
         the whole plane), uploaded to the shard's device once (shards
         with the same columns on one device share it)."""
         topo = self.topology
-        made, out = {}, []
-        for k in range(topo.world_size):
+        made, out = {}, [None] * topo.world_size
+        for k in topo.local_shards:
             idx, n = ((0, 1) if dim is None
                       else topo.block(topo.batch_spec(), k, 0))
             key = (idx, device_key(topo.device_of(k)))
@@ -1197,7 +1237,7 @@ class SparseTrainer:
                 made[key] = pf.to_device(
                     a if dim is None else pf.batch_columns(a, dim, idx, n),
                     topo.device_of(k))
-            out.append(made[key])
+            out[k] = made[key]
         return out
 
     # ------------------------------------------------------------------
@@ -1382,7 +1422,8 @@ class SparseTrainer:
                 dump = None
                 if log["dump_file"] is not None:
                     dump = (batch.ins_ids, batch.labels[:batch.num_real])
-                idx = ([x.permute(0, 2, 1) for x in indices]
+                idx = ([None if x is None else x.permute(0, 2, 1)
+                        for x in indices]
                        if isinstance(indices, list)
                        else indices.permute(0, 2, 1))
                 self._timed_step(path, log, idx, lengths, dense, labels,
@@ -1551,13 +1592,15 @@ class SparseTrainer:
                   else topo.split(idx, specs["indices"]))
         per_batch = []
         for i in range(feed.n_batches):
-            _, plans = se.local_plan([x[i].reshape(-1) for x in blocks],
+            _, plans = se.local_plan([None if x is None else x[i].reshape(-1)
+                                      for x in blocks],
                                      rows_loc, topo, tbl_axes)
             per_batch.append(plans if self._multi else
                              [torch.stack([pl[j] for pl in plans])
                               for j in range(len(pf.PLAN_KEYS))])
         if self._multi:
             feed.plans = {key: [torch.stack([p[k][j] for p in per_batch])
+                                if topo.is_local(k) else None
                                 for k in range(topo.world_size)]
                           for j, key in enumerate(pf.PLAN_KEYS)}
         else:
@@ -1569,7 +1612,8 @@ class SparseTrainer:
             "gathered P, untrimmed)",
             sum(t.numel() * t.element_size()
                 for v in feed.plans.values()
-                for t in (v if isinstance(v, list) else [v])) / 1e6)
+                for t in (v if isinstance(v, list) else [v])
+                if t is not None) / 1e6)
 
     def _precompute_block_plans(self, feed: pf.PackedPassFeed) -> None:
         """Pass-resident plans of explicit mxu on distinct devices: for
@@ -1696,7 +1740,8 @@ class SparseTrainer:
                 if plans is None:
                     plan = None
                 elif feed.topology is not None:
-                    plan = [tuple(plans[key][k][i] for key in pf.PLAN_KEYS)
+                    plan = [None if plans["rows2d"][k] is None else
+                            tuple(plans[key][k][i] for key in pf.PLAN_KEYS)
                             for k in range(len(plans["rows2d"]))]
                 else:
                     plan = pf.plan_tuple(pf.slice_batch(plans, i))
@@ -1727,6 +1772,10 @@ class SparseTrainer:
         return self._pass_stats(log)
 
     def _finalize_metrics(self, auc_state) -> Dict[str, float]:
+        # the other processes' records too: every rank reports the
+        # global AUC
+        auc_state = sum_auc_state(
+            auc_state, getattr(self.topology, "process_group", None))
         self.auc.reset()
         self.auc.merge_device_state(
             {k: v.cpu().numpy() for k, v in auc_state.items()})
