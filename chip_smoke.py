@@ -71,10 +71,10 @@ result line is printed):
    sort, on the packed phase's data: losses and working set bit-equal;
    prints ``best_mode``'s measured choice and both timings for the pull
    and push crossings at this geometry;
-10. lifecycle — the multi-pass day loop: 4 passes × 4 batches of 16384,
+10. lifecycle — the multi-pass day loop: 4 passes × 1 batch of 16384,
    day 1's 3 and day 2's first (fresh keys per pass from the 2 M key
-   space, so consecutive
-   passes share most of their keys), a date change between the days, on
+   space, ~0.7 M a pass, so consecutive passes share about a third of
+   their keys), a date change between the days, on
    the default lowering (auto → mxu) and on ragged; each first through
    the serial engine lifecycle, then through ``PassPrefetcher`` with
    in-memory loads, from the same data, weights and table seed.  Per-pass
@@ -335,7 +335,8 @@ result line is printed):
 21. multicard_paths — explicit ``fast``, ``mxu`` and ``reference`` and
    ``auto`` on a mesh ``mxu_sharded`` cannot take, with the shards on
    distinct devices, on the packed phase's data and weights at the bench
-   widths: (d) fast on dp 2 over the card and the host; (e) auto on dp 2
+   widths (its first 2 batches): (d) fast on dp 2 over the card and the
+   host; (e) auto on dp 2
    × mp 2 (adagrad → fast), one dp row a device; (f) reference (under
    adagrad, the step ``fast_path=False`` gives) on dp 2; (g) mxu on dp 2; with two or more cards, (d2) and (g2)
    over ``cuda:0`` and ``cuda:1``.  Each run: every block, plane and plan
@@ -401,6 +402,29 @@ result line is printed):
    lines: each rank's steady step, the bytes it sends over the group a
    step (the delta, the slot column, the dense grads), its seconds a
    step in the cross-process tier, and the phase's wall: host- and
+   loopback-bound with two ranks on one card, no multi-node speed.
+24. multiprocess_split — the table split across processes: phase 4's
+   first two batches at the bench widths (the first through
+   ``build_pass_feed``, the second streaming, then ``end_pass``), two
+   ranks of ``chip_smoke.py --multiprocess-split-rank <dir>`` through
+   the launcher on ``cuda:0``, each holding its own row blocks
+   (``SPLIT_RUNS``: (m) dp 2, auto → ``mxu_sharded`` on the flat layout;
+   (n) dp 2, explicit mxu; (o) dp 2 × mp 2 under adagrad, auto → fast;
+   (p) dp 2, explicit reference; (r) dp 2 × sharding 2, explicit fast on
+   the multi-node layout, where each rank holds a whole replica and
+   reads and steps its own row blocks).  Checks, a run: the ranks' losses,
+   AUC, working set (joined over the group), host table after
+   ``end_pass`` and dense params bit-equal; each rank's launches a step
+   as ``SPLIT_RUNS`` predicts for its row blocks; the losses within rtol
+   1e-4 and the working set within rtol 1e-5 / atol 1e-6 of the same
+   mesh in this process on the card; (m)'s first step within rtol 1e-4
+   of the CPU; (m)'s sorted kernels on each rank's shard plan and (o)'s
+   ``gather_pool`` on each rank's first row block over the whole batch
+   against their plain versions (rank 0's times on the ``kernels`` line
+   as ``at_multiprocess_split``).  Prints ``multiprocess_split[...]``
+   lines: each rank's steps, the bytes it puts on the group a step by
+   kind, its seconds a step in the cross-process tier, the working-set
+   join and ``end_pass`` seconds, and the phase's wall: host- and
    loopback-bound with two ranks on one card, no multi-node speed.
 
 Depth cuts (the widths are the bench model's): phase 10, 4 passes of 4
@@ -1371,7 +1395,12 @@ def crossing_phase(block: SlotRecordBlock, params0):
 # ---------------------------------------------------------------------------
 
 LIFE_DATES = ("20261016", "20261017")      # 2 days
-LIFE_PASSES = 3                            # passes of day 1, N_BATCHES each
+LIFE_PASSES = 3                            # passes of day 1
+# batches a pass: N_BATCHES until the whole script reached 91 % of its
+# time limit on a slower host; every check of the phase holds at 1 (a
+# pass still holds ~0.7 M of the 2 M keys: stale re-pulls, warm hits and
+# the small cache's evictions all remain)
+LIFE_BATCHES = 1
 REC_PASSES, REC_DATE = 3, "20261016"       # recovery: 3 passes, full size
 # the lowerings of the day loop: the default (auto → mxu on one card) and
 # ragged, whose host CSR build the prefetch exists to hide
@@ -1766,7 +1795,7 @@ def log_run(what: str, r: dict, info: dict) -> None:
 
 def lifecycle_phase(seed: int = 5, device: str = "cuda"):
     """The day loop at the bench model's full width: LIFE_CACHE_DEPTH
-    passes of N_BATCHES batches over 2 days (day 1's LIFE_PASSES and day
+    passes of LIFE_BATCHES batches over 2 days (day 1's LIFE_PASSES and day
     2's first), each lowering serial then prefetched from the same data,
     weights and table seed; the two runs must leave the same bits, and
     the prefetched one must have re-pulled stale rows.  Then the
@@ -1775,14 +1804,14 @@ def lifecycle_phase(seed: int = 5, device: str = "cuda"):
     from paddlebox_tpu_torch.utils.monitor import stat_get, stat_snapshot
     rng = np.random.default_rng(seed)
     t_data = time.perf_counter()
-    blocks = [[make_block(rng, N_BATCHES * BATCH)
+    blocks = [[make_block(rng, LIFE_BATCHES * BATCH)
                for _ in range(LIFE_PASSES)],
-              [make_block(rng, N_BATCHES * BATCH)
+              [make_block(rng, LIFE_BATCHES * BATCH)
                for _ in range(LIFE_CACHE_DEPTH - LIFE_PASSES)]]
     log(f"lifecycle: data for {LIFE_CACHE_DEPTH} passes over "
-        f"{len(LIFE_DATES)} days × {N_BATCHES} batches made in "
+        f"{len(LIFE_DATES)} days × {LIFE_BATCHES} batches made in "
         f"{time.perf_counter() - t_data:.2f} s")
-    n_batches = LIFE_CACHE_DEPTH * N_BATCHES
+    n_batches = LIFE_CACHE_DEPTH * LIFE_BATCHES
     launches, out = {}, {"host_ab": host_tier_ab(device=device)}
 
     def one_run(key, what, label, path, prefetch, cache=False):
@@ -2992,9 +3021,11 @@ def cluster_phase(seed: int = 18, device: str = "cuda",
         if local_pass_wall_s is not None:
             out["local_serial_mxu_pass_wall_s"] = local_pass_wall_s
             log(f"cluster: local-table serial mxu pass wall (phase 10, this "
-                f"call) {local_pass_wall_s:.3f} s against "
+                f"call, {LIFE_BATCHES} batches a pass) "
+                f"{local_pass_wall_s:.3f} s against "
                 f"{out['a']['median_pass_wall_s']:.3f} s through N=1 and "
-                f"{out['b']['median_pass_wall_s']:.3f} s through N=4")
+                f"{out['b']['median_pass_wall_s']:.3f} s through N=4 "
+                f"({N_BATCHES} batches a pass)")
         log(f"cluster: runs a-e bitwise equal (per-batch losses, dense "
             f"weights and Adam state, {len(base['table'][0])} table keys × "
             "every field over the union of the shards, no key on two)")
@@ -5251,6 +5282,9 @@ PATHS_TWO = (("d2", "fast", "adagrad", {"dp": 2}, ("cuda:0", "cuda:1"),
 # then on serially, then on prefetched (pass 3 is the prefetcher's first
 # warm pass: pass N + 1's snapshot predates pass N's fold-back)
 PATHS_DAY_PASSES, PATHS_DAY_BATCHES = 3, 1
+# batches of the packed phase's pass that runs (d)-(g) train: N_BATCHES
+# until the whole script reached 91 % of its time limit on a slower host
+PATHS_BATCHES = 2
 
 
 def paths_pass(block, params, mesh, devices, path, optimizer, device):
@@ -5499,33 +5533,34 @@ def multicard_paths_phase(block: SlotRecordBlock, params0,
     if torch.cuda.device_count() >= 2:
         runs += PATHS_TWO
     launches, out = {}, {"cards": torch.cuda.device_count()}
+    pass_block = block.slice(0, PATHS_BATCHES * BATCH)
     for label, path, rule, mesh, devices, want, per_block in runs:
         what = f"multicard_paths[{label}]"
         card = device if ":" in device else f"{device}:0"
         devices = tuple({"card": card, "host": host}.get(d, d)
                         for d in devices)
         t0 = time.perf_counter()
-        ref, ws_ref, _, _, _ = paths_pass(block, params0, mesh, None, path,
-                                          rule, device)
+        ref, ws_ref, _, _, _ = paths_pass(pass_block, params0, mesh, None,
+                                          path, rule, device)
         reset_counts()
         stats, ws, held, feed, trainer = paths_pass(
-            block, params0, mesh, devices, path, rule, device)
+            pass_block, params0, mesh, devices, path, rule, device)
         launches[label] = read_counts()
         if stats["path"] != want or ref["path"] != want:
             raise AssertionError(f"{what}: {path} resolved to "
                                  f"{stats['path']} / one card {ref['path']}")
         blocks = sum(trainer.topology.device_of(k).type == "cuda"
                      for k, _, _ in held["show"].row_blocks())
-        predicted = {name: N_BATCHES * blocks * n for name, n in
+        predicted = {name: PATHS_BATCHES * blocks * n for name, n in
                      zip(("gather_sorted", "scatter_add_sorted",
                           "gather_pool"), per_block)}
         if device.startswith("cuda"):
             check_pass(what, stats, launches[label],
-                       {k: v // N_BATCHES for k, v in predicted.items()},
-                       exact=True)
+                       {k: v // PATHS_BATCHES for k, v in predicted.items()},
+                       n_batches=PATHS_BATCHES, exact=True)
         close = multicard_close(what, stats, ws, ref, ws_ref)
-        again, ws2, _, _, _ = paths_pass(block, params0, mesh, devices, path,
-                                         rule, device)
+        again, ws2, _, _, _ = paths_pass(pass_block, params0, mesh, devices,
+                                         path, rule, device)
         if again["losses"] != stats["losses"] or any(
                 not torch.equal(ws[k], ws2[k]) for k in ws):
             raise AssertionError(f"{what}: a rerun left other bits")
@@ -5551,7 +5586,7 @@ def multicard_paths_phase(block: SlotRecordBlock, params0,
             f"{stats['path']}; losses {stats['losses']} vs one card "
             f"{ref['losses']}, ws max |diff| {close['ws_max_abs_diff']}; "
             f"launches {launches[label]} (predicted {predicted}: "
-            f"{blocks} card row blocks × {N_BATCHES} steps); on {card}: "
+            f"{blocks} card row blocks × {PATHS_BATCHES} steps); on {card}: "
             f"working set "
             f"{stats['bytes']['ws'].get(card, 0) / 2**20:.1f} MiB + feed "
             f"{stats['bytes']['feed'].get(card, 0) / 2**20:.1f} MiB vs "
@@ -6115,10 +6150,10 @@ def multiprocess_rank(work: str) -> int:
     return 0
 
 
-def mp_launch(work: str) -> float:
-    """The two ranks through the port's launcher, in a process group of
-    their own (killed whole at the time limit); raises unless both exit
-    0.  Returns the wall seconds."""
+def mp_launch(work: str, arg: str = MP_ARG) -> float:
+    """The two ranks through the port's launcher (``chip_smoke.py <arg>
+    <work>``), in a process group of their own (killed whole at the time
+    limit); raises unless both exit 0.  Returns the wall seconds."""
     import signal
     with socket.socket() as sk:
         sk.bind(("127.0.0.1", 0))
@@ -6126,7 +6161,7 @@ def mp_launch(work: str) -> float:
     here = os.path.dirname(os.path.abspath(__file__))
     cmd = [sys.executable, "-m", "paddlebox_tpu_torch.launch",
            "--nproc_per_node", "2", "--coordinator", f"127.0.0.1:{port}",
-           os.path.join(here, "chip_smoke.py"), MP_ARG, work]
+           os.path.join(here, "chip_smoke.py"), arg, work]
     t0 = time.perf_counter()
     proc = subprocess.Popen(cmd, cwd=here, start_new_session=True)
     try:
@@ -6228,6 +6263,278 @@ def multiprocess_phase(block: SlotRecordBlock, params0, seed: int = 2):
     return launches, out
 
 
+# ---------------------------------------------------------------------------
+# phase 24: the table split across processes
+# ---------------------------------------------------------------------------
+
+# (run, mesh, sparse_path, the lowering it resolves to, launches of each
+# kernel a step for each of the rank's row blocks (mxu_sharded: shards))
+SPLIT_RUNS = (
+    ("m", {"dp": 2}, "auto", "mxu_sharded",
+     {"gather_sorted": 1, "scatter_add_sorted": 1, "gather_pool": 0}),
+    ("n", {"dp": 2}, "mxu", "mxu",
+     {"gather_sorted": 1, "scatter_add_sorted": 1, "gather_pool": 0}),
+    ("o", {"dp": 2, "mp": 2}, "auto", "fast",
+     {"gather_sorted": 0, "scatter_add_sorted": 1, "gather_pool": 1}),
+    ("p", {"dp": 2}, "reference", "reference",
+     {"gather_sorted": 0, "scatter_add_sorted": 1, "gather_pool": 0}),
+    # the multi-node layout: each rank reads and steps its own replica
+    ("r", {"dp": 2, "sharding": 2}, "fast", "fast",
+     {"gather_sorted": 0, "scatter_add_sorted": 1, "gather_pool": 1}))
+SPLIT_STEPS = 2                    # one batch packed, one streaming
+SPLIT_ARG = "--multiprocess-split-rank"
+XPROC = "parallel.xproc."
+
+
+def split_pass(block: SlotRecordBlock, params, mesh: dict, path: str,
+               group=None, devices=None):
+    """A run of phase 24 on ``mesh``: the first batch of ``block`` through
+    build_pass_feed, the second streaming, in one pass over both batches'
+    keys (end_pass not yet run).  ``group``: the dp axis over the
+    launcher's group (``devices``: this rank's shards'); else every shard
+    on the card.  Returns (engine, trainer, feed, the passes' stats, the
+    ``parallel.xproc.*`` counters' growth over the training)."""
+    from paddlebox_tpu_torch.utils.monitor import stat_snapshot
+    engine, trainer, _, _ = make_trainer(block, "cuda", params, path,
+                                         mesh=mesh, devices=devices,
+                                         group=group)
+    packed, stream = (SlotDataset(feed_config()) for _ in range(2))
+    packed._blocks = [block.slice(0, BATCH)]
+    stream._blocks = [block.slice(BATCH, SPLIT_STEPS * BATCH)]
+    feed = trainer.build_pass_feed(packed)
+    x0 = stat_snapshot(XPROC)
+    stats = [trainer.train_pass(feed),
+             trainer.train_pass(stream, pack_threads=4)]
+    torch.cuda.synchronize()
+    x1 = stat_snapshot(XPROC)
+    grown = {k[len(XPROC):]: v - x0.get(k, 0.0) for k, v in x1.items()
+             if v != x0.get(k, 0.0)}
+    return engine, trainer, feed, stats, grown
+
+
+def batch_ids_across(feed, trainer) -> tuple:
+    """The first batch's whole ids [S, L, B] and lengths [S, B] on the
+    host, each rank's columns gathered onto every rank's first shard over
+    the group (a collective: every rank calls it)."""
+    from paddlebox_tpu_torch.parallel import collective as col
+    topo = trainer.topology
+    owners, _ = trainer._batch_owners()
+    firsts = [topo.shards_of(r)[0] for r in range(topo.nranks)]
+    return tuple(col.gather_onto_shards([feed.data[f].parts[j][0]
+                                         if topo.is_local(j) else None
+                                         for j in owners], owners, firsts,
+                                        topo, dim=d)[topo.rank].cpu()
+                 for f, d in (("indices", 2), ("lengths", 1)))
+
+
+def split_kernels(name: str, rank: int, engine, feed, ids) -> dict:
+    """This rank's kernels of run ``name`` on its first row block, against
+    their plain versions: (m) both sorted kernels on its shard's resident
+    plan of the first batch; (o) gather_pool over the whole first batch's
+    ``ids`` (:func:`batch_ids_across`)."""
+    k, sl, _ = engine.ws["show"].row_blocks()[0]
+    block = {f: v.parts[k] for f, v in engine.ws.items()}
+    what = f"multiprocess_split[{name}][rank {rank}, shard {k}]"
+    if name == "m":
+        return sharded_kernels(what, block, feed.plans["rows2d"][k][0],
+                               feed.plans["first_occ"][k][0],
+                               feed.plans["inv_perm"][k].shape[1], k)
+    return {"gather_pool": block_gather_pool(what, block, sl.start, *ids,
+                                             block["show"].device),
+            "shard": k, "row0": sl.start, "rows": sl.stop - sl.start}
+
+
+def split_rank(work: str) -> int:
+    """One rank of phase 24 (``python -m paddlebox_tpu_torch.launch
+    --nproc_per_node 2 chip_smoke.py --multiprocess-split-rank <work>``):
+    joins the launcher's group and trains each of ``SPLIT_RUNS`` on its dp
+    coordinate's shards (all on ``cuda:0``), the table's rows split over
+    the ranks; holds run (m)'s and (o)'s kernels on its first row block
+    against their plain versions (the ranks one after the other); joins
+    the working set over the group, runs end_pass and writes
+    ``<work>/split<r>.json`` (and, rank 0, each run's joined working
+    set)."""
+    from paddlebox_tpu_torch import launch
+    from paddlebox_tpu_torch.utils.monitor import stat_get
+    import torch.distributed as dist
+    rank = launch.init_distributed()
+    group = launch.process_group()
+    with open(os.path.join(work, "spec.json")) as f:
+        spec = json.load(f)
+    block = make_block(np.random.default_rng(spec["seed"]),
+                       N_BATCHES * BATCH).slice(0, SPLIT_STEPS * BATCH)
+    params = load_params(os.path.join(work, "params.npz"))
+    out = {"rank": rank, "runs": {}}
+    for name, mesh, path, want, _ in SPLIT_RUNS:
+        shards = int(np.prod(list(mesh.values()))) // 2
+        reset_counts()
+        t0 = time.perf_counter()
+        engine, trainer, feed, stats, grown = split_pass(
+            block, params, mesh, path, group, ["cuda:0"] * shards)
+        train_s = time.perf_counter() - t0
+        launches = read_counts()
+        resolved = trainer._resolve_path()
+        if resolved != want:
+            raise AssertionError(f"multiprocess_split[{name}]: resolved "
+                                 f"{resolved}, want {want}")
+        ids = None
+        if name == "o":
+            ids = batch_ids_across(feed, trainer)
+        kern = {}
+        for turn in range(2):
+            dist.barrier(group)
+            if turn == rank and name in ("m", "o"):
+                kern = split_kernels(name, rank, engine, feed, ids)
+                torch.cuda.synchronize()
+        dist.barrier(group)
+        held = [[k, sl.start, sl.stop]
+                for k, sl, _ in engine.ws["show"].row_blocks()]
+        t1 = time.perf_counter()
+        ws = host_ws(engine.ws)
+        join_s = time.perf_counter() - t1
+        if rank == 0:
+            np.savez(os.path.join(work, f"ws_{name}.npz"),
+                     **{k: v.numpy() for k, v in ws.items()})
+        x0 = stat_get(XPROC + "join.tx_bytes")
+        t1 = time.perf_counter()
+        engine.end_pass()
+        end_pass_s = time.perf_counter() - t1
+        keys = np.sort(engine.table.export_keys())
+        rows = engine.table.bulk_pull(keys)
+        out["runs"][name] = {
+            "mesh": mesh, "path": resolved,
+            "local_shards": trainer.topology.local_shards,
+            "local_row_blocks": held,
+            "losses": [x for st in stats for x in st["losses"]],
+            "auc": [st["auc"] for st in stats],
+            "step_ms": [x for st in stats for x in st["step_ms"]],
+            "train_s": train_s, "launches": launches,
+            "xproc_per_step": {k: v / SPLIT_STEPS for k, v in grown.items()},
+            "join_s": join_s, "end_pass_s": end_pass_s,
+            "end_pass_join_bytes": stat_get(XPROC + "join.tx_bytes") - x0,
+            "ws_digest": digest({f: v.numpy() for f, v in ws.items()}),
+            "table_keys": int(len(keys)),
+            "table_digest": digest(dict(rows, keys=keys)),
+            "params_digest": digest({n: p.detach().cpu().numpy() for n, p in
+                                     trainer.model.named_parameters()}),
+            "kernels": kern}
+        del engine, trainer, feed, ws
+        torch.cuda.empty_cache()
+    with open(os.path.join(work, f"split{rank}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def multiprocess_split_phase(block: SlotRecordBlock, params0,
+                             seed: int = 2):
+    """Phase 24: two ranks, one dp coordinate each, train ``SPLIT_RUNS``
+    over the launcher's gloo group with the table's rows split over the
+    ranks, both on the card (``block`` is phase 4's, made from ``seed``;
+    ``params0`` its dense weights).  Checks, for each run: the ranks'
+    losses, AUC, working set (joined over the group), host table after
+    end_pass and dense params bit-equal; each rank's launches a step as
+    ``SPLIT_RUNS`` predicts for its row blocks; the losses within rtol
+    1e-4 and the working set within rtol 1e-5 / atol 1e-6 of the same
+    mesh in one process on the card; (m)'s first step within rtol 1e-4 of
+    the CPU; (m)'s sorted kernels and (o)'s gather_pool on each rank's
+    first row block against their plain versions (in the worker)."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    work = tempfile.mkdtemp(prefix="chip_smoke_split_")
+    ws0 = {}
+    try:
+        save_params(os.path.join(work, "params.npz"), params0)
+        with open(os.path.join(work, "spec.json"), "w") as f:
+            json.dump({"seed": seed}, f)
+        ranks_wall = mp_launch(work, SPLIT_ARG)
+        got = []
+        for r in range(2):
+            with open(os.path.join(work, f"split{r}.json")) as f:
+                got.append(json.load(f))
+        for name, *_ in SPLIT_RUNS:
+            with np.load(os.path.join(work, f"ws_{name}.npz")) as z:
+                ws0[name] = {k: torch.as_tensor(z[k]) for k in z.files}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    block = block.slice(0, SPLIT_STEPS * BATCH)
+    launches, out = {}, {"ranks_wall_s": ranks_wall, "runs": {}}
+    for name, mesh, path, want, per_block in SPLIT_RUNS:
+        what = f"multiprocess_split[{name}]"
+        a, b = (g["runs"][name] for g in got)
+        for key in ("losses", "auc", "ws_digest", "table_digest",
+                    "params_digest", "table_keys", "path"):
+            if a[key] != b[key]:
+                raise AssertionError(f"{what}: the ranks' {key} differ: "
+                                     f"{a[key]} vs {b[key]}")
+        for g in got:
+            r = g["runs"][name]
+            n_blocks = len(r["local_row_blocks"])
+            predicted = {k: v * n_blocks * SPLIT_STEPS
+                         for k, v in per_block.items()}
+            if r["launches"] != predicted:
+                raise AssertionError(
+                    f"{what}: rank {g['rank']} launched {r['launches']}, "
+                    f"predicted {predicted} ({n_blocks} row blocks)")
+            launches[f"{name}_rank{g['rank']}"] = r["launches"]
+        engine, _, _, stats, _ = split_pass(block, params0, mesh, path)
+        ref = {"losses": [x for st in stats for x in st["losses"]]}
+        close = multicard_close(what, a, ws0.pop(name), ref,
+                                host_ws(engine.ws))
+        engine.end_pass()
+        del engine
+        torch.cuda.empty_cache()
+        run = {"mesh": mesh, "path": a["path"], "one_process": close,
+               "ranks": {g["rank"]: g["runs"][name] for g in got}}
+        if name == "m":
+            run["cpu_first_loss"] = cpu_first_loss(
+                what, block, a["losses"][0], params0, path=path,
+                packed=True, mesh=mesh)
+        for g in got:
+            r = g["runs"][name]
+            steady = float(np.median(r["step_ms"][1:]))
+            sent = {k[:-len(".tx_bytes")]: v
+                    for k, v in r["xproc_per_step"].items()
+                    if k.endswith(".tx_bytes")}
+            log(f"{what}[rank {g['rank']}]: mesh {mesh}, {a['path']}, "
+                f"shards {r['local_shards']} on cuda:0, row blocks "
+                f"{r['local_row_blocks']}, losses {r['losses']}, auc "
+                f"{r['auc']}, launches {r['launches']}, step device ms "
+                f"{r['step_ms']} (steady {steady:.3f}), bytes put on the "
+                f"group a step by kind {sent} (total "
+                f"{sum(sent.values()):.0f}), cross-process tier "
+                f"{r['xproc_per_step'].get('exchange_s', 0.0):.4f} s a step "
+                f"(host clock, the device wait before each copy to the "
+                f"host included), train {r['train_s']:.2f} s, working-set "
+                f"join {r['join_s']:.2f} s, end_pass {r['end_pass_s']:.2f} s "
+                f"({r['end_pass_join_bytes']:.0f} B joined); host- and "
+                f"loopback-bound with two ranks on one card: no multi-node "
+                f"speed; {card_line()}")
+        kern = {}
+        for kname in ("gather_sorted", "scatter_add_sorted", "gather_pool"):
+            per = [g["runs"][name]["kernels"].get(kname) for g in got]
+            if per[0] is None:
+                continue
+            kern[kname] = per[0] | {"max_abs_err": max(
+                x["max_abs_err"] for x in per)}
+            x = kern[kname]
+            log(f"{what}[kernels, rank 0 shard "
+                f"{a['kernels']['shard']}]: {kname} {x['ms']:.4f} ms "
+                f"(plain {x['plain_ms']:.4f}, library "
+                f"{x['library_ms']:.4f}, bound {x['bound_ms']:.4f} by "
+                f"{x['bound_by']}); max abs err over both ranks "
+                f"{x['max_abs_err']:.3g}")
+        run["kernels"] = kern
+        out["runs"][name] = run
+    out["kernels"] = {k: v for r in out["runs"].values()
+                      for k, v in r["kernels"].items()}
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"multiprocess_split: runs {[r[0] for r in SPLIT_RUNS]} ranks "
+        f"bit-equal, launches as predicted, within rtol 1e-4 / 1e-5 of one "
+        f"process on the card, (m)'s first step = the CPU's; ranks "
+        f"{ranks_wall:.1f} s of a phase {out['phase_s']:.1f} s")
+    return launches, out
+
+
 
 def profile_phase(seed: int = 1, symbols=SYMBOLS) -> dict:
     """Short traced passes (2 batches) of the lowerings that phases 3-4
@@ -6250,6 +6557,8 @@ def profile_phase(seed: int = 1, symbols=SYMBOLS) -> dict:
 def main() -> int:
     if sys.argv[1:2] == [MP_ARG]:
         return multiprocess_rank(sys.argv[2])
+    if sys.argv[1:2] == [SPLIT_ARG]:
+        return split_rank(sys.argv[2])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card visible", file=sys.stderr)
         return 2
@@ -6326,6 +6635,9 @@ def main() -> int:
     graph_data.clear()
     mpr_launches, mpr_out = timed("multiprocess", multiprocess_phase,
                                   packed_block, packed_params)
+    split_launches, split_out = timed("multiprocess_split",
+                                      multiprocess_split_phase,
+                                      packed_block, packed_params)
     profile_out = timed("profile", profile_phase)
 
     by_path = {"slice_mxu": slice_launches,
@@ -6349,7 +6661,9 @@ def main() -> int:
                   for p, n in mp_launches.items()},
                **{f"multicard_models_{p}": n
                   for p, n in mm_launches.items()},
-               **{f"multiprocess_{p}": n for p, n in mpr_launches.items()}}
+               **{f"multiprocess_{p}": n for p, n in mpr_launches.items()},
+               **{f"multiprocess_split_{p}": n
+                  for p, n in split_launches.items()}}
     line = {"kernels": []}
     for name in KERNELS:
         k = kern["uniform"][name]
@@ -6397,6 +6711,14 @@ def main() -> int:
                 f: mpr_out["kernels"][name][f]
                 for f in ("ms", "plain_ms", "bound_ms", "bound_by",
                           "library_ms", "max_abs_err")}
+        if name in split_out["kernels"]:
+            # a rank's first row block of phase 24 (the sorted pair on
+            # (m)'s shard plan, gather_pool on (o)'s block over the whole
+            # batch; rank 0's times, the error the worse of the two ranks)
+            at["at_multiprocess_split"] = {
+                f: split_out["kernels"][name][f]
+                for f in ("ms", "plain_ms", "bound_ms", "bound_by",
+                          "library_ms", "max_abs_err")}
         if name in graph_out["kernels"]:
             # a graph step's plan (phase 18): hub rows and K negatives
             at["at_graph"] = {
@@ -6432,6 +6754,7 @@ def main() -> int:
                                  "multicard_paths": mp_out,
                                  "multicard_models": mm_out,
                                  "multiprocess": mpr_out,
+                                 "multiprocess_split": split_out,
                                  "profile": profile_out,
                                  "phase_s": phase_s}))
     print(json.dumps(line), flush=True)

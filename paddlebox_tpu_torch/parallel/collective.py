@@ -17,11 +17,12 @@ members share one, so an in-place write through one never reaches
 another.  Between devices a value moves by ``topology.move`` (a peer
 copy between cards; a blocking copy into host memory).  Where a group
 spans processes (a topology whose dp axis is a ``torch.distributed``
-group), ``all_reduce`` and ``all_gather`` copy the local members to
-host memory, exchange them with ``torch.distributed.all_gather``
-(:func:`exchange`) and fold or concatenate every member in shard order
-on the local member's device, so every rank gets the bits one process
-holding the whole group would; the other collectives raise there.  The reference's P2P walk paths (heter_comm.h:303) map to
+group), each member's share crosses through host memory, and each rank
+is sent only the parts its members need (:func:`route`: one
+``torch.distributed.all_to_all_single`` of self-describing byte
+buffers).  Every reduction is folded on the receiving member's device in
+shard order, so every rank gets the bits one process holding the whole
+group would.  The reference's P2P walk paths (heter_comm.h:303) map to
 :func:`ppermute`; its MoE global_scatter/global_gather to
 :func:`all_to_all`.  torch is imported inside these functions only, so
 the host half stays torch-free.
@@ -197,21 +198,14 @@ Axis = Union[str, Tuple[str, ...]]
 Shards = List["torch.Tensor"]
 
 
-def _groups(xs: Sequence, topo: "HybridTopology", axis: Axis,
-            what: Optional[str] = None) -> List[List[int]]:
-    """The groups of ``axis`` that hold a local shard.  ``what``: the
-    collective's name when it is not carried across processes — a group
-    that spans processes then raises."""
+def _groups(xs: Sequence, topo: "HybridTopology", axis: Axis
+            ) -> List[List[int]]:
+    """The groups of ``axis`` that hold a local shard."""
     if len(xs) != topo.world_size:
         raise ValueError(f"{len(xs)} per-shard values for a topology of "
                          f"{topo.world_size} shards")
-    out = []
-    for g in topo.axis_groups(axis):
-        if what is not None and len({_rank_of(topo, k) for k in g}) > 1:
-            topo.refuse_cross_process(f"{what} across {axis!r}")
-        if any(topo.is_local(k) for k in g):
-            out.append(g)
-    return out
+    return [g for g in topo.axis_groups(axis)
+            if any(topo.is_local(k) for k in g)]
 
 
 def _rank_of(topo: "HybridTopology", shard: int) -> int:
@@ -220,40 +214,113 @@ def _rank_of(topo: "HybridTopology", shard: int) -> int:
     return topo.axis_index(shard, "dp") if topo.spans_processes else 0
 
 
-def exchange(xs: Sequence["torch.Tensor"], group, kind: str
-             ) -> List[List["torch.Tensor"]]:
-    """Every rank's ``xs``, in rank order, as host tensors: each tensor
-    copied to host memory, all of them packed into one byte buffer
-    (every part padded to 8 bytes) and exchanged with
-    ``torch.distributed.all_gather`` over ``group``.  Every rank passes
-    the same count, shapes and dtypes.  Nothing is summed here: the
-    callers fold the parts in a fixed order, so every rank computes the
-    same bits (a ring all-reduce would add in an order that depends on
-    the rank).  Counts ``parallel.xproc.<kind>.tx_bytes`` (this rank's
-    buffer) and ``parallel.xproc.exchange_s``."""
+def _group(topo: "HybridTopology"):
+    """The group the topology's shards cross over: None on one
+    process, where nothing crosses."""
+    return topo.process_group if topo.spans_processes else None
+
+
+_DTYPES = ("float32", "bfloat16", "float16", "float64", "int64", "int32",
+           "int16", "int8", "uint8", "bool")
+
+
+def _pack(parts: Sequence[Optional["torch.Tensor"]]) -> "torch.Tensor":
+    """``parts`` (tensors on any device, or None) as one host byte
+    buffer: an int64 header (the count, then each part's dtype code, or
+    -1 for None, its ndim and its shape), then each part's bytes, every
+    piece padded to 8 bytes."""
+    import torch
+    head = [len(parts)]
+    for x in parts:
+        head += ([-1] if x is None else
+                 [_DTYPES.index(str(x.dtype).split(".")[-1]), x.dim(),
+                  *x.shape])
+    sizes = [0 if x is None else x.numel() * x.element_size()
+             for x in parts]
+    off = 8 * len(head)
+    buf = torch.zeros((off + sum(-(-n // 8) * 8 for n in sizes),),
+                      dtype=torch.uint8)
+    buf[:off].view(torch.int64).copy_(torch.tensor(head, dtype=torch.int64))
+    for x, n in zip(parts, sizes):
+        if x is not None:
+            # one copy into host memory, straight into the buffer
+            buf[off:off + n].view(x.dtype).copy_(x.detach().reshape(-1))
+        off += -(-n // 8) * 8
+    return buf
+
+
+def _unpack(buf: "torch.Tensor") -> List[Optional["torch.Tensor"]]:
+    """The parts :func:`_pack` put into ``buf``, as views of it."""
+    import torch
+    head = buf.view(torch.int64)
+    i, parts, shapes = 1, [], []
+    for _ in range(int(head[0])):
+        code = int(head[i])
+        if code < 0:
+            shapes.append(None)
+            i += 1
+            continue
+        ndim = int(head[i + 1])
+        shapes.append((getattr(torch, _DTYPES[code]),
+                       [int(d) for d in head[i + 2:i + 2 + ndim]]))
+        i += 2 + ndim
+    off = 8 * i
+    for sh in shapes:
+        if sh is None:
+            parts.append(None)
+            continue
+        dtype, shape = sh
+        n = int(np.prod(shape)) * torch.empty((), dtype=dtype).element_size()
+        parts.append(buf[off:off + n].view(dtype).reshape(shape))
+        off += -(-n // 8) * 8
+    return parts
+
+
+def route(group, items, value: Callable, kind: str) -> Dict:
+    """The parts of an operation that cross processes, by key.
+    ``items`` lists (key, source rank, destination rank) of every part,
+    in the same order on every rank of ``group``; with ``group`` None
+    (one process) nothing crosses and it is not read.  ``value(key)`` is
+    the part (a tensor on any device, or None) where this rank is its
+    source.  Each part whose ranks differ goes from its source to its
+    destination alone, in one collective: two
+    ``torch.distributed.all_to_all_single`` rounds of host byte buffers,
+    the byte counts and then the buffers, each describing its parts
+    (:func:`_pack`); none when no part crosses, which every rank sees
+    alike.  Returns {key: host tensor, or None} of the parts this rank
+    receives.  Nothing is summed here: the callers fold in a fixed order,
+    so every rank computes the bits of one process holding the whole
+    group (a ring all-reduce would add in an order that depends on the
+    rank).  Counts ``parallel.xproc.<kind>.tx_bytes`` (the bytes this
+    rank sends) and ``parallel.xproc.exchange_s``."""
+    if group is None:
+        return {}
+    cross = [(key, s, d) for key, s, d in items if s != d]
+    if not cross:
+        return {}
     import torch
     import torch.distributed as dist
     t0 = time.perf_counter()
-    xs = [x.detach() for x in xs]
-    sizes = [x.numel() * x.element_size() for x in xs]
-    padded = [-(-n // 8) * 8 for n in sizes]
-    flat = torch.zeros((sum(padded),), dtype=torch.uint8)
-    off = 0
-    for x, n, m in zip(xs, sizes, padded):
-        # one copy into host memory, straight into the buffer (blocking)
-        flat[off:off + n].view(x.dtype).copy_(x.reshape(-1))
-        off += m
-    bufs = [torch.empty_like(flat)
-            for _ in range(dist.get_world_size(group))]
-    dist.all_gather(bufs, flat, group=group)
-    out = []
-    for buf in bufs:
-        parts, off = [], 0
-        for x, n, m in zip(xs, sizes, padded):
-            parts.append(buf[off:off + n].view(x.dtype).reshape(x.shape))
-            off += m
-        out.append(parts)
-    stat_add(f"parallel.xproc.{kind}.tx_bytes", float(flat.numel()))
+    me = dist.get_rank(group)
+    send: List[list] = [[] for _ in range(dist.get_world_size(group))]
+    for key, s, d in cross:
+        if s == me:
+            send[d].append(value(key))
+    segs = [_pack(p) if p else torch.zeros((0,), dtype=torch.uint8)
+            for p in send]
+    send_n = torch.tensor([x.numel() for x in segs], dtype=torch.int64)
+    recv_n = torch.empty_like(send_n)
+    dist.all_to_all_single(recv_n, send_n, group=group)
+    recv = torch.empty((int(recv_n.sum()),), dtype=torch.uint8)
+    dist.all_to_all_single(recv, torch.cat(segs), recv_n.tolist(),
+                           send_n.tolist(), group=group)
+    got, off = {}, 0
+    for r, n in enumerate(recv_n.tolist()):
+        if n:
+            got[r] = iter(_unpack(recv[off:off + n]))
+        off += n
+    out = {key: next(got[s]) for key, s, d in cross if d == me}
+    stat_add(f"parallel.xproc.{kind}.tx_bytes", float(send_n.sum()))
     stat_add("parallel.xproc.exchange_s", time.perf_counter() - t0)
     return out
 
@@ -264,16 +331,24 @@ def fold_ranks(parts: Sequence[Sequence["torch.Tensor"]], device, group,
     members in order; a None member, or field, sits out; a field no
     member has is None), summed on ``device`` in the order of the members
     of rank 0, then rank 1, ...: the device order of one process holding
-    them all.  ``group`` None: this process's members only."""
+    them all.  ``group`` None: this process's members only.  Across
+    processes every rank has as many members and fields, each sent to
+    every other rank (:func:`route`)."""
     live = [p for p in parts if p is not None]
     n = len(live[0])
     if group is not None:
+        import torch.distributed as dist
         flat = [x for p in live for x in p]
         if any(x is None for x in flat):
             raise ValueError(f"fold_ranks({kind!r}): a member without a "
                              "value cannot cross processes")
-        got = exchange(flat, group, kind)
-        live = [r[i:i + n] for r in got for i in range(0, len(r), n)]
+        me, ranks = dist.get_rank(group), range(dist.get_world_size(group))
+        got = route(group, (((r, i), r, d) for r in ranks
+                            for i in range(len(flat)) for d in ranks),
+                    lambda key: flat[key[1]], kind)
+        every = [flat if r == me else [got[(r, i)] for i in range(len(flat))]
+                 for r in ranks]
+        live = [f[i:i + n] for f in every for i in range(0, len(f), n)]
     out = []
     for i in range(n):
         xs = [p[i] for p in live if p[i] is not None]
@@ -281,25 +356,40 @@ def fold_ranks(parts: Sequence[Sequence["torch.Tensor"]], device, group,
     return out
 
 
-def _held_elsewhere(xs: Sequence, topo: "HybridTopology",
-                    groups: List[List[int]], kind: str) -> Dict:
-    """The members of ``groups`` that other processes hold, by shard, as
-    host tensors: every rank's members of the groups that span
-    processes, exchanged once."""
-    cross = [g for g in groups
-             if len({_rank_of(topo, k) for k in g}) > 1]
-    if not cross:
-        return {}
+def _members_elsewhere(xs: Sequence, topo: "HybridTopology", axis: Axis,
+                       kind: str) -> Dict:
+    """The members of ``axis``'s groups that other processes hold, by
+    shard, as host tensors: each sent once to each other process that
+    holds a member of its group (:func:`route`)."""
+    def items():
+        for g in topo.axis_groups(axis):
+            ranks = sorted({_rank_of(topo, k) for k in g})
+            for k in g:
+                for r in ranks:
+                    yield k, _rank_of(topo, k), r
+    return route(_group(topo), items(), lambda k: xs[k], kind)
 
-    def members(r):
-        return [k for g in cross for k in g if _rank_of(topo, k) == r]
-    got = exchange([xs[k] for k in members(topo.rank)],
-                   topo.process_group, kind)
-    out = {}
-    for r, tensors in enumerate(got):
-        if r != topo.rank:
-            out.update(zip(members(r), tensors))
-    return out
+
+def _blocks_elsewhere(xs: Sequence, topo: "HybridTopology", axis: Axis,
+                      dim: int, kind: str) -> Callable:
+    """``parts(g, i)``: block i of ``dim`` (split over the group) of
+    every member of ``axis`` group ``g``, in group order, for its member
+    i, which this process holds.  Another process's member's block is
+    received, sent to member i's process alone (:func:`route`); each
+    member is chunked once."""
+    n = topo.axis_size(axis)
+    chunks: Dict[int, tuple] = {}
+
+    def chunk(j, i):
+        if j not in chunks:
+            chunks[j] = xs[j].chunk(n, dim=dim)
+        return chunks[j][i]
+    got = route(_group(topo), (
+        ((j, i, k), _rank_of(topo, j), _rank_of(topo, k))
+        for g in topo.axis_groups(axis) for i, k in enumerate(g)
+        for j in g), lambda key: chunk(key[0], key[1]), kind)
+    return lambda g, i: [got[(j, i, g[i])] if (j, i, g[i]) in got
+                         else chunk(j, i) for j in g]
 
 
 def _on(x: "torch.Tensor", device, copy: bool = False) -> "torch.Tensor":
@@ -333,14 +423,14 @@ def all_reduce(xs: Shards, topo: "HybridTopology", axis: Axis,
     """≙ lax.psum / pmax / pmin / pmean over ``axis``: the group's fold
     in shard order on its first local member's device, copied to the
     other local members.  A group that spans processes folds the other
-    processes' members too, exchanged through host memory
-    (:func:`exchange`), so every rank computes the same bits as one
-    process holding the whole group."""
+    processes' members too, received through host memory
+    (:func:`route`), so every rank computes the same bits as one process
+    holding the whole group."""
     if op not in ("sum", "max", "min", "mean"):
         raise ValueError(f"unsupported all_reduce op: {op}")
     out = [None] * len(xs)
     groups = _groups(xs, topo, axis)
-    other = _held_elsewhere(xs, topo, groups, f"all_reduce_{op}")
+    other = _members_elsewhere(xs, topo, axis, f"all_reduce_{op}")
     for g in groups:
         local = [k for k in g if topo.is_local(k)]
         acc = _fold([other.get(k, xs[k]) for k in g], op,
@@ -357,14 +447,14 @@ def all_gather(xs: Shards, topo: "HybridTopology", axis: Axis, *,
                concat_dim: int = 0, tiled: bool = True) -> Shards:
     """≙ lax.all_gather: the group's tensors in axis order, concatenated
     along ``concat_dim`` (tiled) or stacked on a new dim there, built on
-    each local member's device (the other processes' members exchanged
+    each local member's device (the other processes' members received
     through host memory, as in :func:`all_reduce`)."""
     import torch
     from paddlebox_tpu_torch.parallel.topology import (device_key,
                                                        physical_device)
     out = [None] * len(xs)
     groups = _groups(xs, topo, axis)
-    other = _held_elsewhere(xs, topo, groups, "all_gather")
+    other = _members_elsewhere(xs, topo, axis, "all_gather")
     for g in groups:
         made = {}
         for k in g:
@@ -386,17 +476,18 @@ def all_to_all(xs: Shards, topo: "HybridTopology", axis: Axis, *,
                tiled: bool = True) -> Shards:
     """≙ lax.all_to_all (tiled): member i receives chunk i of every
     member's ``split_dim``, concatenated along ``concat_dim`` in axis
-    order."""
+    order (another process's chunks sent to it alone, :func:`route`)."""
     import torch
     if not tiled:
         raise ValueError("all_to_all: only the tiled form is ported")
     out = [None] * len(xs)
-    for g in _groups(xs, topo, axis, "all_to_all"):
-        n = len(g)
-        chunks = [xs[k].chunk(n, dim=split_dim) for k in g]
+    groups = _groups(xs, topo, axis)
+    parts = _blocks_elsewhere(xs, topo, axis, split_dim, "all_to_all")
+    for g in groups:
         for i, k in enumerate(g):
-            out[k] = torch.cat([_on(c[i], topo.devices[k]) for c in chunks],
-                               dim=concat_dim)
+            if topo.is_local(k):
+                out[k] = torch.cat([_on(p, topo.devices[k])
+                                    for p in parts(g, i)], dim=concat_dim)
     return out
 
 
@@ -405,32 +496,27 @@ def reduce_scatter(xs: Shards, topo: "HybridTopology", axis: Axis, *,
     """≙ lax.psum_scatter (tiled): the group's sum, in shard order, and
     member i keeps block i of ``scatter_dim``.  On one device that is a
     view of one sum (the members' blocks do not overlap); across devices
-    member i folds block i of every member on its own device."""
+    member i folds block i of every member on its own device, another
+    process's blocks sent to it alone (:func:`route`)."""
     out = [None] * len(xs)
-    for g in _groups(xs, topo, axis, "reduce_scatter"):
-        size = xs[g[0]].shape[scatter_dim]
+    groups = _groups(xs, topo, axis)
+    for g in groups:
+        size = xs[next(k for k in g if topo.is_local(k))].shape[scatter_dim]
         if size % len(g):
             raise ValueError(
                 f"reduce_scatter: dim {scatter_dim} of size "
                 f"{size} does not split over {len(g)} shards")
-        if _one_device(topo, g):
+    parts = _blocks_elsewhere(xs, topo, axis, scatter_dim, "reduce_scatter")
+    for g in groups:
+        if all(topo.is_local(k) for k in g) and _one_device(topo, g):
             total = _fold([xs[k] for k in g], "sum", topo.devices[g[0]])
             for i, part in enumerate(total.chunk(len(g), dim=scatter_dim)):
                 out[g[i]] = part
             continue
-        chunks = [xs[k].chunk(len(g), dim=scatter_dim) for k in g]
         for i, k in enumerate(g):
-            out[k] = _fold([c[i] for c in chunks], "sum", topo.devices[k])
+            if topo.is_local(k):
+                out[k] = _fold(parts(g, i), "sum", topo.devices[k])
     return out
-
-
-def _refuse_remote(what: str, placements: Sequence) -> None:
-    """A placement of None is another process's: not carried."""
-    from paddlebox_tpu_torch.parallel.topology import CROSS_PROCESS_ITEM
-    if any(p is None for p in placements):
-        raise NotImplementedError(
-            f"{what} with a placement in another process is "
-            f"{CROSS_PROCESS_ITEM}")
 
 
 def gather_onto(xs: Shards, srcs: Sequence, dsts: Sequence,
@@ -441,7 +527,6 @@ def gather_onto(xs: Shards, srcs: Sequence, dsts: Sequence,
     copied there).  Destinations on one device share the result."""
     import torch
     from paddlebox_tpu_torch.parallel.topology import device_key, transfer
-    _refuse_remote("gather_onto", list(srcs) + list(dsts))
     made, out = {}, []
     for dst in dsts:
         key = device_key(dst)
@@ -459,7 +544,6 @@ def reduce_scatter_onto(xs: Shards, srcs: Sequence, dsts: Sequence,
     and destination j receives block j of every ``xs[i]`` summed in the
     order of i, on its own device: a fixed order, no atomics."""
     from paddlebox_tpu_torch.parallel.topology import transfer
-    _refuse_remote("reduce_scatter_onto", list(srcs) + list(dsts))
     size = xs[0].shape[dim]
     if size % len(dsts):
         raise ValueError(f"reduce_scatter_onto: dim {dim} of size {size} "
@@ -475,22 +559,95 @@ def reduce_scatter_onto(xs: Shards, srcs: Sequence, dsts: Sequence,
     return out
 
 
+def gather_onto_shards(xs: Shards, srcs: Sequence[int],
+                       dsts: Sequence[int], topo: "HybridTopology",
+                       dim: int = 0) -> Shards:
+    """:func:`gather_onto` between shards of ``topo``: ``xs[i]`` is
+    shard ``srcs[i]``'s part (None where another process holds it), and
+    each destination shard this process holds receives every part
+    concatenated in order along ``dim``; another process's destination
+    gets None.  Each part crosses once to each process that has a
+    destination and lacks it (:func:`route`); every rank passes the same
+    ``srcs`` and ``dsts``."""
+    ranks = sorted({_rank_of(topo, k) for k in dsts})
+    got = route(_group(topo), ((i, _rank_of(topo, k), r)
+                               for i, k in enumerate(srcs) for r in ranks),
+                lambda i: xs[i], "gather_onto")
+    here = [k for k in dsts if topo.is_local(k)]
+    whole = iter(gather_onto(
+        [got.get(i, x) for i, x in enumerate(xs)],
+        [got[i].device if i in got else topo.devices[k]
+         for i, k in enumerate(srcs)],
+        [topo.devices[k] for k in here], dim))
+    return [next(whole) if topo.is_local(k) else None for k in dsts]
+
+
+def reduce_scatter_onto_shards(xs: Shards, srcs: Sequence[Sequence[int]],
+                               dsts: Sequence[int], topo: "HybridTopology",
+                               dim: int = 0) -> Shards:
+    """:func:`reduce_scatter_onto` between shards of ``topo``.
+    ``srcs[i]`` names the shards that hold ``xs[i]``, replicas of one
+    value, one a process at most; ``xs[i]`` is this process's replica
+    (None where it holds none).  Destination j reads block j of ``xs[i]``
+    from the replica on its own process where there is one, else from
+    the first, which sends it to j's process alone (:func:`route`), and
+    sums them in the order of i.  Another process's destination gets
+    None; every rank passes the same ``srcs`` and ``dsts``."""
+    from paddlebox_tpu_torch.parallel.topology import transfer
+    size = next(x for x in xs if x is not None).shape[dim]
+    if size % len(dsts):
+        raise ValueError(f"reduce_scatter_onto: dim {dim} of size {size} "
+                         f"does not split over {len(dsts)} destinations")
+    drank = [_rank_of(topo, k) for k in dsts]
+
+    def src(i, j):                  # the replica destination j reads
+        return next((k for k in srcs[i] if _rank_of(topo, k) == drank[j]),
+                    srcs[i][0])
+    chunks = [None if x is None else x.chunk(len(dsts), dim=dim)
+              for x in xs]
+    got = route(_group(topo), (((i, j), _rank_of(topo, src(i, j)), drank[j])
+                               for i in range(len(xs))
+                               for j in range(len(dsts))),
+                lambda key: chunks[key[0]][key[1]], "reduce_scatter_onto")
+    out = []
+    for j, k in enumerate(dsts):
+        if not topo.is_local(k):
+            out.append(None)
+            continue
+        dst, acc = topo.devices[k], None
+        for i in range(len(xs)):
+            part = (_on(got[(i, j)], dst) if (i, j) in got
+                    else transfer(chunks[i][j], topo.devices[src(i, j)], dst))
+            acc = part.clone() if acc is None else acc + part
+        out.append(acc)
+    return out
+
+
 def ppermute(xs: Shards, topo: "HybridTopology", axis: Axis,
              perm: Sequence[Tuple[int, int]]) -> Shards:
     """≙ lax.ppermute: (src, dst) pairs of axis positions; a member that
     no pair sends to receives zeros.  A member may hold None (a pipeline
     stage with no microbatch at a tick): None is moved like a value.
-    What a member receives is a copy on its own device."""
+    What a member receives is a copy on its own device (from another
+    process, sent to it alone: :func:`route`)."""
     out = [None] * len(xs)
-    for g in _groups(xs, topo, axis, "ppermute"):
+    other = route(_group(topo), (((g[src], g[dst]), _rank_of(topo, g[src]),
+                                  _rank_of(topo, g[dst]))
+                                 for g in topo.axis_groups(axis)
+                                 for src, dst in perm),
+                  lambda key: xs[key[0]], "ppermute")
+    for g in _groups(xs, topo, axis):
         sent = set()
         for src, dst in perm:
-            x = xs[g[src]]
+            sent.add(dst)
+            if not topo.is_local(g[dst]):
+                continue
+            key = (g[src], g[dst])
+            x = other[key] if key in other else xs[g[src]]
             out[g[dst]] = (None if x is None
                            else _on(x, topo.devices[g[dst]], copy=True))
-            sent.add(dst)
         for i, k in enumerate(g):
-            if i not in sent and xs[k] is not None:
+            if i not in sent and topo.is_local(k) and xs[k] is not None:
                 out[k] = xs[k].new_zeros(xs[k].shape)
     return out
 

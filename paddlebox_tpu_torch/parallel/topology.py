@@ -36,16 +36,16 @@ The dp axis may cross processes, one process a node as in HeterPS and in
 the JAX package's multi-host mesh (``jax.distributed.initialize``):
 ``HybridTopology(config, devices, process_group=group)`` over a
 ``torch.distributed`` group of dp ranks, where rank r holds the shards
-whose dp coordinate is r (``local_shards``, on ``devices``).  Only the
-reference's multi-node layout is carried across processes: the table
-split over ``sharding`` within a process and replicated over dp, so
-every rank holds a whole replica and nothing but the push's second tier
-and the dense gradient sum crosses the group (``parallel/collective.py``).
-Remote shards have no device here: ``devices`` and every per-shard list
-hold None in their places, ``groups`` names the local devices only, and
-``split`` / ``place`` / ``join`` / ``Sharded`` work on the local blocks.
-A mesh that would split the table across processes raises (ROADMAP
-Queue 1 item 4.5).
+whose dp coordinate is r (``local_shards``, on ``devices``).  The table
+follows ``table_spec`` as on one process: on the reference's multi-node
+layout (dp × sharding, both > 1) it is split within a process and
+replicated across them, so every rank holds a whole replica; on every
+other mesh its row blocks are split over dp too, so each rank holds its
+own shards' rows only.  Remote shards have no device here: ``devices``
+and every per-shard list hold None in their places, ``groups`` names the
+local devices only, ``split`` / ``place`` / ``Sharded`` work on the local
+blocks, and a ``join`` that needs another process's blocks receives them
+over the group (a collective then: every rank calls it).
 """
 
 from __future__ import annotations
@@ -162,9 +162,7 @@ class HybridTopology:
             self.nranks = dist.get_world_size(process_group)
             self._check_cross_process()
         # the shards this process holds: dp coordinate == rank
-        self.local_shards: List[int] = (
-            list(range(world)) if self.nranks == 1
-            else [int(k) for k in self.grid[self.rank].reshape(-1)])
+        self.local_shards: List[int] = self.shards_of(self.rank)
         if devices is None:
             devices = [resolve_device(device)] * len(self.local_shards)
         devices = [torch.device(d) for d in devices]
@@ -199,19 +197,12 @@ class HybridTopology:
                 self.groups.append((d, [k]))
 
     def _check_cross_process(self) -> None:
-        """A dp axis over the group carries the multi-node layout only:
-        the table split within a process and replicated across them."""
-        deg = {a: self.axis_size(a) for a in AXES}
-        if deg["dp"] != self.nranks:
+        """A dp axis over the group has one coordinate a rank."""
+        dp = self.axis_size("dp")
+        if dp != self.nranks:
             raise ValueError(
                 f"a dp axis over a process group of {self.nranks} ranks "
-                f"needs dp = {self.nranks}, got dp = {deg['dp']}")
-        if self.nranks > 1 and not self.multinode_table():
-            raise ValueError(
-                f"mesh {deg} over {self.nranks} processes would split the "
-                "table across processes: the cross-process dp axis carries "
-                "the multi-node layout only (sharding > 1, pp = mp = sp = "
-                f"ep = 1); a cross-process table split is {CROSS_PROCESS_ITEM}")
+                f"needs dp = {self.nranks}, got dp = {dp}")
 
     @property
     def multi_device(self) -> bool:
@@ -237,6 +228,12 @@ class HybridTopology:
 
     def device_of(self, shard: int) -> Optional[torch.device]:
         return self.devices[shard]
+
+    def shards_of(self, rank: int) -> List[int]:
+        """The shards process ``rank`` holds (its dp coordinate's)."""
+        if self.nranks == 1:
+            return list(range(self.world_size))
+        return [int(k) for k in self.grid[rank].reshape(-1)]
 
     # -- ≙ CommunicateTopology.get_dim / get_rank_from_stage ----------------
     def axis_size(self, axis: AxisLike) -> int:
@@ -361,26 +358,39 @@ class HybridTopology:
         global tensor on ``device`` (default: the first block's).  Shards
         that hold the same block (replicated axes) must agree; the first
         in flat order is taken, as an out_spec that leaves an axis out
-        takes any one replica.  A block that only another process holds
-        raises: a join never crosses processes."""
+        takes any one replica.  Blocks that only other processes hold
+        are received over the group, each from the process of its first
+        shard and once a process (``collective.route``): a join that
+        needs them is a collective, which every rank calls."""
         first = parts[self.local_shards[0]]
         full = [size * self.block(spec, 0, dim)[1]
                 for dim, size in enumerate(first.shape)]
         out = torch.empty(full, dtype=first.dtype,
                           device=(first.device if device is None
                                   else physical_device(device)))
-        seen, need = set(), set()
+        keys = [self._slices(spec, full, k) for k in range(self.world_size)]
+        seen = set()
         for k, p in enumerate(parts):
-            sl = self._slices(spec, full, k)
-            key = tuple((s.start, s.stop) for s in sl)
-            need.add(key)
+            key = tuple((s.start, s.stop) for s in keys[k])
             if p is not None and key not in seen:
                 seen.add(key)
-                out[sl] = p
-        if seen != need:
-            raise ValueError(
-                f"join under {spec}: {len(need - seen)} of {len(need)} "
-                "blocks are held by other processes only")
+                out[keys[k]] = p
+        # each block by its first shard in flat order, and who lacks it
+        holder = {}
+        for k in range(self.world_size):
+            holder.setdefault(tuple((s.start, s.stop) for s in keys[k]), k)
+        if len(seen) < len(holder):
+            from paddlebox_tpu_torch.parallel import collective as col
+            held = [{tuple((s.start, s.stop) for s in keys[k])
+                     for k in self.shards_of(r)} for r in range(self.nranks)]
+            got = col.route(
+                self.process_group,
+                [(k, self.axis_index(k, "dp"), r)
+                 for key, k in holder.items()
+                 for r in range(self.nranks) if key not in held[r]],
+                lambda k: parts[k], "join")
+            for k, p in got.items():
+                out[keys[k]] = p
         return out
 
 
@@ -452,25 +462,55 @@ class Sharded:
                 out.append((k, sl, p))
         return sorted(out, key=lambda x: x[1].start)
 
+    def row_homes(self) -> List[Tuple[Tuple[int, ...], slice]]:
+        """(homes, global rows) of every distinct range of dim 0 in row
+        order, over every process.  ``homes`` names, for each process that
+        holds the range (in rank order), its first shard holding it: the
+        block that process reads the range from and steps (its
+        :meth:`row_blocks` entry), any other shard there holding a
+        replica.  Where the table is split across processes a range has
+        one home; replicated over dp (the multi-node layout), one a
+        process.  :meth:`locate` indexes this list."""
+        homes: Dict[int, List[int]] = {}
+        rows: Dict[int, slice] = {}
+        for r in range(self.topo.nranks):
+            seen = set()
+            for k in self.topo.shards_of(r):
+                sl = self.rows(k)
+                if sl.start not in seen:
+                    seen.add(sl.start)
+                    homes.setdefault(sl.start, []).append(k)
+                    rows[sl.start] = sl
+        return [(tuple(homes[s]), rows[s]) for s in sorted(homes)]
+
     def locate(self, rows: torch.Tensor) -> Tuple[torch.Tensor,
                                                   torch.Tensor]:
-        """(index into :meth:`row_blocks`, local row) of each global row
-        (the blocks are equal contiguous ranges)."""
-        n = self.rows(self.row_blocks()[0][0]).stop
+        """(index into :meth:`row_homes`, local row) of each global row:
+        the blocks are equal contiguous ranges of ``shape[0]`` over the
+        block count of ``spec``'s dim 0."""
+        n = self.shape[0] // self.topo.block(self.spec, 0, 0)[1]
         return torch.div(rows, n, rounding_mode="floor"), rows % n
 
     def gather_rows(self, rows, device: DeviceLike
                     ) -> Tuple[torch.Tensor, int]:
         """The global rows ``rows`` (host ints) as one tensor on
         ``device``: each block's rows selected where the block lives and
-        copied over.  Returns (values, rows copied between devices)."""
+        copied over.  Returns (values, rows copied between devices).  A
+        row that only another process holds raises."""
         rows = torch.as_tensor(np.asarray(rows, np.int64))
         out = torch.empty((len(rows),) + tuple(self.shape[1:]),
                           dtype=self.dtype, device=physical_device(device))
-        blocks = self.row_blocks()
         which, local = self.locate(rows)
+        start = [sl.start for _, sl in self.row_homes()]
+        held = {start.index(sl.start): (k, blk)
+                for k, sl, blk in self.row_blocks()}
+        absent = sorted(set(which.unique().tolist()) - set(held))
+        if absent:
+            raise NotImplementedError(
+                f"gather_rows: rows of row blocks {absent} are held by "
+                f"another process; reading them is {CROSS_PROCESS_ITEM}")
         moved = 0
-        for i, (k, _, blk) in enumerate(blocks):
+        for i, (k, blk) in held.items():
             pos = torch.nonzero(which == i).reshape(-1)
             if not len(pos):
                 continue

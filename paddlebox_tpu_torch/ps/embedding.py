@@ -10,9 +10,13 @@ Under a topology whose shards sit on distinct devices, each field is a
 ``topology.table_spec()`` on shard d's device (≙ the JAX package's
 ``sharding=``), so no device holds the whole set; the write-back joins
 the blocks on the host in row order.  Under a dp axis that spans
-processes (the multi-node layout) each process builds its own shards'
-blocks only, which hold one whole replica of the set: every process
-reads the whole pass, so every process builds the same rows.
+processes each process builds its own shards' blocks only: one whole
+replica of the set on the multi-node layout, its own row blocks where
+the table is split across processes.  Every process reads the whole
+pass, so every process builds the same rows; rows are written where
+they are held, and the write-back's join receives the other processes'
+blocks over the group, so every rank writes every row back into its
+host table.
 
 Row 0 is the reserved zero row: padding positions and unknown keys point
 at it, pull zeros and push nothing (≙ FLAGS_enable_pull_box_padding_zero).
@@ -192,7 +196,9 @@ def dump_working_set(ws: Dict[str, torch.Tensor], n: int
                      ) -> Dict[str, np.ndarray]:
     """Device→host for end_pass write-back (≙ dump_pool_to_cpu_func,
     ps_gpu_wrapper.cc:983+): rows 1..n of every field (a ``Sharded``
-    field's blocks joined on the host in row order).  Table-wide
+    field's blocks joined on the host in row order; where the set is
+    split across processes the join receives the other processes'
+    blocks, so every rank calls this and gets every row).  Table-wide
     scalars (a serving freeze's 0-d ``mf_scale``) are not row data and
     are skipped."""
     return {f: (ws[f].join("cpu") if isinstance(ws[f], Sharded)
@@ -305,6 +311,9 @@ def _pull_blocks(ws: Dict, indices: torch.Tensor, device) -> torch.Tensor:
     (a select, not a sum, so the bits equal one device's pull)."""
     show = ws["show"]
     topo = show.topo
+    if len(show.row_blocks()) < len(show.row_homes()):
+        topo.refuse_cross_process("pull_sparse over a working set split "
+                                  "across processes")
     device = topo.device if device is None else device
     out = None
     for k, sl, _ in show.row_blocks():

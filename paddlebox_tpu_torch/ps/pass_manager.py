@@ -102,8 +102,13 @@ class BoxPSEngine:
     whose block d lives on shard d's device (ps/embedding.py); the device
     cache keeps its store on the engine's device and moves hit and
     fold-back rows to and from the blocks, and the serving freeze
-    quantizes each block where it lives.  Without a ``device`` the
-    engine takes the topology's first device."""
+    quantizes each block where it lives.  Under a dp axis that spans
+    processes every rank reads the whole pass and builds the whole set on
+    the host, places its own blocks only, and at ``end_pass`` writes every
+    row back into its own host table (the blocks of the other ranks
+    received by the write-back's join), so the ranks' host tables stay
+    equal.  Without a ``device`` the engine takes the topology's first
+    device."""
 
     def __init__(self, config: Optional[EmbeddingTableConfig] = None,
                  seed: int = 0, device: DeviceLike = None,

@@ -21,8 +21,10 @@ tensors, indexed by flat shard number, and ``axis`` names the table axes
 (``topology.devices``), where its plan is built and its kernels launch;
 values cross between devices only in the collectives.  Under a topology
 whose dp axis spans processes the lists hold None for the shards of the
-other processes, each process plans and runs its own shards, and only the
-multi-node push's second tier crosses the group.
+other processes and each process plans and runs its own shards.  On the
+multi-node layout only the push's second tier crosses the group; where
+the table axes span processes (the flat layout), the ids' and the
+payload's all_gather and the pull's reduce_scatter cross it too.
 
 The mxu variants run each shard's random access through the sorted
 kernels (``ops/sorted_spmm.py``: a hand-written CUDA kernel on the card,

@@ -16,7 +16,8 @@ Under a topology whose shards sit on distinct devices the step is
 batch's valid count times the task count, the push's show/click come
 from each batch block's task-0 labels, and the [B, T] preds are joined
 in batch order on the trainer's device, where the per-task AUC
-accumulates once over the whole batch.
+accumulates once over the whole batch.  A topology whose dp axis spans
+processes raises (ROADMAP item 4.5).
 """
 
 from __future__ import annotations
@@ -55,6 +56,10 @@ class MultiTaskSparseTrainer(SparseTrainer):
         if kw.get("amp"):
             raise ValueError("MultiTaskSparseTrainer trains in f32 (the "
                              "JAX package's multi-task step has no amp)")
+        topology = kw.get("topology")
+        if topology is not None:
+            # its per-task AUC buckets are not summed over the group
+            topology.refuse_cross_process("MultiTaskSparseTrainer")
         super().__init__(engine, model, feed_config, batch_size,
                          label_slot=label_slots[0], **kw)
         if self.sparse_path not in ("auto", "reference"):

@@ -89,15 +89,22 @@ for its peer rows (:meth:`_replica_dense_half`).
 
 A topology whose dp axis spans processes (one process a node, over a
 ``torch.distributed`` group: ``HybridTopology(process_group=)``) trains
-``mxu_sharded`` on the multi-node layout.  Every process reads the whole
-pass and holds one replica of the working set; it runs the exchange for
-its own shards' batch columns, and only the push's second tier (the
-node-merged deltas, summed in node order) and the dense half's count,
-losses and grads (summed in global device order) cross the group, so
-every rank takes the same steps and equals one process holding every
-shard.  The AUC buckets are summed over the group at the end of a pass.
-The other lowerings, the async dense table, the page-view models, the
-instance dump and the per-user AUC raise there (ROADMAP item 4.5).
+every lowering but ``ragged``.  Every process reads the whole pass and
+holds its own shards' blocks of the working set: one whole replica on
+the multi-node layout, its own row blocks where the table is split
+across processes (``table_spec``).  It runs the step for its own
+shards' batch columns and its own row blocks, and what another process
+needs crosses the group through the collectives: on the multi-node
+layout the push's second tier; where the table is split the
+``mxu_sharded`` exchange (ids, pulled values, push payload) or the row
+blocks' ids, pull parts and grads (``gather_onto`` /
+``reduce_scatter_onto``); always the dense half's count, losses and
+grads (summed in global device order).  Every sum is folded in the order
+of one process holding every shard, so every rank takes the same steps
+and equals that process.  The AUC buckets are summed over the group at
+the end of a pass.  The async dense table, the page-view models, the
+instance dump, the per-user AUC and the device row cache on a table
+split across processes raise there (ROADMAP item 4.5).
 """
 
 from __future__ import annotations
@@ -272,6 +279,8 @@ class SparseTrainer:
                     f"{feed_config.max_rank}: rank_param blocks would be "
                     "mis-addressed")
 
+        if topology is not None:
+            self._refuse_cross_process()
         model.reset_parameters(torch.Generator().manual_seed(seed))
         self.model = model.to(self.device)
         self.dense_opt = dense_optimizer or torch.optim.Adam(
@@ -382,8 +391,6 @@ class SparseTrainer:
         ``reference`` take an expand table and leave its mf_ex as it
         is."""
         has_ex = "mf_ex" in self.engine.ws
-        if self.topology is not None:
-            self._refuse_cross_process(path)
         if path == "mxu":
             if has_ex and self._dym_mask is not None:
                 raise ValueError(
@@ -425,20 +432,25 @@ class SparseTrainer:
         else:
             raise ValueError(f"unknown sparse_path {path!r}")
 
-    def _refuse_cross_process(self, path: str) -> None:
+    def _refuse_cross_process(self) -> None:
         """What a dp axis across processes does not carry (ROADMAP item
-        4.5) raises through the topology: every lowering but
-        ``mxu_sharded``, the async dense table, the page-view models, the
-        instance dump and the per-user AUC (the last two read the whole
-        batch's preds, which no process holds)."""
+        4.5) raises through the topology, when the trainer is built: the
+        async dense table, the page-view models, the instance dump and
+        the per-user AUC (the last two read the whole batch's preds,
+        which no process holds), and the device row cache on a table
+        split across processes (its store ↔ block copies read every row
+        where it is held, ``Sharded.gather_rows``)."""
         refuse = self.topology.refuse_cross_process
-        if path != "mxu_sharded":
-            refuse(f"sparse_path={path!r}")
         for what, on in (
-                ("dense_sync_mode='async_table'", self.async_dense is not None),
+                ("dense_sync_mode='async_table'",
+                 self.trainer_config.dense_sync_mode == "async_table"),
                 ("a model that reads the page-view planes", self._reads_pv),
                 ("dump_path", bool(self.trainer_config.dump_path)),
-                ("uid_slot (the per-user AUC)", self.wuauc is not None)):
+                ("uid_slot (the per-user AUC)",
+                 bool(self.packer.config.uid_slot)),
+                ("the device row cache on a table split across processes",
+                 getattr(self.engine, "cache", None) is not None
+                 and not self.topology.multinode_table())):
             if on:
                 refuse(what)
 
@@ -783,9 +795,11 @@ class SparseTrainer:
         The batch planes are per-shard lists; batch block b is read from
         its first shard (:meth:`_batch_owners`), so shards that share
         batch columns (mp > 1) count them once.  Each row block of the
-        working set (``Sharded.row_blocks``) works on the device of its
-        first shard, over the whole batch's ids gathered there in batch
-        order (ids it does not hold localized away):
+        working set works at its home (``Sharded.row_homes``: its first
+        shard on each process that holds it), over the whole batch's ids
+        gathered there in batch order (ids it does not hold localized
+        away); where a process holds no copy of a row block, another
+        process's home serves it:
 
         * pull — ``fast``: ``gather_pool`` over the block gives its part
           of every pooled sum; ``mxu``: ``gather_sorted`` over the
@@ -809,50 +823,62 @@ class SparseTrainer:
         ws = self.engine.ws
         topo = self.topology
         owners, _ = self._batch_owners()
-        bdev = [topo.devices[k] for k in owners]
-        homes = ws["show"].row_blocks()
-        hdev = [topo.devices[k] for k, _, _ in homes]
+        # every row block over every process, each read and stepped at
+        # its home on this process (None where another process alone
+        # holds it: the table split across processes)
+        homes = ws["show"].row_homes()
+        srcs = [ks for ks, _ in homes]
+        here = [next((k for k in ks if topo.is_local(k)), None)
+                for ks in srcs]
         sgd = self.engine.config.sgd
-        s, l, b_loc = idx_slb[owners[0]].shape
+        s, l, b_loc = idx_slb[topo.local_shards[0]].shape
         d = ws["mf"].shape[1] + mxu_path._ex_dim(ws)
         n_b = len(owners)
+
+        def block(k):
+            return {f: t.parts[k] for f, t in ws.items()}
         with torch.no_grad():
             len_b = [lengths[k] for k in owners]
-            idx_b = [_mask_padding(idx_slb[k], n)
+            idx_b = [None if n is None else _mask_padding(idx_slb[k], n)
                      for k, n in zip(owners, len_b)]
-            idx_h = col.gather_onto(idx_b, bdev, hdev, dim=2)   # [S, L, B]
+            # another process's blocks, batch or row, are None here
+            idx_h = self._to_homes(idx_b, homes, 2)          # [S, L, B]
             if path == "fast":
-                len_h = col.gather_onto(len_b, bdev, hdev, dim=1)
-                parts = [fast_path.pull_pool(
-                    {f: t.parts[k] for f, t in ws.items()}, x, n,
-                    row0=sl.start)
-                    for (k, sl, _), x, n in zip(homes, idx_h, len_h)]
-                raw = col.reduce_scatter_onto(parts, hdev, bdev, dim=1)
-                pooled_b = [embedding.cvm_pooled(r, self.use_cvm)
+                len_h = self._to_homes(len_b, homes, 1)
+                parts = [None if x is None else fast_path.pull_pool(
+                    block(k), x, n, row0=sl.start)
+                    for k, (_, sl), x, n in zip(here, homes, idx_h, len_h)]
+                raw = col.reduce_scatter_onto_shards(parts, srcs, owners,
+                                                     topo, dim=1)
+                pooled_b = [None if r is None
+                            else embedding.cvm_pooled(r, self.use_cvm)
                             for r in raw]
             elif path == "mxu":
                 if plan is None:
-                    plan = [mxu_path.block_plan(x, sl.start,
-                                                sl.stop - sl.start)[1]
-                            for (_, sl, _), x in zip(homes, idx_h)]
+                    plan = [None if x is None else mxu_path.block_plan(
+                        x, sl.start, sl.stop - sl.start)[1]
+                        for (_, sl), x in zip(homes, idx_h)]
                 parts = []
-                for (k, sl, _), pl in zip(homes, plan):
+                for k, (_, sl), pl in zip(here, homes, plan):
                     dims = mxu_path.make_dims(s * l * b_loc * n_b,
                                               sl.stop - sl.start)
-                    parts.append(mxu_path.pull_values_block(
-                        {f: t.parts[k] for f, t in ws.items()}, pl,
-                        dims).reshape(s, l, b_loc * n_b, -1))
-                vals = col.reduce_scatter_onto(parts, hdev, bdev, dim=2)
-                pooled_b = [mxu_path.pool_cvm_values(v, self.use_cvm)
+                    parts.append(None if pl is None else
+                                 mxu_path.pull_values_block(
+                                     block(k), pl, dims).reshape(
+                                         s, l, b_loc * n_b, -1))
+                vals = col.reduce_scatter_onto_shards(parts, srcs, owners,
+                                                      topo, dim=2)
+                pooled_b = [None if v is None
+                            else mxu_path.pool_cvm_values(v, self.use_cvm)
                             for v in vals]
             else:
-                parts = [embedding.pull_sparse(
-                    {f: t.parts[k] for f, t in ws.items()},
-                    x.permute(0, 2, 1), row0=sl.start)
-                    for (k, sl, _), x in zip(homes, idx_h)]
-                emb_b = col.reduce_scatter_onto(parts, hdev, bdev, dim=1)
+                parts = [None if x is None else embedding.pull_sparse(
+                    block(k), x.permute(0, 2, 1), row0=sl.start)
+                    for k, (_, sl), x in zip(here, homes, idx_h)]
+                emb_b = col.reduce_scatter_onto_shards(parts, srcs, owners,
+                                                       topo, dim=1)
         labels_b = [labels[k] for k in owners]
-        ins_b = [self._ins_cvm(x) for x in labels_b]
+        ins_b = [None if x is None else self._ins_cvm(x) for x in labels_b]
         extras_g = self._extras_per_device(extras)
         if path == "reference":
             leaves = self._per_device_blocks(emb_b, dim=1)
@@ -883,15 +909,15 @@ class SparseTrainer:
             grads = self._split_columns(grads, b_loc,
                                         1 if path == "reference" else 0)
             if path == "reference":
-                g_h = col.gather_onto(grads, bdev, hdev, dim=1)
+                g_h = self._to_homes(grads, homes, 1)
             else:
-                dp_h = col.gather_onto(grads, bdev, hdev, dim=0)
-                ins_h = col.gather_onto(ins_b, bdev, hdev, dim=0)
-            home_of = {sl.start: i for i, (_, sl, _) in enumerate(homes)}
+                dp_h = self._to_homes(grads, homes, 0)
+                ins_h = self._to_homes(ins_b, homes, 0)
+            home_of = {sl.start: i for i, (_, sl) in enumerate(homes)}
 
             def step(k, blk, row0):
                 i = home_of[row0]
-                slot_ids = self._const(self._slot_ids_dev, hdev[i])
+                slot_ids = self._const(self._slot_ids_dev, topo.devices[k])
                 if path == "fast":
                     fast_path.push_and_update(
                         blk, idx_h[i], len_h[i], dp_h[i], ins_h[i],
@@ -912,6 +938,21 @@ class SparseTrainer:
             self._step_row_blocks(ws, step)
         return loss, preds[:self.batch_size]
 
+    def _to_homes(self, xs, homes, dim: int):
+        """The batch blocks' ``xs`` (:meth:`_batch_owners` order, None
+        where another process owns the block) concatenated in batch order
+        along ``dim`` at each row block's home on this process
+        (``homes``: ``Sharded.row_homes``), None where another process
+        alone holds the row block: one gather over every process's
+        homes."""
+        topo = self.topology
+        owners, _ = self._batch_owners()
+        every = [k for ks, _ in homes for k in ks]
+        got = dict(zip(every, col.gather_onto_shards(xs, owners, every, topo,
+                                                     dim=dim)))
+        return [next((got[k] for k in ks if topo.is_local(k)), None)
+                for ks, _ in homes]
+
     def _apply_push_blocks(self, ws, delta, rows_loc: int, d_main: int,
                            sgd) -> None:
         """The rule over a ``Sharded`` working set, each table block with
@@ -931,7 +972,9 @@ class SparseTrainer:
         whole update; under dp × sharding the other nodes' replicas of
         the block then take a copy of it, so the replicas stay bit-equal
         (a card and the host may round a rule differently), as the dense
-        replicas take the one dense step."""
+        replicas take the one dense step.  Across processes each process
+        steps its own home of a replicated block (``Sharded.row_homes``)
+        from the same gathered inputs, so theirs stay bit-equal too."""
         stepped = {}
         for k, sl, _ in ws["show"].row_blocks():
             blk = {f: t.parts[k] for f, t in ws.items()}
@@ -1624,24 +1667,25 @@ class SparseTrainer:
         ``feed.plan_shards`` names each list entry's shard."""
         topo = self.topology
         owners, _ = self._batch_owners()
-        bdev = [topo.devices[k] for k in owners]
-        homes = self.engine.ws["show"].row_blocks()
-        idx = col.gather_onto([feed.data["indices"].parts[k]
-                               for k in owners], bdev,
-                              [topo.devices[k] for k, _, _ in homes], dim=3)
-        lens = col.gather_onto([feed.data["lengths"].parts[k]
-                                for k in owners], bdev,
-                               [topo.devices[k] for k, _, _ in homes], dim=2)
+        homes = self.engine.ws["show"].row_homes()
+        idx = self._to_homes([feed.data["indices"].parts[k]
+                              for k in owners], homes, 3)
+        lens = self._to_homes([feed.data["lengths"].parts[k]
+                               for k in owners], homes, 2)
         per_home = []
-        for (_, sl, _), x, n in zip(homes, idx, lens):
+        for (_, sl), x, n in zip(homes, idx, lens):
+            if x is None:               # another process's row block
+                per_home.append(None)
+                continue
             plans = [mxu_path.block_plan(_mask_padding(x[i], n[i]),
                                          sl.start, sl.stop - sl.start)[1]
                      for i in range(feed.n_batches)]
             per_home.append([torch.stack([p[j] for p in plans])
                              for j in range(len(pf.PLAN_KEYS))])
-        feed.plans = {key: [h[j] for h in per_home]
+        feed.plans = {key: [None if h is None else h[j] for h in per_home]
                       for j, key in enumerate(pf.PLAN_KEYS)}
-        feed.plan_shards = [k for k, _, _ in homes]
+        feed.plan_shards = [next((k for k in ks if topo.is_local(k)), None)
+                            for ks, _ in homes]
         feed.plan_dims = self._block_plan_key(feed)
 
     def _block_plan_key(self, feed: pf.PackedPassFeed):
@@ -1650,7 +1694,7 @@ class SparseTrainer:
         corrupting."""
         return ("mxu_blocks", tuple(feed.data["indices"].shape),
                 self.engine.ws["show"].shape[0],
-                len(self.engine.ws["show"].row_blocks()))
+                len(self.engine.ws["show"].row_homes()))
 
     def _sharded_plan_key(self, feed: pf.PackedPassFeed):
         """Geometry sharded plans were built for (feed shape, table

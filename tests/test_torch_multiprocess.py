@@ -18,7 +18,9 @@ rtol 1e-5 / atol 1e-6; integer fields equal.
 
 The worker also runs the cross-process ``all_reduce`` / ``all_gather``
 over ``dp``, held bitwise against the one-process list ops, and the
-refusals of what the slice does not carry (ROADMAP item 4.5).  One spawn
+refusals of what a cross-process dp axis does not carry (ROADMAP item
+4.5).  The table split across processes is
+``tests/test_torch_multiprocess_split.py``'s.  One spawn
 serves every test of the file.
 """
 
@@ -214,17 +216,19 @@ def test_cross_process_collective_bit_equal(ranks, name):
                                           want[k].numpy(), err_msg=(r, k))
 
 
-REFUSALS = {"table_split": "ValueError", "reduce_scatter":
-            "NotImplementedError", "explicit_fast": "NotImplementedError",
-            "async_dense": "NotImplementedError"}
+REFUSALS = {"async_dense": "NotImplementedError",
+            "device_cache_split": "NotImplementedError",
+            "page_view_model": "NotImplementedError",
+            "dump_path": "NotImplementedError",
+            "uid_slot": "NotImplementedError"}
 
 
 @pytest.mark.parametrize("case", list(REFUSALS))
 def test_cross_process_refusals_name_item_4_5(ranks, case):
-    """A mesh that would split the table across processes, a collective
-    the slice does not carry across them, a lowering other than
-    mxu_sharded and the async dense table raise, naming ROADMAP item
-    4.5."""
+    """The async dense table, the device row cache on a table split
+    across processes, a model that reads the page-view planes, the
+    instance dump and the per-user AUC raise when the trainer is built,
+    naming ROADMAP item 4.5."""
     for res in ranks:
         msg = str(res.get(f"refused.{case}", "not refused"))
         assert msg.startswith(REFUSALS[case] + ":"), msg

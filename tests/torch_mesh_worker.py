@@ -18,7 +18,8 @@ the dense weights to start from (``save_params``).  Each rank writes
 ``<out dir>/rank<r>.npz``: for the streaming and the packed pass its
 losses, AUC, working set and dense params; a two-pass day's losses and
 host table (``end_pass`` write-back); the cross-process collectives'
-results on its shards; and the refusals' messages.  The same functions
+results on its shards; and the messages of the refusals of what the
+cross-process dp axis does not carry (ROADMAP item 4.5).  The same functions
 with ``group`` None run the mesh in one process (:func:`topology`).
 """
 
@@ -192,34 +193,51 @@ def collectives(group, out):
             out[f"col.{name}.{k}"] = parts[k].numpy()
 
 
-def refused_pass(group, params, **kw):
-    """A pass the cross-process topology must refuse (``kw`` to the
-    trainer)."""
-    topo = topology(group)
+def refused_trainer(group, model=None, feed=None, degrees=None, **kw):
+    """A trainer the cross-process topology must refuse (``kw`` to the
+    trainer; ``degrees`` the mesh, else :data:`MESH`)."""
+    topo = topology(group, **(degrees or {}))
     ds = dataset(0)
     eng = BoxPSEngine(tcfg.EmbeddingTableConfig(
         embedding_dim=MF, sgd=tcfg.SparseSGDConfig(
             mf_create_thresholds=0.0)), topology=topo)
     open_pass(eng, ds)
-    tr = SparseTrainer(eng, DeepFM(N_SLOTS, 3 + MF, DENSE_DIM, hidden=(16,)),
-                       feed_config(), batch_size=B, seed=0, topology=topo,
-                       device="cpu", **kw)
-    tr.train_pass(ds)
+    SparseTrainer(eng, model or DeepFM(N_SLOTS, 3 + MF, DENSE_DIM,
+                                       hidden=(16,)),
+                  feed or feed_config(), batch_size=B,
+                  seed=0, topology=topo, device="cpu", **kw)
+
+
+def refused_cache(group):
+    """The device row cache on a table split across processes (dp 2)."""
+    from paddlebox_tpu_torch import flags
+    names = ("ps_device_cache", "ps_device_cache_rows")
+    old = {n: flags.get_flags(n) for n in names}
+    flags.set_flags({"ps_device_cache": True, "ps_device_cache_rows": 4096})
+    try:
+        refused_trainer(group, degrees=dict(dp=2))
+    finally:
+        flags.set_flags(old)
 
 
 def refusals(group, params, out):
     """The messages of what a cross-process dp axis does not carry."""
+    import dataclasses
+    from paddlebox_tpu_torch.models.rank_ctr import RankAttentionCTR
     cases = {
-        "table_split": lambda: topology(group, dp=2),
-        "reduce_scatter": lambda: col.reduce_scatter(
-            [None if t is None else t[0] for t in topology(group).split(
-                torch.zeros(8, 4), Spec(("dp", "sharding")))],
-            topology(group), "dp"),
-        "explicit_fast": lambda: refused_pass(group, params,
-                                              sparse_path="fast"),
-        "async_dense": lambda: refused_pass(
-            group, params, trainer_config=tcfg.TrainerConfig(
+        "async_dense": lambda: refused_trainer(
+            group, trainer_config=tcfg.TrainerConfig(
                 dense_sync_mode="async_table")),
+        "device_cache_split": lambda: refused_cache(group),
+        "page_view_model": lambda: refused_trainer(
+            group, model=RankAttentionCTR(N_SLOTS, 3 + MF, DENSE_DIM,
+                                          hidden=(16,)),
+            feed=dataclasses.replace(feed_config(), rank_offset=True)),
+        # refused when the trainer is built: nothing is written
+        "dump_path": lambda: refused_trainer(
+            group, trainer_config=tcfg.TrainerConfig(dump_path="dump")),
+        "uid_slot": lambda: refused_trainer(
+            group, feed=dataclasses.replace(feed_config(), uid_slot="s0")),
     }
     for name, fn in cases.items():
         try:
