@@ -426,6 +426,29 @@ result line is printed):
    kind, its seconds a step in the cross-process tier, the working-set
    join and ``end_pass`` seconds, and the phase's wall: host- and
    loopback-bound with two ranks on one card, no multi-node speed.
+25. multiprocess_models — the trainer family across processes: two
+   ranks of ``chip_smoke.py --multiprocess-models-rank <dir>`` through
+   the launcher on ``cuda:0``, dp 2, each holding its own row block
+   (``MPM_RUNS``): (s) RankAttentionCTR at phase 12's widths with the
+   async dense table (``sync_weight_step`` 1: each reload waits for the
+   rank's queue) on auto → ``mxu_sharded`` (flat), over phase 22 (i)'s
+   two pv-aligned batches; (t) MMoE through ``MultiTaskSparseTrainer``
+   (reference), two batches; (u) phase 21 (h)'s day (3 passes of 1
+   batch) on explicit mxu with the device row cache on and off; (v) the
+   graph trainer over phase 18's graph (each rank builds it from the
+   seed), phase 22 (k)'s 4 steps.  Checks: the ranks' losses, AUC (per task), working set,
+   dense weights, async table, host table and cache counters
+   bit-equal; each rank's launches a step as ``MPM_RUNS`` predicts; (u)
+   cache on = off bit for bit on each rank, the warm passes hit; the
+   losses within 1e-6 relative and the states within rtol 1e-5 / atol
+   1e-6 of the same mesh in this process on the card; both sorted
+   kernels on each rank's row block of (u)'s first pass against their
+   plain versions (rank 0's times on the ``kernels`` line as
+   ``at_multiprocess_models``).  Prints ``multiprocess_models[...]``
+   lines: each rank's steps, the bytes it puts on the group a step by
+   kind, its seconds a step in the cross-process tier, (u)'s cache
+   counters and fold-back seconds a pass, and the phase's wall.  The
+   ranks run alone; the one-process references train after them.
 
 Depth cuts (the widths are the bench model's): phase 10, 4 passes of 4
 batches (day 1's 3 and day 2's first); phase 11, a day of 3 passes of 4
@@ -5649,14 +5672,16 @@ MODELS_RANK_BATCHES = 2            # of phase 12's 4: a depth cut
 MODELS_GRAPH_STEPS = 4             # of phase 18's epoch: a depth cut
 
 
-def models_topology(mesh: dict, device: str, devices=None):
+def models_topology(mesh: dict, device: str, devices=None, group=None):
     """The mesh's topology: every shard on ``device``, or one a shard on
-    ``devices``."""
+    ``devices`` (with ``group``, this rank's shards of a dp axis over
+    that process group)."""
     from paddlebox_tpu_torch.config import MeshConfig
     from paddlebox_tpu_torch.parallel.topology import HybridTopology
     if devices is None:
         return HybridTopology(MeshConfig(**mesh), device=device)
-    return HybridTopology(MeshConfig(**mesh), devices=list(devices))
+    return HybridTopology(MeshConfig(**mesh), devices=list(devices),
+                          process_group=group)
 
 
 def models_pass(kind: str, block, params, path: str, devices,
@@ -5715,16 +5740,16 @@ def models_graph_data(device: str, seed: int = 22):
 
 
 def models_graph_pass(graph, rows: np.ndarray, devices, device: str = "cuda",
-                      seed: int = 22, hold: dict = None):
+                      seed: int = 22, hold: dict = None, group=None):
     """One epoch of ``rows`` through ``GraphEmbeddingTrainer`` over a
     working set of the graph's nodes on dp 2 over ``devices`` (None:
-    every shard on ``device``), end_pass included: (stats with the
-    losses, the step ms and the working set's bytes on each device, mf
-    and mf_g2sum on the host).  ``hold``: receives the trained working
-    set."""
+    every shard on ``device``; with ``group``, this rank's shard of a dp
+    axis over the group), end_pass included: (stats with the losses, the
+    step ms and the working set's bytes on each device, mf and mf_g2sum
+    on the host).  ``hold``: receives the trained working set."""
     from paddlebox_tpu_torch.parallel.topology import Sharded, same_device
     from paddlebox_tpu_torch.trainer import graph_trainer as gt
-    topo = models_topology(MODELS_MESH, device, devices)
+    topo = models_topology(MODELS_MESH, device, devices, group)
     eng = BoxPSEngine(EmbeddingTableConfig(
         embedding_dim=MF_DIM, sgd=SparseSGDConfig(
             mf_create_thresholds=0.0, mf_initial_range=0.1)),
@@ -5744,7 +5769,8 @@ def models_graph_pass(graph, rows: np.ndarray, devices, device: str = "cuda",
     if devices is not None:
         for f, v in eng.ws.items():
             for k, part in enumerate(v.parts):
-                if not same_device(part.device, topo.device_of(k)):
+                if part is not None and \
+                        not same_device(part.device, topo.device_of(k)):
                     raise AssertionError(f"multicard_models[k]: {f} block "
                                          f"{k} on {part.device}")
     tr = gt.GraphEmbeddingTrainer(eng, graph, n_negatives=GRAPH_NEGATIVES,
@@ -6535,6 +6561,503 @@ def multiprocess_split_phase(block: SlotRecordBlock, params0,
     return launches, out
 
 
+# ---------------------------------------------------------------------------
+# phase 25: the trainer family across processes
+# ---------------------------------------------------------------------------
+
+MPM_ARG = "--multiprocess-models-rank"
+MPM_MESH = {"dp": 2}
+# (s)'s async table reloads after every batch (the default); across
+# processes each reload waits for the rank's queue, and the one-process
+# reference's table waits alike (:func:`waiting_table`)
+MPM_SYNC_WEIGHT_STEP = 1
+MPM_MMOE_BATCHES = 2
+MPM_DAY_PASSES = 3                 # of 1 batch (phase 21 (h)'s day)
+# run: (what, the lowering, launches of each kernel a step for each of
+# the rank's row blocks or shards: gather_sorted, scatter_add_sorted,
+# gather_pool)
+MPM_RUNS = {"s": ("rank model + async table", "mxu_sharded", (1, 1, 0)),
+            "t": ("MMoE", "reference", (0, 1, 0)),
+            "u": ("cached day", "mxu", (1, 1, 0)),
+            "v": ("graph", None, (1, 1, 0))}
+MPM_LOSS_RTOL = 1e-6
+
+
+def waiting_table(trainer):
+    """A table to take the place of ``trainer``'s async dense table before
+    it trains, started from the same weights, whose pull waits until
+    every pushed grad is applied, as a rank's reload across processes
+    does: the one-process reference (there the plain pull reads whatever
+    the update thread has applied so far)."""
+    from paddlebox_tpu_torch.trainer.async_dense import AsyncDenseTable
+
+    class WaitingTable(AsyncDenseTable):
+        def pull(self):
+            self.drain()
+            return super().pull()
+
+    tc = trainer.trainer_config
+    trainer.async_dense.finalize()
+    return WaitingTable(
+        {n: p.detach().cpu().numpy()
+         for n, p in trainer.model.named_parameters()},
+        learning_rate=tc.async_dense_learning_rate,
+        beta1=tc.async_dense_beta1, beta2=tc.async_dense_beta2,
+        eps=tc.async_dense_eps)
+
+
+def mpm_rank_pass(block: SlotRecordBlock, group=None, devices=None,
+                  device: str = "cuda"):
+    """(s): RankAttentionCTR at phase 12's widths with the async dense
+    table on dp 2 (auto → mxu_sharded, flat), one packed pass of
+    ``block``'s page views; ``group`` / ``devices`` as
+    :func:`make_trainer`'s (None: every shard on ``device``).  Returns
+    (engine, trainer, stats)."""
+    from paddlebox_tpu_torch.config import TrainerConfig
+    from paddlebox_tpu_torch.models.rank_ctr import RankAttentionCTR
+    cfg = DataFeedConfig(slots=feed_config().slots, rank_offset=True,
+                         ads_offset=True, max_rank=3)
+    dataset = SlotDataset(cfg)
+    dataset._blocks = [block]
+    dataset.preprocess_instance()
+    topo = models_topology(MPM_MESH, device, devices, group)
+    engine = BoxPSEngine(EmbeddingTableConfig(
+        embedding_dim=MF_DIM, shard_num=8,
+        sgd=SparseSGDConfig(mf_create_thresholds=0.0)), seed=0,
+        device=device, topology=topo)
+    engine.begin_feed_pass()
+    engine.add_keys(block.all_keys())
+    engine.end_feed_pass()
+    engine.begin_pass()
+    trainer = SparseTrainer(
+        engine, RankAttentionCTR(N_SLOTS, 3 + MF_DIM, DENSE_DIM,
+                                 **RANK_WIDTHS),
+        cfg, batch_size=BATCH, seed=0, device=device, topology=topo,
+        trainer_config=TrainerConfig(dense_sync_mode="async_table",
+                                     sync_weight_step=MPM_SYNC_WEIGHT_STEP))
+    if group is None:
+        trainer.async_dense = waiting_table(trainer)
+    stats = trainer.train_pass(trainer.build_pass_feed(dataset))
+    return engine, trainer, stats
+
+
+def mpm_mmoe_pass(block: SlotRecordBlock, group=None, devices=None,
+                  device: str = "cuda"):
+    """(t): MMoE through MultiTaskSparseTrainer on dp 2 (the reference
+    lowering), one packed pass of ``block``."""
+    engine, trainer, dataset, _ = make_trainer(
+        block, device, None, "auto", model="mmoe", mesh=MPM_MESH,
+        devices=devices, group=group)
+    stats = trainer.train_pass(trainer.build_pass_feed(dataset))
+    return engine, trainer, stats
+
+
+def mpm_record(engine, trainer, stats) -> tuple:
+    """A trained pass's record (losses, AUC, step ms, the digests of the
+    working set joined over the group, of the dense weights, of the async
+    table and, after end_pass, of the host table) and its working set on
+    the host."""
+    ws = host_ws(engine.ws)
+    rec = {"path": trainer._resolve_path(), "losses": stats["losses"],
+           "auc": [stats[k] for k in ("auc", "task0_auc", "task1_auc")
+                   if k in stats],
+           "step_ms": stats.get("step_ms", []),
+           "ws_digest": digest({f: v.numpy() for f, v in ws.items()}),
+           "params_digest": digest({n: p.detach().cpu().numpy() for n, p in
+                                    trainer.model.named_parameters()})}
+    if trainer.async_dense is not None:
+        table = trainer.async_dense
+        rec["async"] = {"pushed": table.pushed, "applied": table.applied,
+                        "digest": digest(table.finalize())}
+    engine.end_pass()
+    keys = np.sort(engine.table.export_keys())
+    rec["table_keys"] = int(len(keys))
+    rec["table_digest"] = digest(dict(engine.table.bulk_pull(keys),
+                                      keys=keys))
+    return rec, ws
+
+
+def mpm_day(group=None, devices=None, cache: bool = False, seed: int = 24,
+            device: str = "cuda", keep: bool = False) -> tuple:
+    """(u): phase 21 (h)'s day (MPM_DAY_PASSES passes of one batch,
+    serial) on dp 2 over ``devices`` (with ``group``, this rank's shard
+    of a dp axis over the group; None: two shards on ``device``),
+    explicit mxu, with the device row cache on or off.  Returns (the
+    world it left; per pass the cache's hits, misses, evictions, the
+    rows copied between its store and the blocks, the fold-back's and
+    end_pass's seconds and the step ms; with ``keep``, this process's
+    first row block after the first pass trained and its resident plan,
+    else None)."""
+    from paddlebox_tpu_torch.config import MeshConfig
+    from paddlebox_tpu_torch.parallel.topology import HybridTopology
+    from paddlebox_tpu_torch.utils.monitor import stat_get
+    rng = np.random.default_rng(seed)
+    blocks = [make_block(rng, BATCH) for _ in range(MPM_DAY_PASSES)]
+    topo = HybridTopology(MeshConfig(**MPM_MESH),
+                          devices=list(devices or (device, device)),
+                          process_group=group)
+    with engine_flags(CACHE_ROWS if cache else 0):
+        engine = BoxPSEngine(EmbeddingTableConfig(
+            embedding_dim=MF_DIM, shard_num=8,
+            sgd=SparseSGDConfig(mf_create_thresholds=0.0)), seed=0,
+            device=device, topology=topo)
+    trainer = SparseTrainer(engine, make_model("deepfm"), feed_config(),
+                            batch_size=BATCH, seed=0, device=device,
+                            sparse_path="mxu", topology=topo)
+    keys = ("ps.cache.hits", "ps.cache.misses", "ps.cache.evictions",
+            "ps.cache.device_copy_rows")
+    fold = engine.timers("cache_fold")
+    losses, per_pass, kept = [], [], None
+    engine.set_date(LIFE_DATES[0])
+    for block in blocks:
+        prev = {k: stat_get(k) for k in keys}
+        engine.begin_feed_pass()
+        engine.add_keys(block.all_keys())
+        engine.end_feed_pass()
+        engine.begin_pass()
+        if trainer._resolve_path() != "mxu":
+            raise AssertionError("multiprocess_models[u]: mxu resolved to "
+                                 f"{trainer._resolve_path()}")
+        feed = trainer.build_pass_feed(one_pass_dataset(block))
+        stats = trainer.train_pass(feed)
+        losses.append(stats["losses"])
+        if keep and kept is None:
+            k, sl, _ = engine.ws["show"].row_blocks()[0]
+            i = feed.plan_shards.index(k)
+            kept = {"block": {f: v.parts[k].cpu()
+                              for f, v in engine.ws.items()},
+                    "rows2d": feed.plans["rows2d"][i][0].cpu(),
+                    "first_occ": feed.plans["first_occ"][i][0].cpu(),
+                    "p": int(feed.plans["inv_perm"][i].shape[1]),
+                    "shard": k, "row0": sl.start, "rows": sl.stop - sl.start}
+        f0, t0 = fold.elapsed_sec(), time.perf_counter()
+        engine.end_pass()
+        per_pass.append({k.split(".")[-1]: stat_get(k) - prev[k]
+                         for k in keys}
+                        | {"end_pass_s": time.perf_counter() - t0,
+                           "fold_s": fold.elapsed_sec() - f0,
+                           "step_ms": stats.get("step_ms", [])})
+    return world_of(engine, trainer, losses), per_pass, kept
+
+
+def mpm_world_digest(world: dict) -> dict:
+    keys, rows = world["table"]
+    return {"losses": world["losses"], "table_keys": int(len(keys)),
+            "table_digest": digest(dict(rows, keys=keys)),
+            "dense_digest": digest({k: v.cpu().numpy()
+                                    for k, v in world["dense"].items()})}
+
+
+def mpm_rank(work: str) -> int:
+    """One rank of phase 25 (``python -m paddlebox_tpu_torch.launch
+    --nproc_per_node 2 chip_smoke.py --multiprocess-models-rank <work>``):
+    joins the launcher's group and trains runs (s)-(v) on its dp
+    coordinate's shard (on ``cuda:0``), the table's rows split over the
+    ranks; keeps its row block of (u)'s first pass and the block's
+    resident plan (``<work>/block_u<r>.pt``, for the kernels' check);
+    writes ``<work>/models<r>.json`` (and, rank 0, each run's working set
+    and (u)'s host table)."""
+    from paddlebox_tpu_torch import launch
+    from paddlebox_tpu_torch.utils.monitor import stat_get, stat_snapshot
+    rank = launch.init_distributed()
+    group = launch.process_group()
+    with open(os.path.join(work, "spec.json")) as f:
+        spec = json.load(f)
+    device = spec["device"]
+    card = device.startswith("cuda")
+    devices = [f"{device}:0"]
+    out = {"rank": rank, "runs": {}}
+
+    def run(name, fn):
+        reset_counts()
+        x0 = stat_snapshot(XPROC)
+        t0 = time.perf_counter()
+        rec = fn()
+        if card:
+            torch.cuda.synchronize()
+        rec["train_s"] = time.perf_counter() - t0
+        rec["launches"] = read_counts()
+        x1 = stat_snapshot(XPROC)
+        rec["xproc"] = {k[len(XPROC):]: v - x0.get(k, 0.0)
+                        for k, v in x1.items() if v != x0.get(k, 0.0)}
+        out["runs"][name] = rec
+        log(f"multiprocess_models[{name}][rank {rank}]: trained "
+            f"{rec['train_s']:.1f} s")
+
+    def model_run(name, fn, data):
+        engine, trainer, stats = fn(data, group, devices, device)
+        rec, ws = mpm_record(engine, trainer, stats)
+        if rank == 0:
+            np.savez(os.path.join(work, f"ws_{name}.npz"),
+                     **{k: v.numpy() for k, v in ws.items()})
+        return rec
+
+    rank_data = rank_block(np.random.default_rng(13), MODELS_RANK_BATCHES)
+    run("s", lambda: model_run("s", mpm_rank_pass, rank_data))
+    mmoe_data = make_block(np.random.default_rng(4),
+                           MPM_MMOE_BATCHES * BATCH, n_labels=2)
+    run("t", lambda: model_run("t", mpm_mmoe_pass, mmoe_data))
+    def day_run():
+        worlds, per_pass, sent = {}, {}, {}
+        for cache in (False, True):
+            x0 = stat_snapshot(XPROC)
+            world, per_pass[cache], kept = mpm_day(
+                group, devices, cache, device=device, keep=not cache)
+            if kept is not None:
+                # this rank's row block of the first pass and its plan,
+                # for the kernels' check and times after the ranks exit
+                torch.save(kept, os.path.join(work, f"block_u{rank}.pt"))
+            x1 = stat_snapshot(XPROC)
+            sent[cache] = sum(v - x0.get(k, 0.0) for k, v in x1.items()
+                              if k.endswith(".tx_bytes"))
+            worlds[cache] = world
+        same_world(f"multiprocess_models[u][rank {rank}] cache on vs off",
+                   worlds[False], worlds[True])
+        warm = [p["hits"] for p in per_pass[True][1:]]
+        if per_pass[True][0]["hits"] or min(warm) <= 0:
+            raise AssertionError(f"multiprocess_models[u][rank {rank}]: "
+                                 f"hits per pass {per_pass[True]}")
+        if rank == 0:
+            keys, rows = worlds[False]["table"]
+            np.savez(os.path.join(work, "table_u.npz"), keys=keys, **rows)
+        return {"path": "mxu", "per_pass": per_pass[True],
+                "step_ms": [x for p in per_pass[False]
+                            for x in p["step_ms"]],
+                "bytes_sent": {"cache_off": sent[False],
+                               "cache_on": sent[True]},
+                # each rank's hits, misses and evictions: one process's
+                # (the rows copied onto a rank's block are its own)
+                "cache": [{k: p[k] for k in ("hits", "misses", "evictions")}
+                          for p in per_pass[True]],
+                "losses": [x for ls in worlds[False]["losses"] for x in ls],
+                **{f"world_{'on' if c else 'off'}":
+                   mpm_world_digest(worlds[c]) for c in (False, True)}}
+    run("u", day_run)
+
+    def graph_run():
+        graph, rows = models_graph_data(device)
+        t0 = time.perf_counter()
+        stats, ws = models_graph_pass(graph, rows, devices, device,
+                                      group=group)
+        if rank == 0:
+            np.savez(os.path.join(work, "ws_v.npz"),
+                     **{k: v.numpy() for k, v in ws.items()})
+        return {"path": None, "losses": stats["losses"],
+                "step_ms": stats["step_ms"],
+                "ws_digest": digest({f: v.numpy() for f, v in ws.items()}),
+                "epoch_s": time.perf_counter() - t0}
+    run("v", graph_run)
+    out["exchange_s"] = stat_get(XPROC + "exchange_s")
+    with open(os.path.join(work, f"models{rank}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def mpm_close(what: str, losses, ref_losses, ws: dict = None,
+              ws_ref: dict = None) -> dict:
+    """The ranks against the same mesh in one process on the card: the
+    losses within MPM_LOSS_RTOL relative, the states (a working set, a
+    host table) within rtol 1e-5 / atol 1e-6, integer fields equal.
+    Returns the worst relative loss difference and each state field's
+    max |diff|."""
+    a, b = np.asarray(losses, np.float64), np.asarray(ref_losses, np.float64)
+    if a.shape != b.shape or not np.allclose(a, b, rtol=MPM_LOSS_RTOL,
+                                             atol=0):
+        raise AssertionError(f"{what}: losses {list(a)} vs one process "
+                             f"{list(b)} (rtol {MPM_LOSS_RTOL:g})")
+    out = {"loss_max_rel_diff": float(np.max(np.abs(a - b) / np.abs(b))),
+           "max_abs_diff": {}}
+    for k, want in (ws_ref or {}).items():
+        x, y = np.asarray(ws[k]), np.asarray(want)
+        if y.dtype.kind in "iu":
+            if not np.array_equal(x, y):
+                raise AssertionError(f"{what}: {k} differs from one process")
+            continue
+        out["max_abs_diff"][k] = float(np.abs(x - y).max()) if x.size else 0.
+        if not np.allclose(x, y, rtol=1e-5, atol=1e-6):
+            raise AssertionError(f"{what}: {k} differs from one process: "
+                                 f"max |diff| {out['max_abs_diff'][k]}")
+    return out
+
+
+def mpm_references(graph_data: dict, device: str) -> dict:
+    """Runs (s)-(v) in this process, every shard on ``device``: each run's
+    (record with its losses, its working set or host table)."""
+    refs = {}
+    engine, trainer, stats = mpm_rank_pass(
+        rank_block(np.random.default_rng(13), MODELS_RANK_BATCHES),
+        device=device)
+    refs["s"] = mpm_record(engine, trainer, stats)
+    engine, trainer, stats = mpm_mmoe_pass(make_block(
+        np.random.default_rng(4), MPM_MMOE_BATCHES * BATCH, n_labels=2),
+        device=device)
+    refs["t"] = mpm_record(engine, trainer, stats)
+    del engine, trainer
+    world, _, _ = mpm_day(device=device)
+    keys, rows = world["table"]
+    refs["u"] = ({"losses": [x for ls in world["losses"] for x in ls]},
+                 dict(rows, keys=keys))
+    if graph_data is None:
+        graph_data = dict(zip(("graph", "rows"), models_graph_data(device)))
+    gstats, gws = models_graph_pass(graph_data["graph"], graph_data["rows"],
+                                    None, device)
+    refs["v"] = (gstats, gws)
+    if device.startswith("cuda"):
+        torch.cuda.empty_cache()
+    return refs
+
+
+def multiprocess_models_phase(graph_data: dict = None,
+                              device: str = "cuda"):
+    """Phase 25: two ranks, one dp coordinate each, over the launcher's
+    gloo group on the card, the table's rows split over the ranks: (s)
+    the page-view model with the async dense table on auto (→
+    mxu_sharded, flat), on MODELS_RANK_BATCHES pv-aligned batches made as
+    phase 22 (i)'s; (t) MMoE through the multi-task trainer (reference)
+    on MPM_MMOE_BATCHES batches; (u) phase 21 (h)'s day on explicit mxu
+    with the device row cache on and off; (v) the graph trainer over
+    phase 18's graph, MODELS_GRAPH_STEPS steps (each rank builds the
+    graph from the seed).  Checks: the ranks' losses, AUC (per task),
+    working set, dense weights, async table, host table and the cache's
+    counters bit-equal; each rank's launches a step as MPM_RUNS predicts;
+    (u)'s cache on = off bit for bit on each rank (in the worker), the
+    warm passes hit; each run's losses within MPM_LOSS_RTOL of the same
+    mesh in this process on the card and its states within rtol 1e-5 /
+    atol 1e-6; both sorted kernels on each rank's row block of (u)'s
+    first pass and its plan against their plain versions, timed here
+    after the ranks exit.  The ranks run alone; the references train
+    after them, so no step or tier time of a rank shares the card or
+    the host with them.
+    ``graph_data``: phase
+    18's graph and pairs for this process's (v); None builds them.
+    ``device``: the card (the CPU in a rehearsal, where the launch and
+    kernel checks do not run)."""
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="chip_smoke_models_")
+    states = {}
+    try:
+        with open(os.path.join(work, "spec.json"), "w") as f:
+            json.dump({"device": device}, f)
+        # the ranks alone, then this process trains the same runs, every
+        # shard on the card: nothing else runs beside the ranks' steps
+        ranks_wall = mp_launch(work, MPM_ARG)
+        got = []
+        for r in range(2):
+            with open(os.path.join(work, f"models{r}.json")) as f:
+                got.append(json.load(f))
+        for name in ("s", "t", "v", "u"):
+            path = os.path.join(work, ("table_u.npz" if name == "u"
+                                       else f"ws_{name}.npz"))
+            with np.load(path) as z:
+                states[name] = {k: z[k] for k in z.files}
+        blocks = [torch.load(os.path.join(work, f"block_u{r}.pt"),
+                             weights_only=True) for r in range(2)]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    t_refs = time.perf_counter()
+    refs = mpm_references(graph_data, device)
+    refs_s = time.perf_counter() - t_refs
+    card = device.startswith("cuda")
+    launches, out = {}, {"ranks_wall_s": ranks_wall,
+                         "references_s": refs_s, "runs": {}}
+    for name, (label, want, per_block) in MPM_RUNS.items():
+        what = f"multiprocess_models[{name}]"
+        a, b = (g["runs"][name] for g in got)
+        for key in ("losses", "auc", "ws_digest", "params_digest",
+                    "async", "table_keys", "table_digest", "path",
+                    "world_on", "world_off", "cache"):
+            if a.get(key) != b.get(key):
+                raise AssertionError(f"{what}: the ranks' {key} differ: "
+                                     f"{a.get(key)} vs {b.get(key)}")
+        if a["path"] != want:
+            raise AssertionError(f"{what}: resolved {a['path']}, want {want}")
+        steps = len(a["losses"]) * (2 if name == "u" else 1)
+        predicted = dict(zip(("gather_sorted", "scatter_add_sorted",
+                              "gather_pool"), (n * steps for n in per_block)))
+        for g in got:
+            if card and g["runs"][name]["launches"] != predicted:
+                raise AssertionError(
+                    f"{what}: rank {g['rank']} launched "
+                    f"{g['runs'][name]['launches']}, predicted {predicted} "
+                    f"(1 row block × {steps} steps)")
+            launches[f"{name}_rank{g['rank']}"] = g["runs"][name]["launches"]
+        ref = refs[name]
+        ref_losses = ref[0]["losses"]
+        if name == "u":
+            close = mpm_close(what, a["losses"], ref_losses, states["u"],
+                              ref[1])
+        else:
+            ref_ws = {k: v.numpy() for k, v in ref[1].items()}
+            close = mpm_close(what, a["losses"], ref_losses, states[name],
+                              ref_ws)
+        if name in ("s", "t"):
+            if not np.allclose(a["auc"], ref[0]["auc"], rtol=0, atol=1e-6):
+                raise AssertionError(f"{what}: AUC {a['auc']} vs one "
+                                     f"process {ref[0]['auc']}")
+        if name == "s" and (a["async"]["pushed"] != a["async"]["applied"]
+                            or a["async"]["pushed"] != len(a["losses"])):
+            raise AssertionError(f"{what}: async table {a['async']}")
+        run = {"what": label, "path": a["path"], "one_process": close,
+               "one_process_losses": ref_losses,
+               "ranks": {g["rank"]: g["runs"][name] for g in got}}
+        for g in got:
+            r = g["runs"][name]
+            n_steps = steps
+            step_ms = r.get("step_ms") or []
+            steady = (float(np.median(step_ms[1:] if len(step_ms) > 1
+                                      else step_ms)) if step_ms else None)
+            sent = {k[:-len(".tx_bytes")]: v / n_steps
+                    for k, v in r["xproc"].items() if k.endswith(".tx_bytes")}
+            tier = r["xproc"].get("exchange_s", 0.0) / n_steps
+            extra = ""
+            if name == "u":
+                extra = (f", cache per pass {r['per_pass']} (cache on = "
+                         f"off bit for bit), bytes sent by the day "
+                         f"{r['bytes_sent']}")
+            if name == "v":
+                extra = f", epoch {r['epoch_s']:.2f} s (graph built here)"
+            per_step = {k: v / n_steps for k, v in r["launches"].items()}
+            log(f"{what}[rank {g['rank']}]: {label}, {a['path']}, losses "
+                f"{r['losses']} (one process {ref_losses}), auc "
+                f"{r.get('auc')}, launches {r['launches']} ({per_step} a "
+                f"step), step device ms "
+                f"{step_ms} (steady {steady}), bytes put on the group a "
+                f"step by kind {sent} (total {sum(sent.values()):.0f}), "
+                f"cross-process tier {tier:.4f} s a step, run "
+                f"{r['train_s']:.1f} s{extra}; host- and loopback-bound "
+                f"with two ranks on one card: no multi-node speed; "
+                f"{card_line()}")
+        out["runs"][name] = run
+    kern = {}
+    per = []
+    for r, blk in enumerate(blocks if card else ()):
+        dev = torch.device(device)
+        per.append(sharded_kernels(
+            f"multiprocess_models[u][rank {r}, shard {blk['shard']}]",
+            {f: v.to(dev) for f, v in blk["block"].items()},
+            blk["rows2d"].to(dev), blk["first_occ"].to(dev), blk["p"],
+            blk["shard"]) | {"row0": blk["row0"], "rows": blk["rows"]})
+    del blocks
+    for kname in ("gather_sorted", "scatter_add_sorted") if card else ():
+        kern[kname] = per[0][kname] | {"max_abs_err": max(
+            x[kname]["max_abs_err"] for x in per)}
+        x = kern[kname]
+        log(f"multiprocess_models[u][kernels, rank 0 row block at "
+            f"{per[0]['row0']}]: {kname} {x['ms']:.4f} ms (plain "
+            f"{x['plain_ms']:.4f}, library {x['library_ms']:.4f}, bound "
+            f"{x['bound_ms']:.4f} by {x['bound_by']}); p {per[0]['p']}, "
+            f"sentinel share {per[0]['sentinel_share']:.4f}; max abs err "
+            f"over both ranks {x['max_abs_err']:.3g}; {card_line()}")
+    out["kernels"] = kern
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"multiprocess_models: runs {list(MPM_RUNS)} ranks bit-equal, "
+        f"launches as predicted, losses within {MPM_LOSS_RTOL:g} of one "
+        f"process on the card, (u) cache on = off; ranks "
+        f"{ranks_wall:.1f} s, references {refs_s:.1f} s, of a phase "
+        f"{out['phase_s']:.1f} s")
+    return launches, out
+
+
 
 def profile_phase(seed: int = 1, symbols=SYMBOLS) -> dict:
     """Short traced passes (2 batches) of the lowerings that phases 3-4
@@ -6559,6 +7082,8 @@ def main() -> int:
         return multiprocess_rank(sys.argv[2])
     if sys.argv[1:2] == [SPLIT_ARG]:
         return split_rank(sys.argv[2])
+    if sys.argv[1:2] == [MPM_ARG]:
+        return mpm_rank(sys.argv[2])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card visible", file=sys.stderr)
         return 2
@@ -6632,12 +7157,14 @@ def main() -> int:
     mm_launches, mm_out = timed("multicard_models", multicard_models_phase,
                                 packed_block, packed_params,
                                 graph_data=graph_data)
-    graph_data.clear()
     mpr_launches, mpr_out = timed("multiprocess", multiprocess_phase,
                                   packed_block, packed_params)
     split_launches, split_out = timed("multiprocess_split",
                                       multiprocess_split_phase,
                                       packed_block, packed_params)
+    mpm_launches, mpm_out = timed("multiprocess_models",
+                                  multiprocess_models_phase, graph_data)
+    graph_data.clear()
     profile_out = timed("profile", profile_phase)
 
     by_path = {"slice_mxu": slice_launches,
@@ -6663,7 +7190,9 @@ def main() -> int:
                   for p, n in mm_launches.items()},
                **{f"multiprocess_{p}": n for p, n in mpr_launches.items()},
                **{f"multiprocess_split_{p}": n
-                  for p, n in split_launches.items()}}
+                  for p, n in split_launches.items()},
+               **{f"multiprocess_models_{p}": n
+                  for p, n in mpm_launches.items()}}
     line = {"kernels": []}
     for name in KERNELS:
         k = kern["uniform"][name]
@@ -6719,6 +7248,14 @@ def main() -> int:
                 f: split_out["kernels"][name][f]
                 for f in ("ms", "plain_ms", "bound_ms", "bound_by",
                           "library_ms", "max_abs_err")}
+        if name in mpm_out["kernels"]:
+            # a rank's row block of phase 25's day (u), on its resident
+            # plan of the first pass (rank 0's times; the error the worse
+            # of the two ranks)
+            at["at_multiprocess_models"] = {
+                f: mpm_out["kernels"][name][f]
+                for f in ("ms", "plain_ms", "bound_ms", "bound_by",
+                          "library_ms", "max_abs_err")}
         if name in graph_out["kernels"]:
             # a graph step's plan (phase 18): hub rows and K negatives
             at["at_graph"] = {
@@ -6755,6 +7292,7 @@ def main() -> int:
                                  "multicard_models": mm_out,
                                  "multiprocess": mpr_out,
                                  "multiprocess_split": split_out,
+                                 "multiprocess_models": mpm_out,
                                  "profile": profile_out,
                                  "phase_s": phase_s}))
     print(json.dumps(line), flush=True)

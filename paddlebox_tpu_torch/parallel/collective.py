@@ -537,28 +537,6 @@ def gather_onto(xs: Shards, srcs: Sequence, dsts: Sequence,
     return out
 
 
-def reduce_scatter_onto(xs: Shards, srcs: Sequence, dsts: Sequence,
-                        dim: int = 0) -> Shards:
-    """≙ psum_scatter between explicit placements: ``xs[i]`` (on
-    ``srcs[i]``) splits into ``len(dsts)`` equal blocks along ``dim``,
-    and destination j receives block j of every ``xs[i]`` summed in the
-    order of i, on its own device: a fixed order, no atomics."""
-    from paddlebox_tpu_torch.parallel.topology import transfer
-    size = xs[0].shape[dim]
-    if size % len(dsts):
-        raise ValueError(f"reduce_scatter_onto: dim {dim} of size {size} "
-                         f"does not split over {len(dsts)} destinations")
-    chunks = [x.chunk(len(dsts), dim=dim) for x in xs]
-    out = []
-    for j, dst in enumerate(dsts):
-        acc = None
-        for c, src in zip(chunks, srcs):
-            part = transfer(c[j], src, dst)
-            acc = part.clone() if acc is None else acc + part
-        out.append(acc)
-    return out
-
-
 def gather_onto_shards(xs: Shards, srcs: Sequence[int],
                        dsts: Sequence[int], topo: "HybridTopology",
                        dim: int = 0) -> Shards:
@@ -584,26 +562,33 @@ def gather_onto_shards(xs: Shards, srcs: Sequence[int],
 
 def reduce_scatter_onto_shards(xs: Shards, srcs: Sequence[Sequence[int]],
                                dsts: Sequence[int], topo: "HybridTopology",
-                               dim: int = 0) -> Shards:
-    """:func:`reduce_scatter_onto` between shards of ``topo``.
-    ``srcs[i]`` names the shards that hold ``xs[i]``, replicas of one
-    value, one a process at most; ``xs[i]`` is this process's replica
-    (None where it holds none).  Destination j reads block j of ``xs[i]``
-    from the replica on its own process where there is one, else from
-    the first, which sends it to j's process alone (:func:`route`), and
-    sums them in the order of i.  Another process's destination gets
-    None; every rank passes the same ``srcs`` and ``dsts``."""
+                               dim: Optional[int] = 0) -> Shards:
+    """≙ psum_scatter between shards of ``topo``: ``xs[i]`` splits into
+    ``len(dsts)`` equal blocks along ``dim``, and destination j receives
+    block j of every ``xs[i]`` summed in the order of i, on its own
+    device (a fixed order, no atomics).  ``srcs[i]`` names the shards
+    that hold ``xs[i]``, replicas of one value, one a process at most;
+    ``xs[i]`` is this process's replica (None where it holds none).
+    Destination j reads block j of ``xs[i]`` from the replica on its own
+    process where there is one, else from the first, which sends it to
+    j's process alone (:func:`route`).  ``dim`` None: no split, every
+    destination sums the whole ``xs`` (one each process, as a step's
+    pulled parts are summed on every rank).  Another process's
+    destination gets None; every rank passes the same ``srcs`` and
+    ``dsts``."""
     from paddlebox_tpu_torch.parallel.topology import transfer
-    size = next(x for x in xs if x is not None).shape[dim]
-    if size % len(dsts):
+    n = 1 if dim is None else len(dsts)
+    size = next(x for x in xs if x is not None).shape[dim or 0]
+    if size % n:
         raise ValueError(f"reduce_scatter_onto: dim {dim} of size {size} "
-                         f"does not split over {len(dsts)} destinations")
+                         f"does not split over {n} destinations")
     drank = [_rank_of(topo, k) for k in dsts]
 
     def src(i, j):                  # the replica destination j reads
         return next((k for k in srcs[i] if _rank_of(topo, k) == drank[j]),
                     srcs[i][0])
-    chunks = [None if x is None else x.chunk(len(dsts), dim=dim)
+    chunks = [None if x is None else
+              [x] * len(dsts) if dim is None else x.chunk(n, dim=dim)
               for x in xs]
     got = route(_group(topo), (((i, j), _rank_of(topo, src(i, j)), drank[j])
                                for i in range(len(xs))

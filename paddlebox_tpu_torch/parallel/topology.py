@@ -219,12 +219,13 @@ class HybridTopology:
         """Whether this process holds ``shard``."""
         return self.devices[shard] is not None
 
-    def refuse_cross_process(self, what: str) -> None:
-        """Raise for ``what``, which is not carried across processes."""
+    def refuse_cross_process(self, what: str, why: str = "") -> None:
+        """Raise for ``what``, which is not carried across processes
+        (``why``: the reason, appended to the message)."""
         if self.spans_processes:
             raise NotImplementedError(
                 f"{what} over a dp axis that spans processes is "
-                f"{CROSS_PROCESS_ITEM}")
+                f"{CROSS_PROCESS_ITEM}" + (f": {why}" if why else ""))
 
     def device_of(self, shard: int) -> Optional[torch.device]:
         return self.devices[shard]
@@ -495,20 +496,61 @@ class Sharded:
                     ) -> Tuple[torch.Tensor, int]:
         """The global rows ``rows`` (host ints) as one tensor on
         ``device``: each block's rows selected where the block lives and
-        copied over.  Returns (values, rows copied between devices).  A
-        row that only another process holds raises."""
+        copied over.  Returns (values, rows copied between devices or
+        processes).  Where the rows are split across processes this is a
+        collective, which every rank calls with its own rows: the rows of
+        a block this process does not hold are read by the process of
+        the block's first home and sent back (``collective.route``, the
+        row numbers, then the values), and each rank gets its own rows in
+        its own order."""
         rows = torch.as_tensor(np.asarray(rows, np.int64))
+        homes = self.row_homes()
+        start = [sl.start for _, sl in homes]
+        held = {start.index(sl.start): (k, blk)
+                for k, sl, blk in self.row_blocks()}
+        if len(held) == len(homes):
+            return self._read_held(rows, device, held)
+        from paddlebox_tpu_torch.parallel import collective as col
+        topo, me = self.topo, self.topo.rank
+        ranks = range(topo.nranks)
+        # the process each row is read on: here, else its block's first
+        # home's
+        which, _ = self.locate(rows)
+        serve = torch.as_tensor([me if i in held else
+                                 topo.axis_index(ks[0], "dp")
+                                 for i, (ks, _) in enumerate(homes)])
+        pos = {r: torch.nonzero(serve[which] == r).reshape(-1)
+               for r in ranks}
+        out = torch.empty((len(rows),) + tuple(self.shape[1:]),
+                          dtype=self.dtype, device=physical_device(device))
+        vals, moved = self._read_held(rows[pos[me]], device, held)
+        out[pos[me].to(out.device)] = vals
+        pairs = [(q, r) for q in ranks for r in ranks if q != r]
+        asked = col.route(topo.process_group, ((p, p[0], p[1])
+                                               for p in pairs),
+                          lambda p: rows[pos[p[1]]], "gather_rows")
+        answer = {q: self._read_held(asked[(q, me)], topo.device, held)[0]
+                  for q in ranks if q != me}
+        got = col.route(topo.process_group, (((r, q), r, q)
+                                             for q, r in pairs),
+                        lambda p: answer[p[1]], "gather_rows")
+        for r in ranks:
+            if r != me and len(pos[r]):
+                out[pos[r].to(out.device)] = on_device(got[(r, me)],
+                                                       device)
+                moved += len(pos[r])
+        return out, moved
+
+    def _read_held(self, rows: torch.Tensor, device: DeviceLike,
+                   held: Dict[int, Tuple[int, torch.Tensor]]
+                   ) -> Tuple[torch.Tensor, int]:
+        """The global ``rows``, every one in a block this process holds
+        (``held``: index into :meth:`row_homes` → (shard, block)), read
+        where each block lives onto ``device``; with the rows copied
+        between devices."""
         out = torch.empty((len(rows),) + tuple(self.shape[1:]),
                           dtype=self.dtype, device=physical_device(device))
         which, local = self.locate(rows)
-        start = [sl.start for _, sl in self.row_homes()]
-        held = {start.index(sl.start): (k, blk)
-                for k, sl, blk in self.row_blocks()}
-        absent = sorted(set(which.unique().tolist()) - set(held))
-        if absent:
-            raise NotImplementedError(
-                f"gather_rows: rows of row blocks {absent} are held by "
-                f"another process; reading them is {CROSS_PROCESS_ITEM}")
         moved = 0
         for i, (k, blk) in held.items():
             pos = torch.nonzero(which == i).reshape(-1)

@@ -129,7 +129,11 @@ class DeviceRowCache:
     ``Sharded`` set) the store stays on ``device`` (the topology's first
     device): a hit is copied into the blocks that hold its row and the
     fold-back reads each row from its block, and every row that crosses
-    between devices counts in ``ps.cache.device_copy_rows``.
+    between devices counts in ``ps.cache.device_copy_rows``.  Under a dp
+    axis across processes every rank keeps the whole store: the
+    fold-back's ``gather_rows`` brings another process's rows over the
+    group (every rank calls it with the same rows), and a hit is written
+    into this process's blocks only.
     """
 
     def __init__(self, capacity: int, nonclk_coeff: float = 0.1,

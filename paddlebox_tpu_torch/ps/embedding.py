@@ -288,7 +288,10 @@ def pull_sparse(ws: Dict[str, torch.Tensor], indices: torch.Tensor,
     hold pull zeros.  Over a ``Sharded`` set each block pulls the ids it
     holds where it lives, and the values are selected into one tensor on
     ``device`` (the placement of ``indices``; default the topology's
-    first device)."""
+    first device).  Over a set split across processes the call is a
+    collective: every rank of the group calls it, each with its own
+    ``indices``, and gets the values one process holding every row
+    would (the rows another process holds cross the group)."""
     if isinstance(ws["show"], Sharded):
         return _pull_blocks(ws, indices, device)
     own = None
@@ -308,13 +311,23 @@ def pull_sparse(ws: Dict[str, torch.Tensor], indices: torch.Tensor,
 def _pull_blocks(ws: Dict, indices: torch.Tensor, device) -> torch.Tensor:
     """:func:`pull_sparse` over a ``Sharded`` set: each row block's
     values of the ids it holds, copied to ``device`` and selected there
-    (a select, not a sum, so the bits equal one device's pull)."""
+    (a select, not a sum, so the bits equal one device's pull).  Where
+    the set is split across processes this is a collective, which every
+    rank calls with its own ids: the rows of the distinct ids are read
+    where they are held (``Sharded.gather_rows``) and pulled here."""
     show = ws["show"]
     topo = show.topo
-    if len(show.row_blocks()) < len(show.row_homes()):
-        topo.refuse_cross_process("pull_sparse over a working set split "
-                                  "across processes")
     device = topo.device if device is None else device
+    if len(show.row_blocks()) < len(show.row_homes()):
+        uniq, inv = torch.unique(indices, return_inverse=True)
+        rows = uniq.cpu().numpy()
+        got = {f: ws[f].gather_rows(rows, device)[0]
+               for f in ("show", "click", "embed_w", "mf", "mf_size")}
+        if is_quantized(ws):
+            got["mf_scale"] = transfer(
+                ws["mf_scale"].parts[topo.local_shards[0]],
+                topo.device_of(topo.local_shards[0]), device)
+        return pull_sparse(got, inv)
     out = None
     for k, sl, _ in show.row_blocks():
         dev = topo.devices[k]

@@ -29,8 +29,13 @@ build pulls only the keys missing from the cache's index snapshot
 against the live index, pulls any hit evicted since the snapshot, uploads
 the miss rows and gathers the hit rows on the device; end_pass folds the
 written rows back after the table write succeeded.  Cache on = cache off
-bit for bit.  Key-space heat (``FLAGS_obs_heat``, ps/heat.py) is turned
-on at construction and faded at a change of date.
+bit for bit.  Under a dp axis across processes every rank keeps the whole
+store, equal on every rank (the JAX package's one unsharded store): the
+fold-back reads another process's rows over the group
+(``Sharded.gather_rows``, a collective every rank enters in end_pass),
+and adoption writes each hit into the blocks this process holds.
+Key-space heat (``FLAGS_obs_heat``, ps/heat.py) is turned on at
+construction and faded at a change of date.
 
 Threads: the async build thread (and the pass prefetcher's worker,
 data/prefetch.py) run host work only — key dedup, the cache snapshot and

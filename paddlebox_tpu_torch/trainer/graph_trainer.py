@@ -41,7 +41,11 @@ occurrences with ``scatter_add_sorted`` (in the one-device order: the
 stable sort keeps each row's occurrences in canonical order) and steps
 them by adagrad.  At the epoch's end each block writes back into its own
 fields, and into the replicas of it under dp × sharding.  The graph's
-CSR and the walks stay on the trainer's device.
+CSR and the walks stay on the trainer's device.  Under a dp axis that
+spans processes every rank holds the graph, draws the same walks and
+negatives from the same seed and sums every block's part in block order
+(the other processes' parts cross the group), so every rank computes
+the same loss and gradient; each rank steps the blocks it holds.
 """
 
 from __future__ import annotations
@@ -183,36 +187,50 @@ def skipgram_step(mf_fm: torch.Tensor, g2: torch.Tensor,
     return loss
 
 
-def skipgram_step_blocks(tables, blocks, device, centers: torch.Tensor,
+def skipgram_step_blocks(tables, blocks, topo, centers: torch.Tensor,
                          contexts: torch.Tensor, negs: torch.Tensor,
                          lr: float) -> torch.Tensor:
-    """:func:`skipgram_step` over row blocks: ``tables`` each block's
-    feature-major (mf_fm, g2) on its device, updated in place,
-    ``blocks`` each block's (device, first global row, rows); the step's
-    rows and the loss live on ``device``.  Each block pulls the rows it
-    holds (``gather_sorted`` over its ``mxu_path.block_plan``: the other
-    rows parked at the sentinel), the parts are summed on ``device`` in
-    block order, the loss and gradient run there
-    (:func:`skipgram_loss_grad`), and every block merges its rows'
-    occurrences (``scatter_add_sorted``) and steps them.  Returns the
-    loss."""
+    """:func:`skipgram_step` over row blocks: ``blocks`` every row
+    block's (homes, first global row, rows) in row order over every
+    process (``Sharded.row_homes``), ``tables`` each block's
+    feature-major (mf_fm, g2) held here, updated in place (None where
+    another process alone holds the block); the step's rows and the loss
+    live on ``topo.device``.  Each block held here pulls the rows it holds
+    (``gather_sorted`` over its ``mxu_path.block_plan``: the other rows
+    parked at the sentinel), the parts are summed on every process's
+    first shard in block order (``collective.reduce_scatter_onto_shards``:
+    under a dp axis across processes the parts of the other processes'
+    blocks cross the group), the loss and gradient run there
+    (:func:`skipgram_loss_grad`, the same on every rank), and every block
+    held here merges its rows' occurrences (``scatter_add_sorted``) and
+    steps them.  Returns the loss."""
+    device = topo.device
     rows = step_rows(centers, contexts, negs)
     plans, parts = [], []
-    for (fm, _), (dev, row0, n) in zip(tables, blocks):
+    for table, (homes, row0, n) in zip(tables, blocks):
+        if table is None:
+            plans.append(None)
+            parts.append(None)
+            continue
+        dev = topo.devices[next(k for k in homes if topo.is_local(k))]
         dims, plan = mxu_path.block_plan(transfer(rows, device, dev), row0,
                                          n)
-        g = sp.gather_sorted(fm, plan[0], dims)               # [D, p_pad]
+        g = sp.gather_sorted(table[0], plan[0], dims)         # [D, p_pad]
         parts.append(g.index_select(1, plan[2].long()).T)     # [P, D]
-        plans.append((dims, plan))
-    devs = [dev for dev, _, _ in blocks]
-    block = col.reduce_scatter_onto(parts, devs, [device])[0]
+        plans.append((dev, dims, plan))
+    firsts = [topo.shards_of(r)[0] for r in range(topo.nranks)]
+    block = col.reduce_scatter_onto_shards(
+        parts, [homes for homes, _, _ in blocks], firsts, topo,
+        dim=None)[topo.rank]
     loss, grad = skipgram_loss_grad(block, centers, contexts, negs)
-    for (fm, g2), (dev, row0, n), (dims, plan) in zip(tables, blocks,
-                                                      plans):
+    for table, (_, row0, n), pl in zip(tables, blocks, plans):
+        if table is None:
+            continue
+        dev, dims, plan = pl
         payload = sorted_payload(transfer(grad, device, dev), plan[1],
                                  dims)
         delta = sp.scatter_add_sorted(payload, plan[0], plan[7], dims)
-        adagrad_update(fm, g2, delta, lr, row0=row0, n=n)
+        adagrad_update(*table, delta, lr, row0=row0, n=n)
     return loss
 
 
@@ -220,15 +238,14 @@ class GraphEmbeddingTrainer:
     """Skip-gram-with-negatives over PS-resident node embeddings, on the
     engine's device (under a topology, its first shard's: the graph,
     the walks, the negatives and the loss live there; the working set's
-    row blocks step on their own devices).  A topology whose dp axis
-    spans processes raises (ROADMAP item 4.5)."""
+    row blocks step on their own devices).  Under a dp axis that spans
+    processes every rank holds the graph and draws the same walks and
+    negatives from the same seed, computes the same loss and gradient,
+    and steps the row blocks it holds."""
 
     def __init__(self, engine, graph: GraphTable, n_negatives: int = 5,
                  learning_rate: float = 0.05, window: int = 2,
                  seed: int = 0):
-        topology = getattr(engine, "topology", None)
-        if topology is not None:
-            topology.refuse_cross_process("the graph trainer")
         if not same_device(graph.device, engine.device):
             raise ValueError(f"the graph lives on {graph.device}, the "
                              f"engine's device is {engine.device}")
@@ -283,14 +300,12 @@ class GraphEmbeddingTrainer:
         if p == 0:
             self.stats = {"losses": [], "step_ms": []}
             return float("nan")
-        held = self._held_blocks(ws)
-        homes = {}                       # each row range's first block
+        held, blocks = self._held_blocks(ws)
+        here = {}                        # each row range's home here
         for dev, row0, mf, g2sum in held:
-            homes.setdefault(row0, (dev, mf, g2sum))
-        homes = sorted(homes.items())
-        blocks = [(dev, row0, mf.shape[0]) for row0, (dev, mf, _) in homes]
-        tables = [to_feature_major(mf, g2sum)
-                  for _, (_, mf, g2sum) in homes]
+            here.setdefault(row0, (dev, mf, g2sum))
+        tables = [to_feature_major(*here[row0][1:]) if row0 in here
+                  else None for _, row0, _ in blocks]
         timed = self.device.type == "cuda"
         losses, events = [], []
         for lo in range(0, p, batch_size):
@@ -308,14 +323,15 @@ class GraphEmbeddingTrainer:
                                             chunk[:, 1], negs, self.lr))
             else:
                 losses.append(skipgram_step_blocks(
-                    tables, blocks, self.device, chunk[:, 0], chunk[:, 1],
-                    negs, self.lr))
+                    tables, blocks, self.engine.topology, chunk[:, 0],
+                    chunk[:, 1], negs, self.lr))
             if timed:
                 ev[1].record()
                 events.append(ev)
         at = {row0: i for i, (_, row0, _) in enumerate(blocks)}
         for dev, row0, mf, g2sum in held:  # replicas included
-            (fm, g2), (src, _, n) = tables[at[row0]], blocks[at[row0]]
+            (fm, g2), (_, _, n) = tables[at[row0]], blocks[at[row0]]
+            src = here[row0][0]
             mf.copy_(transfer(fm[:, :n].T, src, dev))
             g2sum.copy_(transfer(g2[:n], src, dev))
         stacked = torch.stack(losses)
@@ -323,15 +339,20 @@ class GraphEmbeddingTrainer:
                       "step_ms": [a.elapsed_time(b) for a, b in events]}
         return float(stacked.mean())
 
-    def _held_blocks(self, ws) -> list:
-        """(device, first global row, mf block, mf_g2sum block) of every
-        block tensor of the working set, replicas included; a working set
-        on one device is one block."""
+    def _held_blocks(self, ws) -> tuple:
+        """(held, blocks): (device, first global row, mf block, mf_g2sum
+        block) of every block tensor of the working set here, replicas
+        included, and (homes, first global row, rows) of every row block
+        over every process (``Sharded.row_homes``); a working set on one
+        device is one block."""
         mf, g2sum = ws["mf"], ws["mf_g2sum"]
         if not isinstance(mf, Sharded):
-            return [(self.device, 0, mf, g2sum)]
-        return [(mf.topo.devices[k], mf.rows(k).start, blk, g2sum.parts[k])
-                for k, blk in mf.unique()]
+            return ([(self.device, 0, mf, g2sum)],
+                    [((0,), 0, mf.shape[0])])
+        return ([(mf.topo.devices[k], mf.rows(k).start, blk, g2sum.parts[k])
+                 for k, blk in mf.unique()],
+                [(homes, sl.start, sl.stop - sl.start)
+                 for homes, sl in mf.row_homes()])
 
     def train_walks(self, starts: np.ndarray, length: int = 8,
                     batch_size: int = 4096,

@@ -16,8 +16,11 @@ Under a topology whose shards sit on distinct devices the step is
 batch's valid count times the task count, the push's show/click come
 from each batch block's task-0 labels, and the [B, T] preds are joined
 in batch order on the trainer's device, where the per-task AUC
-accumulates once over the whole batch.  A topology whose dp axis spans
-processes raises (ROADMAP item 4.5).
+accumulates once over the whole batch.  Under a dp axis that spans
+processes each rank accumulates its own batch blocks' preds, and the
+stacked [T, table] state is summed over the group when the metrics are
+read (``metrics.auc.sum_auc_state``): the buckets are counts, so every
+rank reads the per-task AUC of one process holding the whole batch.
 """
 
 from __future__ import annotations
@@ -29,7 +32,8 @@ import torch.nn.functional as F
 
 from paddlebox_tpu_torch.data.batch_pack import BatchPacker
 from paddlebox_tpu_torch.metrics import auc as auc_mod
-from paddlebox_tpu_torch.metrics.auc import AucCalculator, accumulate_auc
+from paddlebox_tpu_torch.metrics.auc import (AucCalculator, accumulate_auc,
+                                             sum_auc_state)
 from paddlebox_tpu_torch.trainer.trainer import SparseTrainer
 
 
@@ -56,10 +60,6 @@ class MultiTaskSparseTrainer(SparseTrainer):
         if kw.get("amp"):
             raise ValueError("MultiTaskSparseTrainer trains in f32 (the "
                              "JAX package's multi-task step has no amp)")
-        topology = kw.get("topology")
-        if topology is not None:
-            # its per-task AUC buckets are not summed over the group
-            topology.refuse_cross_process("MultiTaskSparseTrainer")
         super().__init__(engine, model, feed_config, batch_size,
                          label_slot=label_slots[0], **kw)
         if self.sparse_path not in ("auto", "reference"):
@@ -121,7 +121,11 @@ class MultiTaskSparseTrainer(SparseTrainer):
         return out
 
     def task_metrics(self) -> List[Dict[str, float]]:
-        state = {k: v.cpu().numpy() for k, v in self.auc_state.items()}
+        """Each task's metrics over every process's records: under a dp
+        axis across processes a collective (every rank calls it)."""
+        state = sum_auc_state(self.auc_state,
+                              getattr(self.topology, "process_group", None))
+        state = {k: v.cpu().numpy() for k, v in state.items()}
         out = []
         for t, calc in enumerate(self.task_aucs):
             calc.reset()

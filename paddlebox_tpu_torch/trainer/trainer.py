@@ -97,14 +97,20 @@ shards' batch columns and its own row blocks, and what another process
 needs crosses the group through the collectives: on the multi-node
 layout the push's second tier; where the table is split the
 ``mxu_sharded`` exchange (ids, pulled values, push payload) or the row
-blocks' ids, pull parts and grads (``gather_onto`` /
-``reduce_scatter_onto``); always the dense half's count, losses and
+blocks' ids, pull parts and grads (``gather_onto_shards`` /
+``reduce_scatter_onto_shards``); always the dense half's count, losses and
 grads (summed in global device order).  Every sum is folded in the order
 of one process holding every shard, so every rank takes the same steps
 and equals that process.  The AUC buckets are summed over the group at
-the end of a pass.  The async dense table, the page-view models, the
-instance dump, the per-user AUC and the device row cache on a table
-split across processes raise there (ROADMAP item 4.5).
+the end of a pass.  Under the async dense table every rank pushes the
+same folded grads into its own table, so the tables stay equal, and
+each reload waits for its table's queue, so every rank reloads the same
+weights; a
+page-view model's replicas get the whole batch's input from every
+process and send the grads of it back to the rows' owners
+(:meth:`_replica_dense_half`).  The instance dump and the per-user AUC
+raise there (ROADMAP item 4.5): they read the whole batch's preds on the
+host, which the JAX package cannot do across hosts either.
 """
 
 from __future__ import annotations
@@ -433,26 +439,21 @@ class SparseTrainer:
             raise ValueError(f"unknown sparse_path {path!r}")
 
     def _refuse_cross_process(self) -> None:
-        """What a dp axis across processes does not carry (ROADMAP item
-        4.5) raises through the topology, when the trainer is built: the
-        async dense table, the page-view models, the instance dump and
-        the per-user AUC (the last two read the whole batch's preds,
-        which no process holds), and the device row cache on a table
-        split across processes (its store ↔ block copies read every row
-        where it is held, ``Sharded.gather_rows``)."""
-        refuse = self.topology.refuse_cross_process
+        """What a dp axis across processes does not carry raises through
+        the topology, when the trainer is built, naming ROADMAP item 4.5:
+        the instance dump and the per-user AUC read every batch's preds on
+        the host, which the JAX package does with ``np.asarray`` — no
+        defined answer for a batch split across hosts, where no process
+        holds the whole batch — so neither package carries them."""
+        why = ("it reads the whole batch's preds on the host, as the JAX "
+               "package does with np.asarray, which a batch split across "
+               "hosts does not allow (in neither package)")
         for what, on in (
-                ("dense_sync_mode='async_table'",
-                 self.trainer_config.dense_sync_mode == "async_table"),
-                ("a model that reads the page-view planes", self._reads_pv),
                 ("dump_path", bool(self.trainer_config.dump_path)),
                 ("uid_slot (the per-user AUC)",
-                 bool(self.packer.config.uid_slot)),
-                ("the device row cache on a table split across processes",
-                 getattr(self.engine, "cache", None) is not None
-                 and not self.topology.multinode_table())):
+                 bool(self.packer.config.uid_slot))):
             if on:
-                refuse(what)
+                self.topology.refuse_cross_process(what, why)
 
     def _crossing_modes(self, s: int, l: int, b: int,
                         eff_p_pad: Optional[int] = None,
@@ -555,8 +556,15 @@ class SparseTrainer:
 
     def _load_async_params(self) -> None:
         """Copy the table's snapshot into the module's parameters in place
-        (≙ PullDense's snapshot refresh, boxps_worker.cc:1301)."""
+        (≙ PullDense's snapshot refresh, boxps_worker.cc:1301).  Under a
+        dp axis across processes each rank holds its own table, so the
+        reload first waits until the table has applied every pushed grad:
+        every rank then reads the same state (a snapshot taken wherever
+        its update thread has got to would differ between ranks, and so
+        would the weights the next batch trains on)."""
         self._require_main_thread("the async dense pull")
+        if self.topology is not None and self.topology.spans_processes:
+            self.async_dense.drain()
         snap = self.async_dense.pull()
         with torch.no_grad():
             for n, p in self.model.named_parameters():
@@ -1144,7 +1152,8 @@ class SparseTrainer:
         the whole batch's input, gathered in batch order onto its device
         (``peers``, with ``peer_rows`` the rows it owns), and the grads
         of that copy are summed onto the rows' owners in device order
-        (``reduce_scatter_onto``), then added to each replica's own.
+        (``reduce_scatter_onto_shards``), then added to each replica's
+        own.
         Returns (loss, each replica's preds, each leaf's grad); one
         device is :meth:`_pooled_dense_half`."""
         if not self._multi:
@@ -1201,22 +1210,43 @@ class SparseTrainer:
             self._sync_replicas()
         return total, preds, [None if x is None else x.grad for x in leaves]
 
+    def _replica_homes(self) -> List[tuple]:
+        """(the first shard, the batch blocks) of every dense replica over
+        every process, in global device order (rank 0's devices of
+        ``topology.groups``, then rank 1's, ...): every process places its
+        shards alike, as ``collective.fold_ranks`` has every rank hold as
+        many replicas."""
+        t = self.topology
+        owners, _ = self._batch_owners()
+        pos = [[t.local_shards.index(k) for k in ks] for _, ks in t.groups]
+        out = []
+        for r in range(t.nranks):
+            mine = t.shards_of(r)
+            for p in pos:
+                ks = [mine[i] for i in p]
+                out.append((ks[0], [b for b, k in enumerate(owners)
+                                    if k in ks]))
+        return out
+
     def _peer_inputs(self, xs) -> List[Optional[tuple]]:
         """For each device of ``topology.groups`` that holds batch
         blocks (its model input ``xs[g]``, else None): (the whole batch's
         model input gathered there in batch order, a leaf of its own;
-        the rows of it that the device's blocks are)."""
+        the rows of it that the device's blocks are).  Every process's
+        replicas gather alike (``collective.gather_onto_shards``)."""
         owners, by_dev = self._batch_owners()
         b_loc = next(x.shape[0] // len(bs) for x, bs in zip(xs, by_dev)
                      if x is not None)
-        devs = [dev for dev, _ in self.topology.groups]
-        bdev = [self.topology.devices[k] for k in owners]
         blocks = self._split_columns([None if x is None else x.detach()
                                       for x in xs], b_loc)
-        live = [g for g, x in enumerate(xs) if x is not None]
-        whole = col.gather_onto(blocks, bdev, [devs[g] for g in live], dim=0)
+        dsts = [k for k, bs in self._replica_homes() if bs]
+        whole = dict(zip(dsts, col.gather_onto_shards(
+            blocks, owners, dsts, self.topology, dim=0)))
         out = [None] * len(xs)
-        for g, w in zip(live, whole):
+        for g, ((_, ks), x) in enumerate(zip(self.topology.groups, xs)):
+            if x is None:
+                continue
+            w = whole[ks[0]]
             rows = torch.cat([torch.arange(b * b_loc, (b + 1) * b_loc,
                                            device=w.device)
                               for b in by_dev[g]])
@@ -1225,15 +1255,16 @@ class SparseTrainer:
 
     def _peer_grads(self, peers) -> List[Optional[torch.Tensor]]:
         """The grads of every replica's copy of the whole batch's input
-        (:meth:`_peer_inputs`) summed in device order onto each batch
-        block's owner, as one tensor per device (its blocks' rows)."""
+        (:meth:`_peer_inputs`) summed in global device order onto each
+        batch block's owner, as one tensor per device (its blocks' rows).
+        Every process's replicas take part
+        (``collective.reduce_scatter_onto_shards``)."""
         owners, _ = self._batch_owners()
-        bdev = [self.topology.devices[k] for k in owners]
-        devs = [dev for dev, _ in self.topology.groups]
-        live = [g for g, p in enumerate(peers) if p is not None]
-        blocks = col.reduce_scatter_onto([peers[g][0].grad for g in live],
-                                         [devs[g] for g in live], bdev,
-                                         dim=0)
+        mine = {ks[0]: p for (_, ks), p in zip(self.topology.groups, peers)}
+        srcs = [k for k, bs in self._replica_homes() if bs]
+        blocks = col.reduce_scatter_onto_shards(
+            [mine[k][0].grad if k in mine else None for k in srcs],
+            [(k,) for k in srcs], owners, self.topology, dim=0)
         return self._per_device_blocks(blocks, dim=0)
 
     def _put_batch(self, batch: PackedBatch):

@@ -37,7 +37,8 @@ from paddlebox_tpu_torch.data.slot_record import SlotRecordBlock as TBlock
 from paddlebox_tpu_torch.io.checkpoint import TrainCheckpoint
 from paddlebox_tpu_torch.models.deepfm import DeepFM as TDeepFM
 from paddlebox_tpu_torch.parallel import collective as tcol
-from paddlebox_tpu_torch.parallel.topology import Sharded, Spec, same_device
+from paddlebox_tpu_torch.parallel.topology import (HybridTopology, Sharded,
+                                                   Spec, same_device)
 from paddlebox_tpu_torch.ps import embedding as temb
 from paddlebox_tpu_torch.ps import faults
 from paddlebox_tpu_torch.ps.pass_manager import BoxPSEngine as TEngine
@@ -286,13 +287,18 @@ def test_gather_and_reduce_scatter_onto(layout):
     want = torch.cat(xs, dim=1)
     assert all(torch.equal(g, want) for g in got)
     assert _storage(got[0]) not in {_storage(x) for x in xs}
-    red = tcol.reduce_scatter_onto(xs, devs, devs, dim=1)
+    topo = HybridTopology(tcfg.MeshConfig(dp=4), devices=devs)
+    srcs = [(k,) for k in range(4)]
+    red = tcol.reduce_scatter_onto_shards(xs, srcs, range(4), topo, dim=1)
     total = xs[0] + xs[1] + xs[2] + xs[3]
     for j, r in enumerate(red):
         assert torch.equal(r, total[:, 2 * j:2 * j + 2])
+        assert same_device(r.device, devs[j])
     assert len({_storage(r) for r in red}) == 4
     with pytest.raises(ValueError, match="does not split"):
-        tcol.reduce_scatter_onto(xs, devs, devs[:3], dim=1)
+        tcol.reduce_scatter_onto_shards(xs, srcs, range(3), topo, dim=1)
+    whole = tcol.reduce_scatter_onto_shards(xs, srcs, [1], topo, dim=None)
+    assert torch.equal(whole[0], total)
 
 
 # -- the day loop with the device row cache ---------------------------------------

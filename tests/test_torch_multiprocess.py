@@ -18,10 +18,11 @@ rtol 1e-5 / atol 1e-6; integer fields equal.
 
 The worker also runs the cross-process ``all_reduce`` / ``all_gather``
 over ``dp``, held bitwise against the one-process list ops, and the
-refusals of what a cross-process dp axis does not carry (ROADMAP item
-4.5).  The table split across processes is
-``tests/test_torch_multiprocess_split.py``'s.  One spawn
-serves every test of the file.
+refusals of what a cross-process dp axis does not carry (the instance
+dump and the per-user AUC, ROADMAP item 4.5).  The table split across
+processes is ``tests/test_torch_multiprocess_split.py``'s, the rest of
+the trainer family ``tests/test_torch_multiprocess_models.py``'s.  One
+spawn serves every test of the file.
 """
 
 import json
@@ -216,23 +217,22 @@ def test_cross_process_collective_bit_equal(ranks, name):
                                           want[k].numpy(), err_msg=(r, k))
 
 
-REFUSALS = {"async_dense": "NotImplementedError",
-            "device_cache_split": "NotImplementedError",
-            "page_view_model": "NotImplementedError",
-            "dump_path": "NotImplementedError",
+REFUSALS = {"dump_path": "NotImplementedError",
             "uid_slot": "NotImplementedError"}
 
 
 @pytest.mark.parametrize("case", list(REFUSALS))
 def test_cross_process_refusals_name_item_4_5(ranks, case):
-    """The async dense table, the device row cache on a table split
-    across processes, a model that reads the page-view planes, the
-    instance dump and the per-user AUC raise when the trainer is built,
-    naming ROADMAP item 4.5."""
+    """The instance dump and the per-user AUC raise when the trainer is
+    built, naming ROADMAP item 4.5 and why: they read the whole batch's
+    preds on the host, which the JAX package does with ``np.asarray`` and
+    a batch split across hosts does not allow.  (The async dense table,
+    the page-view models and the device row cache on a split table are
+    carried: ``tests/test_torch_multiprocess_models.py``.)"""
     for res in ranks:
         msg = str(res.get(f"refused.{case}", "not refused"))
         assert msg.startswith(REFUSALS[case] + ":"), msg
-        assert "item 4.5" in msg, msg
+        assert "item 4.5" in msg and "np.asarray" in msg, msg
 
 
 def test_init_distributed_fails_without_its_peer():

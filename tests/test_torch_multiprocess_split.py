@@ -29,9 +29,9 @@ loss rtol 1e-4; the working set and the dense params rtol 1e-5 / atol
 only its own parts are held bitwise against the one-process list ops,
 and ``Sharded.locate`` / ``gather_rows`` against the placed tensor on a
 rank whose first block does not start at row 0.  ``pull_sparse`` reads
-every row on each rank of the multi-node layout and refuses, naming
-ROADMAP item 4.5, where the rows are split across processes.  One spawn
-serves every test of the file.
+every row on each rank, its own replica on the multi-node layout, the
+other rank's rows over the group where the rows are split across
+processes.  One spawn serves every test of the file.
 """
 
 import json
@@ -242,9 +242,9 @@ def test_cross_process_collective_bit_equal(ranks, name):
 def test_locate_and_gather_rows_on_each_rank(ranks):
     """A [64, 3] placed over dp 2: rank r holds rows [32 r, 32 r + 32).
     ``locate`` names the owning block (r) and the row within it,
-    ``gather_rows`` reads the rank's own rows and refuses the other
-    rank's, naming item 4.5, and the join over the group gives the whole
-    tensor on both ranks."""
+    ``gather_rows`` reads the rank's own rows and, both ranks asking,
+    the other rank's (over the group), and the join over the group gives
+    the whole tensor on both ranks."""
     x = np.random.default_rng(1).normal(0, 1, (64, 3)).astype(np.float32)
     t = mc.one_device(dp=2)
     want = t.place(torch.as_tensor(x), t.table_spec())
@@ -256,26 +256,18 @@ def test_locate_and_gather_rows_on_each_rank(ranks):
         np.testing.assert_array_equal(res["rows.local"], local.numpy())
         np.testing.assert_array_equal(res["rows.local"], [31, 8, 0, 1])
         np.testing.assert_array_equal(res["rows.gathered"], x[rows])
-        msg = str(res["rows.remote"])
-        assert msg.startswith("NotImplementedError:") and "item 4.5" in msg
+        np.testing.assert_array_equal(res["rows.remote"],
+                                      x[[5 + 32 * (1 - r)]])
         np.testing.assert_array_equal(res["rows.joined"], x)
 
 
 @pytest.mark.parametrize("prefix", PREFIXES)
 def test_pull_sparse_on_each_rank(ranks, one_process, prefix):
     """``pull_sparse`` of every row: on the multi-node layout each rank
-    reads its own replica, bit-equal to one process; where the rows are
-    split across processes it refuses on each rank, naming item 4.5."""
-    degrees = sw.RUNS[prefix[0]][0]
-    multinode = degrees == mw.MESH
+    reads its own replica; where the rows are split across processes
+    each rank reads the other rank's rows over the group.  Either way
+    bit-equal to one process."""
     want = one_process[f"pull.{prefix}"]
     assert want.shape[1] == 3 + mw.MF
     for res in ranks:
-        if multinode:
-            np.testing.assert_array_equal(res[f"pull.{prefix}"], want)
-            assert f"refused_pull.{prefix}" not in res
-        else:
-            assert f"pull.{prefix}" not in res
-            msg = str(res[f"refused_pull.{prefix}"])
-            assert msg.startswith("NotImplementedError:")
-            assert "item 4.5" in msg
+        np.testing.assert_array_equal(res[f"pull.{prefix}"], want)

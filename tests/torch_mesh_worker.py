@@ -19,7 +19,8 @@ the dense weights to start from (``save_params``).  Each rank writes
 losses, AUC, working set and dense params; a two-pass day's losses and
 host table (``end_pass`` write-back); the cross-process collectives'
 results on its shards; and the messages of the refusals of what the
-cross-process dp axis does not carry (ROADMAP item 4.5).  The same functions
+cross-process dp axis does not carry (the instance dump and the per-user
+AUC, ROADMAP item 4.5).  The same functions
 with ``group`` None run the mesh in one process (:func:`topology`).
 """
 
@@ -208,31 +209,10 @@ def refused_trainer(group, model=None, feed=None, degrees=None, **kw):
                   seed=0, topology=topo, device="cpu", **kw)
 
 
-def refused_cache(group):
-    """The device row cache on a table split across processes (dp 2)."""
-    from paddlebox_tpu_torch import flags
-    names = ("ps_device_cache", "ps_device_cache_rows")
-    old = {n: flags.get_flags(n) for n in names}
-    flags.set_flags({"ps_device_cache": True, "ps_device_cache_rows": 4096})
-    try:
-        refused_trainer(group, degrees=dict(dp=2))
-    finally:
-        flags.set_flags(old)
-
-
 def refusals(group, params, out):
     """The messages of what a cross-process dp axis does not carry."""
     import dataclasses
-    from paddlebox_tpu_torch.models.rank_ctr import RankAttentionCTR
     cases = {
-        "async_dense": lambda: refused_trainer(
-            group, trainer_config=tcfg.TrainerConfig(
-                dense_sync_mode="async_table")),
-        "device_cache_split": lambda: refused_cache(group),
-        "page_view_model": lambda: refused_trainer(
-            group, model=RankAttentionCTR(N_SLOTS, 3 + MF, DENSE_DIM,
-                                          hidden=(16,)),
-            feed=dataclasses.replace(feed_config(), rank_offset=True)),
         # refused when the trainer is built: nothing is written
         "dump_path": lambda: refused_trainer(
             group, trainer_config=tcfg.TrainerConfig(dump_path="dump")),

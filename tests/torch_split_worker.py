@@ -18,7 +18,7 @@ mf_dim 4, 3 dense, DeepFM (16,), batch 64, three batches).
 ``<out dir>/params.npz`` holds the dense weights to start from.  Each
 rank writes ``<out dir>/rank<r>.npz``: for every run, streaming and
 packed, its losses, AUC, working set (joined over the group), its
-``pull_sparse`` of every row (or the refusal, where the rows are split
+``pull_sparse`` of every row (a collective where the rows are split
 across processes), dense params and host table after ``end_pass``; a
 two-pass day through
 ``fleet.train_passes`` for :data:`DAY_RUNS`; the five collectives that
@@ -104,12 +104,10 @@ def one_pass(group, run, seed, params, packed, out):
         # a join over the group: every rank gets every row
         out[f"{tag}.ws.{k}"] = np.array(v, copy=True)
     # pull_sparse of every row: each rank's own replica on the multi-node
-    # layout; refused where the rows are split across processes
+    # layout; where the rows are split across processes a collective that
+    # reads the other rank's rows over the group
     rows = torch.arange(eng.ws["show"].shape[0])
-    try:
-        out[f"pull.{tag}"] = embedding.pull_sparse(eng.ws, rows).numpy()
-    except NotImplementedError as e:
-        out[f"refused_pull.{tag}"] = np.array(f"NotImplementedError: {e}")
+    out[f"pull.{tag}"] = embedding.pull_sparse(eng.ws, rows).numpy()
     for i, p in enumerate(tr.model.parameters()):
         out[f"{tag}.param.{i}"] = p.detach().numpy().copy()
     eng.end_pass()
@@ -192,10 +190,9 @@ def rows_ops(group, out):
     which, local = t.locate(torch.as_tensor(mine))
     out["rows.which"], out["rows.local"] = which.numpy(), local.numpy()
     out["rows.gathered"] = t.gather_rows(mine, "cpu")[0].numpy()
-    try:
-        t.gather_rows([5 + 32 * (1 - topo.rank)], "cpu")
-    except NotImplementedError as e:
-        out["rows.remote"] = np.array(f"NotImplementedError: {e}")
+    # the other rank's rows: a collective, both ranks asking
+    out["rows.remote"] = t.gather_rows([5 + 32 * (1 - topo.rank)],
+                                       "cpu")[0].numpy()
     out["rows.joined"] = np.asarray(t)
 
 
