@@ -32,6 +32,7 @@ from typing import Dict
 import torch
 
 from paddlebox_tpu_torch.config import SparseSGDConfig
+from paddlebox_tpu_torch.utils import trace
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -393,16 +394,22 @@ def apply_push(ws: Tensors, acc: Tensors, cfg: SparseSGDConfig,
     The JAX step donates the working-set buffers to the jitted step and
     gets new ones back; here each field's new values are copied into the
     existing tensor instead, so the working set keeps its storage for the
-    whole pass and callers holding ``ws`` see the update."""
-    out = OPTIMIZERS[cfg.optimizer](ws, acc, cfg, dims_row, row0)
-    # ctr_double accessor support: exact pass-delta counters ride along
-    # (end_pass merges them into the host's f64 stats)
-    if "show_acc" in ws:
-        touched = push_touched(ws, acc, row0)
-        out["show_acc"] = torch.where(
-            touched, ws["show_acc"] + acc["g_show"], ws["show_acc"])
-        out["click_acc"] = torch.where(
-            touched, ws["click_acc"] + acc["g_click"], ws["click_acc"])
-    for f, v in out.items():
-        ws[f].copy_(v)
+    whole pass and callers holding ``ws`` see the update.
+
+    Traced as ``ps.optimizer.apply_push`` with ``rows``, the rows the
+    rule runs over, and the device time of its work."""
+    show = ws["show"]
+    with trace.span("ps.optimizer.apply_push", device=show.device,
+                    rows=show.shape[0]):
+        out = OPTIMIZERS[cfg.optimizer](ws, acc, cfg, dims_row, row0)
+        # ctr_double accessor support: exact pass-delta counters ride
+        # along (end_pass merges them into the host's f64 stats)
+        if "show_acc" in ws:
+            touched = push_touched(ws, acc, row0)
+            out["show_acc"] = torch.where(
+                touched, ws["show_acc"] + acc["g_show"], ws["show_acc"])
+            out["click_acc"] = torch.where(
+                touched, ws["click_acc"] + acc["g_click"], ws["click_acc"])
+        for f, v in out.items():
+            ws[f].copy_(v)
     return ws

@@ -662,7 +662,8 @@ class SparseTrainer:
         sgd = self.engine.config.sgd
         ins_cvm = self._ins_cvm(labels)
         pull_cross, push_cross = self._mxu_crossing
-        with torch.no_grad():
+        dev = self.device
+        with trace.span("trainer.step.pull", device=dev), torch.no_grad():
             if path == "mxu":
                 # geometry from the live working set, so a per-pass table
                 # resize gets the right dims (and sentinel)
@@ -682,9 +683,10 @@ class SparseTrainer:
                         "feed's CSR plans (build_pass_feed)")
                 pooled = ragged_path.pull_pool_cvm(ws, plan, (s, l, b),
                                                    self.use_cvm)
-        loss, preds, d_pooled = self._pooled_dense_half(pooled, dense,
-                                                        labels, valid, extras)
-        with torch.no_grad():
+        with trace.span("trainer.step.dense", device=dev):
+            loss, preds, d_pooled = self._pooled_dense_half(
+                pooled, dense, labels, valid, extras)
+        with trace.span("trainer.step.push", device=dev), torch.no_grad():
             if path == "mxu":
                 mxu_path.push_and_update(ws, plan, dims, idx_slb, d_pooled,
                                          ins_cvm, self._slot_ids_dev, sgd,
@@ -1369,8 +1371,7 @@ class SparseTrainer:
             ev = (torch.cuda.Event(enable_timing=True),
                   torch.cuda.Event(enable_timing=True))
             ev[0].record()
-        with self.timers("step"):
-            loss, preds = self._core(path, *args, plan=plan, extras=extras)
+        loss, preds = self._core(path, *args, plan=plan, extras=extras)
         if cuda:
             ev[1].record()
             log["events"].append(ev)
@@ -1405,27 +1406,34 @@ class SparseTrainer:
             log["wuauc_s"] += time.perf_counter() - t0
 
     def _pass_stats(self, log) -> Dict[str, float]:
-        losses = log["losses"]
-        out = self._finalize_metrics(self.auc_state)
-        out["batches"] = len(losses)
-        # one stacked device->host copy, not one per batch scalar
-        per_batch = (torch.stack(losses).cpu().numpy() if losses
-                     else np.zeros((0,), np.float32))
-        out["losses"] = [float(x) for x in per_batch]
-        out["loss"] = float(per_batch.mean()) if losses else float("nan")
-        if self.device.type == "cuda":
-            # read after the synchronising copy above
-            out["step_ms"] = [a.elapsed_time(b) for a, b in log["events"]]
-        if self.wuauc is not None:
-            # host seconds of the per-batch preds copy and record append
-            out["wuauc_s"] = log["wuauc_s"]
-        if self.async_dense is not None:
-            # host seconds of the dense grads' copies to the host
-            out["dense_copy_s"] = log["dense_copy_s"]
-        if log["dump_file"] is not None:
-            # host seconds of the preds' copies and the dump writes
-            out["dump_s"] = log["dump_s"]
-        return out
+        """A pass's stats: its metrics and losses read back from the
+        device (the pass's one wait for it), traced as
+        ``trainer.pass_end``."""
+        with trace.span("trainer.pass_end"):
+            losses = log["losses"]
+            out = self._finalize_metrics(self.auc_state)
+            out["batches"] = len(losses)
+            # one stacked device->host copy, not one per batch scalar
+            per_batch = (torch.stack(losses).cpu().numpy() if losses
+                         else np.zeros((0,), np.float32))
+            out["losses"] = [float(x) for x in per_batch]
+            out["loss"] = (float(per_batch.mean()) if losses
+                           else float("nan"))
+            if self.device.type == "cuda":
+                # read after the synchronising copy above
+                out["step_ms"] = [a.elapsed_time(b)
+                                  for a, b in log["events"]]
+            if self.wuauc is not None:
+                # host seconds of the per-batch preds copy and record
+                # append
+                out["wuauc_s"] = log["wuauc_s"]
+            if self.async_dense is not None:
+                # host seconds of the dense grads' copies to the host
+                out["dense_copy_s"] = log["dense_copy_s"]
+            if log["dump_file"] is not None:
+                # host seconds of the preds' copies and the dump writes
+                out["dump_s"] = log["dump_s"]
+            return out
 
     def _new_log(self) -> Dict:
         """A pass's step log, with the dump file opened when

@@ -5,10 +5,10 @@ tracing layers, SURVEY.md §5: the host+device tracer exporting Chrome
 traces — paddle.profiler.Profiler, profiler.py:271, with scheduler
 states — and the old RecordEvent spans, platform/profiler.cc), mapped
 onto ``torch.profiler``: CPU activity, and the card's kernels (CUPTI)
-when a card is present.  A ``RecordEvent`` is a
-``torch.profiler.record_function`` range plus a host span on the
-framework's span tracer (``utils/trace.py``) when that is enabled, so
-the exported collection carries both layers.
+when a card is present.  A ``RecordEvent`` is one
+``torch.profiler.record_function`` range, opened by the host span it
+also records on the framework's span tracer (``utils/trace.py``) when
+that is enabled, so the exported collection carries both layers.
 """
 
 from __future__ import annotations
@@ -24,28 +24,23 @@ from paddlebox_tpu_torch.utils import trace
 
 
 class RecordEvent:
-    """≙ platform::RecordEvent span: a named range in the profiler's
-    trace and, when the host tracer is on, a host span too."""
+    """≙ platform::RecordEvent span: one named range in the profiler's
+    trace and, when the host tracer is on, a host span too (the span
+    opens the range)."""
 
     def __init__(self, name: str):
         self.name = name
         self._ctx = None
-        self._span = None
-        self._tracer = None
 
     def __enter__(self):
-        self._ctx = record_function(self.name)
+        self._ctx = (record_function(self.name) if trace.ACTIVE is None
+                     else trace.ACTIVE.span(self.name))
         self._ctx.__enter__()
-        self._tracer = trace.ACTIVE
-        if self._tracer is not None:
-            self._span = self._tracer.start_span(self.name)
         return self
 
     def __exit__(self, *exc):
-        if self._span is not None:
-            self._tracer.finish(self._span)
-            self._span = None
         self._ctx.__exit__(*exc)
+        self._ctx = None
 
 
 class Profiler:

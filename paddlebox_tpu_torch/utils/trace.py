@@ -10,7 +10,16 @@ Design constraints:
 
 * **Zero hot-path cost when disabled.**  Instrumentation sites guard on
   the module-level ``ACTIVE`` handle (the ps/faults.py pattern): one
-  ``is None`` check per site, no allocation, no lock.
+  ``is None`` check per site, no allocation, no lock; :func:`span`
+  then returns one shared no-op context.
+* **On the profiler's clock.**  A span opened while ``torch.profiler``
+  records also opens a ``record_function`` range of its name, so it
+  lands in the profiler's own trace (a ``user_annotation`` on the
+  calling thread) beside the kernels it launched.
+* **Device time.**  A span given ``device=`` a CUDA device records a
+  timing event on that device's current stream at open and at close;
+  ``device_s`` is their interval, read only once both have completed
+  (never blocking), else None.
 * **Bounded memory.**  Finished spans land in a ring buffer
   (``FLAGS_obs_trace_ring``); retention is newest-N, exactly what
   ``/tracez`` (utils/obs_server.py) serves.
@@ -32,6 +41,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import sys
 import threading
 import time
 from collections import deque
@@ -56,7 +66,7 @@ CTX_SEP = "/"
 
 class Span:
     __slots__ = ("name", "trace_id", "span_id", "parent_id", "t0", "dur",
-                 "tid", "attrs")
+                 "tid", "attrs", "device", "_range", "_events", "_device_s")
 
     def __init__(self, name: str, trace_id: str, span_id: str,
                  parent_id: Optional[str], attrs: Dict):
@@ -68,10 +78,24 @@ class Span:
         self.dur: Optional[float] = None
         self.tid = threading.get_ident()
         self.attrs = attrs
+        self.device = None
+        self._range = None
+        self._events = None
+        self._device_s: Optional[float] = None
 
     def context(self) -> str:
         """The wire form: ``<trace_id>/<span_id>``."""
         return f"{self.trace_id}{CTX_SEP}{self.span_id}"
+
+    @property
+    def device_s(self) -> Optional[float]:
+        """Seconds between the span's two device events, once both have
+        completed; None before that and for a span with no device."""
+        ev = self._events
+        if self._device_s is None and ev is not None and len(ev) == 2 \
+                and ev[0].query() and ev[1].query():
+            self._device_s = ev[0].elapsed_time(ev[1]) * 1e-3
+        return self._device_s
 
     def as_dict(self) -> Dict:
         d = {"name": self.name, "trace_id": self.trace_id,
@@ -79,7 +103,36 @@ class Span:
              "t0": self.t0, "dur_s": self.dur, "tid": self.tid}
         if self.attrs:
             d["attrs"] = dict(self.attrs)
+        if self.device is not None:
+            d["device_s"] = self.device_s
         return d
+
+
+def _profiler_range(name: str):
+    """An open ``record_function`` range of ``name`` when torch.profiler
+    is recording on this thread, else None (torch is never imported
+    here: a process that has not imported it runs no profiler)."""
+    torch = sys.modules.get("torch")
+    if torch is None or not torch.autograd._profiler_enabled():
+        return None
+    rf = torch.autograd.profiler.record_function(name)
+    rf.__enter__()
+    return rf
+
+
+def _device_event(device):
+    """A timing event recorded now on ``device``'s current stream, for a
+    CUDA device; None otherwise."""
+    if getattr(device, "type", None) != "cuda":
+        return None
+    torch = sys.modules["torch"]
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record(torch.cuda.current_stream(device))
+    return ev
+
+
+# the shared context of every span with the tracer off
+NO_SPAN = contextlib.nullcontext()
 
 
 def parse_context(ctx: Optional[str]):
@@ -119,11 +172,14 @@ class SpanTracer:
         return st
 
     # -- span lifecycle ------------------------------------------------------
-    def start_span(self, name: str, parent: Optional[str] = None,
-                   **attrs) -> Span:
+    def start_span(self, name: str, parent: Optional[str] = None, *,
+                   device=None, **attrs) -> Span:
         """Open a span.  ``parent`` is a wire context string
         (``trace/span``); when omitted the span nests under this
-        thread's innermost open span, or roots a fresh trace."""
+        thread's innermost open span, or roots a fresh trace.
+        ``device``: the torch device whose work the span encloses; on a
+        CUDA device the span times that work with two events
+        (``device_s``)."""
         parsed = parse_context(parent)
         if parsed is not None:
             trace_id, parent_id = parsed
@@ -136,9 +192,20 @@ class SpanTracer:
                 trace_id, parent_id = self._next_id(), None
         span = Span(name, trace_id, self._next_id(), parent_id, attrs)
         self._stack().append(span)
+        span._range = _profiler_range(name)
+        if device is not None:
+            span.device = device
+            ev = _device_event(device)
+            if ev is not None:
+                span._events = (ev,)
         return span
 
     def finish(self, span: Span) -> None:
+        if span._events is not None:
+            span._events += (_device_event(span.device),)
+        if span._range is not None:
+            span._range.__exit__(None, None, None)
+            span._range = None
         span.dur = time.monotonic() - span.t0
         stack = self._stack()
         if stack and stack[-1] is span:
@@ -149,8 +216,9 @@ class SpanTracer:
             self._ring.append(span)
 
     @contextlib.contextmanager
-    def span(self, name: str, parent: Optional[str] = None, **attrs):
-        s = self.start_span(name, parent=parent, **attrs)
+    def span(self, name: str, parent: Optional[str] = None, *,
+             device=None, **attrs):
+        s = self.start_span(name, parent=parent, device=device, **attrs)
         try:
             yield s
         finally:
@@ -186,6 +254,8 @@ class SpanTracer:
             for k, v in s.attrs.items():
                 args[str(k)] = v if isinstance(v, (int, float, bool)) \
                     else str(v)
+            if s.device is not None:
+                args["device_s"] = s.device_s
             events.append({
                 "name": s.name, "ph": "X", "pid": pid, "tid": s.tid,
                 "ts": s.t0 * 1e6, "dur": (s.dur or 0.0) * 1e6,
@@ -235,12 +305,11 @@ def wire_context() -> Optional[str]:
     return ACTIVE.current_context() if ACTIVE is not None else None
 
 
-@contextlib.contextmanager
-def span(name: str, parent: Optional[str] = None, **attrs):
-    """No-op-when-disabled span context manager for call sites that
-    don't want to hold a tracer reference."""
+def span(name: str, parent: Optional[str] = None, *, device=None,
+         **attrs):
+    """Span context manager for call sites that don't want to hold a
+    tracer reference; with the tracer off, the shared no-op
+    ``NO_SPAN``."""
     if ACTIVE is None:
-        yield None
-        return
-    with ACTIVE.span(name, parent=parent, **attrs) as s:
-        yield s
+        return NO_SPAN
+    return ACTIVE.span(name, parent=parent, device=device, **attrs)
