@@ -5,7 +5,10 @@ fleet/metrics.h:46, metrics.cc:284-410): bucket accumulation runs on the
 device inside the train step (``accumulate_auc``, ≙ mode_collect_in_gpu,
 box_wrapper.h:787) into tensors that live beside the working set; the
 final ``AucCalculator.compute()`` is the host-side numpy reduction over
-the bucket tables, copied from the JAX package.  The per-user AUC family
+the bucket tables, copied from the JAX package; its bucket-error walk and
+fold to coarse buckets run in the port's native library
+(``native/auc_finalize.cc``, bit for bit the Python loops, which remain
+the fallback where the library cannot be built).  The per-user AUC family
 (``WuAucCalculator``) and the metric registry (``MetricGroup``) are host
 numpy, copied too; ``MetricGroup.merge_device_state`` takes the port's
 torch bucket state.  A bucket state is summed across processes through
@@ -21,6 +24,9 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+
+from paddlebox_tpu_torch.native import auc_finalize as native_auc
+from paddlebox_tpu_torch.utils.monitor import stat_add
 
 TABLE_SIZE = 1_000_000  # ≙ box_wrapper.h:786
 N_SCALARS = 6   # abserr, sqrerr, pred_sum, label_sum, total, nan_inf
@@ -288,6 +294,9 @@ class AucCalculator:
         the windowed-AUC / drift monitors (metrics/quality.py) retain
         across passes without holding the 1M-bucket tables."""
         bins = max(1, int(bins))
+        folded = native_auc.fold(self._pos, self._neg, bins)
+        if folded is not None:
+            return folded
         idx = (np.arange(self.table_size) * bins) // self.table_size
         pos = np.zeros((bins,), np.float64)
         neg = np.zeros((bins,), np.float64)
@@ -298,7 +307,20 @@ class AucCalculator:
     def _bucket_error(self) -> float:
         """≙ calculate_bucket_error (metrics.cc:373-410): merge adjacent
         buckets until the adjusted-ctr estimate is statistically tight, then
-        accumulate the relative error of actual vs adjusted ctr."""
+        accumulate the relative error of actual vs adjusted ctr.  One call
+        into the native library; the Python loop where it is unavailable.
+        Counted as ``metrics.auc.bucket_error_{native,python}``."""
+        err = native_auc.bucket_error(self._pos, self._neg, K_MAX_SPAN,
+                                      K_RELATIVE_ERROR_BOUND)
+        if err is not None:
+            stat_add("metrics.auc.bucket_error_native")
+            return err
+        stat_add("metrics.auc.bucket_error_python")
+        return self._bucket_error_python()
+
+    def _bucket_error_python(self) -> float:
+        """The bucket-error walk as a Python loop over the non-empty
+        buckets."""
         last_ctr = -1.0
         impression_sum = ctr_sum = click_sum = 0.0
         error_sum = error_count = 0.0
@@ -323,7 +345,7 @@ class AucCalculator:
                 error_sum += abs(actual / adjust_ctr - 1) * impression_sum
                 error_count += impression_sum
                 last_ctr = -1.0
-        return error_sum / error_count if error_count > 0 else 0.0
+        return float(error_sum / error_count) if error_count > 0 else 0.0
 
 
 class MetricGroup:

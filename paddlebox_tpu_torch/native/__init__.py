@@ -1,1 +1,2 @@
-"""Native host library of the port: the slot parser and the key hash."""
+"""Native host library of the port: the slot parser, the key hash, the
+xbox dump writer and the AUC's finalisation."""

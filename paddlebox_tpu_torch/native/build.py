@@ -1,11 +1,12 @@
 """Build the port's native host library (g++ → .so, loaded via ctypes).
 
 Port of ``paddlebox_tpu/native/build.py``: the slot parser, the key
-hash and the xbox dump writer (``slot_parser.cc``, ``hash_shard.cc``,
-``dump_writer.cc``) compiled into one shared library on first use.
-Failures degrade to the pure-Python fallbacks (``data_feed.SlotParser``,
-``PassKeyMapper``'s binary search, ``io.checkpoint``'s per-row xbox
-writer and parser).  Three things differ from the JAX package's build:
+hash, the xbox dump writer and the AUC's finalisation (``slot_parser.cc``,
+``hash_shard.cc``, ``dump_writer.cc``, ``auc_finalize.cc``) compiled into
+one shared library on first use.  Failures degrade to the pure-Python
+fallbacks (``data_feed.SlotParser``, ``PassKeyMapper``'s binary search,
+``io.checkpoint``'s per-row xbox writer and parser, ``AucCalculator``'s
+loops).  Four things differ from the JAX package's build:
 
 * the library lands in ``build/native/`` at the repository root (listed
   in ``.gitignore``), never in the package directory;
@@ -16,7 +17,10 @@ writer and parser).  Three things differ from the JAX package's build:
   CPU is never loaded there: that machine builds its own;
 * g++ writes a temporary file that ``os.replace`` moves into place, so
   processes that build at once (test workers, say) never load a
-  half-written library.
+  half-written library;
+* ``-ffp-contract=off``: no multiply and add fused into one rounding, so
+  ``auc_finalize.cc`` gives the Python loops' doubles bit for bit.  The
+  other sources parse and format floats only through the C library.
 """
 
 from __future__ import annotations
@@ -31,10 +35,11 @@ from typing import Optional
 
 _DIR = Path(__file__).resolve().parent
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "native"
-_SOURCES = ("slot_parser.cc", "hash_shard.cc", "dump_writer.cc")
+_SOURCES = ("slot_parser.cc", "hash_shard.cc", "dump_writer.cc",
+            "auc_finalize.cc")
 CXX = "g++"
-CXX_FLAGS = ["-O3", "-march=native", "-shared", "-fPIC", "-std=c++17",
-             "-pthread"]
+CXX_FLAGS = ["-O3", "-march=native", "-ffp-contract=off", "-shared", "-fPIC",
+             "-std=c++17", "-pthread"]
 _LOCK = threading.Lock()
 _ID: Optional[bytes] = None
 _FAILED = False     # a failed build is not retried in this process
