@@ -9,10 +9,11 @@ pass-scope key translation DedupKeysAndFillIdx, box_wrapper_impl.h:129):
   padded [S, N*B, L] planes (``pack_pass``).
 * DEVICE, once per pass: one upload and relayout to the step's
   [N, S, L, B] layout (``upload_pass``), plus the per-batch sorted-spmm
-  plans of the mxu lowering (``precompute_plans``, trimmed and with the
-  static payload planes) or the CSR plans of the ragged lowering
-  (``build_csr_plans``, host numpy).  A ``PlaneStager`` handed to
-  ``pack_pass`` starts each plane's upload as soon as the plane is final.
+  plans of the mxu lowering (``precompute_plans``, trimmed, with the
+  static payload planes and the rows each batch's sparse rule steps) or
+  the CSR plans of the ragged lowering (``build_csr_plans``, host
+  numpy).  A ``PlaneStager`` handed to ``pack_pass`` starts each plane's
+  upload as soon as the plane is final.
 * TRAIN LOOP: the step indexes batch i of the resident tensors.
 
 Besides the step's five planes the pass carries the page-view planes
@@ -621,6 +622,33 @@ PLAN_KEYS = ("rows2d", "perm", "inv_perm", "ch", "tl", "fg", "fs",
               "first_occ")
 
 
+def _rule_planes(per: List[Dict[str, torch.Tensor]],
+                 dims: sp.SpmmDims) -> None:
+    """Add each batch's sparse-rule row list to its plan:
+
+      rule_rows [U_pad] int32 — row 0, then the rows the push reaches,
+                ascending, padded with row 0 (U_pad shared by the pass)
+      rule_keep [U_pad] f32  — 1 at a pushed row, 0 at row 0's positions
+
+    The rule then steps these rows alone (``ps.optimizer.apply_push``'s
+    ``rows``), not the whole working set; ``rule_keep`` zeroes the
+    accumulators gathered at row 0, whose merged column can hold the
+    pushes of padding occurrences."""
+    pushed = []
+    for plan in per:
+        # the sorted rows at the plan's run starts, less row 0 and the
+        # sentinel
+        rows = plan["rows2d"].reshape(-1)
+        pushed.append(rows[(plan["first_occ"] > 0) & (rows > 0)
+                           & (rows < dims.sentinel)])
+    u_pad = _round8(1 + max(u.numel() for u in pushed))
+    for plan, u in zip(per, pushed):
+        rows = torch.zeros((u_pad,), dtype=torch.int32, device=u.device)
+        rows[1:1 + u.numel()] = u
+        plan["rule_rows"] = rows
+        plan["rule_keep"] = (rows > 0).to(torch.float32)
+
+
 def precompute_plans(feed: PackedPassFeed, dims: sp.SpmmDims,
                      eff: Optional[sp.SpmmDims] = None,
                      slot_ids=None) -> None:
@@ -632,7 +660,8 @@ def precompute_plans(feed: PackedPassFeed, dims: sp.SpmmDims,
     stacked plans are homogeneous): trim leading padding occurrences.
     slot_ids [S]: also build the static payload planes (bs/labelcol/
     slotcol) so the push crossing moves only the dynamic 1+D grad
-    columns; only for 1-D (or single-column) labels."""
+    columns; only for 1-D (or single-column) labels.  Every batch also
+    gets the rows its sparse rule steps (``_rule_planes``)."""
     idx_all = feed.data["indices"]
     n, s, l, b = idx_all.shape
     per = []
@@ -646,6 +675,7 @@ def precompute_plans(feed: PackedPassFeed, dims: sp.SpmmDims,
         for i, plan in enumerate(per):
             plan.update(_static_planes(plan, labels[i], sid, dims,
                                        eff or dims, (s, l, b)))
+    _rule_planes(per, dims)
     feed.plans = {k: torch.stack([p[k] for p in per]) for k in per[0]}
     feed.plan_dims = dims
 
@@ -729,11 +759,14 @@ def slice_batch(tree: Dict[str, torch.Tensor], i: int
 
 def plan_tuple(p: Dict[str, torch.Tensor]):
     """Plans dict (one batch) → the positional tuple ``build_plan``
-    returns: the ragged CSR 5-tuple, or the mxu 8-tuple, extended to 11
-    by the static payload planes when present."""
+    returns: the ragged CSR 5-tuple, or the mxu 8-tuple, extended by the
+    static payload planes (3) and then the rule's rows (2) when present
+    (``mxu_path.plan_parts`` reads them back)."""
     if "u_rows" in p:      # ragged-lowering CSR plan (build_csr_plans)
         return (p["seg"], p["inv"], p["occ_w"], p["u_rows"], p["u_slot"])
-    base = tuple(p[k] for k in PLAN_KEYS)
+    plan = tuple(p[k] for k in PLAN_KEYS)
     if "bs" in p:
-        return base + (p["bs"], p["labelcol"], p["slotcol"])
-    return base
+        plan += (p["bs"], p["labelcol"], p["slotcol"])
+    if "rule_rows" in p:
+        plan += (p["rule_rows"], p["rule_keep"])
+    return plan

@@ -17,7 +17,10 @@ feature-major [W, n_kernel] with W = 3 + D (+ Dex) + 1 (show, click,
 embed_w, mf×D, an expand table's mf_ex×Dex, mf_size).  Plans come in
 the forms of the JAX package: the untrimmed 8-tuple the streaming step
 builds, and the packed pass feed's trimmed plans (leading row-0 padding
-dropped) with or without the 11-tuple static payload planes.  Either
+dropped) with or without the static payload planes, followed by the
+rows the batch's push reaches (``rule_rows``, ``rule_keep``): with them
+the optimizer steps those rows alone, without them every working-set
+row (see :func:`plan_parts`).  Either
 crossing lowering (ops/crossing.py): "take" gathers by the plan's
 permutations, "sort" sorts keyed by the destination positions; the two
 give the same bits.  Expand ("NNCross", ``mf_ex``) tables ride the same
@@ -61,13 +64,27 @@ def plan_eff_dims(plan, dims: sp.SpmmDims) -> Optional[sp.SpmmDims]:
     return sp.with_p_pad(dims, n_chunks * dims.chunk)
 
 
+# arrays a plan carries beyond build_plan's 8 → (static payload planes,
+# rule rows): pass_feed.plan_tuple appends them in this order
+_PLAN_EXTRAS = {0: (False, False), 2: (False, True), 3: (True, False),
+                5: (True, True)}
+
+
 def _check_plan(plan, dims: sp.SpmmDims) -> None:
-    """An 8-tuple plan, or an 11-tuple one with the static payload planes
-    (pass_feed.precompute_plans), no wider than ``dims``."""
-    if len(plan) not in (8, 11) or plan[0].shape[0] > dims.n_chunks:
+    """An 8-tuple plan, extended by the static payload planes and/or the
+    rule's rows (pass_feed.precompute_plans), no wider than ``dims``."""
+    if len(plan) - 8 not in _PLAN_EXTRAS or plan[0].shape[0] > dims.n_chunks:
         raise ValueError(
             f"not a sorted-spmm plan for {dims}: {len(plan)} arrays, "
             f"{plan[0].shape[0]} chunks")
+
+
+def plan_parts(plan):
+    """(static payload planes ``(bs, labelcol, slotcol)`` or None, rule
+    rows ``(rule_rows, rule_keep)`` or None) of a checked plan."""
+    payload, rule = _PLAN_EXTRAS[len(plan) - 8]
+    return (tuple(plan[8:11]) if payload else None,
+            tuple(plan[-2:]) if rule else None)
 
 
 def _ex_dim(ws: Tensors) -> int:
@@ -229,12 +246,17 @@ def push_and_update(ws: Tensors, plan, dims: sp.SpmmDims,
     (the destination index; a trimmed plan's dropped occurrences have
     negative ones and sort first, into the cut prefix).
 
-    With the static payload planes (an 11-tuple plan: bs, labelcol,
-    slotcol, built at feed time) only the DYNAMIC columns cross: g_show
-    ≡ 1 is a constant row, g_click and slot are the feed-time planes, and
-    g_embed + D×g_mf are gathered from the [B·S, 1+D] pooled-grad matrix
-    by ``bs`` (≙ CopyForPush building the payload per key slot,
-    box_wrapper.cu:1168)."""
+    With the static payload planes (bs, labelcol, slotcol, built at feed
+    time) only the DYNAMIC columns cross: g_show ≡ 1 is a constant row,
+    g_click and slot are the feed-time planes, and g_embed + D×g_mf are
+    gathered from the [B·S, 1+D] pooled-grad matrix by ``bs`` (≙
+    CopyForPush building the payload per key slot, box_wrapper.cu:1168).
+
+    With the rule's rows (``rule_rows``, ``rule_keep``, built at feed
+    time) the optimizer steps only the rows the batch pushed (≙
+    HashTable::update over the merged keys); without them (the
+    streaming step's in-step plan) it sweeps the whole working set, its
+    untouched rows masked."""
     _check_plan(plan, dims)
     _check_crossing(crossing)
     s, l, b = idx_slb.shape
@@ -254,8 +276,9 @@ def push_and_update(ws: Tensors, plan, dims: sp.SpmmDims,
             (srt.shape[0], kd.p_pad - srt.shape[1]), dtype=srt.dtype,
             device=srt.device)], dim=1)
 
-    if len(plan) > 8:
-        bs_ids, labelcol, slotcol = plan[8], plan[9], plan[10]
+    payload_planes, rule = plan_parts(plan)
+    if payload_planes is not None:
+        bs_ids, labelcol, slotcol = payload_planes
         p2 = d_pooled[:, :, 2:].reshape(b * s, 1 + d)       # b-major rows
         if flags.get_flags("mxu_crossing_bf16"):
             p2 = p2.to(torch.bfloat16)
@@ -291,7 +314,9 @@ def push_and_update(ws: Tensors, plan, dims: sp.SpmmDims,
         srt_cm[w - 1] *= first_occ
     delta = sp.scatter_add_sorted(srt_cm, rows2d, first_occ, kd)
     acc = acc_from_delta(delta, n, d_main=ws["mf"].shape[1])
-    return sparse_opt.apply_push(ws, acc, cfg)
+    if rule is None:
+        return sparse_opt.apply_push(ws, acc, cfg)
+    return sparse_opt.apply_push(ws, acc, cfg, rows=rule[0], keep=rule[1])
 
 
 # ---------------------------------------------------------------------------

@@ -20,7 +20,8 @@ moments, SparseAdamOptimizer :148), ``std_adagrad`` (per-dim g2sum,
 sparse_sgd_rule.h:109) and ``naive`` (plain SGD, sparse_sgd_rule.h:77).
 Each is elementwise over axis 0, so a caller may pass the whole working
 set or a gathered [U]-row sub-SoA with matching accumulators (the ragged
-lowering does).  An expand table's ``mf_ex`` trains under ``adagrad``
+lowering does; ``apply_push(rows=)`` gathers one for the packed mxu
+step).  An expand table's ``mf_ex`` trains under ``adagrad``
 only; the other four rules leave ``mf_ex`` / ``mf_ex_g2sum`` as they
 are, as the JAX package's do.
 """
@@ -381,7 +382,8 @@ OPTIMIZERS = {
 
 
 def apply_push(ws: Tensors, acc: Tensors, cfg: SparseSGDConfig,
-               dims_row=None, row0: int = 0) -> Tensors:
+               dims_row=None, row0: int = 0, rows=None,
+               keep=None) -> Tensors:
     """Apply one merged push to ``ws`` IN PLACE and return it.
 
     dims_row: optional per-row [N] mf dims (≙ CtrDymfAccessor); rules
@@ -391,25 +393,49 @@ def apply_push(ws: Tensors, acc: Tensors, cfg: SparseSGDConfig,
     block of the working set (every rule is elementwise over rows, and
     only the reserved global row 0 is never touched).
 
+    ``rows`` [U] with ``keep`` [U] f32: step only these rows of the
+    whole working set ``ws`` — row 0 first, then the rows the push
+    reached, padded with row 0 (``pass_feed.precompute_plans``'s
+    ``rule_rows`` / ``rule_keep``).  ``acc`` and ``dims_row`` still
+    cover every row; the rule runs on the [U]-row sub-SoA gathered from
+    them, with ``g_show`` zeroed where ``keep`` is 0 (row 0's merged
+    column can hold the pushes of padding occurrences), and each field
+    it changes goes back with one ``index_copy_``: every write of row 0
+    carries its old bits.  An untouched row keeps its bits either way.
+
     The JAX step donates the working-set buffers to the jitted step and
     gets new ones back; here each field's new values are copied into the
     existing tensor instead, so the working set keeps its storage for the
     whole pass and callers holding ``ws`` see the update.
 
     Traced as ``ps.optimizer.apply_push`` with ``rows``, the rows the
-    rule runs over, and the device time of its work."""
+    rule runs over, and the device time of its work, the gathers and the
+    write-back included."""
     show = ws["show"]
-    with trace.span("ps.optimizer.apply_push", device=show.device,
-                    rows=show.shape[0]):
-        out = OPTIMIZERS[cfg.optimizer](ws, acc, cfg, dims_row, row0)
+    n = show.shape[0] if rows is None else rows.shape[0]
+    with trace.span("ps.optimizer.apply_push", device=show.device, rows=n):
+        sub = ws
+        if rows is not None:
+            rows = rows.long()
+            sub = {f: v[rows] for f, v in ws.items()
+                   if v.dim() >= 1 and v.shape[0] == show.shape[0]}
+            acc = {k: v[rows] for k, v in acc.items()}
+            acc["g_show"] = acc["g_show"] * keep
+            if dims_row is not None:
+                dims_row = dims_row[rows]
+        out = OPTIMIZERS[cfg.optimizer](sub, acc, cfg, dims_row, row0)
         # ctr_double accessor support: exact pass-delta counters ride
         # along (end_pass merges them into the host's f64 stats)
-        if "show_acc" in ws:
-            touched = push_touched(ws, acc, row0)
+        if "show_acc" in sub:
+            touched = push_touched(sub, acc, row0)
             out["show_acc"] = torch.where(
-                touched, ws["show_acc"] + acc["g_show"], ws["show_acc"])
+                touched, sub["show_acc"] + acc["g_show"], sub["show_acc"])
             out["click_acc"] = torch.where(
-                touched, ws["click_acc"] + acc["g_click"], ws["click_acc"])
+                touched, sub["click_acc"] + acc["g_click"], sub["click_acc"])
         for f, v in out.items():
-            ws[f].copy_(v)
+            if rows is None:
+                ws[f].copy_(v)
+            else:
+                # pboxlint: disable-next=PB301 -- the [U]-row write-back of a row-list push, not an [N] sweep
+                ws[f].index_copy_(0, rows, v)
     return ws

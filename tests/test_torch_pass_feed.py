@@ -8,6 +8,7 @@ both packages:
 * ``pack_pass``, ``upload_pass``, ``precompute_plans`` (trimmed, with
   the static payload planes) and ``build_csr_plans`` give the JAX
   package's arrays, value for value (integers and f32 copies: exact);
+  the port's plans carry the sparse rule's row list besides;
 * the port's packed mxu and fast passes equal its own streaming passes
   (the same step on the same batches: exact on the CPU, rtol 1e-6);
 * one packed pass per lowering (mxu, fast, ragged) through
@@ -167,11 +168,13 @@ def test_upload_and_plans_match_jax():
     slot_ids = 100 + np.arange(S)
     jpf.precompute_plans(jfeed, jd, jeff, slot_ids=slot_ids)
     tpf.precompute_plans(tfeed, td, teff, slot_ids=slot_ids)
-    assert set(tfeed.plans) == set(jfeed.plans)
+    # the port's plans add the sparse rule's row list (port only; held
+    # to the batches' ids in test_torch_mxu_compact_rule.py)
+    assert set(tfeed.plans) == set(jfeed.plans) | {"rule_rows", "rule_keep"}
     for k in jfeed.plans:
         np.testing.assert_array_equal(tfeed.plans[k].numpy(),
                                       np.asarray(jfeed.plans[k]), err_msg=k)
-    assert len(tpf.plan_tuple(tpf.slice_batch(tfeed.plans, 1))) == 11
+    assert len(tpf.plan_tuple(tpf.slice_batch(tfeed.plans, 1))) == 13
 
     want = jpf.build_csr_plans(want_h.indices, slot_ids, n, b)
     got = tpf.build_csr_plans(got_h.indices, slot_ids, n, b)

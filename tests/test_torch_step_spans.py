@@ -64,7 +64,8 @@ def test_step_spans_nest_under_the_pass(monkeypatch, packed):
     monkeypatch.setattr(trace, "ACTIVE", tracer)
     eng, tr, ds = _pass()
     for _ in range(2):
-        tr.train_pass(tr.build_pass_feed(ds) if packed else ds)
+        feed = tr.build_pass_feed(ds) if packed else ds
+        tr.train_pass(feed)
     spans = tracer.spans()
     passes = _by_name(spans, "trainer.train_pass")
     assert len(passes) == 2
@@ -79,7 +80,12 @@ def test_step_spans_nest_under_the_pass(monkeypatch, packed):
     rules = _by_name(spans, RULE)
     assert len(rules) == 2 * NB
     assert {r["parent_id"] for r in rules} == pushes
-    assert all(r["attrs"]["rows"] == eng.ws["show"].shape[0]
+    # the packed feed's rule steps its batch's row list, the streaming
+    # step's every working-set row
+    rows = (feed.plans["rule_rows"].shape[1] if packed
+            else eng.ws["show"].shape[0])
+    assert not packed or rows < eng.ws["show"].shape[0]
+    assert all(r["attrs"]["rows"] == rows
                and r["device_s"] is None for r in rules)
     ends = _by_name(spans, "trainer.pass_end")
     assert len(ends) == 2 and {e["parent_id"] for e in ends} == pass_ids
