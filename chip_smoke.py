@@ -67,10 +67,6 @@ result line is printed):
    reference lowering, and ``MMoE`` (4 experts, 2 tasks) through
    ``MultiTaskSparseTrainer`` with two label slots, 2 batches each at
    full batch: first-step loss = the CPU's within rtol 1e-4;
-9. crossing — packed mxu with FLAGS_mxu_crossing pinned to take, then to
-   sort, on the packed phase's data: losses and working set bit-equal;
-   prints ``best_mode``'s measured choice and both timings for the pull
-   and push crossings at this geometry;
 10. lifecycle — the multi-pass day loop: 4 passes × 1 batch of 16384,
    day 1's 3 and day 2's first (fresh keys per pass from the 2 M key
    space, ~0.7 M a pass, so consecutive passes share about a third of
@@ -660,7 +656,7 @@ def kernel_phase(dev: torch.device, seed: int = 0, w_pull: int = W_PULL,
     for dist, rows_np in rows_by_dist.items():
         rows = torch.as_tensor(rows_np.astype(np.int32), device=dev)
         plan = sp.build_plan(rows, dims)
-        rows2d, first_occ = plan[0], plan[7]
+        rows2d, first_occ = plan.rows2d, plan.first_occ
         payload = torch.randn((w_push, dims.p_pad), generator=gen,
                               device=dev)
         payload[:, dims.p:] = 0.0            # pad columns carry nothing
@@ -955,7 +951,6 @@ def run_pass(block: SlotRecordBlock, device: str, params=None,
     else:
         with around_train():
             stats = trainer.train_pass(dataset, pack_threads=4)
-    extra["crossing"] = list(getattr(trainer, "_mxu_crossing", ()))
     extra["path"] = trainer._resolve_path()
     if keep_ws:
         extra["ws"] = {k: v.clone() for k, v in engine.ws.items()}
@@ -1088,7 +1083,6 @@ def packed_phase(seed: int = 2):
                      "launches": launches[path]}
         if path == "mxu":
             out[path]["mxu_kept_fraction"] = stats["mxu_kept_fraction"]
-            out[path]["crossing"] = stats["crossing"]
         log(f"packed[{path}]: losses {stats['losses']}, auc {stats['auc']}, "
             f"launches {launches[path]}, step device ms {stats['step_ms']} "
             f"(steady median {steady:.3f}), build_pass_feed "
@@ -1163,8 +1157,8 @@ def tracer(holder: dict):
 
 
 # ---------------------------------------------------------------------------
-# phases 5-9: the reference lowering, amp, the optimizer rules, the models
-# and the sort crossing
+# phases 5-8: the reference lowering, amp, the optimizer rules and the
+# models
 # ---------------------------------------------------------------------------
 
 def reference_phase(block: SlotRecordBlock, params0, mxu_first: float):
@@ -1373,44 +1367,6 @@ def models_phase(seed: int = 4):
         log(f"models[{model}]: losses {stats['losses']}, auc {stats['auc']}, "
             f"launches {launches[model]}, step device ms {stats['step_ms']}")
     return launches, out
-
-
-def crossing_phase(block: SlotRecordBlock, params0):
-    """Packed mxu with FLAGS_mxu_crossing pinned to take, then to sort:
-    the same bits; then best_mode's measured choice at this geometry."""
-    from paddlebox_tpu_torch.ops import crossing as cx
-    launches, runs = {}, {}
-    try:
-        for mode in ("take", "sort"):
-            flags.set_flags({"mxu_crossing": mode})
-            reset_counts()
-            runs[mode], _, _ = run_pass(block, "cuda", params=params0,
-                                        path="mxu", packed=True, keep_ws=True)
-            launches[mode] = read_counts()
-            check_pass(f"crossing[{mode}]", runs[mode], launches[mode],
-                       PACKED_KERNELS["mxu"])
-            if runs[mode]["crossing"] != [mode, mode]:
-                raise AssertionError(f"crossing[{mode}]: the step crossed by "
-                                     f"{runs[mode]['crossing']}")
-    finally:
-        flags.set_flags({"mxu_crossing": "auto"})
-    same_bits("crossing: sort vs take", runs["take"], runs["sort"])
-    p = N_SLOTS * CAP * BATCH
-    eff = runs["take"]["mxu_eff_p_pad"]
-    # the geometries _crossing_modes asks for with the static planes
-    tuned = {"pull": cx.measure(p, p, 3 + MF_DIM, "float32"),
-             "push": cx.measure(eff, p, 1 + MF_DIM, "float32")}
-    for k, (mode, t_take, t_sort) in tuned.items():
-        log(f"crossing[{k}]: best_mode picks {mode} (take {t_take:.4f} ms, "
-            f"sort {t_sort:.4f} ms)")
-    log("crossing: sort and take leave bit-equal losses and working set; "
-        f"step device ms take {runs['take']['step_ms']}, sort "
-        f"{runs['sort']['step_ms']}")
-    return launches, {
-        "losses": runs["take"]["losses"],
-        "step_ms": {m: runs[m]["step_ms"] for m in runs},
-        "best_mode": {k: {"mode": m, "take_ms": a, "sort_ms": b}
-                      for k, (m, a, b) in tuned.items()}}
 
 
 # ---------------------------------------------------------------------------
@@ -3224,7 +3180,7 @@ def serving_freeze(serve_eng, block: SlotRecordBlock, device: str):
                             device=device)
     feed = trainer.build_pass_feed(ds)
     bt = pf.slice_batch(feed.data, 0)
-    plan = pf.plan_tuple(pf.slice_batch(feed.plans, 0))
+    plan = pf.mxu_step_plan(pf.slice_batch(feed.plans, 0)).plan
     s, l, b = bt["indices"].shape
     dims = mxu_path.make_dims(s * l * b, serve_eng.ws["show"].shape[0])
     rng = np.random.default_rng(0)
@@ -3282,7 +3238,7 @@ def serving_freeze(serve_eng, block: SlotRecordBlock, device: str):
     # the same calls on the CPU over the same frozen tensors: the gathers
     # bit-equal, the pooled values within rtol 1e-6
     cpu = {f: t.cpu() for f, t in ws.items()}
-    plan_cpu = tuple(t.cpu() for t in plan)
+    plan_cpu = sp.Plan(*(t.cpu() for t in plan))
     idx_cpu, len_cpu = bt["indices"].cpu(), bt["lengths"].cpu()
     eff = mxu_path.plan_eff_dims(plan, dims) or dims
 
@@ -3293,10 +3249,10 @@ def serving_freeze(serve_eng, block: SlotRecordBlock, device: str):
                               .contiguous())
 
     on_cpu = {
-        "mxu": (sp.gather_sorted(mxu_path._pull_table(ws, dims), plan[0],
-                                 eff).cpu(),
+        "mxu": (sp.gather_sorted(mxu_path._pull_table(ws, dims),
+                                 plan.rows2d, eff).cpu(),
                 sp.gather_sorted(mxu_path._pull_table(cpu, dims),
-                                 plan_cpu[0], eff),
+                                 plan_cpu.rows2d, eff),
                 mxu_path.pull_pool_cvm(cpu, plan_cpu, dims, (s, l, b))),
         "fast": (pool_gather(ws, bt["indices"], bt["lengths"]).cpu(),
                  pool_gather(cpu, idx_cpu, len_cpu),
@@ -4441,7 +4397,7 @@ def graph_plan_kernels(what: str, table_fm: torch.Tensor, plan,
     plan reads, the sentinel's among them)."""
     dev = table_fm.device
     w = table_fm.shape[0]
-    rows2d, first_occ = plan[0], plan[7]
+    rows2d, first_occ = plan.rows2d, plan.first_occ
     flat = rows2d.reshape(-1)
     runs = torch.unique_consecutive(flat[:dims.p], return_counts=True)[1]
     n_unique = int(first_occ.sum().item())
@@ -5429,8 +5385,8 @@ def paths_kernels(what: str, path: str, held: dict, feed, trainer,
         local, n_seg = torch.where(keep, local, torch.zeros_like(local)), n
     dims = sp.spmm_dims(local.numel(), n_seg)
     plan = sp.build_plan(local.to(torch.int32), dims)
-    out.update(sharded_kernels(what, block, plan[0], plan[7], dims.p, k,
-                               rows_loc=n_seg, w_push=3 + MF_DIM,
+    out.update(sharded_kernels(what, block, plan.rows2d, plan.first_occ,
+                               dims.p, k, rows_loc=n_seg, w_push=3 + MF_DIM,
                                names=("scatter_add_sorted",)))
     if path == "fast":
         out["gather_pool"] = block_gather_pool(what, block, sl.start, idx,
@@ -5814,7 +5770,7 @@ def models_graph_kernels(what: str, held: dict, num_keys: int,
     out = graph_plan_kernels(what, table, plan, dims, seed + 2)
     out.update(shard=k, device=str(devices[k]), row0=sl.start,
                rows=sl.stop - sl.start,
-               sentinel_share=float((plan[0].reshape(-1)[:dims.p]
+               sentinel_share=float((plan.rows2d.reshape(-1)[:dims.p]
                                      == dims.sentinel).float().mean()))
     return out
 
@@ -7120,8 +7076,6 @@ def main() -> int:
                                   packed_params, packed_out)
     rules_launches, rules_out = timed("rules", rules_phase)
     models_launches, models_out = timed("models", models_phase)
-    cross_launches, cross_out = timed("crossing", crossing_phase,
-                                      packed_block, packed_params)
     life_launches, life_out = timed("lifecycle", lifecycle_phase)
     # the pass files of phases 11, 14, 15 and 16 (phase 11 reads the
     # first REC_PASSES of them, phases 14 and 15 one a pass, phase 16
@@ -7173,7 +7127,6 @@ def main() -> int:
                **{f"amp_{p}": n for p, n in amp_launches.items()},
                **{f"rules_{p}": n for p, n in rules_launches.items()},
                **{f"models_{p}": n for p, n in models_launches.items()},
-               **{f"crossing_{p}": n for p, n in cross_launches.items()},
                **{f"lifecycle_{p}": n for p, n in life_launches.items()},
                **{f"recovery_{p}": n for p, n in rec_launches.items()},
                **{f"rank_{p}": n for p, n in rank_launches.items()},
@@ -7278,7 +7231,6 @@ def main() -> int:
                                  "slice": slice_out, "packed": packed_out,
                                  "reference": ref_out, "amp": amp_out,
                                  "rules": rules_out, "models": models_out,
-                                 "crossing": cross_out,
                                  "lifecycle": life_out, "recovery": rec_out,
                                  "rank": rank_out, "options": opt_out,
                                  "cluster": cl_out,

@@ -46,6 +46,7 @@ from paddlebox_tpu_torch.data.rank_offset import (build_ads_offset_batched,
 from paddlebox_tpu_torch.data.slot_record import SlotRecordBlock
 from paddlebox_tpu_torch.ops import sorted_spmm as sp
 from paddlebox_tpu_torch.parallel.topology import Sharded, device_key
+from paddlebox_tpu_torch.ps import mxu_path, ragged_path
 from paddlebox_tpu_torch.utils import intervals, workpool
 from paddlebox_tpu_torch.utils.monitor import stat_observe
 
@@ -618,8 +619,7 @@ def _static_planes(plan: Dict[str, torch.Tensor], labels_b: torch.Tensor,
     }
 
 
-PLAN_KEYS = ("rows2d", "perm", "inv_perm", "ch", "tl", "fg", "fs",
-              "first_occ")
+PLAN_KEYS = sp.Plan._fields
 
 
 def _rule_planes(per: List[Dict[str, torch.Tensor]],
@@ -664,11 +664,8 @@ def precompute_plans(feed: PackedPassFeed, dims: sp.SpmmDims,
     gets the rows its sparse rule steps (``_rule_planes``)."""
     idx_all = feed.data["indices"]
     n, s, l, b = idx_all.shape
-    per = []
-    for i in range(n):
-        plan = dict(zip(PLAN_KEYS,
-                        sp.build_plan(idx_all[i].reshape(-1), dims, eff)))
-        per.append(plan)
+    per = [sp.build_plan(idx_all[i].reshape(-1), dims, eff)._asdict()
+           for i in range(n)]
     labels = feed.data["labels"]
     if slot_ids is not None and (labels.dim() == 2 or labels.shape[-1] == 1):
         sid = torch.as_tensor(np.asarray(slot_ids), device=idx_all.device)
@@ -757,16 +754,18 @@ def slice_batch(tree: Dict[str, torch.Tensor], i: int
             for k, v in tree.items()}
 
 
-def plan_tuple(p: Dict[str, torch.Tensor]):
-    """Plans dict (one batch) → the positional tuple ``build_plan``
-    returns: the ragged CSR 5-tuple, or the mxu 8-tuple, extended by the
-    static payload planes (3) and then the rule's rows (2) when present
-    (``mxu_path.plan_parts`` reads them back)."""
-    if "u_rows" in p:      # ragged-lowering CSR plan (build_csr_plans)
-        return (p["seg"], p["inv"], p["occ_w"], p["u_rows"], p["u_slot"])
-    plan = tuple(p[k] for k in PLAN_KEYS)
-    if "bs" in p:
-        plan += (p["bs"], p["labelcol"], p["slotcol"])
-    if "rule_rows" in p:
-        plan += (p["rule_rows"], p["rule_keep"])
-    return plan
+def mxu_step_plan(p: Dict[str, torch.Tensor]) -> mxu_path.StepPlan:
+    """Plans dict of one batch (:func:`precompute_plans`) → the mxu step's
+    plan record: the sorted-spmm plan, the static payload planes where
+    the pass built them (labels of one column), and the rule's rows."""
+    payload = (mxu_path.PayloadPlanes(p["bs"], p["labelcol"], p["slotcol"])
+               if "bs" in p else None)
+    return mxu_path.StepPlan(
+        sp.Plan(*(p[k] for k in PLAN_KEYS)), payload,
+        mxu_path.RuleRows(p["rule_rows"], p["rule_keep"]))
+
+
+def csr_plan(p: Dict[str, torch.Tensor]) -> ragged_path.CsrPlan:
+    """CSR plans dict of one batch (:func:`build_csr_plans`) → the ragged
+    step's plan record."""
+    return ragged_path.CsrPlan(**p)

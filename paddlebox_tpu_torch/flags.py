@@ -77,13 +77,6 @@ define_flag("sharded_exchange_bf16", False,
             "ICI bytes at ~1e-2 relative error (EQuARX-style reduced-"
             "precision collectives; ids/plans stay exact).  Read at step-"
             "BUILD time: the trainer reads it at the start of each pass")
-define_flag("mxu_crossing", "auto",
-            "sorted<->canonical crossing lowering of the mxu path: take | "
-            "sort | auto.  'auto' times both once per geometry on a card "
-            "and takes 'take' on the CPU (ops/crossing.py)")
-define_flag("mxu_crossing_bf16", False,
-            "move the mxu pull crossing in bfloat16 (the push crossing of "
-            "the legacy payload stays f32: it carries the exact slot id)")
 define_flag("ps_device_cache", False,
             "keep the hottest embedding rows resident in device memory "
             "across passes (the HBM tier of the HBM/DRAM/SSD store, "

@@ -2,8 +2,9 @@
 
 Port of ``paddlebox_tpu/ops/sorted_spmm.py``.  The plan is the same:
 sort the batch's row ids once, keep the permutation both ways, and mark
-the first occurrence of each distinct row (``build_plan`` keeps the JAX
-package's 8-tuple, worklist included, so plans compare one to one).  The
+the first occurrence of each distinct row (``build_plan`` returns a
+:class:`Plan`, the JAX package's 8-tuple by name, worklist included, so
+plans compare one to one).  The
 two kernels are different: the TPU walks a (chunk, tile) worklist of
 one-hot MXU matmuls because its gathers and scatters are serial; on
 Hopper both are hand-written CUDA kernels (``csrc/sorted_spmm.cu``) that
@@ -29,7 +30,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -98,18 +99,33 @@ def trimmed_dims(dims: SpmmDims, max_real: int) -> SpmmDims:
     return with_p_pad(dims, keep)
 
 
+class Plan(NamedTuple):
+    """A batch's sorted-occurrence plan (:func:`build_plan`): the JAX
+    package's 8-tuple, value for value, its arrays by name.
+
+    rows2d [n_chunks, 1, chunk] the sorted row ids, sentinel-padded;
+    perm [p] canonical source of each sorted position; inv_perm [p]
+    sorted position of each canonical occurrence; ch / tl / fg / fs
+    [n_work] the (chunk, tile) worklist and its first-gather /
+    first-scatter marks, read only by the TPU kernels and kept so both
+    packages' plans compare; first_occ [p_pad] 1 at the first occurrence
+    of each distinct row in sorted order (the Hopper scatter's run
+    starts)."""
+    rows2d: torch.Tensor
+    perm: torch.Tensor
+    inv_perm: torch.Tensor
+    ch: torch.Tensor
+    tl: torch.Tensor
+    fg: torch.Tensor
+    fs: torch.Tensor
+    first_occ: torch.Tensor
+
+
 def build_plan(rows: torch.Tensor, dims: SpmmDims,
-               eff: Optional[SpmmDims] = None):
+               eff: Optional[SpmmDims] = None) -> Plan:
     """Sort the occurrence row ids and enumerate (chunk, tile) work items.
 
     rows: [p] int32 in canonical (slot, lod, batch) order, on any device.
-    Returns (rows2d [n_chunks, 1, chunk] sorted+padded, perm [p],
-    inv_perm [p], chunk_ids [n_work], tile_ids [n_work], first_gather
-    [n_work], first_scatter [n_work], first_occ [p_pad]) — the JAX
-    package's tuple, value for value.  first_occ marks the first
-    occurrence of each distinct row in sorted order; the Hopper scatter
-    uses it as its run starts.  The worklist (items 3..6) is only read
-    by the TPU kernels; it is kept so both packages' plans compare.
 
     The sort is stable (``jax.lax.sort`` is too): equal rows keep their
     canonical order, which fixes which occurrence is "first".
@@ -158,7 +174,8 @@ def build_plan(rows: torch.Tensor, dims: SpmmDims,
                          (c_of[1:] != c_of[:-1]).to(torch.int32)])
     first_s = torch.cat([torch.ones((1,), **i32),
                          (tile_ids[1:] != tile_ids[:-1]).to(torch.int32)])
-    return rows2d, perm, inv_perm, c_of, tile_ids, first_g, first_s, first_occ
+    return Plan(rows2d, perm, inv_perm, c_of, tile_ids, first_g, first_s,
+                first_occ)
 
 
 def kept_perm(perm: torch.Tensor, dims: SpmmDims,
@@ -181,11 +198,10 @@ def segment_sum(values: torch.Tensor, segments: torch.Tensor,
     in an order that changes from run to run."""
     dims = spmm_dims(segments.numel(), num_segments)
     plan = build_plan(segments.to(torch.int32), dims)
-    rows2d, perm, first_occ = plan[0], plan[1], plan[7]
     srt = torch.zeros((values.shape[1], dims.p_pad), dtype=torch.float32,
                       device=values.device)
-    srt[:, :dims.p] = values[perm.long()].T
-    out = scatter_add_sorted(srt, rows2d, first_occ, dims)
+    srt[:, :dims.p] = values[plan.perm.long()].T
+    out = scatter_add_sorted(srt, plan.rows2d, plan.first_occ, dims)
     return out[:, :num_segments].T
 
 

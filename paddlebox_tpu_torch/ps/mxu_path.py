@@ -12,32 +12,28 @@ accumulators (``g_show``, ``g_click``, ``g_embed``, ``g_embedx``, slot).
 
 Layout: occurrence order is canonical [S, L, B] flattened; the plan's
 ``perm``/``inv_perm`` move between canonical and sorted domains (the
-"take" crossing: one row gather each way).  The pull table is
-feature-major [W, n_kernel] with W = 3 + D (+ Dex) + 1 (show, click,
-embed_w, mf×D, an expand table's mf_ex×Dex, mf_size).  Plans come in
-the forms of the JAX package: the untrimmed 8-tuple the streaming step
+crossing: one row gather each way).  The pull table is feature-major
+[W, n_kernel] with W = 3 + D (+ Dex) + 1 (show, click, embed_w, mf×D,
+an expand table's mf_ex×Dex, mf_size).  Plans come in the forms of the
+JAX package: the untrimmed :class:`~sorted_spmm.Plan` the streaming step
 builds, and the packed pass feed's trimmed plans (leading row-0 padding
-dropped) with or without the static payload planes, followed by the
-rows the batch's push reaches (``rule_rows``, ``rule_keep``): with them
-the optimizer steps those rows alone, without them every working-set
-row (see :func:`plan_parts`).  Either
-crossing lowering (ops/crossing.py): "take" gathers by the plan's
-permutations, "sort" sorts keyed by the destination positions; the two
-give the same bits.  Expand ("NNCross", ``mf_ex``) tables ride the same
-table and payload: their Dex columns follow mf, so the kernels run at
-W = 3 + D + Dex + 1 (pull) and D + Dex + 4 (push), and the pooled
-output is [B, S, 3 + D + Dex].
+dropped).  The feed's :class:`StepPlan` adds what the push reads beyond
+the plan: the static payload planes (:class:`PayloadPlanes`) and the
+rows the batch's push reaches (:class:`RuleRows`); with the rows the
+optimizer steps those rows alone, without them every working-set row.
+Expand ("NNCross", ``mf_ex``) tables ride the same table and payload:
+their Dex columns follow mf, so the kernels run at W = 3 + D + Dex + 1
+(pull) and D + Dex + 4 (push), and the pooled output is
+[B, S, 3 + D + Dex].
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from paddlebox_tpu_torch import flags
 from paddlebox_tpu_torch.config import SparseSGDConfig
-from paddlebox_tpu_torch.ops import crossing as cx
 from paddlebox_tpu_torch.ops import sorted_spmm as sp
 from paddlebox_tpu_torch.ps import optimizer as sparse_opt
 from paddlebox_tpu_torch.ps.embedding import cvm_pooled, mf_values
@@ -45,46 +41,56 @@ from paddlebox_tpu_torch.ps.embedding import cvm_pooled, mf_values
 Tensors = Dict[str, torch.Tensor]
 
 
+class PayloadPlanes(NamedTuple):
+    """A batch's static push payload planes over the kept sorted
+    positions, built at feed time (``pass_feed._static_planes``)."""
+    bs: torch.Tensor
+    labelcol: torch.Tensor
+    slotcol: torch.Tensor
+
+
+class RuleRows(NamedTuple):
+    """The rows a batch's push reaches and their mask, built at feed
+    time (``pass_feed._rule_planes``)."""
+    rows: torch.Tensor
+    keep: torch.Tensor
+
+
+class StepPlan(NamedTuple):
+    """One batch's mxu step plan: the sorted-spmm plan, and the push's
+    static payload planes and rule rows where the feed built them (the
+    streaming step's in-step plan has neither)."""
+    plan: sp.Plan
+    payload: Optional[PayloadPlanes] = None
+    rule: Optional[RuleRows] = None
+
+
 def make_dims(num_occurrences: int, num_rows: int) -> sp.SpmmDims:
     return sp.spmm_dims(num_occurrences, num_rows)
 
 
 def build_plan(idx_slb: torch.Tensor, dims: sp.SpmmDims,
-               eff: Optional[sp.SpmmDims] = None):
+               eff: Optional[sp.SpmmDims] = None) -> sp.Plan:
     """idx_slb [S, L, B] pass rows (0 = reserved/padding row)."""
     return sp.build_plan(idx_slb.reshape(-1), dims, eff)
 
 
-def plan_eff_dims(plan, dims: sp.SpmmDims) -> Optional[sp.SpmmDims]:
+def plan_eff_dims(plan: sp.Plan,
+                  dims: sp.SpmmDims) -> Optional[sp.SpmmDims]:
     """Trimmed kernel geometry a plan was built with, recovered from its
     array shapes (None = untrimmed)."""
-    n_chunks = plan[0].shape[0]
+    n_chunks = plan.rows2d.shape[0]
     if n_chunks == dims.n_chunks:
         return None
     return sp.with_p_pad(dims, n_chunks * dims.chunk)
 
 
-# arrays a plan carries beyond build_plan's 8 → (static payload planes,
-# rule rows): pass_feed.plan_tuple appends them in this order
-_PLAN_EXTRAS = {0: (False, False), 2: (False, True), 3: (True, False),
-                5: (True, True)}
-
-
-def _check_plan(plan, dims: sp.SpmmDims) -> None:
-    """An 8-tuple plan, extended by the static payload planes and/or the
-    rule's rows (pass_feed.precompute_plans), no wider than ``dims``."""
-    if len(plan) - 8 not in _PLAN_EXTRAS or plan[0].shape[0] > dims.n_chunks:
+def _check_plan(plan: sp.Plan, dims: sp.SpmmDims) -> None:
+    """A plan no wider than ``dims``."""
+    if plan.rows2d.shape[0] > dims.n_chunks:
         raise ValueError(
-            f"not a sorted-spmm plan for {dims}: {len(plan)} arrays, "
-            f"{plan[0].shape[0]} chunks")
-
-
-def plan_parts(plan):
-    """(static payload planes ``(bs, labelcol, slotcol)`` or None, rule
-    rows ``(rule_rows, rule_keep)`` or None) of a checked plan."""
-    payload, rule = _PLAN_EXTRAS[len(plan) - 8]
-    return (tuple(plan[8:11]) if payload else None,
-            tuple(plan[-2:]) if rule else None)
+            f"not a sorted-spmm plan for {dims}: "
+            f"{plan.rows2d.shape[0]} chunks")
 
 
 def _ex_dim(ws: Tensors) -> int:
@@ -180,143 +186,93 @@ def acc_from_delta(delta: torch.Tensor, n: int,
     return acc
 
 
-def _check_crossing(crossing: str) -> None:
-    if crossing not in ("take", "sort"):
-        raise ValueError(f"crossing must be 'take' or 'sort', got "
-                         f"{crossing!r}")
-
-
-def pull_pool_cvm(ws: Tensors, plan, dims: sp.SpmmDims,
+def pull_pool_cvm(ws: Tensors, plan: sp.Plan, dims: sp.SpmmDims,
                   shape_slb: Tuple[int, int, int],
-                  use_cvm: bool = True,
-                  crossing: str = "take") -> torch.Tensor:
+                  use_cvm: bool = True) -> torch.Tensor:
     """Fused pull + seqpool + CVM → pooled [B, S, 3 + D (+ Dex)].
 
     Row 0 and the sentinel tile hold zeros, so padding occurrences and
     unseen keys contribute nothing — no length mask needed on the pull
-    side.  crossing: the sorted→canonical lowering — "take" gathers by
-    inv_perm, "sort" sorts keyed by perm (the destination index)."""
-    _check_crossing(crossing)
+    side.  The sorted→canonical crossing gathers by inv_perm."""
     s, l, b = shape_slb
     d = ws["mf"].shape[1] + _ex_dim(ws)
     _check_plan(plan, dims)
-    rows2d, perm, inv_perm = plan[0], plan[1], plan[2]
+    inv_perm = plan.inv_perm
     eff = plan_eff_dims(plan, dims)
     tab = _pull_table(ws, dims)
-    g = sp.gather_sorted(tab, rows2d, eff or dims)         # [3+D+1, p_pad]
+    g = sp.gather_sorted(tab, plan.rows2d, eff or dims)    # [3+D+1, p_pad]
     # created-mask the mf rows in the SORTED domain: the mf_size column is
     # consumed here and never rides the crossing
     created = (g[3 + d:4 + d] > 0).to(g.dtype)             # [1, p_pad]
     g = torch.cat([g[:3], g[3:3 + d] * created], dim=0)
-    w = 3 + d
-    if flags.get_flags("mxu_crossing_bf16"):
-        g = g.to(torch.bfloat16)
-    if crossing == "sort":
-        if eff is not None:
-            # dropped (row-0) positions re-enter as leading zero columns,
-            # exactly the value row 0 holds
-            g = torch.cat([torch.zeros((w, dims.p_pad - eff.p_pad),
-                                       dtype=g.dtype, device=g.device), g],
-                          dim=1)
-        # [p, W] in take's layout: a card's sum over L below adds in an
-        # order that follows the strides, so a transposed view would pool
-        # other bits than take
-        v = cx.permute_by_dest(tuple(g[:, :dims.p]), perm).T.contiguous()
-    elif eff is None:
+    if eff is None:
         v = g.T[:dims.p][inv_perm.long()]                   # canonical [p,W]
     else:
         # trimmed plan: dropped positions (inv_perm < 0) were row-0
         # occurrences whose pull value is exactly zero — clamp + mask
         v = g.T[torch.clamp(inv_perm, min=0).long()]
         v = v * (inv_perm >= 0).to(v.dtype)[:, None]
-    v = v.reshape(s, l, b, w).to(torch.float32)
+    v = v.reshape(s, l, b, 3 + d)
     return pool_cvm_values(v, use_cvm, premasked=True)
 
 
-def push_and_update(ws: Tensors, plan, dims: sp.SpmmDims,
+def push_and_update(ws: Tensors, plan: sp.Plan, dims: sp.SpmmDims,
                     idx_slb: torch.Tensor, d_pooled: torch.Tensor,
                     ins_cvm: torch.Tensor, slot_ids: torch.Tensor,
-                    cfg: SparseSGDConfig, crossing: str = "take") -> Tensors:
+                    cfg: SparseSGDConfig,
+                    payload: Optional[PayloadPlanes] = None,
+                    rule: Optional[RuleRows] = None) -> Tensors:
     """Merged push + sparse optimizer, updating ``ws`` in place.
 
     d_pooled [B, S, 3+D(+Dex)] — cols 0,1 are ignored and replaced by the
     instance cvm (reference push semantics, box_wrapper_impl.h:373);
-    ins_cvm [B, 2]; slot_ids [S].  crossing: the canonical→sorted
-    lowering — "take" gathers by perm, "sort" sorts keyed by inv_perm
-    (the destination index; a trimmed plan's dropped occurrences have
-    negative ones and sort first, into the cut prefix).
+    ins_cvm [B, 2]; slot_ids [S].  The canonical→sorted crossing gathers
+    by perm.
 
-    With the static payload planes (bs, labelcol, slotcol, built at feed
-    time) only the DYNAMIC columns cross: g_show ≡ 1 is a constant row,
+    With the static payload planes (``payload``, built at feed time)
+    only the DYNAMIC columns cross: g_show ≡ 1 is a constant row,
     g_click and slot are the feed-time planes, and g_embed + D×g_mf are
     gathered from the [B·S, 1+D] pooled-grad matrix by ``bs`` (≙
     CopyForPush building the payload per key slot, box_wrapper.cu:1168).
 
-    With the rule's rows (``rule_rows``, ``rule_keep``, built at feed
-    time) the optimizer steps only the rows the batch pushed (≙
-    HashTable::update over the merged keys); without them (the
-    streaming step's in-step plan) it sweeps the whole working set, its
-    untouched rows masked."""
+    With the rule's rows (``rule``, built at feed time) the optimizer
+    steps only the rows the batch pushed (≙ HashTable::update over the
+    merged keys); without them (the streaming step's in-step plan) it
+    sweeps the whole working set, its untouched rows masked."""
     _check_plan(plan, dims)
-    _check_crossing(crossing)
     s, l, b = idx_slb.shape
     d = ws["mf"].shape[1] + _ex_dim(ws)
     n = ws["show"].shape[0]
     w = d + 4
-    rows2d, perm, inv_perm, first_occ = plan[0], plan[1], plan[2], plan[7]
     eff = plan_eff_dims(plan, dims)
     kd = eff or dims
-
-    def sort_cross(can: torch.Tensor) -> torch.Tensor:
-        """canonical [p, c] → sorted kept domain [c, kd.p_pad], pad
-        columns zero."""
-        srt = cx.permute_by_dest(tuple(can.T), inv_perm)
-        srt = srt[:, dims.p_pad - kd.p_pad:]
-        return torch.cat([srt, torch.zeros(
-            (srt.shape[0], kd.p_pad - srt.shape[1]), dtype=srt.dtype,
-            device=srt.device)], dim=1)
-
-    payload_planes, rule = plan_parts(plan)
-    if payload_planes is not None:
-        bs_ids, labelcol, slotcol = payload_planes
+    if payload is not None:
         p2 = d_pooled[:, :, 2:].reshape(b * s, 1 + d)       # b-major rows
-        if flags.get_flags("mxu_crossing_bf16"):
-            p2 = p2.to(torch.bfloat16)
-        if crossing == "sort":
-            # canonical flat [(s, l, b), 1+D]: broadcast over L only here,
-            # in the narrow dynamic slice
-            can = p2.reshape(b, s, 1 + d).permute(1, 0, 2)[:, None].expand(
-                s, l, b, 1 + d).reshape(dims.p, 1 + d)
-            dyn = sort_cross(can).to(torch.float32)
-        else:
-            dyn = p2[bs_ids.long()].T.to(torch.float32)     # [1+D, p_pad]
+        dyn = p2[payload.bs.long()].T.to(torch.float32)     # [1+D, p_pad]
         ones = torch.ones((1, kd.p_pad), dtype=torch.float32,
                           device=dyn.device)
-        srt_cm = torch.cat([ones, labelcol[None], dyn, slotcol[None]],
-                           dim=0).contiguous()
+        srt_cm = torch.cat([ones, payload.labelcol[None], dyn,
+                            payload.slotcol[None]], dim=0).contiguous()
     else:
-        # the legacy payload carries the exact slot-id column, so it
-        # always crosses in f32 (mxu_crossing_bf16 never applies here)
-        payload = push_payload(d_pooled, ins_cvm, slot_ids, (s, l, b))
-        flat = payload.reshape(dims.p, w)
-        if crossing == "sort":
-            srt_cm = sort_cross(flat).contiguous()
-        else:
-            # trimmed plans keep the suffix of the full bijection: dropped
-            # row-0 occurrences never scatter (row 0 is reserved); the
-            # sentinel-padded tail carries nothing
-            srt_cm = flat[sp.kept_perm(perm, dims, kd).long()].T.contiguous()
-            srt_cm[:, kd.p_pad - (dims.p_pad - dims.p):] = 0.0
+        flat = push_payload(d_pooled, ins_cvm, slot_ids,
+                            (s, l, b)).reshape(dims.p, w)
+        # trimmed plans keep the suffix of the full bijection: dropped
+        # row-0 occurrences never scatter (row 0 is reserved); the
+        # sentinel-padded tail carries nothing
+        srt_cm = flat[sp.kept_perm(plan.perm, dims, kd).long()
+                      ].T.contiguous()
+        srt_cm[:, kd.p_pad - (dims.p_pad - dims.p):] = 0.0
         # slot column: keep only each row's FIRST occurrence (plan mask),
         # so the scatter-sum returns that occurrence's slot exactly (≙ the
         # reference's per-key slot from its merge position,
         # box_wrapper.cu:417 PushMergeCopy)
-        srt_cm[w - 1] *= first_occ
-    delta = sp.scatter_add_sorted(srt_cm, rows2d, first_occ, kd)
+        srt_cm[w - 1] *= plan.first_occ
+    delta = sp.scatter_add_sorted(srt_cm, plan.rows2d, plan.first_occ, kd)
     acc = acc_from_delta(delta, n, d_main=ws["mf"].shape[1])
     if rule is None:
         return sparse_opt.apply_push(ws, acc, cfg)
-    return sparse_opt.apply_push(ws, acc, cfg, rows=rule[0], keep=rule[1])
+    return sparse_opt.apply_push(ws, acc, cfg, rows=rule.rows,
+                                 keep=rule.keep)
 
 
 # ---------------------------------------------------------------------------
@@ -339,18 +295,19 @@ def block_plan(idx_slb: torch.Tensor, row0: int, n: int):
         dims)
 
 
-def pull_values_block(ws: Tensors, plan, dims: sp.SpmmDims
+def pull_values_block(ws: Tensors, plan: sp.Plan, dims: sp.SpmmDims
                       ) -> torch.Tensor:
     """The block's pull values of every occurrence, canonical [P, W]
     (W = 3 + D (+ Dex) + 1, the last column mf_size): its rows' values,
     zeros at the ids it does not hold.  Summed over the blocks they are
     the one-device values (one block holds each id)."""
     tab = _pull_table(ws, dims)
-    g = sp.gather_sorted(tab, plan[0], dims)               # [W, p_pad]
-    return g.T[:dims.p][plan[2].long()]
+    g = sp.gather_sorted(tab, plan.rows2d, dims)           # [W, p_pad]
+    return g.T[:dims.p][plan.inv_perm.long()]
 
 
-def push_block(ws: Tensors, plan, dims: sp.SpmmDims, payload: torch.Tensor,
+def push_block(ws: Tensors, plan: sp.Plan, dims: sp.SpmmDims,
+               payload: torch.Tensor,
                cfg: SparseSGDConfig, row0: int) -> Tensors:
     """Merged push + sparse optimizer of one block, in place: payload
     [P, D (+ Dex) + 4] the canonical per-occurrence push values of the
@@ -359,12 +316,11 @@ def push_block(ws: Tensors, plan, dims: sp.SpmmDims, payload: torch.Tensor,
     tile), keeping each row's first occurrence's slot, then steps its
     rows with ``apply_push(row0=)``."""
     w = payload.shape[1]
-    rows2d, perm, first_occ = plan[0], plan[1], plan[7]
     srt = torch.zeros((w, dims.p_pad), dtype=torch.float32,
                       device=payload.device)
-    srt[:, :dims.p] = payload[perm.long()].T
-    srt[w - 1] *= first_occ
-    delta = sp.scatter_add_sorted(srt, rows2d, first_occ, dims)
+    srt[:, :dims.p] = payload[plan.perm.long()].T
+    srt[w - 1] *= plan.first_occ
+    delta = sp.scatter_add_sorted(srt, plan.rows2d, plan.first_occ, dims)
     acc = acc_from_delta(delta, ws["show"].shape[0],
                          d_main=ws["mf"].shape[1])
     return sparse_opt.apply_push(ws, acc, cfg, row0=row0)

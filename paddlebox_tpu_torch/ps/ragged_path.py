@@ -29,7 +29,7 @@ package's.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
@@ -52,7 +52,17 @@ def _row_fields(ws: Tensors):
             and v.shape[0] == n]
 
 
-def pull_pool_cvm(ws: Tensors, plan: Tuple[torch.Tensor, ...],
+class CsrPlan(NamedTuple):
+    """A batch's CSR step plan: the five arrays of the module docstring,
+    by name (``pass_feed.build_csr_plans`` builds them)."""
+    seg: torch.Tensor
+    inv: torch.Tensor
+    occ_w: torch.Tensor
+    u_rows: torch.Tensor
+    u_slot: torch.Tensor
+
+
+def pull_pool_cvm(ws: Tensors, plan: CsrPlan,
                   shape_slb: Tuple[int, int, int],
                   use_cvm: bool = True) -> torch.Tensor:
     """Fused pull + seqpool + CVM from a CSR plan → pooled [B, S, E],
@@ -72,7 +82,7 @@ def pull_pool_cvm(ws: Tensors, plan: Tuple[torch.Tensor, ...],
     return cvm_pooled(pooled.reshape(s, b, -1), use_cvm)        # [B, S, E]
 
 
-def push_and_update(ws: Tensors, plan: Tuple[torch.Tensor, ...],
+def push_and_update(ws: Tensors, plan: CsrPlan,
                     d_pooled: torch.Tensor, ins_cvm: torch.Tensor,
                     shape_slb: Tuple[int, int, int],
                     cfg: SparseSGDConfig) -> Tensors:

@@ -113,7 +113,7 @@ def local_plan(idx_local: Shards, rows_loc: int, topo: HybridTopology,
                axis) -> Tuple[sp.SpmmDims, list]:
     """all_gather the ids over ``axis`` and localize them to each shard's
     row block; ids outside the block park at the sentinel row.  Returns
-    (dims, one 8-tuple plan per shard).
+    (dims, one ``sorted_spmm.Plan`` per shard).
 
     Pull and push need the identical plan, so callers build it once per
     step (or once per pass) and hand it to both — the sort is the only
@@ -132,17 +132,18 @@ def local_plan(idx_local: Shards, rows_loc: int, topo: HybridTopology,
     return dims, plans
 
 
-def _plan_dims(plan, rows_loc: int) -> sp.SpmmDims:
+def _plan_dims(plan: sp.Plan, rows_loc: int) -> sp.SpmmDims:
     """Geometry a local plan was built with (inv_perm carries the
     gathered occurrence count).  Sharded exchanges take untrimmed plans
     only: a trimmed plan keeps inv_perm full-length while its sorted
     arrays shrink, and its trim assumes padding sorts to the front, where
     a shard's non-owned ids sort to the back."""
-    dims = sp.spmm_dims(plan[2].shape[0], rows_loc)
-    if plan[0].shape[0] != dims.n_chunks:
+    dims = sp.spmm_dims(plan.inv_perm.shape[0], rows_loc)
+    if plan.rows2d.shape[0] != dims.n_chunks:
         raise ValueError(
             f"sharded exchange needs an untrimmed local_plan: rows2d has "
-            f"{plan[0].shape[0]} chunks, geometry expects {dims.n_chunks}")
+            f"{plan.rows2d.shape[0]} chunks, geometry expects "
+            f"{dims.n_chunks}")
     return dims
 
 
@@ -171,7 +172,7 @@ def pull_rows_sharded_mxu(table_fm_local: Shards, idx_local: Shards,
     vals = [None] * topo.world_size
     for k in topo.local_shards:
         block = table_fm_local[k]
-        rows2d, inv_perm = plans[k][0], plans[k][2]
+        rows2d, inv_perm = plans[k].rows2d, plans[k].inv_perm
         # the block padded to the kernel geometry (sentinel tile = zeros)
         tab = torch.zeros((block.shape[0], dims.n_kernel),
                           dtype=torch.float32, device=block.device)
@@ -222,7 +223,8 @@ def push_rows_sharded_mxu(idx_local: Shards, payload_local: Shards,
     out = [None] * topo.world_size
     for k in topo.local_shards:
         pay = pay_all[k]
-        rows2d, perm, first_occ = plans[k][0], plans[k][1], plans[k][7]
+        plan = plans[k]
+        rows2d, perm, first_occ = plan.rows2d, plan.perm, plan.first_occ
         srt = torch.zeros((pay.shape[0], dims.p_pad), dtype=torch.float32,
                           device=pay.device)
         srt[:, :dims.p] = pay[:, perm.long()]

@@ -144,7 +144,8 @@ def skipgram_grad(mf_fm: torch.Tensor, centers: torch.Tensor,
     rows = step_rows(centers, contexts, negs)
     dims = sp.spmm_dims(rows.numel(), mf_fm.shape[1] - sp.TILE)
     plan = sp.build_plan(rows, dims)
-    rows2d, perm, inv_perm, first_occ = plan[0], plan[1], plan[2], plan[7]
+    rows2d, perm, inv_perm, first_occ = (plan.rows2d, plan.perm,
+                                         plan.inv_perm, plan.first_occ)
     gathered = sp.gather_sorted(mf_fm, rows2d, dims)          # [D, p_pad]
     block = gathered.index_select(1, inv_perm.long()).T       # [P, D]
     loss, grad = skipgram_loss_grad(block, centers, contexts, negs)
@@ -215,8 +216,8 @@ def skipgram_step_blocks(tables, blocks, topo, centers: torch.Tensor,
         dev = topo.devices[next(k for k in homes if topo.is_local(k))]
         dims, plan = mxu_path.block_plan(transfer(rows, device, dev), row0,
                                          n)
-        g = sp.gather_sorted(table[0], plan[0], dims)         # [D, p_pad]
-        parts.append(g.index_select(1, plan[2].long()).T)     # [P, D]
+        g = sp.gather_sorted(table[0], plan.rows2d, dims)     # [D, p_pad]
+        parts.append(g.index_select(1, plan.inv_perm.long()).T)   # [P, D]
         plans.append((dev, dims, plan))
     firsts = [topo.shards_of(r)[0] for r in range(topo.nranks)]
     block = col.reduce_scatter_onto_shards(
@@ -227,9 +228,10 @@ def skipgram_step_blocks(tables, blocks, topo, centers: torch.Tensor,
         if table is None:
             continue
         dev, dims, plan = pl
-        payload = sorted_payload(transfer(grad, device, dev), plan[1],
+        payload = sorted_payload(transfer(grad, device, dev), plan.perm,
                                  dims)
-        delta = sp.scatter_add_sorted(payload, plan[0], plan[7], dims)
+        delta = sp.scatter_add_sorted(payload, plan.rows2d, plan.first_occ,
+                                      dims)
         adagrad_update(*table, delta, lr, row0=row0, n=n)
     return loss
 

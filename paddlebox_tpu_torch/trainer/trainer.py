@@ -6,8 +6,7 @@ pull → seqpool + CVM → model fwd/bwd → merged push → sparse optimizer
 rule → dense Adam → AUC buckets, on one of five sparse lowerings:
 
 * ``mxu``       — sorted gather / merged scatter kernels (ps/mxu_path.py);
-  what ``auto`` resolves to with no topology; its two crossings take the
-  "take" or "sort" lowering (ops/crossing.py, FLAGS_mxu_crossing);
+  what ``auto`` resolves to with no topology;
 * ``mxu_sharded`` — the HeterComm-style sharded exchange
   (ps/sharded_embedding.py) over a ``HybridTopology``: the working set
   split in contiguous row blocks over the table axes, each shard's
@@ -136,7 +135,6 @@ from paddlebox_tpu_torch.device import DeviceLike, resolve_device
 from paddlebox_tpu_torch.metrics.auc import (AucCalculator, WuAucCalculator,
                                              accumulate_auc, make_auc_state,
                                              sum_auc_state)
-from paddlebox_tpu_torch.ops import crossing as cx
 from paddlebox_tpu_torch.ops import sorted_spmm as sp
 from paddlebox_tpu_torch.ops.seqpool_cvm import fused_seqpool_cvm
 from paddlebox_tpu_torch.parallel import collective as col
@@ -229,9 +227,6 @@ class SparseTrainer:
                 and flags.get_flags("sparse_step_path") != "auto":
             sparse_path = flags.get_flags("sparse_step_path")
         self.sparse_path = sparse_path
-        # (pull, push) crossing lowerings of the mxu step, resolved at the
-        # start of each pass (_crossing_modes)
-        self._mxu_crossing = ("take", "take")
         # FLAGS_sharded_exchange_bf16 as the mxu_sharded step reads it,
         # taken at the start of each pass
         self._exchange_bf16 = False
@@ -455,28 +450,6 @@ class SparseTrainer:
             if on:
                 self.topology.refuse_cross_process(what, why)
 
-    def _crossing_modes(self, s: int, l: int, b: int,
-                        eff_p_pad: Optional[int] = None,
-                        planes: bool = False):
-        """(pull, push) crossing lowerings of the mxu step
-        (ops/crossing.py): the pull's take emits p canonical rows, the
-        push's take only the kept (trimmed) width.  With the static
-        payload planes the push crosses only the 1+D dynamic columns; the
-        legacy payload carries the exact slot column, so it never crosses
-        in bf16."""
-        p = s * l * b
-        d = (int(self.engine.ws["mf"].shape[1])
-             + mxu_path._ex_dim(self.engine.ws))
-        dev = self.device.type
-        dt = ("bfloat16" if flags.get_flags("mxu_crossing_bf16")
-              else "float32")
-        pull = cx.best_mode(p, p, 3 + d, dev, dt)
-        if planes:
-            push = cx.best_mode(eff_p_pad or p, p, 1 + d, dev, dt)
-        else:
-            push = cx.best_mode(eff_p_pad or p, p, 4 + d, dev)
-        return (pull, push)
-
     # ------------------------------------------------------------------
     def _ins_cvm(self, labels: torch.Tensor) -> torch.Tensor:
         """The instance's (show, click) for the push: (1, label)."""
@@ -645,9 +618,10 @@ class SparseTrainer:
               plan=None, extras=None):
         """One step of ``path`` on device tensors, updating the working
         set, the dense params and the AUC state in place: idx_slb
-        [S, L, B]; plan is the feed's plan of this batch (None → the mxu
-        lowering plans in-step; ragged needs one); extras the batch's
-        extra feed planes by name."""
+        [S, L, B]; plan is the feed's plan of this batch (mxu: a
+        ``mxu_path.StepPlan``, None → planned in-step; ragged: a
+        ``ragged_path.CsrPlan``, required); extras the batch's extra
+        feed planes by name."""
         if self._multi and path in ("mxu", "fast", "reference"):
             return self._blocks_step(path, idx_slb, lengths, dense, labels,
                                      valid, plan, extras)
@@ -661,7 +635,6 @@ class SparseTrainer:
         s, l, b = idx_slb.shape
         sgd = self.engine.config.sgd
         ins_cvm = self._ins_cvm(labels)
-        pull_cross, push_cross = self._mxu_crossing
         dev = self.device
         with trace.span("trainer.step.pull", device=dev), torch.no_grad():
             if path == "mxu":
@@ -670,9 +643,10 @@ class SparseTrainer:
                 dims = mxu_path.make_dims(s * l * b, ws["show"].shape[0])
                 if plan is None:
                     idx_slb = _mask_padding(idx_slb, lengths)
-                    plan = mxu_path.build_plan(idx_slb, dims)
-                pooled = mxu_path.pull_pool_cvm(ws, plan, dims, (s, l, b),
-                                                self.use_cvm, pull_cross)
+                    plan = mxu_path.StepPlan(
+                        mxu_path.build_plan(idx_slb, dims))
+                pooled = mxu_path.pull_pool_cvm(ws, plan.plan, dims,
+                                                (s, l, b), self.use_cvm)
             elif path == "fast":
                 pooled = fast_path.pull_pool_cvm(ws, idx_slb, lengths,
                                                  self.use_cvm)
@@ -688,9 +662,11 @@ class SparseTrainer:
                 pooled, dense, labels, valid, extras)
         with trace.span("trainer.step.push", device=dev), torch.no_grad():
             if path == "mxu":
-                mxu_path.push_and_update(ws, plan, dims, idx_slb, d_pooled,
-                                         ins_cvm, self._slot_ids_dev, sgd,
-                                         push_cross)
+                mxu_path.push_and_update(ws, plan.plan, dims, idx_slb,
+                                         d_pooled, ins_cvm,
+                                         self._slot_ids_dev, sgd,
+                                         payload=plan.payload,
+                                         rule=plan.rule)
             elif path == "fast":
                 fast_path.push_and_update(ws, idx_slb, lengths, d_pooled,
                                           ins_cvm, self._slot_ids_dev, sgd)
@@ -745,7 +721,7 @@ class SparseTrainer:
             elif isinstance(plan, list):
                 plans = plan
             else:
-                plans = [tuple(a[k] for a in plan)
+                plans = [sp.Plan(*(a[k] for a in plan))
                          for k in range(topo.world_size)]
             vals = se.pull_rows_sharded_mxu(
                 self._shard_tables(ws, tspec), idx_loc, topo, tbl_axes,
@@ -1459,11 +1435,6 @@ class SparseTrainer:
                 "sparse_path='ragged' requires the pass-resident feed "
                 "(build_pass_feed / train_pass(feed)) — the streaming "
                 "per-batch path has no host CSR plan build")
-        self._mxu_crossing = ("take", "take")
-        if path == "mxu" and not self._multi:
-            self._mxu_crossing = self._crossing_modes(
-                len(self.packer.sparse_slots), self.packer.capacity,
-                self.batch_size)
         self._exchange_bf16 = bool(flags.get_flags("sharded_exchange_bf16"))
         engine = self.engine
         mapper = engine.mapper
@@ -1798,14 +1769,6 @@ class SparseTrainer:
                     f"{feed.plan_dims}, but the pass now needs {cur} — "
                     "rebuild the feed (build_pass_feed)")
             plans = feed.plans
-        self._mxu_crossing = ("take", "take")
-        if path == "mxu" and not self._multi:
-            eff_p_pad = None
-            if plans is not None:
-                r = plans["rows2d"].shape           # [N, n_chunks, 1, c]
-                eff_p_pad = int(r[1]) * int(r[3])
-            self._mxu_crossing = self._crossing_modes(
-                s, l, b, eff_p_pad, plans is not None and "bs" in plans)
         self._exchange_bf16 = bool(flags.get_flags("sharded_exchange_bf16"))
         if self.wuauc is not None and (feed.uid is None
                                        or feed.host_labels is None):
@@ -1824,10 +1787,15 @@ class SparseTrainer:
                     plan = None
                 elif feed.topology is not None:
                     plan = [None if plans["rows2d"][k] is None else
-                            tuple(plans[key][k][i] for key in pf.PLAN_KEYS)
+                            sp.Plan(*(plans[key][k][i]
+                                      for key in pf.PLAN_KEYS))
                             for k in range(len(plans["rows2d"]))]
+                elif path == "mxu":
+                    plan = pf.mxu_step_plan(pf.slice_batch(plans, i))
+                elif path == "ragged":
+                    plan = pf.csr_plan(pf.slice_batch(plans, i))
                 else:
-                    plan = pf.plan_tuple(pf.slice_batch(plans, i))
+                    plan = sp.Plan(**pf.slice_batch(plans, i))
                 # rank_offset rows are batch-local: the slice needs no base
                 extras = {k: v for k, v in bt.items()
                           if k not in _STEP_PLANES}

@@ -3,9 +3,9 @@ JAX package.
 
 * ``mxu_path`` with an expand table (3 slots, capacity 2, D 4, Dex 3,
   batch 64, as tests/test_mxu_path.py's expand cases): the pull
-  ([B, S, 3 + D + Dex]), and the merged push with the adagrad rule, for
-  both crossings, untrimmed and trimmed plans, against the JAX package's
-  (its Pallas kernels in interpret mode).  The JAX kernels sum a hi/lo
+  ([B, S, 3 + D + Dex]), and the merged push with the adagrad rule,
+  untrimmed and trimmed plans, against the JAX package's under both of
+  its crossings (its Pallas kernels in interpret mode).  The JAX kernels sum a hi/lo
   bf16 split of their f32 inputs (ps/mxu_path.py: ~1e-5 relative), so
   values are held within rtol 1e-5 / atol 1e-5, as in
   tests/test_torch_mxu_path.py; the port's pull is also held to an f32
@@ -123,7 +123,7 @@ def test_mxu_pull_with_expand_matches_jax(crossing, trimmed):
     jd, jplan, td, tplan = _plans(idx, trimmed)
     want = jmxu.pull_pool_cvm(jws, jplan, jd, (S, L, b), True,
                               interpret=True, crossing=crossing)
-    got = tmxu.pull_pool_cvm(tws, tplan, td, (S, L, b), True, crossing)
+    got = tmxu.pull_pool_cvm(tws, tplan, td, (S, L, b), True)
     assert tuple(got.shape) == (b, S, 3 + D + DX)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **KERNEL_TOL)
     # the port's own pull against an f32 pooling of the gathered values
@@ -157,7 +157,7 @@ def test_mxu_push_with_expand_matches_jax(crossing, trimmed, thresh):
     got = tmxu.push_and_update(
         tws, tplan, td, torch.as_tensor(idx), torch.as_tensor(d_pooled),
         torch.as_tensor(ins_cvm), torch.as_tensor(slot_ids),
-        TSgd(mf_create_thresholds=thresh), crossing)
+        TSgd(mf_create_thresholds=thresh))
     _assert_fields(got, want, **KERNEL_TOL)
     assert not torch.equal(got["mf_ex"], ex_before)     # mf_ex trained
 

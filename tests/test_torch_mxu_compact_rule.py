@@ -2,8 +2,10 @@
 
 ``pass_feed.precompute_plans`` gives every batch the rows its push
 reaches (``rule_rows``, row 0 first, padded with row 0, and
-``rule_keep``), and ``mxu_path.push_and_update`` then steps those rows
-alone (``apply_push(rows=)``) instead of every working-set row.  Each
+``rule_keep``; ``pass_feed.mxu_step_plan`` hands them on as the step
+plan's ``rule``), and ``mxu_path.push_and_update(rule=)`` then steps
+those rows alone (``apply_push(rows=)``) instead of every working-set
+row.  Each
 rule of ``OPTIMIZERS``, on plans trimmed and untrimmed, with and without
 the static payload planes, and with per-row dynamic mf dims, is held to
 the whole-set rule on the same plan: untouched rows and row 0 keep
@@ -27,6 +29,7 @@ from paddlebox_tpu_torch.ps import embedding as emb
 from paddlebox_tpu_torch.ps import feature_value as fv
 from paddlebox_tpu_torch.ps import mxu_path
 from paddlebox_tpu_torch.ps import optimizer as sparse_opt
+from paddlebox_tpu_torch.ps import ragged_path
 from paddlebox_tpu_torch.utils import trace
 
 RULES = tuple(sparse_opt.OPTIMIZERS)
@@ -97,10 +100,12 @@ def _grads(i, seed=2):
     return d_pooled, ins_cvm
 
 
-def _push(ws, plan, dims, idx, i, cfg):
+def _push(ws, step, dims, idx, i, cfg):
+    """``step``: a ``mxu_path.StepPlan``."""
     d_pooled, ins_cvm = _grads(i)
-    mxu_path.push_and_update(ws, plan, dims, idx, d_pooled, ins_cvm, SLOTS,
-                             cfg)
+    mxu_path.push_and_update(ws, step.plan, dims, idx, d_pooled, ins_cvm,
+                             SLOTS, cfg, payload=step.payload,
+                             rule=step.rule)
 
 
 def _clone(ws):
@@ -132,15 +137,15 @@ def _check_compact(rule, trimmed, payload, dym):
     padded = False
     ws_c, ws_w = _ws(rule), _ws(rule)
     for i in range(NB):
-        plan = pf.plan_tuple(pf.slice_batch(feed.plans, i))
-        assert len(plan) == (13 if payload else 10)
-        rule_rows, keep = plan[-2:]
-        assert bool((plan[0] == 0).any())      # row 0's run is planned
+        step = pf.mxu_step_plan(pf.slice_batch(feed.plans, i))
+        assert (step.payload is not None) == payload
+        rule_rows, keep = step.rule
+        assert bool((step.plan.rows2d == 0).any())  # row 0's run is planned
         padded |= bool((rule_rows[1:] == 0).any())
         idx = feed.data["indices"][i]
         before = _clone(ws_c)
-        _push(ws_c, plan, dims, idx, i, cfg)
-        _push(ws_w, plan[:-2], dims, idx, i, cfg)
+        _push(ws_c, step, dims, idx, i, cfg)
+        _push(ws_w, step._replace(rule=None), dims, idx, i, cfg)
         pushed = np.zeros(N, bool)
         pushed[rule_rows[keep > 0].numpy()] = True
         assert not pushed[0]
@@ -188,40 +193,46 @@ def test_rule_rows_are_each_batchs_pushed_rows():
 
 
 def test_plan_tuple_tells_the_plan_kinds_apart():
+    """The feed's two plan builders: the mxu step plan names its plan,
+    its payload planes where the pass built them and its rule rows; the
+    ragged builder names the CSR plan; a plan wider than the step's
+    geometry is refused."""
     feed, _ = _plans(True, True)
     mxu = pf.slice_batch(feed.plans, 0)
-    plan = pf.plan_tuple(mxu)
-    assert len(plan) == 13
-    assert plan[-2] is mxu["rule_rows"] and plan[-1] is mxu["rule_keep"]
-    assert mxu_path.plan_parts(plan)[1] == (mxu["rule_rows"],
-                                            mxu["rule_keep"])
+    step = pf.mxu_step_plan(mxu)
+    assert all(getattr(step.plan, k) is mxu[k] for k in pf.PLAN_KEYS)
+    assert all(getattr(step.payload, k) is mxu[k]
+               for k in mxu_path.PayloadPlanes._fields)
+    assert step.rule.rows is mxu["rule_rows"]
+    assert step.rule.keep is mxu["rule_keep"]
     no_payload = {k: v for k, v in mxu.items()
-                  if k not in ("bs", "labelcol", "slotcol")}
-    payload, rows = mxu_path.plan_parts(pf.plan_tuple(no_payload))
-    assert payload is None and rows[0] is mxu["rule_rows"]
+                  if k not in mxu_path.PayloadPlanes._fields}
+    step = pf.mxu_step_plan(no_payload)
+    assert step.payload is None and step.rule.rows is mxu["rule_rows"]
     csr = pf.build_csr_plans(feed.data["indices"].numpy()
                              .transpose(1, 0, 3, 2).reshape(S, NB * B, L),
                              SLOTS.tolist(), NB, B)
-    ragged = pf.plan_tuple({k: torch.as_tensor(v[0])
-                            for k, v in csr.items()})
-    assert len(ragged) == 5 and ragged[3] is not None
-    assert mxu_path.plan_parts(plan[:8]) == (None, None)
-    with pytest.raises(ValueError):
-        mxu_path.push_and_update(_ws("adagrad"), plan[:9], _dims(),
+    ragged = pf.csr_plan({k: torch.as_tensor(v[0]) for k, v in csr.items()})
+    assert isinstance(ragged, ragged_path.CsrPlan)
+    np.testing.assert_array_equal(ragged.u_rows.numpy(), csr["u_rows"][0])
+    narrow = sp.spmm_dims(S * L * B // 2, N, chunk=32, tile=64)
+    with pytest.raises(ValueError, match="chunks"):
+        mxu_path.push_and_update(_ws("adagrad"), step.plan, narrow,
                                  feed.data["indices"][0], *_grads(0), SLOTS,
                                  SparseSGDConfig())
 
 
 @pytest.mark.parametrize("rule", RULES)
 def test_in_step_plan_keeps_the_whole_set_rule(rule, monkeypatch):
-    """The streaming step's in-step 8-tuple steps every row, through the
-    rule on the whole working set, as before the row lists."""
+    """The streaming step's in-step plan (no rule rows) steps every row,
+    through the rule on the whole working set, as before the row
+    lists."""
     cfg = SparseSGDConfig(optimizer=rule, mf_create_thresholds=2.0)
     feed = _feed()
     dims = _dims()
     idx = feed.data["indices"][0]
-    plan = mxu_path.build_plan(idx, dims)
-    assert len(plan) == 8
+    step = mxu_path.StepPlan(mxu_path.build_plan(idx, dims))
+    assert step.payload is None and step.rule is None
     calls = []
     apply = sparse_opt.apply_push
 
@@ -234,7 +245,7 @@ def test_in_step_plan_keeps_the_whole_set_rule(rule, monkeypatch):
     trace.disable()
     tracer = trace.enable()
     try:
-        _push(ws, plan, dims, idx, 0, cfg)
+        _push(ws, step, dims, idx, 0, cfg)
     finally:
         trace.disable()
     (acc, a, k), = calls
@@ -251,12 +262,12 @@ def test_in_step_plan_keeps_the_whole_set_rule(rule, monkeypatch):
 
 def test_packed_plan_span_counts_the_row_list():
     feed, dims = _plans(True, True)
-    plan = pf.plan_tuple(pf.slice_batch(feed.plans, 0))
+    step = pf.mxu_step_plan(pf.slice_batch(feed.plans, 0))
     ws = _ws("adagrad")
     trace.disable()
     tracer = trace.enable()
     try:
-        _push(ws, plan, dims, feed.data["indices"][0], 0, SparseSGDConfig())
+        _push(ws, step, dims, feed.data["indices"][0], 0, SparseSGDConfig())
     finally:
         trace.disable()
     rows = [s["attrs"]["rows"] for s in tracer.spans()

@@ -4,13 +4,17 @@ One working set (host rows from a numpy seed) and one batch (planned
 untrimmed, and trimmed as the packed feed plans it) go through
 ``mxu_path.pull_pool_cvm`` and ``mxu_path.push_and_update`` (adagrad) of
 both packages.  The JAX side runs its Pallas kernels in interpret mode;
-the port runs on the CPU (the kernels' plain versions).
+the port runs on the CPU (the kernels' plain versions).  Every plan
+record the port builds reads back by name, and the trainer hands each
+step the record its lowering takes.
 
 Tolerance rtol 1e-5 / atol 1e-5: the Pallas kernels sum a hi/lo bf16
 split of their f32 inputs (~1e-5 relative, mxu_path.py:11-12), while the
 port's plain versions copy and add in f32; everything else is the same
 elementwise f32 math.
 """
+
+import types
 
 import numpy as np
 import jax.numpy as jnp
@@ -22,9 +26,14 @@ from paddlebox_tpu.ps import embedding as jemb, feature_value as jfv
 from paddlebox_tpu.ops import sorted_spmm as jsp
 from paddlebox_tpu.ps import mxu_path as jmxu
 from paddlebox_tpu_torch.config import SparseSGDConfig as TSgd
+from paddlebox_tpu_torch.data import pass_feed as tpf
+from paddlebox_tpu_torch.models.deepfm import DeepFM as TDeepFM
 from paddlebox_tpu_torch.ps import embedding as temb
 from paddlebox_tpu_torch.ops import sorted_spmm as tsp
 from paddlebox_tpu_torch.ps import mxu_path as tmxu
+from paddlebox_tpu_torch.ps import ragged_path as trag
+
+import torch_parity_helpers as h
 
 N, D, S, L, B = 300, 4, 5, 3, 16
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -141,3 +150,107 @@ def test_trimmed_plan_matches_jax(thresh):
             np.testing.assert_array_equal(g, w, err_msg=k)
         else:
             np.testing.assert_allclose(g, w, err_msg=k, **TOL)
+
+
+def _plan_vs_jax(trimmed):
+    """build_plan's Plan: the JAX package's 8-tuple, field by field."""
+    idx = _batch(3, 128)[0]
+    jd, td = jmxu.make_dims(S * L * 128, N), tmxu.make_dims(S * L * 128, N)
+    jeff = teff = None
+    if trimmed:
+        real = int((idx != 0).sum())
+        jeff, teff = jsp.trimmed_dims(jd, real), tsp.trimmed_dims(td, real)
+    jplan = jmxu.build_plan(jnp.asarray(idx), jd, jeff)
+    tplan = tmxu.build_plan(torch.as_tensor(idx), td, teff)
+    assert isinstance(tplan, tsp.Plan) and len(jplan) == len(tplan)
+    assert tpf.PLAN_KEYS == tsp.Plan._fields
+    for name, want in zip(tsp.Plan._fields, jplan):
+        np.testing.assert_array_equal(getattr(tplan, name).numpy(),
+                                      np.asarray(want), err_msg=name)
+    assert (tmxu.plan_eff_dims(tplan, td) is None) == (not trimmed)
+
+
+def _steps(monkeypatch, module, path, packed):
+    """One batch of a trainer pass on ``path``, with ``module``'s
+    ``push_and_update`` recording the plan and keywords it is handed;
+    returns (the records, the pass's feed or None)."""
+    seen = []
+    push = module.push_and_update
+
+    def spy(ws, plan, *a, **k):
+        seen.append((plan, k))
+        return push(ws, plan, *a, **k)
+
+    monkeypatch.setattr(module, "push_and_update", spy)
+    cfg, data = h.datasets(h.TORCH, nb=1)
+    eng = h.engine(h.TORCH, data)
+    tr = h.TORCH.Trainer(eng, TDeepFM(h.S, 3 + h.MF, h.DENSE,
+                                      hidden=(16, 16)),
+                         cfg, batch_size=h.B, seed=3, sparse_path=path,
+                         device="cpu")
+    feed = tr.build_pass_feed(data[0]) if packed else None
+    tr.train_pass(feed if packed else data[0])
+    assert len(seen) == 1
+    return seen[0], feed
+
+
+def _assert_batch0(record, feed, keys):
+    """Each named field of ``record`` is the feed's batch-0 plane."""
+    for name, key in keys:
+        assert torch.equal(getattr(record, name), feed.plans[key][0]), key
+
+
+def _in_step(monkeypatch):
+    (plan, kw), _ = _steps(monkeypatch, tmxu, "mxu", packed=False)
+    assert isinstance(plan, tsp.Plan)
+    assert kw.get("payload") is None and kw.get("rule") is None
+
+
+def _packed(monkeypatch):
+    (plan, kw), feed = _steps(monkeypatch, tmxu, "mxu", packed=True)
+    assert isinstance(plan, tsp.Plan)
+    _assert_batch0(plan, feed, zip(tsp.Plan._fields, tpf.PLAN_KEYS))
+    assert isinstance(kw["payload"], tmxu.PayloadPlanes)
+    _assert_batch0(kw["payload"], feed, [(k, k) for k in
+                                         ("bs", "labelcol", "slotcol")])
+    assert isinstance(kw["rule"], tmxu.RuleRows)
+    _assert_batch0(kw["rule"], feed, [("rows", "rule_rows"),
+                                      ("keep", "rule_keep")])
+
+
+def _packed_no_payload(monkeypatch):
+    """Without slot ids the feed builds no payload planes (as for labels
+    of several columns): the record has the plan and the rule rows."""
+    idx = torch.as_tensor(np.stack([_batch(4)[0], _batch(5)[0]]))
+    feed = types.SimpleNamespace(
+        data={"indices": idx, "labels": torch.zeros((2, B))}, plans=None)
+    dims = tmxu.make_dims(S * L * B, N)
+    tpf.precompute_plans(feed, dims)
+    step = tpf.mxu_step_plan(tpf.slice_batch(feed.plans, 0))
+    assert step.payload is None and isinstance(step.rule, tmxu.RuleRows)
+    _assert_batch0(step.plan, feed, zip(tsp.Plan._fields, tpf.PLAN_KEYS))
+    _assert_batch0(step.rule, feed, [("rows", "rule_rows"),
+                                     ("keep", "rule_keep")])
+    assert torch.equal(step.plan.rows2d,
+                       tmxu.build_plan(idx[0], dims).rows2d)
+
+
+def _ragged(monkeypatch):
+    (plan, kw), feed = _steps(monkeypatch, trag, "ragged", packed=True)
+    assert isinstance(plan, trag.CsrPlan) and not kw
+    _assert_batch0(plan, feed, [(k, k) for k in trag.CsrPlan._fields])
+
+
+PLAN_KINDS = {
+    "jax_untrimmed": lambda mp: _plan_vs_jax(False),
+    "jax_trimmed": lambda mp: _plan_vs_jax(True),
+    "in_step": _in_step,
+    "packed_no_payload": _packed_no_payload,
+    "packed": _packed,
+    "ragged": _ragged,
+}
+
+
+@pytest.mark.parametrize("kind", list(PLAN_KINDS))
+def test_plans_read_back_by_name(kind, monkeypatch):
+    PLAN_KINDS[kind](monkeypatch)

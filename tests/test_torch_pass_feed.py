@@ -174,7 +174,11 @@ def test_upload_and_plans_match_jax():
     for k in jfeed.plans:
         np.testing.assert_array_equal(tfeed.plans[k].numpy(),
                                       np.asarray(jfeed.plans[k]), err_msg=k)
-    assert len(tpf.plan_tuple(tpf.slice_batch(tfeed.plans, 1))) == 13
+    step = tpf.mxu_step_plan(tpf.slice_batch(tfeed.plans, 1))
+    for k, a in zip(tpf.PLAN_KEYS, step.plan):
+        assert torch.equal(a, tfeed.plans[k][1]), k
+    assert torch.equal(step.payload.bs, tfeed.plans["bs"][1])
+    assert torch.equal(step.rule.rows, tfeed.plans["rule_rows"][1])
 
     want = jpf.build_csr_plans(want_h.indices, slot_ids, n, b)
     got = tpf.build_csr_plans(got_h.indices, slot_ids, n, b)

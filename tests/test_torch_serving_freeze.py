@@ -208,7 +208,7 @@ def test_ragged_pull_over_the_frozen_set(use_cvm):
     tp = tpf.build_csr_plans(sbl, slot_ids, 1, B)
     names = ("seg", "inv", "occ_w", "u_rows", "u_slot")
     jplan = tuple(jnp.asarray(jp[k][0]) for k in names)
-    tplan = tuple(torch.as_tensor(tp[k][0]) for k in names)
+    tplan = trag.CsrPlan(*(torch.as_tensor(tp[k][0]) for k in names))
     want = jrag.pull_pool_cvm(jeng.ws, jplan, (S, L, B), use_cvm)
     got = trag.pull_pool_cvm(teng.ws, tplan, (S, L, B), use_cvm)
     ref = trag.pull_pool_cvm(f32, tplan, (S, L, B), use_cvm)
