@@ -25,7 +25,14 @@ result line is printed):
    scatter run again at W = 20 (3 + 8 + 8 + 1 pull, 8 + 8 + 4 push: an
    expand table with mf_ex width 8), where the scatter stages its 12
    payload columns per round twice, the second round partial (8), under
-   the same checks.  Times are device times:
+   the same checks.  The mxu pull at the benchmark cells' shapes
+   (``pull_parts_phase``): each cell's feed as portbench's steady-pass
+   set-up builds it (seed 7) and batch 0's plan, after one pass and
+   with every row created — the pull table's rebuild,
+   ``gather_sorted`` and ``pool_sorted_cvm`` timed alone and the whole
+   pull, the pool bit-equal to its plain version and beside an
+   ``index_select`` + sum pool and its byte bound.  Times are device
+   times:
    CUDA events around back-to-back calls that are enqueued behind a
    device-side sleep, so host work between calls leaves no gaps;
 3. slice  — train one DeepFM pass (26 slots × capacity 3, mf_dim 8,
@@ -490,12 +497,14 @@ import torch
 from paddlebox_tpu_torch import flags
 from paddlebox_tpu_torch.config import (DataFeedConfig, EmbeddingTableConfig,
                                         SlotConfig, SparseSGDConfig)
+from paddlebox_tpu_torch.data import pass_feed as pf
 from paddlebox_tpu_torch.data.dataset import SlotDataset
 from paddlebox_tpu_torch.data.slot_record import SlotRecordBlock
 from paddlebox_tpu_torch.models.deepfm import DeepFM
 from paddlebox_tpu_torch.ops import cuda_lib
 from paddlebox_tpu_torch.ops import pallas_gather as pg
 from paddlebox_tpu_torch.ops import sorted_spmm as sp
+from paddlebox_tpu_torch.ps import mxu_path
 from paddlebox_tpu_torch.ps.embedding import size_bucket
 from paddlebox_tpu_torch.ps.pass_manager import BoxPSEngine
 from paddlebox_tpu_torch.trainer.trainer import SparseTrainer
@@ -516,18 +525,24 @@ HBM_BYTES_PER_S = 3.35e12                  # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12                     # H100 SXM, outside tensor cores
 KERNELS = {"gather_sorted": sp.gather_sorted,
            "scatter_add_sorted": sp.scatter_add_sorted,
-           "gather_pool": pg.gather_pool}
+           "gather_pool": pg.gather_pool,
+           "pool_sorted_cvm": sp.pool_sorted_cvm}
 SOURCES = {"gather_sorted": "paddlebox_tpu_torch/csrc/sorted_spmm.cu",
            "scatter_add_sorted": "paddlebox_tpu_torch/csrc/sorted_spmm.cu",
-           "gather_pool": "paddlebox_tpu_torch/csrc/gather_pool.cu"}
+           "gather_pool": "paddlebox_tpu_torch/csrc/gather_pool.cu",
+           "pool_sorted_cvm": "paddlebox_tpu_torch/csrc/sorted_spmm.cu"}
 REPLACES = {"gather_sorted": "paddlebox_tpu/ops/sorted_spmm.py:238",
             "scatter_add_sorted": "paddlebox_tpu/ops/sorted_spmm.py:263",
-            "gather_pool": "paddlebox_tpu/ops/pallas_gather.py:82"}
+            "gather_pool": "paddlebox_tpu/ops/pallas_gather.py:82",
+            # no Pallas kernel: XLA ops of the JAX package's mxu pull
+            "pool_sorted_cvm": "none (XLA ops in paddlebox_tpu/ps/"
+                               "mxu_path.py:158 pull_pool_cvm)"}
 # the CUDA kernels each wrapper launches, as the profiler names them
 SYMBOLS = {"gather_sorted": ("gather_sorted_kernel",),
            "scatter_add_sorted": ("scatter_tiles_kernel",
                                   "scatter_combine_kernel"),
-           "gather_pool": ("gather_pool_kernel",)}
+           "gather_pool": ("gather_pool_kernel",),
+           "pool_sorted_cvm": ("pool_sorted_cvm_kernel",)}
 # cuBLAS GEMM kernels as the profiler names them (the MLP's matmuls)
 GEMM_MARKS = ("gemm", "nvjet", "splitK")
 
@@ -802,6 +817,130 @@ def gather_pool_phase(dev: torch.device, seed: int = 0,
     return results
 
 
+PULL_CELLS = ("widedeep.steady", "dlrmv2.steady")   # BENCHMARK.json's
+PULL_SEED = 7
+
+
+def cell_feed(workload: str, seed: int, device: str = "cuda"):
+    """The engine, trainer and pass feed that the benchmark's steady-pass
+    set-up (``portbench/drivers/steady_pass.py``) builds for ``workload``
+    from ``seed`` on ``device``, as before its first pass."""
+    from portbench import harness, traffic
+    steady = harness.load_module("drivers", "steady_pass")
+    cell, cfg, tr = harness.cell_files(harness.load_benchmark(), workload)
+    ctx = harness.Context(cell=cell, config=cfg, traffic=tr, seed=seed,
+                          seconds=0.0, trace=False, device=device, chips=1,
+                          t_start=time.perf_counter())
+    seeds = steady._seeds(seed)
+    records = traffic.make_pass(tr, int(cfg["batch_size"]),
+                                seeds["traffic"], device)
+    engine, trainer, feed, _, _ = steady.program(ctx, records, seeds)
+    return engine, trainer, feed
+
+
+def pool_library(g: torch.Tensor, inv: torch.Tensor, slb, use_cvm: bool):
+    """The pool as PyTorch would do it: an ``index_select`` crossing of
+    the feature-major values, the masks, ``torch.sum`` over L and the
+    CVM (the yardstick of ``pool_sorted_cvm``; the port never calls
+    it)."""
+    s, l, b = slb
+    w = g.shape[0]
+    v = torch.index_select(g, 1, torch.clamp(inv, min=0).long())
+    live = (inv >= 0).to(g.dtype)
+    made = live * (v[w - 1] > 0).to(g.dtype)
+    v = torch.cat([v[:3] * live, v[3:w - 1] * made])
+    x = torch.sum(v.reshape(w - 1, s, l, b), dim=2)        # [W-1, S, B]
+    if use_cvm:
+        show = torch.log(x[0] + 1.0)
+        x = torch.cat([torch.stack([show, torch.log(x[1] + 1.0) - show]),
+                       x[2:]])
+    return x.permute(2, 1, 0).contiguous()
+
+
+def pull_parts(what: str, ws: dict, plan, dims, slb, use_cvm: bool) -> dict:
+    """The mxu pull of one batch in its three parts, each timed alone
+    (the pull table's rebuild, ``gather_sorted``, ``pool_sorted_cvm``)
+    and whole; the pool bit-equal to its plain version, within rtol
+    1e-5 of the library's, beside its byte bound: inv_perm in, each live
+    occurrence's head columns and mf_size (its embedding columns where
+    created) in, the pooled rows out."""
+    s, l, b = slb
+    kd = mxu_path.plan_eff_dims(plan, dims) or dims
+    inv = plan.inv_perm
+    tab = mxu_path._pull_table(ws, dims)
+    g = sp.gather_sorted(tab, plan.rows2d, kd)
+    w = g.shape[0]
+    got = twice(f"{what} pool_sorted_cvm",
+                lambda: sp.pool_sorted_cvm(g, inv, slb, use_cvm))
+    want = sp.pool_sorted_cvm_plain(g, inv, slb, use_cvm)
+    lib = pool_library(g, inv, slb, use_cvm)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"{what}: pool_sorted_cvm != plain: max err "
+                             f"{float((got - want).abs().max())}")
+    lib_err = float((got - lib).abs().max())
+    if not torch.allclose(got, lib, rtol=1e-5, atol=1e-5):
+        raise AssertionError(f"{what}: pool_sorted_cvm off the library's "
+                             f"pool by {lib_err}")
+    q = inv[inv >= 0].long()
+    live, made = q.numel(), int((g[w - 1, q] > 0).sum())
+    pool = {"ms": time_ms(f"{what} pool_sorted_cvm",
+                          lambda: sp.pool_sorted_cvm(g, inv, slb, use_cvm)),
+            "plain_ms": time_ms(f"{what} pool_sorted_cvm_plain",
+                                lambda: sp.pool_sorted_cvm_plain(
+                                    g, inv, slb, use_cvm)),
+            "library_ms": time_ms(f"{what} index_select + sum",
+                                  lambda: pool_library(g, inv, slb,
+                                                       use_cvm)),
+            "max_abs_err": 0.0, "library_abs_err": lib_err}
+    pool["bound_ms"], pool["bound_by"] = bound_ms(
+        4 * inv.numel() + 16 * live + 4 * (w - 4) * made
+        + 4 * b * s * (w - 1), 3 * live + (w - 4) * made)
+    out = {"W": w, "S": s, "L": l, "B": b, "kept": kd.p_pad,
+           "live": live, "created_share": made / max(live, 1),
+           "rebuild_ms": time_ms(f"{what} pull table",
+                                 lambda: mxu_path._pull_table(ws, dims)),
+           "gather_ms": time_ms(f"{what} gather_sorted",
+                                lambda: sp.gather_sorted(tab, plan.rows2d,
+                                                         kd)),
+           "pool": pool,
+           "pull_ms": time_ms(f"{what} pull_pool_cvm",
+                              lambda: mxu_path.pull_pool_cvm(
+                                  ws, plan, dims, slb, use_cvm))}
+    log(f"{what}: W {w}, L {l}, kept {kd.p_pad}, live {live}, created "
+        f"share {out['created_share']:.4f}; pull {out['pull_ms']:.4f} ms = "
+        f"rebuild {out['rebuild_ms']:.4f} + gather {out['gather_ms']:.4f} "
+        f"+ pool {pool['ms']:.4f} (plain {pool['plain_ms']:.4f}, "
+        f"index_select + sum {pool['library_ms']:.4f}, bound "
+        f"{pool['bound_ms']:.4f} by {pool['bound_by']}); {card_line()}")
+    return out
+
+
+def pull_parts_phase(seed: int = PULL_SEED, device: str = "cuda") -> dict:
+    """The mxu pull's parts on batch 0's plan of each benchmark cell's
+    feed (:func:`cell_feed`, seed ``seed``): with the working set after
+    one pass over the feed (the rows created so far), then with every
+    row created (the pool's most work)."""
+    out = {}
+    for cell in PULL_CELLS:
+        engine, trainer, feed = cell_feed(cell, seed, device)
+        trainer.train_pass(feed)
+        ws = engine.ws
+        plan = pf.mxu_step_plan(pf.slice_batch(feed.plans, 0)).plan
+        s, l, b = feed.data["indices"].shape[1:]
+        dims = mxu_path.make_dims(s * l * b, ws["show"].shape[0])
+        out[cell] = {"after_one_pass": pull_parts(
+            f"pull_parts[{cell}, after one pass]", ws, plan, dims,
+            (s, l, b), trainer.use_cvm)}
+        ws["mf_size"].fill_(ws["mf"].shape[1])
+        out[cell]["all_created"] = pull_parts(
+            f"pull_parts[{cell}, all created]", ws, plan, dims, (s, l, b),
+            trainer.use_cvm)
+        del engine, trainer, feed, ws, plan
+        torch.cuda.empty_cache()
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phase 3: one training pass of the slice
 # ---------------------------------------------------------------------------
@@ -1032,7 +1171,8 @@ def slice_phase(seed: int = 0):
     wall = time.perf_counter() - t0
     launches = read_counts()
     check_pass("slice", stats, launches,
-               {"gather_sorted": 1, "scatter_add_sorted": 1})
+               {"gather_sorted": 1, "scatter_add_sorted": 1,
+                "pool_sorted_cvm": 1})
     losses = stats["losses"]
     step_ms = stats["step_ms"]
     steady = float(np.median(step_ms[1:]))
@@ -1049,7 +1189,8 @@ def slice_phase(seed: int = 0):
 
 
 # kernels each packed lowering must launch, per batch
-PACKED_KERNELS = {"mxu": {"gather_sorted": 1, "scatter_add_sorted": 1},
+PACKED_KERNELS = {"mxu": {"gather_sorted": 1, "scatter_add_sorted": 1,
+                          "pool_sorted_cvm": 1},
                   "fast": {"gather_pool": 1, "scatter_add_sorted": 1},
                   "ragged": {"scatter_add_sorted": 2}}
 
@@ -2338,7 +2479,7 @@ def rank_phase(seed: int = 13):
     block = rank_block(rng)
     launches, out, runs = {}, {}, {}
     per_batch = {"gather_sorted": 1, "scatter_add_sorted": 1,
-                 "gather_pool": 0}
+                 "gather_pool": 0, "pool_sorted_cvm": 1}
     params0 = None
     for mode in ("streaming", "packed"):
         reset_counts()
@@ -2450,7 +2591,7 @@ def rank_phase(seed: int = 13):
 # ---------------------------------------------------------------------------
 
 OPTIONS_KERNELS = {"gather_sorted": 1, "scatter_add_sorted": 1,
-                   "gather_pool": 0}
+                   "gather_pool": 0, "pool_sorted_cvm": 1}
 
 
 @contextlib.contextmanager
@@ -2955,7 +3096,8 @@ def cluster_phase(seed: int = 18, device: str = "cuda",
             world, params0, r = cluster_run(files, n, prefetch, cache_rows,
                                             chaos, device)
             launches[label] = r["launches"]
-            for name in ("gather_sorted", "scatter_add_sorted"):
+            for name in ("gather_sorted", "scatter_add_sorted",
+                         "pool_sorted_cvm"):
                 if r["launches"][name] != n_batches:
                     raise AssertionError(
                         f"{what}: {name} launched {r['launches'][name]} "
@@ -3110,7 +3252,7 @@ def serving_train_dump(files, work: str, device: str):
         torch.cuda.synchronize()
     launches = read_counts()
     n_batches = len(LIFE_DATES) * CLUSTER_PASSES * N_BATCHES
-    for name in ("gather_sorted", "scatter_add_sorted"):
+    for name in ("gather_sorted", "scatter_add_sorted", "pool_sorted_cvm"):
         if device == "cuda" and launches[name] != n_batches:
             raise AssertionError(f"serving[a]: {name} launched "
                                  f"{launches[name]} times over {n_batches} "
@@ -4000,7 +4142,8 @@ def trainer_fleet_phase(paths, seed: int = 21, device: str = "cuda"):
                     raise AssertionError(f"{what}: restarts "
                                          f"{r['restarts']}, shadow replays "
                                          f"{r['shadow_replays']}")
-            for k in ("gather_sorted", "scatter_add_sorted"):
+            for k in ("gather_sorted", "scatter_add_sorted",
+                      "pool_sorted_cvm"):
                 if r["launches"][k] != want:
                     raise AssertionError(
                         f"{what}: {k} launched {r['launches'][k]} times "
@@ -4569,7 +4712,7 @@ def graph_phase(seed: int = 22, device: str = "cuda", keep: dict = None):
     stats = dict(tr.stats)
     steps = len(stats["losses"])
     if launches != {"gather_sorted": steps, "scatter_add_sorted": steps,
-                    "gather_pool": 0}:
+                    "gather_pool": 0, "pool_sorted_cvm": 0}:
         raise AssertionError(f"graph: launches {launches} over {steps} "
                              f"steps (want one of each sorted kernel a "
                              f"step, no gather_pool)")
@@ -5470,7 +5613,7 @@ def paths_day(block: SlotRecordBlock, device: str, host: str) -> tuple:
         want = PATHS_DAY_PASSES * PATHS_DAY_BATCHES
         if device.startswith("cuda") and launches[name] != {
                 "gather_sorted": want, "scatter_add_sorted": want,
-                "gather_pool": 0}:
+                "gather_pool": 0, "pool_sorted_cvm": 0}:
             raise AssertionError(f"multicard_paths[h,{name}]: launches "
                                  f"{launches[name]} for {want} steps of "
                                  "one card shard")
@@ -5533,6 +5676,7 @@ def multicard_paths_phase(block: SlotRecordBlock, params0,
         predicted = {name: PATHS_BATCHES * blocks * n for name, n in
                      zip(("gather_sorted", "scatter_add_sorted",
                           "gather_pool"), per_block)}
+        predicted["pool_sorted_cvm"] = 0     # the row blocks pool by hand
         if device.startswith("cuda"):
             check_pass(what, stats, launches[label],
                        {k: v // PATHS_BATCHES for k, v in predicted.items()},
@@ -5905,6 +6049,7 @@ def multicard_models_phase(block: SlotRecordBlock, params0,
         predicted = {name: n_steps * cards * n for name, n in
                      zip(("gather_sorted", "scatter_add_sorted",
                           "gather_pool"), per_block)}
+        predicted["pool_sorted_cvm"] = 0     # no one-device mxu pull
         if launches[label] != predicted:
             raise AssertionError(f"{what}: launches {launches[label]}, "
                                  f"predicted {predicted} ({cards} card "
@@ -6195,7 +6340,8 @@ def multiprocess_phase(block: SlotRecordBlock, params0, seed: int = 2):
     launches = {}
     for r in got:
         want = {"gather_sorted": shards * MP_STEPS,
-                "scatter_add_sorted": shards * MP_STEPS, "gather_pool": 0}
+                "scatter_add_sorted": shards * MP_STEPS, "gather_pool": 0,
+                "pool_sorted_cvm": 0}
         if r["launches"] != want:
             raise AssertionError(f"multiprocess: rank {r['rank']} launched "
                                  f"{r['launches']}, want {want}")
@@ -6453,6 +6599,7 @@ def multiprocess_split_phase(block: SlotRecordBlock, params0,
             n_blocks = len(r["local_row_blocks"])
             predicted = {k: v * n_blocks * SPLIT_STEPS
                          for k, v in per_block.items()}
+            predicted["pool_sorted_cvm"] = 0  # no one-device mxu pull
             if r["launches"] != predicted:
                 raise AssertionError(
                     f"{what}: rank {g['rank']} launched {r['launches']}, "
@@ -6929,7 +7076,8 @@ def multiprocess_models_phase(graph_data: dict = None,
             raise AssertionError(f"{what}: resolved {a['path']}, want {want}")
         steps = len(a["losses"]) * (2 if name == "u" else 1)
         predicted = dict(zip(("gather_sorted", "scatter_add_sorted",
-                              "gather_pool"), (n * steps for n in per_block)))
+                              "gather_pool"), (n * steps for n in per_block)),
+                         pool_sorted_cvm=0)
         for g in got:
             if card and g["runs"][name]["launches"] != predicted:
                 raise AssertionError(
@@ -7066,6 +7214,7 @@ def main() -> int:
     pool = timed("gather_pool", gather_pool_phase, dev)
     for dist in pool:     # the fast path's table layout
         kern[dist]["gather_pool"] = pool[dist]["stride12"]
+    pull = timed("pull_parts", pull_parts_phase)
     slice_launches, slice_out, slice_block, slice_params = timed(
         "slice", slice_phase)
     packed_launches, packed_out, packed_block, packed_params = timed(
@@ -7148,8 +7297,14 @@ def main() -> int:
                   for p, n in mpm_launches.items()}}
     line = {"kernels": []}
     for name in KERNELS:
-        k = kern["uniform"][name]
         at = {}
+        if name == "pool_sorted_cvm":
+            # batch 0's plan of each benchmark cell's feed, every row
+            # created: W = 132 (dlrmv2.steady), and W = 36 beside it
+            k = pull["dlrmv2.steady"]["all_created"]["pool"]
+            at["at_w36"] = pull["widedeep.steady"]["all_created"]["pool"]
+        else:
+            k = kern["uniform"][name]
         if name in kern_ex["uniform"]:
             # the expand table's width, uniform ids (phase 13's path)
             k20 = kern_ex["uniform"][name]
@@ -7218,14 +7373,16 @@ def main() -> int:
         line["kernels"].append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name],
-            "launches": sum(n[name] for n in by_path.values()),
-            "launches_by_path": {p: n[name] for p, n in by_path.items()},
-            "max_abs_err": max(kern[d][name]["max_abs_err"] for d in kern
-                               if name in kern[d]),
+            "launches": sum(n.get(name, 0) for n in by_path.values()),
+            "launches_by_path": {p: n.get(name, 0)
+                                 for p, n in by_path.items()},
+            "max_abs_err": max([kern[d][name]["max_abs_err"] for d in kern
+                                if name in kern[d]] or [k["max_abs_err"]]),
             "ms": k["ms"], "plain_ms": k["plain_ms"],
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
             "library_ms": k["library_ms"], **at})
     log("detail: " + json.dumps({"kernels_by_dist": kern,
+                                 "pull_parts": pull,
                                  "kernels_by_dist_w20": kern_ex,
                                  "gather_pool_by_layout": pool,
                                  "slice": slice_out, "packed": packed_out,

@@ -1,9 +1,11 @@
-// Sorted-occurrence gather and merged scatter for Hopper (sm_90a).
+// Sorted-occurrence gather and merged scatter for Hopper (sm_90a), and the
+// mxu pull's pooling of the gathered values.
 //
 // Replaces the two Pallas kernels of paddlebox_tpu/ops/sorted_spmm.py:
 //   gather_sorted       (_gather_kernel)  — the mxu pull
 //   scatter_add_sorted  (_scatter_kernel) — the mxu merged push, and through
 //                        segment_sum the fast and ragged merges
+// pool_sorted_cvm replaces no Pallas kernel; its note is at the kernel.
 // The TPU versions walk a (512-occurrence chunk x 2048-row tile) worklist
 // of one-hot bf16 hi/lo matmuls because TPU gathers and scatters run as
 // serial loops.  An H100 gathers natively, so both kernels here work
@@ -486,6 +488,165 @@ cudaError_t launch_tiles(const float* payload, int64_t p_pad,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// pool: the mxu pull's crossing back to canonical order, seqpool and CVM
+// ---------------------------------------------------------------------------
+//
+// pool_sorted_cvm_kernel replaces no Pallas kernel: the JAX package does
+// this step in XLA ops (paddlebox_tpu/ps/mxu_path.py, pull_pool_cvm: the
+// created mask, a take by inv_perm, the sums over L and the CVM).  For
+// each pooled row (b, s) it sums, in order l = 0, 1, ... from 0.0, the
+// gathered values g[:, q] of the occurrences q = inv_perm[s, l, b]: the
+// show, click and embed_w columns of every live occurrence (q >= 0; a
+// trimmed plan marks its dropped row-0 occurrences with q < 0), the
+// embedding columns between them and the trailing mf_size column only
+// where that column is > 0 (the row is created); then the CVM of the
+// first two columns, and it writes pooled [B, S, W - 1] contiguous.
+//
+// Bound by device-memory bytes: inv_perm [S, L, B] in, for each live
+// occurrence its three head columns and mf_size (and the W - 4 embedding
+// columns where created), and the pooled rows out, once each.  Above
+// that bound because its input is feature-major: g is gather_sorted's
+// [W, p] output, and inv_perm is a permutation, so each value an
+// occurrence reads lies in its own 32-byte sector (W sectors for one row
+// of 4 W bytes).  What the design does about it:
+// - lanes q < L of a group load the row's L positions at once, and then
+//   each live position's mf_size, so a row waits on two round trips for
+//   its positions and masks, and those are shared by shuffle and ballot;
+// - every lane issues the loads of kB occurrences (4, or L where L < 4)
+//   before the first add, so many sectors are in flight;
+// - a dropped occurrence is never read, nor the embedding columns of a
+//   row not yet created;
+// - a block holds one slot's consecutive records: its position loads
+//   coalesce, and the occurrences of one hot row, which sit side by side
+//   in g, are read close together in time (their sectors hit in cache);
+// - each group writes its pooled row as one contiguous, coalesced range.
+// Lane q of a group of G = 1 << g_log2 lanes owns pooled columns
+// j0 + q + G * i (i < kC); the host picks G and kC from W, and kB from
+// L.  No atomics: the sum's order is the plain version's, so the result
+// is bit-equal.
+//
+// Measured on batch 0's plan of each benchmark cell's feed (chip_smoke.py
+// pull_parts, after one pass; NVIDIA H100 80GB HBM3, 700.00 W): 3.46 ms at
+// W = 132, L = 16 (2.13 M kept positions, 76 % of them created) against a
+// 0.296 ms bound (PyTorch's index_select crossing and sum: 6.57 ms);
+// 0.289 ms at W = 36, L = 1 against 0.070 (0.845).  The same kernel with the
+// blocks running over slots first (a block holding one record's slots)
+// took 5.07 ms at W = 132: the slot-major order is what lets hot rows hit
+// in cache.  At W = 132, batches of 2 or 8 occurrences, 128 or 512
+// threads a block and a 64- or 85-register cap each moved the time by
+// -2 to +8 %; at W = 36, L = 1 a batch of 4 took 0.365 ms and one of 8
+// 0.755 (hence kB follows L), and 128 or 512 threads -8 or +17 %: no
+// block size won at both.  What is left is the feature-major input: a
+// prototype that first copies g to a canonical row-major plane in sorted
+// order and then pools whole rows took 1.75 ms at W = 132.
+
+constexpr int kPoolThreads = 256;
+constexpr int kPoolMaxC = 8;    // pooled columns a lane owns, at most
+
+template <int kC, int kB>
+__global__ void __launch_bounds__(kPoolThreads)
+pool_sorted_cvm_kernel(const float* __restrict__ g, int64_t p_cols,
+                       const int32_t* __restrict__ inv_perm,
+                       float* __restrict__ out, int s_n, int l_n,
+                       int64_t b_n, int w, int use_cvm, int g_log2) {
+  const int gs = 1 << g_log2;
+  const int q = threadIdx.x & (gs - 1);
+  const int base = (threadIdx.x & 31) & ~(gs - 1);
+  const unsigned mask = gs == 32 ? 0xffffffffu : ((1u << gs) - 1u) << base;
+  const int s = blockIdx.y;
+  const int64_t b = static_cast<int64_t>(blockIdx.x)
+                    * (kPoolThreads >> g_log2) + (threadIdx.x >> g_log2);
+  const bool row_ok = b < b_n;
+  const int nc = w - 1;                         // pooled columns
+  const float* made_col = g + static_cast<int64_t>(w - 1) * p_cols;
+  const int32_t* pos = inv_perm + static_cast<int64_t>(s) * l_n * b_n + b;
+
+  for (int j0 = 0; j0 < nc; j0 += gs * kC) {
+    float acc[kC];
+#pragma unroll
+    for (int i = 0; i < kC; ++i) acc[i] = 0.0f;
+    for (int l0 = 0; l0 < l_n; l0 += gs) {
+      // lane q: occurrence l0 + q's sorted position and created flag
+      int id = -1;
+      if (row_ok && l0 + q < l_n) {
+        id = __ldg(pos + static_cast<int64_t>(l0 + q) * b_n);
+      }
+      const bool made = id >= 0 && __ldg(made_col + id) > 0.0f;
+      const unsigned live = __ballot_sync(mask, id >= 0) >> base;
+      const unsigned mades = __ballot_sync(mask, made) >> base;
+      const int nb = l_n - l0 < gs ? l_n - l0 : gs;
+      for (int k0 = 0; k0 < nb; k0 += kB) {
+        // every load of the batch is issued before the first add
+        float v[kB][kC];
+        bool use[kB][kC];
+#pragma unroll
+        for (int k = 0; k < kB; ++k) {
+          const int kk = k0 + k;
+          const int src = __shfl_sync(mask, id, kk & (gs - 1), gs);
+          const bool is_live = kk < nb && ((live >> kk) & 1u);
+          const bool is_made = kk < nb && ((mades >> kk) & 1u);
+#pragma unroll
+          for (int i = 0; i < kC; ++i) {
+            const int c = j0 + q + gs * i;
+            use[k][i] = c < nc && (c < 3 ? is_live : is_made);
+            v[k][i] = 0.0f;
+            if (use[k][i]) {
+              v[k][i] = __ldg(g + static_cast<int64_t>(c) * p_cols + src);
+            }
+          }
+        }
+#pragma unroll
+        for (int k = 0; k < kB; ++k) {
+#pragma unroll
+          for (int i = 0; i < kC; ++i) {
+            if (use[k][i]) acc[i] += v[k][i];
+          }
+        }
+      }
+    }
+    if (j0 == 0 && use_cvm) {
+      // lanes 0 and 1 hold show and click (column q of word 0)
+      const float show = __shfl_sync(mask, acc[0], 0, gs);
+      const float log_show = logf(show + 1.0f);
+      if (q == 0) acc[0] = log_show;
+      if (q == 1) acc[0] = logf(acc[0] + 1.0f) - log_show;
+    }
+    if (row_ok) {
+      float* dst = out + (b * s_n + s) * nc;
+#pragma unroll
+      for (int i = 0; i < kC; ++i) {
+        const int c = j0 + q + gs * i;
+        if (c < nc) dst[c] = acc[i];
+      }
+    }
+  }
+}
+
+// One block a slot's kPoolThreads / G consecutive records: blockIdx.x
+// runs over the records, so the blocks in flight share a slot.
+template <int kC>
+cudaError_t launch_pool(const float* g, int64_t p_cols,
+                        const int32_t* inv_perm, float* out, int s_n,
+                        int l_n, int64_t b_n, int w, int use_cvm, int g_log2,
+                        cudaStream_t st) {
+  const int rows_per_block = kPoolThreads >> g_log2;
+  const dim3 grid(static_cast<unsigned int>(
+                      (b_n + rows_per_block - 1) / rows_per_block),
+                  static_cast<unsigned int>(s_n));
+  if (l_n >= 4) {
+    pool_sorted_cvm_kernel<kC, 4><<<grid, kPoolThreads, 0, st>>>(
+        g, p_cols, inv_perm, out, s_n, l_n, b_n, w, use_cvm, g_log2);
+  } else if (l_n >= 2) {
+    pool_sorted_cvm_kernel<kC, 2><<<grid, kPoolThreads, 0, st>>>(
+        g, p_cols, inv_perm, out, s_n, l_n, b_n, w, use_cvm, g_log2);
+  } else {
+    pool_sorted_cvm_kernel<kC, 1><<<grid, kPoolThreads, 0, st>>>(
+        g, p_cols, inv_perm, out, s_n, l_n, b_n, w, use_cvm, g_log2);
+  }
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int pbt_gather_sorted(const float* table, int64_t n_kernel,
@@ -532,4 +693,43 @@ extern "C" int pbt_scatter_add_sorted(const float* payload, int64_t p_pad,
   scatter_combine_kernel<<<blocks_for(n_tiles * 32), kThreads, 0, st>>>(
       carry, flags, rows, n_tiles, out, n_kernel, w);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Pooled [b_n, s_n, w - 1] from g [w, p_cols] (gather_sorted's output) and
+// inv_perm [s_n, l_n, b_n].  The group of lanes a pooled row follows W:
+// 32 lanes above 64 pooled columns, 16 above 16, else 8, each lane owning
+// up to kPoolMaxC columns a pass over the row.
+extern "C" int pbt_pool_sorted_cvm(const float* g, int64_t p_cols,
+                                   const int32_t* inv_perm, float* out,
+                                   int s_n, int l_n, int64_t b_n, int w,
+                                   int use_cvm, int device, void* stream) {
+  if (s_n == 0 || b_n == 0) return 0;
+  if (w < 4 || s_n > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const DeviceScope scope(device);
+  if (scope.err != cudaSuccess) return static_cast<int>(scope.err);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int nc = w - 1;
+  const int g_log2 = nc > 64 ? 5 : nc > 16 ? 4 : 3;
+  int kc = (nc + (1 << g_log2) - 1) >> g_log2;
+  kc = kc < kPoolMaxC ? kc : kPoolMaxC;
+  cudaError_t err;
+  switch (kc) {
+    case 1: err = launch_pool<1>(g, p_cols, inv_perm, out, s_n, l_n, b_n, w,
+                                 use_cvm, g_log2, st); break;
+    case 2: err = launch_pool<2>(g, p_cols, inv_perm, out, s_n, l_n, b_n, w,
+                                 use_cvm, g_log2, st); break;
+    case 3: err = launch_pool<3>(g, p_cols, inv_perm, out, s_n, l_n, b_n, w,
+                                 use_cvm, g_log2, st); break;
+    case 4: err = launch_pool<4>(g, p_cols, inv_perm, out, s_n, l_n, b_n, w,
+                                 use_cvm, g_log2, st); break;
+    case 5: err = launch_pool<5>(g, p_cols, inv_perm, out, s_n, l_n, b_n, w,
+                                 use_cvm, g_log2, st); break;
+    case 6: err = launch_pool<6>(g, p_cols, inv_perm, out, s_n, l_n, b_n, w,
+                                 use_cvm, g_log2, st); break;
+    case 7: err = launch_pool<7>(g, p_cols, inv_perm, out, s_n, l_n, b_n, w,
+                                 use_cvm, g_log2, st); break;
+    default: err = launch_pool<kPoolMaxC>(g, p_cols, inv_perm, out, s_n, l_n,
+                                          b_n, w, use_cvm, g_log2, st);
+  }
+  return static_cast<int>(err);
 }

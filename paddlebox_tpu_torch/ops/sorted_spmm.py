@@ -20,9 +20,16 @@ work straight on the sorted domain and ignore the worklist:
   that writes each row once: deterministic, no float atomics, and a
   cost that does not grow with the length of a run.
 
-Both are bound by device-memory bytes (see the source note in the .cu
-file).  Each wrapper takes its plain PyTorch version for a tensor on the
-CPU, and launches its kernel for a tensor on a card — it never falls
+* ``pool_sorted_cvm`` replaces no Pallas kernel (the JAX package pools
+  in XLA ops): it reads ``gather_sorted``'s output by the plan's
+  ``inv_perm`` and sum-pools each (slot, record) row over its L
+  occurrences, masking the embedding columns of rows not yet created,
+  then applies the CVM — the mxu pull's crossing back to canonical order
+  and its seqpool in one pass, in the plain version's order of adds.
+
+All three are bound by device-memory bytes (see the source notes in the
+.cu file).  Each wrapper takes its plain PyTorch version for a tensor on
+the CPU, and launches its kernel for a tensor on a card — it never falls
 back.  ``<wrapper>.launches`` counts kernel launches.
 """
 
@@ -30,7 +37,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -222,6 +229,38 @@ def scatter_add_sorted_plain(payload_fm: torch.Tensor, rows2d: torch.Tensor,
     return out.index_add_(1, rows2d.reshape(-1).long(), payload_fm)
 
 
+def pool_sorted_cvm_plain(g: torch.Tensor, inv_perm: torch.Tensor,
+                          shape_slb: Tuple[int, int, int],
+                          use_cvm: bool = True) -> torch.Tensor:
+    """g [W, p] in sorted order (W = 3 + D (+ Dex) + 1, the last row
+    mf_size), inv_perm [S·L·B] → pooled [B, S, W - 1], contiguous.
+
+    Occurrence q = inv_perm[s, l, b] adds its show, click and embed_w
+    where q >= 0 (negative: a trimmed plan's dropped row-0 occurrence),
+    and its embedding columns where also g[W - 1, q] > 0 (the row is
+    created); each pooled row sums l = 0, 1, ... in order from 0.0 (the
+    kernel's order), then the CVM of its first two columns (≙
+    ``embedding.cvm_pooled``)."""
+    s, l, b = shape_slb
+    w = g.shape[0]
+    q = inv_perm.reshape(s, l, b).long()
+    live = q >= 0
+    v = g.T[torch.clamp(q, min=0)]                         # [S, L, B, W]
+    made = live & (v[..., w - 1] > 0)
+    v = torch.cat([torch.where(live[..., None], v[..., :3], 0.0),
+                   torch.where(made[..., None], v[..., 3:w - 1], 0.0)],
+                  dim=-1)
+    acc = torch.zeros((s, b, w - 1), dtype=torch.float32, device=g.device)
+    for i in range(l):
+        acc = acc + v[:, i]
+    if use_cvm:
+        show = torch.log(acc[..., 0] + 1.0)
+        click = torch.log(acc[..., 1] + 1.0) - show
+        acc = torch.cat([torch.stack([show, click], dim=-1), acc[..., 2:]],
+                        dim=-1)
+    return acc.permute(1, 0, 2).contiguous()
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -244,6 +283,11 @@ def _lib() -> ctypes.CDLL:
         lib.pbt_scatter_scratch_floats.argtypes = [ctypes.c_int64,
                                                    ctypes.c_int]
         lib.pbt_scatter_scratch_floats.restype = ctypes.c_int64
+        lib.pbt_pool_sorted_cvm.argtypes = [_P, ctypes.c_int64, _P, _P,
+                                            ctypes.c_int, ctypes.c_int,
+                                            ctypes.c_int64, ctypes.c_int,
+                                            ctypes.c_int, ctypes.c_int, _P]
+        lib.pbt_pool_sorted_cvm.restype = ctypes.c_int
         lib.pbt_scatter_tile.argtypes = []
         lib.pbt_scatter_tile.restype = ctypes.c_int
         if lib.pbt_scatter_tile() != SCATTER_TILE:
@@ -259,7 +303,8 @@ def _check_cuda(name: str, dev: torch.device, **tensors) -> None:
     """The kernels take contiguous tensors of one card and fixed dtypes;
     anything else raises (never a silent copy or fallback)."""
     want = {"table_fm": torch.float32, "payload_fm": torch.float32,
-            "first_occ": torch.float32, "rows2d": torch.int32}
+            "first_occ": torch.float32, "rows2d": torch.int32,
+            "g": torch.float32, "inv_perm": torch.int32}
     for arg, t in tensors.items():
         if t.device != dev:
             raise ValueError(f"{name}: {arg} is on {t.device}, not {dev}")
@@ -334,5 +379,36 @@ def scatter_add_sorted(payload_fm: torch.Tensor, rows2d: torch.Tensor,
     return out
 
 
+def pool_sorted_cvm(g: torch.Tensor, inv_perm: torch.Tensor,
+                    shape_slb: Tuple[int, int, int],
+                    use_cvm: bool = True) -> torch.Tensor:
+    """The mxu pull's pooling: g [W, p] as ``gather_sorted`` writes it
+    (sorted order, last row mf_size) and the plan's inv_perm [S·L·B] →
+    pooled [B, S, W - 1] with the CVM when ``use_cvm``
+    (:func:`pool_sorted_cvm_plain` says what it sums, in which order)."""
+    if g.device.type == "cpu":
+        return pool_sorted_cvm_plain(g, inv_perm, shape_slb, use_cvm)
+    if g.device.type != "cuda":
+        raise ValueError(f"pool_sorted_cvm: unsupported device {g.device}")
+    _check_cuda("pool_sorted_cvm", g.device, g=g, inv_perm=inv_perm)
+    s, l, b = shape_slb
+    w, p_cols = g.shape
+    if inv_perm.numel() != s * l * b:
+        raise ValueError(f"pool_sorted_cvm: inv_perm has {inv_perm.numel()} "
+                         f"positions, [S, L, B] = {shape_slb}")
+    if w < 4:
+        raise ValueError(f"pool_sorted_cvm: width {w} < 4 (show, click, "
+                         "embed_w and mf_size)")
+    out = torch.empty((b, s, w - 1), dtype=torch.float32, device=g.device)
+    with torch.cuda.device(g.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        cuda_lib.check(_lib().pbt_pool_sorted_cvm(
+            g.data_ptr(), p_cols, inv_perm.data_ptr(), out.data_ptr(), s, l,
+            b, w, int(use_cvm), g.device.index, stream), "pool_sorted_cvm")
+    cuda_lib.count_launch(pool_sorted_cvm)
+    return out
+
+
 gather_sorted.launches = 0
 scatter_add_sorted.launches = 0
+pool_sorted_cvm.launches = 0

@@ -11,16 +11,20 @@ accumulators (``g_show``, ``g_click``, ``g_embed``, ``g_embedx``, slot).
 (box_wrapper.cu:417), HashTable::update (hashtable_kernel.cu).
 
 Layout: occurrence order is canonical [S, L, B] flattened; the plan's
-``perm``/``inv_perm`` move between canonical and sorted domains (the
-crossing: one row gather each way).  The pull table is feature-major
-[W, n_kernel] with W = 3 + D (+ Dex) + 1 (show, click, embed_w, mf×D,
-an expand table's mf_ex×Dex, mf_size).  Plans come in the forms of the
-JAX package: the untrimmed :class:`~sorted_spmm.Plan` the streaming step
-builds, and the packed pass feed's trimmed plans (leading row-0 padding
-dropped).  The feed's :class:`StepPlan` adds what the push reads beyond
-the plan: the static payload planes (:class:`PayloadPlanes`) and the
-rows the batch's push reaches (:class:`RuleRows`); with the rows the
-optimizer steps those rows alone, without them every working-set row.
+``perm``/``inv_perm`` move between canonical and sorted domains.  The
+pull table is feature-major [W, n_kernel] with W = 3 + D (+ Dex) + 1
+(show, click, embed_w, mf×D, an expand table's mf_ex×Dex, mf_size).  On
+the pull the crossing back and the pooling are one kernel
+(``sorted_spmm.pool_sorted_cvm``) that reads the sorted domain by
+``inv_perm`` and writes the pooled [B, S, 3 + D (+ Dex)] rows; on the
+push the payload crosses by one row gather by ``perm``.  Plans come in
+the forms of the JAX package: the untrimmed :class:`~sorted_spmm.Plan`
+the streaming step builds, and the packed pass feed's trimmed plans
+(leading row-0 padding dropped).  The feed's :class:`StepPlan` adds what
+the push reads beyond the plan: the static payload planes
+(:class:`PayloadPlanes`) and the rows the batch's push reaches
+(:class:`RuleRows`); with the rows the optimizer steps those rows alone,
+without them every working-set row.
 Expand ("NNCross", ``mf_ex``) tables ride the same table and payload:
 their Dex columns follow mf, so the kernels run at W = 3 + D + Dex + 1
 (pull) and D + Dex + 4 (push), and the pooled output is
@@ -123,19 +127,12 @@ def _pull_table(ws: Tensors, dims: sp.SpmmDims) -> torch.Tensor:
     return tab
 
 
-def pool_cvm_values(v: torch.Tensor, use_cvm: bool = True,
-                    premasked: bool = False) -> torch.Tensor:
+def pool_cvm_values(v: torch.Tensor, use_cvm: bool = True) -> torch.Tensor:
     """Canonical per-occurrence pull values [S, L, B, 3+D+1] (last column
-    mf_size) → pooled [B, S, 3+D].  Shared by the one-device step and the
-    sharded one.
-
-    premasked: v is [S, L, B, 3+D] with the created mask already applied
-    to the mf columns (the mxu path does this in the sorted domain, so
-    the mf_size column never rides the crossing)."""
-    d = v.shape[-1] - (3 if premasked else 4)
-    mf = v[..., 3:3 + d]
-    if not premasked:
-        mf = mf * (v[..., 3 + d:] > 0).to(v.dtype)          # [S,L,B,1] mask
+    mf_size) → pooled [B, S, 3+D].  The pooling of the steps that cross
+    to canonical values first: the sharded one and the row blocks."""
+    d = v.shape[-1] - 4
+    mf = v[..., 3:3 + d] * (v[..., 3 + d:] > 0).to(v.dtype)  # created mask
     show = torch.sum(v[..., 0], dim=1)                     # [S, B]
     click = torch.sum(v[..., 1], dim=1)
     w = torch.sum(v[..., 2], dim=1)
@@ -189,31 +186,20 @@ def acc_from_delta(delta: torch.Tensor, n: int,
 def pull_pool_cvm(ws: Tensors, plan: sp.Plan, dims: sp.SpmmDims,
                   shape_slb: Tuple[int, int, int],
                   use_cvm: bool = True) -> torch.Tensor:
-    """Fused pull + seqpool + CVM → pooled [B, S, 3 + D (+ Dex)].
+    """Fused pull + seqpool + CVM → pooled [B, S, 3 + D (+ Dex)],
+    contiguous.
 
     Row 0 and the sentinel tile hold zeros, so padding occurrences and
     unseen keys contribute nothing — no length mask needed on the pull
-    side.  The sorted→canonical crossing gathers by inv_perm."""
-    s, l, b = shape_slb
-    d = ws["mf"].shape[1] + _ex_dim(ws)
+    side.  Two launches after the table: the sorted gather, then
+    ``pool_sorted_cvm``, which reads the gathered values by inv_perm
+    (skipping a trimmed plan's dropped row-0 positions), masks the
+    embedding columns by created and pools with the CVM."""
     _check_plan(plan, dims)
-    inv_perm = plan.inv_perm
     eff = plan_eff_dims(plan, dims)
     tab = _pull_table(ws, dims)
     g = sp.gather_sorted(tab, plan.rows2d, eff or dims)    # [3+D+1, p_pad]
-    # created-mask the mf rows in the SORTED domain: the mf_size column is
-    # consumed here and never rides the crossing
-    created = (g[3 + d:4 + d] > 0).to(g.dtype)             # [1, p_pad]
-    g = torch.cat([g[:3], g[3:3 + d] * created], dim=0)
-    if eff is None:
-        v = g.T[:dims.p][inv_perm.long()]                   # canonical [p,W]
-    else:
-        # trimmed plan: dropped positions (inv_perm < 0) were row-0
-        # occurrences whose pull value is exactly zero — clamp + mask
-        v = g.T[torch.clamp(inv_perm, min=0).long()]
-        v = v * (inv_perm >= 0).to(v.dtype)[:, None]
-    v = v.reshape(s, l, b, 3 + d)
-    return pool_cvm_values(v, use_cvm, premasked=True)
+    return sp.pool_sorted_cvm(g, plan.inv_perm, shape_slb, use_cvm)
 
 
 def push_and_update(ws: Tensors, plan: sp.Plan, dims: sp.SpmmDims,

@@ -310,3 +310,77 @@ def test_fused_seqpool_cvm_backward_on_card(cuda_device):
     assert torch.equal(out["cuda"][1], out["cpu"][1])
     torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=1e-6,
                                atol=1e-6)
+
+
+# (S, L, B, W, table rows, padding share, trimmed) of pool_sorted_cvm:
+# both benchmark cells' shapes, then widths and lengths that take the
+# kernel's other lane groups (8 and 16 lanes, L above the group, more
+# columns than one pass of a group) and a ragged last block
+SORTED_POOL_CASES = {
+    "widedeep_w36_l1": (26, 1, 32768, 36, 1_230_000, 0.0, False),
+    "dlrmv2_w132_l16": (26, 16, 8192, 132, 2_890_000, 0.47, True),
+    "w12_l16_g8": (5, 16, 1000, 12, 5000, 0.4, True),
+    "expand_w20_l3": (7, 3, 3000, 20, 20000, 0.3, False),
+    "w300_l5": (3, 5, 700, 300, 3000, 0.3, True),
+    "ragged_b37": (2, 2, 37, 36, 100, 0.3, False),
+}
+
+
+def _sorted_pool_inputs(case, dev):
+    """g as gather_sorted writes it from a seeded table (row 0 and the
+    sentinel tile zero, mf_size 0 in about a third of the rows) and the
+    plan of padded [S, L, B] ids."""
+    s, l, b, w, n, pad, trimmed = SORTED_POOL_CASES[case]
+    gen = torch.Generator(device=dev).manual_seed(5)
+    idx = torch.randint(1, n, (s, l, b), generator=gen, device=dev,
+                        dtype=torch.int32)
+    idx[torch.rand((s, l, b), generator=gen, device=dev) < pad] = 0
+    dims = tsp.spmm_dims(s * l * b, n)
+    eff = (tsp.trimmed_dims(dims, int((idx != 0).sum()))
+           if trimmed else None)
+    plan = tsp.build_plan(idx.reshape(-1), dims, eff)
+    table = torch.randn((w, dims.n_kernel), generator=gen, device=dev)
+    # show and click counts, so the CVM's logs stay finite
+    table[:2] = torch.randint(0, 9, (2, dims.n_kernel), generator=gen,
+                              device=dev).float()
+    table[w - 1] = (torch.rand((dims.n_kernel,), generator=gen, device=dev)
+                    < 0.66).float() * (w - 4)
+    table[:, 0] = 0
+    table[:, n:] = 0
+    g = tsp.gather_sorted(table, plan.rows2d, eff or dims)
+    return g, plan.inv_perm, (s, l, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_cvm", [True, False])
+@pytest.mark.parametrize("case", sorted(SORTED_POOL_CASES))
+def test_pool_sorted_cvm_matches_plain_on_card(cuda_device, case, use_cvm):
+    """The kernel adds the same terms in the same order (l = 0, 1, ...
+    from 0.0) and takes the same logs as its plain version on the card:
+    bit-equal; two calls bit-identical; one launch a call."""
+    g, inv, slb = _sorted_pool_inputs(case, cuda_device)
+    if SORTED_POOL_CASES[case][6]:
+        assert bool((inv < 0).any())            # dropped occurrences
+    n0 = tsp.pool_sorted_cvm.launches
+    got = tsp.pool_sorted_cvm(g, inv, slb, use_cvm)
+    assert tsp.pool_sorted_cvm.launches == n0 + 1
+    again = tsp.pool_sorted_cvm(g, inv, slb, use_cvm)
+    want = tsp.pool_sorted_cvm_plain(g, inv, slb, use_cvm)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.is_contiguous()
+    assert torch.equal(got, again)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_pool_sorted_cvm_rejects_what_the_kernel_does_not_take(cuda_device):
+    g = torch.zeros((12, 64), device=cuda_device)
+    inv = torch.arange(48, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(TypeError):
+        tsp.pool_sorted_cvm(g, inv.long(), (2, 3, 8))
+    with pytest.raises(ValueError):
+        tsp.pool_sorted_cvm(g, inv, (2, 3, 9))
+    with pytest.raises(ValueError):
+        tsp.pool_sorted_cvm(g[:, ::2], inv, (2, 3, 8))
+    with pytest.raises(ValueError):
+        tsp.pool_sorted_cvm(g[:3].contiguous(), inv, (2, 3, 8))

@@ -254,3 +254,71 @@ PLAN_KINDS = {
 @pytest.mark.parametrize("kind", list(PLAN_KINDS))
 def test_plans_read_back_by_name(kind, monkeypatch):
     PLAN_KINDS[kind](monkeypatch)
+
+
+# (S, L, B, D, Dex, trimmed) of the pooling cases: the two widths the
+# benchmark's cells pull at (36 at L = 1, 132 at L = 16), an expand table
+# (W = 3 + 8 + 8 + 1), each planned untrimmed and trimmed
+POOL_CASES = {
+    "w36_l1": (4, 1, 1024, 32, 0, False),
+    "w36_l1_trimmed": (4, 1, 1024, 32, 0, True),
+    "w132_l16": (3, 16, 40, 128, 0, False),
+    "w132_l16_trimmed": (3, 16, 40, 128, 0, True),
+    "expand_w20_l4_trimmed": (5, 4, 64, 8, 8, True),
+}
+
+
+def _pool_inputs(case):
+    """A pull table from a working set (some rows not yet created) and a
+    plan over padded [S, L, B] ids: (g as the sorted gather writes it,
+    the plan, (S, L, B))."""
+    s, l, b, d, dx, trimmed = POOL_CASES[case]
+    n = 300
+    rng = np.random.default_rng(11)
+    ws = {"show": rng.integers(1, 50, n), "click": rng.integers(0, 5, n),
+          "embed_w": rng.normal(0, 1, n), "mf": rng.normal(0, 1, (n, d)),
+          "mf_size": np.where(rng.random(n) < 0.6, d, 0)}
+    if dx:
+        ws["mf_ex"] = rng.normal(0, 1, (n, dx))
+    for f in ws.values():
+        f[0] = 0                                       # the reserved row
+    ws = {k: torch.as_tensor(v, dtype=torch.int32 if k == "mf_size"
+                             else torch.float32) for k, v in ws.items()}
+    idx = rng.integers(1, n, (s, l, b)).astype(np.int32)
+    lengths = rng.integers(0, l + 1, (s, b))
+    idx[np.arange(l)[None, :, None] >= lengths[:, None, :]] = 0
+    dims = tmxu.make_dims(s * l * b, n)
+    eff = tsp.trimmed_dims(dims, int((idx != 0).sum())) if trimmed else None
+    plan = tmxu.build_plan(torch.as_tensor(idx), dims, eff)
+    g = tsp.gather_sorted(tmxu._pull_table(ws, dims), plan.rows2d,
+                          eff or dims)
+    # a dropped occurrence read by mistake would alias kept position 0:
+    # give that position head values that show
+    g[:3, 0] += 1.0
+    return g, plan, (s, l, b)
+
+
+@pytest.mark.parametrize("use_cvm", [True, False])
+@pytest.mark.parametrize("case", list(POOL_CASES))
+def test_pool_sorted_cvm_plain_matches_the_chain(case, use_cvm):
+    """The pool's plain version against the chain of PyTorch ops it
+    replaces on the mxu pull: take by inv_perm (clamped and zeroed at a
+    trimmed plan's dropped positions), then ``pool_cvm_values``, which
+    masks the embedding columns by created, sums over L and applies the
+    CVM."""
+    g, plan, slb = _pool_inputs(case)
+    w = g.shape[0]
+    inv = plan.inv_perm
+    v = g.T[torch.clamp(inv, min=0).long()] * (inv >= 0).to(g.dtype)[:, None]
+    want = tmxu.pool_cvm_values(v.reshape(*slb, w), use_cvm)
+    got = tsp.pool_sorted_cvm(g, inv, slb, use_cvm)
+    assert got.shape == (slb[2], slb[0], w - 1) and got.is_contiguous()
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6,
+                               atol=1e-6)
+    # the cases reach what the mask and the skip are for: live
+    # occurrences of rows not yet created, and (trimmed) dropped ones
+    live = inv >= 0
+    assert bool((live & (g[w - 1, torch.clamp(inv, min=0).long()] == 0)
+                 & (g[2, torch.clamp(inv, min=0).long()] != 0)).any())
+    assert bool((~live).any()) == POOL_CASES[case][5]
+    assert tsp.pool_sorted_cvm.launches == 0        # card launches only
